@@ -1,0 +1,209 @@
+"""Block least-squares solvers (feature-block coordinate descent).
+
+Port of ``keystone_tpu/ops/learning/block.py``: ``BlockLinearMapper`` and
+``BlockLeastSquaresEstimator.fit`` with the same three-way dispatch —
+
+- ``sparse``: sparse CSR rows (or a host matrix) whose block density is
+  at or below the threshold fit from block-sparse sufficient statistics
+  (``ops/cuda/blocksparse.py``, the CUDA ELL kernel), finished by
+  ``linalg.gram_stream_finish`` + ``linalg.bcd_from_gram``;
+- ``densify``: CSR rows that are too dense (or ``KEYSTONE_BLOCKSPARSE=off``)
+  are densified once on the device and take the dense path;
+- dense: the in-core block coordinate descent.
+
+Left out (later slices): the OOM degradation ladder, obs spans and
+metrics, the profile store, ``fit_stream``, host streaming, 2-D meshes
+and the refit state mixin.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ...data.dataset import ArrayDataset, Dataset, ObjectDataset
+from ...device import DeviceLike, resolve_device
+from ...envknobs import env_disabled, env_int
+from ...parallel import linalg
+from ...utils.sparse import BlockSparseMatrix, block_density_exceeds, is_sparse_rows
+from ...workflow.pipeline import BatchTransformer, LabelEstimator
+from ..cuda import blocksparse as _bs
+
+
+class BlockLinearMapper(BatchTransformer):
+    """Apply a block-solved linear model: (x − μ_A)·W + b, on the device
+    the weights live on."""
+
+    def __init__(
+        self,
+        weights: torch.Tensor,  # (d_padded, k)
+        block_size: int,
+        intercept: Optional[torch.Tensor] = None,
+        feature_mean: Optional[torch.Tensor] = None,  # (d,)
+    ):
+        self.weights = weights
+        self.block_size = block_size
+        self.intercept = intercept
+        self.feature_mean = feature_mean
+
+    def apply_arrays(self, x) -> torch.Tensor:
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.weights.device)
+        d = x.shape[-1]
+        if self.feature_mean is not None:
+            x = x - self.feature_mean
+        out = linalg.mm(x, self.weights[:d])  # drop padded feature rows
+        if self.intercept is not None:
+            out = out + self.intercept
+        return out
+
+
+def _as_array_dataset(data: Dataset, device: torch.device) -> ArrayDataset:
+    if isinstance(data, ArrayDataset):
+        return data
+    return data.to_arrays(device=device)  # type: ignore[attr-defined]
+
+
+class BlockLeastSquaresEstimator(LabelEstimator):
+    """Feature-block coordinate-descent least squares: ``num_iter`` full
+    epochs over the feature blocks, λ applied per block. Fits on
+    ``device`` (default CUDA)."""
+
+    def __init__(
+        self,
+        block_size: int,
+        num_iter: int = 1,
+        reg: float = 0.0,
+        device: DeviceLike = None,
+    ):
+        self.block_size = block_size
+        self.num_iter = num_iter
+        self.reg = reg
+        self.device = device
+
+    def fit(self, data: Dataset, labels: Dataset) -> BlockLinearMapper:
+        device = resolve_device(self.device)
+        dispatch = self._blocksparse_dispatch(data)
+        if dispatch is not None:
+            kind, bsr, a_dense, threshold = dispatch
+            if kind == "sparse":
+                return self._fit_blocksparse(
+                    bsr, _as_array_dataset(labels, device), threshold, a_dense=a_dense
+                )
+            # CSR rows that are too dense (or dispatch disabled): densify
+            # once through BSR — the only way this estimator consumes them.
+            m, d = bsr.shape
+            data = ArrayDataset(_bs.bsr_to_dense(bsr, device)[:m, :d])
+        features = _as_array_dataset(data, device)
+        targets = _as_array_dataset(labels, device)
+        block = min(self.block_size, features.data.shape[1])
+        return self._fit_in_core(features, targets, block, device)
+
+    def _fit_in_core(
+        self, features: ArrayDataset, targets: ArrayDataset, block: int,
+        device: torch.device,
+    ) -> BlockLinearMapper:
+        x = features.data.to(device=device, dtype=torch.float32)
+        y = targets.data.to(device=device, dtype=torch.float32)
+        n = features.num_examples
+        d = x.shape[1]
+        mask = features.mask().to(device).reshape(-1, 1)
+
+        mu_a = (x * mask).sum(dim=0) / n
+        mu_b = (y * mask).sum(dim=0) / n
+        xc = (x - mu_a) * mask
+        yc = (y - mu_b) * mask
+        del x
+
+        # The reg floor sees the real rows only, before column padding.
+        reg = self.reg if self.reg > 0 else _scale_aware_reg_floor(xc[:n], n)
+
+        # Pad the feature dim to whole blocks (zero columns are inert:
+        # their Gram rows/cols are zero and λ keeps the solve PD).
+        d_pad = _round_up(d, block)
+        if d_pad != d:
+            xc = torch.nn.functional.pad(xc, (0, d_pad - d))
+        w = linalg.block_coordinate_descent(
+            xc, yc, reg=reg, num_epochs=self.num_iter, block_size=block
+        )
+        return BlockLinearMapper(w, block_size=block, intercept=mu_b, feature_mean=mu_a)
+
+    # ------------------------------------------------------- block-sparse
+    def _blocksparse_dispatch(self, data):
+        """``(kind, bsr, a_dense, threshold)`` or None for the dense path
+        untouched. ``kind`` is ``"sparse"`` (fit on the BSR kernel) or
+        ``"densify"`` (CSR rows that must be densified regardless,
+        including under ``KEYSTONE_BLOCKSPARSE=off``). Only host data is
+        probed: CSR rows, or a CPU-tensor ArrayDataset no larger than
+        :func:`_blocksparse_probe_bytes` (the JAX package probes host
+        numpy matrices only; device arrays go dense)."""
+        disabled = env_disabled("KEYSTONE_BLOCKSPARSE")
+        if isinstance(data, ObjectDataset):
+            items = data.collect()
+            if not is_sparse_rows(items):
+                return None
+            d = int(items[0].shape[-1])
+            bsr = BlockSparseMatrix.from_csr_rows(items, _bs.default_block_shape(d))
+            threshold = _bs.density_threshold()
+            if not disabled and bsr.density() <= threshold:
+                return ("sparse", bsr, None, threshold)
+            return ("densify", bsr, None, threshold)
+        if disabled or not isinstance(data, ArrayDataset):
+            return None
+        raw = data.data
+        if (
+            raw.device.type != "cpu"
+            or raw.ndim != 2
+            or raw.shape[0] != data.num_examples  # padded rows: mask owed
+            or raw.numel() * raw.element_size() > _blocksparse_probe_bytes()
+        ):
+            return None
+        host = raw.numpy()
+        block_shape = _bs.default_block_shape(host.shape[1])
+        threshold = _bs.density_threshold()
+        if block_density_exceeds(host, block_shape, threshold):
+            return None
+        return ("sparse", BlockSparseMatrix.from_dense(host, block_shape), raw, threshold)
+
+    def _fit_blocksparse(
+        self,
+        bsr: BlockSparseMatrix,
+        targets: ArrayDataset,
+        threshold: float,
+        a_dense: Optional[torch.Tensor] = None,
+    ) -> BlockLinearMapper:
+        """Fit from block-sparse sufficient statistics (AᵀA, AᵀY, Σx, Σy),
+        then the centered finish + Gauss-Seidel block updates of the
+        streaming fit."""
+        n, d = bsr.shape
+        y = targets.data.to(device=resolve_device(self.device), dtype=torch.float32)[:n]
+        totals = _bs.bsr_gram_totals(bsr, y, a_dense=a_dense)
+        gc, cc, mu_a, mu_b = linalg.gram_stream_finish(totals, n)
+        block = min(self.block_size, d)
+        reg = self.reg if self.reg > 0 else max(1e-6 * float(torch.trace(gc)) / d, 1e-6)
+        d_pad = _round_up(d, block)
+        if d_pad != d:  # zero pad rows/cols are inert (λ keeps PD)
+            gc = torch.nn.functional.pad(gc, (0, d_pad - d, 0, d_pad - d))
+            cc = torch.nn.functional.pad(cc, (0, 0, 0, d_pad - d))
+        w = linalg.bcd_from_gram(gc, cc, reg=reg, num_epochs=self.num_iter, block_size=block)
+        return BlockLinearMapper(w, block_size=block, intercept=mu_b, feature_mean=mu_a)
+
+
+def _blocksparse_probe_bytes() -> int:
+    """Ceiling on the host feature matrix the fast path will tile-probe.
+    ``KEYSTONE_BLOCKSPARSE_PROBE_BYTES`` overrides."""
+    return env_int("KEYSTONE_BLOCKSPARSE_PROBE_BYTES", int(512e6))
+
+
+def _scale_aware_reg_floor(x_sample: torch.Tensor, n: int) -> float:
+    """λ floor for an unregularized solve: 1e-6 of the mean Gram diagonal
+    (≈ 1e-6·n·E[x²] of the centered data), so a rank-deficient block
+    keeps a finite fp32 Cholesky factor."""
+    xs = x_sample.to(torch.float32)
+    xs = xs - xs.mean(dim=0, keepdim=True)
+    mean_sq = float(xs.square().mean())
+    return max(1e-6 * n * mean_sq, 1e-6)
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m

@@ -1,0 +1,81 @@
+"""The CUDA ELL kernel against its plain PyTorch version, on the card.
+
+Marked ``cuda``: these need an NVIDIA GPU and ``nvcc`` and skip on a
+machine without a card. On the card, where JAX is not installed (so the
+JAX test configuration in ``tests/conftest.py`` is left out):
+``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q``.
+Tolerance: 1e-5 relative Frobenius (fp32 FFMA in another summation
+order than the plain version's batched products).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from keystone_tpu_torch.ops.cuda import blocksparse as tbs
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _case(rng, nbr, k_slots, bm, bn, nbc, n, duplicates=False):
+    idx = rng.randint(0, nbc, size=(nbr, k_slots)).astype(np.int32)
+    if duplicates:
+        idx[:, 1] = idx[:, 0]
+    blocks = rng.randn(nbr, k_slots, bm, bn).astype(np.float32)
+    blocks[:, -1] = 0.0  # padded slot: zero block at column 0
+    idx[:, -1] = 0
+    b = rng.randn(nbc * bn, n).astype(np.float32)
+    return idx, blocks, b
+
+
+@pytest.mark.parametrize(
+    "nbr,k_slots,bm,bn,nbc,n,duplicates",
+    [
+        (64, 5, 16, 16, 40, 300, False),
+        (64, 5, 16, 16, 40, 20, True),
+        (9, 4, 128, 8, 12, 131, False),
+        (7, 3, 3, 5, 6, 37, True),
+        (5, 3, 1, 1, 9, 1, False),
+        (4, 2, 128, 128, 3, 64, True),
+        (3, 2, 17, 33, 4, 130, False),
+    ],
+)
+def test_kernel_matches_plain_version(cuda, nbr, k_slots, bm, bn, nbc, n, duplicates):
+    rng = np.random.RandomState(nbr * 7 + bm)
+    idx, blocks, b = (
+        torch.from_numpy(a).to(cuda)
+        for a in _case(rng, nbr, k_slots, bm, bn, nbc, n, duplicates)
+    )
+    before = tbs.ell_matmul.launches
+    out = tbs.ell_matmul(idx, blocks, b)
+    torch.cuda.synchronize()
+    assert tbs.ell_matmul.launches == before + 1
+    ref = tbs.ell_matmul_reference(idx, blocks, b)
+    rel = float((out - ref).norm() / ref.norm().clamp_min(1e-30))
+    assert rel <= 1e-5
+
+
+def test_kernel_unaligned_operand_takes_scalar_path(cuda):
+    rng = np.random.RandomState(1)
+    idx, blocks, b = _case(rng, 16, 3, 16, 16, 8, 64)
+    storage = torch.zeros(b.size + 1, device=cuda)
+    b_off = storage[1:].view(b.shape)  # 4-byte offset: not 16-byte aligned
+    b_off.copy_(torch.from_numpy(b))
+    idx_t, blocks_t = torch.from_numpy(idx).to(cuda), torch.from_numpy(blocks).to(cuda)
+    out = tbs.ell_matmul(idx_t, blocks_t, b_off)
+    ref = tbs.ell_matmul_reference(idx_t, blocks_t, b_off)
+    assert float((out - ref).norm() / ref.norm()) <= 1e-5
+
+
+def test_kernel_rejects_tiles_above_128(cuda):
+    idx = torch.zeros(1, 1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="tiles 1..128"):
+        tbs.ell_matmul(idx, torch.ones(1, 1, 129, 4, device=cuda), torch.ones(4, 3, device=cuda))

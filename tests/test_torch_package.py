@@ -1,0 +1,124 @@
+"""Guards on the port package: it imports neither JAX nor the JAX
+package, it never runs on the CPU unless asked, and a CUDA tensor never
+falls back to the plain version."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import keystone_tpu_torch
+from keystone_tpu_torch.ops.cuda import _build
+from keystone_tpu_torch.ops.cuda import blocksparse as tbs
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def test_port_imports_no_jax_and_nothing_of_keystone_tpu():
+    script = """
+import importlib, json, pkgutil, sys
+import keystone_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(keystone_tpu_torch.__path__, "keystone_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "keystone_tpu" or m.startswith("keystone_tpu."))
+print(json.dumps({"imported": names, "bad": bad}))
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
+        timeout=120, check=True,
+    )
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["bad"] == []
+    expected = {
+        "keystone_tpu_torch.envknobs",
+        "keystone_tpu_torch.device",
+        "keystone_tpu_torch.convert",
+        "keystone_tpu_torch.utils.sparse",
+        "keystone_tpu_torch.data.dataset",
+        "keystone_tpu_torch.workflow.pipeline",
+        "keystone_tpu_torch.ops.nlp.text",
+        "keystone_tpu_torch.ops.util.vectors",
+        "keystone_tpu_torch.ops.util.labels",
+        "keystone_tpu_torch.ops.cuda._build",
+        "keystone_tpu_torch.ops.cuda.blocksparse",
+        "keystone_tpu_torch.parallel.linalg",
+        "keystone_tpu_torch.ops.learning.block",
+        "keystone_tpu_torch.evaluation.multiclass",
+    }
+    assert expected <= set(result["imported"])
+
+
+def test_kernel_sources_ship_in_the_package():
+    assert (Path(keystone_tpu_torch.__file__).parent / "ops/cuda/csrc/ell_matmul.cu").is_file()
+    assert _build.library_path("ell_matmul").parent == _build.BUILD_DIR
+
+
+def test_entry_points_without_device_raise_when_no_cuda(monkeypatch):
+    from keystone_tpu_torch.data.dataset import ArrayDataset, ObjectDataset
+    from keystone_tpu_torch.device import resolve_device
+    from keystone_tpu_torch.convert import mapper_from_numpy
+    from keystone_tpu_torch.ops.learning.block import BlockLeastSquaresEstimator
+    from keystone_tpu_torch.ops.util.vectors import Densify
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ArrayDataset(np.zeros((3, 2), np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Densify().apply_batch(ObjectDataset([np.zeros(2), np.ones(2)]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mapper_from_numpy(np.zeros((2, 2)), 2)
+    y = ArrayDataset(np.ones((4, 2), np.float32), device="cpu")
+    x = ArrayDataset(np.eye(4, dtype=np.float32), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BlockLeastSquaresEstimator(2).fit(x, y)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+class _CudaLooking(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, to drive the wrapper's
+    CUDA branch on a machine without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def test_cuda_tensor_with_kernel_library_missing_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "find_nvcc", lambda: None)
+    monkeypatch.setattr(_build, "_loaded", {})
+
+    def plain_must_not_run(*args):
+        raise AssertionError("a CUDA tensor fell back to the plain version")
+
+    monkeypatch.setattr(tbs, "ell_matmul_reference", plain_must_not_run)
+    idx = torch.zeros(2, 3, dtype=torch.int32).as_subclass(_CudaLooking)
+    blocks = torch.ones(2, 3, 4, 4).as_subclass(_CudaLooking)
+    b = torch.ones(8, 5).as_subclass(_CudaLooking)
+    before = tbs.ell_matmul.launches
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        tbs.ell_matmul(idx, blocks, b)
+    assert tbs.ell_matmul.launches == before
+
+
+def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
+    idx = torch.zeros(1, 1, dtype=torch.int32).as_subclass(_CudaLooking)
+    b = torch.ones(129, 5).as_subclass(_CudaLooking)
+    with pytest.raises(ValueError, match="tiles 1..128"):
+        tbs.ell_matmul(idx, torch.ones(1, 1, 4, 129).as_subclass(_CudaLooking), b)
+    with pytest.raises(ValueError, match="contiguous"):
+        tbs.ell_matmul(
+            idx, torch.ones(1, 1, 8, 4).as_subclass(_CudaLooking),
+            torch.ones(5, 8).t().as_subclass(_CudaLooking),
+        )
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tbs.ell_matmul(torch.zeros(1, 1, dtype=torch.int32), torch.ones(1, 1, 4, 4), b[:8])
