@@ -8,17 +8,23 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. build — compile every CUDA kernel of the slice from ``csrc/`` (nvcc,
    sm_90a) and print the build seconds and ptxas' resource report;
 2. kernels — hold each kernel against its plain PyTorch version on the
-   card, at the slice's shapes and at edge cases (tiles (128, 8) and
-   (3, 5), a ragged N, padded slots, duplicate blocks, an unaligned
-   operand), relative Frobenius error ≤ 1e-5; time the kernel, the plain
-   version and one library call at the slice's shapes;
+   card, at the slice's shapes (with per-row slot counts, and without)
+   and at edge cases (tiles (128, 8) and (3, 5), a ragged N, N = 20 and
+   N = 1, padded slots, rows of count 0, junk in padded slots, duplicate
+   blocks, an unaligned operand), relative Frobenius error ≤ 1e-5; time
+   the kernel, as the slice calls it, in turns with one library call,
+   and the plain version, at the slice's shapes; the AᵀY call also with
+   L2 flushed before each launch;
 3. slice — the hashing-TF → block-sparse least-squares fit of 65,536
    documents (1,024 topics, d = 16,384, k = 20, 16×16 tiles), then 4
    prediction requests of 1,024 held-out documents, through the
    library's entry points. The kernel must launch twice in the fit; the
    same rows refit on the dense in-core path
    (``KEYSTONE_BLOCKSPARSE=off``) must give the same scores to ≤ 1e-4,
-   and a small fit on the card must match the same fit on the CPU.
+   and a small fit on the card must match the same fit on the CPU. A
+   second, instrumented run of the fit on the same rows splits ``fit_s``
+   into its steps (host BSR build, host transpose + ELL, uploads, the
+   two launches, finish + BCD).
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit
 from nvidia-smi, and last ``{"ok": true, "device": {...}}``. It exits
@@ -110,49 +116,68 @@ def phase_build() -> None:
 # -------------------------------------------------------------- phase 2
 
 
-def check_kernel(idx, blocks, b):
+def check_kernel(idx, blocks, b, counts=None):
     """Kernel vs plain version on the same inputs; raises past the bound."""
     import torch
 
     from keystone_tpu_torch.ops.cuda import blocksparse as bs
 
-    out = bs.ell_matmul(idx, blocks, b)
+    out = bs.ell_matmul(idx, blocks, b, counts)
     torch.cuda.synchronize()
-    ref = bs.ell_matmul_reference(idx, blocks, b)
+    ref = bs.ell_matmul_reference(idx, blocks, b, counts)
     rel = rel_err(out, ref)
     max_abs = float((out - ref).abs().max()) if out.numel() else 0.0
-    shape = {"indices": list(idx.shape), "blocks": list(blocks.shape), "b": list(b.shape)}
+    shape = {"indices": list(idx.shape), "blocks": list(blocks.shape), "b": list(b.shape),
+             "counts": counts is not None}
     if not (rel <= KERNEL_TOL and torch.isfinite(out).all()):
         raise AssertionError(f"ell_matmul disagrees with its plain version: rel {rel} at {shape}")
     return rel, max_abs, shape
 
 
 def edge_cases(device):
-    """Tiles (128, 8) and (3, 5), ragged N, padded slots, duplicate
-    blocks, an operand that is not 16-byte aligned."""
+    """Without counts: tiles (128, 8) and (3, 5), ragged N, padded slots,
+    duplicate blocks, an operand that is not 16-byte aligned. With counts
+    (junk in the padded slots: NaN blocks, out-of-range indices): rows of
+    count 0, the narrow tile at N = 20 and N = 1, bm = 128 with bn = 8,
+    an unaligned operand."""
     import torch
 
     rng = np.random.RandomState(5)
     cases = []
-    for nbr, k_slots, bm, bn, nbc, n, dup, unaligned in (
-        (9, 4, 128, 8, 12, 131, False, False),
-        (7, 3, 3, 5, 6, 37, True, False),
-        (64, 5, 16, 16, 40, 300, True, False),
-        (16, 3, 16, 16, 8, 64, False, True),
-        (4, 2, 128, 128, 3, 64, True, False),
-        (5, 3, 1, 1, 9, 1, False, False),
+    for nbr, k_slots, bm, bn, nbc, n, dup, unaligned, with_counts in (
+        (9, 4, 128, 8, 12, 131, False, False, False),
+        (7, 3, 3, 5, 6, 37, True, False, False),
+        (64, 5, 16, 16, 40, 300, True, False, False),
+        (16, 3, 16, 16, 8, 64, False, True, False),
+        (4, 2, 128, 128, 3, 64, True, False, False),
+        (5, 3, 1, 1, 9, 1, False, False, False),
+        (64, 6, 16, 16, 40, 300, True, False, True),
+        (64, 6, 16, 16, 40, 20, False, False, True),
+        (13, 4, 16, 16, 9, 1, False, False, True),
+        (9, 4, 128, 8, 12, 131, False, False, True),
+        (16, 3, 16, 16, 8, 64, False, True, True),
+        (16, 3, 16, 16, 8, 20, False, True, True),
     ):
         idx = rng.randint(0, nbc, size=(nbr, k_slots)).astype(np.int32)
         if dup:
             idx[:, 1] = idx[:, 0]
         blocks = rng.randn(nbr, k_slots, bm, bn).astype(np.float32)
-        idx[:, -1], blocks[:, -1] = 0, 0.0  # padded slot
+        counts = None
+        if with_counts:
+            counts = rng.randint(0, k_slots + 1, size=nbr).astype(np.int32)
+            counts[0], counts[1] = 0, k_slots
+            padded = np.arange(k_slots)[None, :] >= counts[:, None]
+            blocks[padded] = np.nan
+            idx[padded] = rng.choice([-7, nbc, 10**6], size=int(padded.sum()))
+            counts = torch.from_numpy(counts).to(device)
+        else:
+            idx[:, -1], blocks[:, -1] = 0, 0.0  # padded slot
         b = torch.from_numpy(rng.randn(nbc * bn, n).astype(np.float32)).to(device)
         if unaligned:
             storage = torch.zeros(b.numel() + 1, device=device)
             b = storage[1:].view(b.shape).copy_(b)
         rel, max_abs, shape = check_kernel(
-            torch.from_numpy(idx).to(device), torch.from_numpy(blocks).to(device), b
+            torch.from_numpy(idx).to(device), torch.from_numpy(blocks).to(device), b, counts
         )
         cases.append({"shape": shape, "rel_err": rel, "max_abs_err": max_abs})
     return cases
@@ -182,7 +207,32 @@ def library_call(bsr_t, b):
         return (lambda: torch.matmul(dense_t, b)), "torch.matmul of dense fp32 A^T"
 
 
+def cold_cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call with L2 flushed before each call (a
+    256 MB write, five times the 50 MB L2), by CUDA events around the
+    call alone."""
+    import torch
+
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
 def phase_kernels(device):
+    """Check the kernel at the slice's shapes (with and without counts)
+    and at the edge cases; time it in turns with the library call:
+    kernel, library, kernel. The kernel is timed through the wrapper the
+    slice's fit calls (argument checks and launch, no read-back)."""
     import torch
 
     from keystone_tpu_torch.ops.cuda import blocksparse as bs
@@ -192,36 +242,50 @@ def phase_kernels(device):
     rows = featurizer(NUM_FEATURES)(train).get().collect()
     bsr = block_sparse_features(rows)
     bsr_t = bsr.transpose()
-    idx, blocks = bs.ell_tensors(bsr_t, device)
+    idx, blocks, counts = bs.ell_tensors(bsr_t, device)
     a = bs.bsr_to_dense(bsr, device)
     y = torch.full((a.shape[0], NUM_CLASSES), -1.0, device=device)
     y[torch.arange(len(labels), device=device), torch.from_numpy(labels).long().to(device)] = 1.0
     bm, bn = bsr_t.block_shape
+    nnzb = bsr_t.nnz_blocks
     shapes = []
     for name, b in (("AtA", a), ("AtY", y)):
-        rel, max_abs, shape = check_kernel(idx, blocks, b)
+        rel, max_abs, shape = check_kernel(idx, blocks, b, counts)
+        rel_all_slots, _, _ = check_kernel(idx, blocks, b)
         n = b.shape[1]
         out_bytes = idx.shape[0] * bm * n * 4
-        moved = idx.numel() * 4 + blocks.numel() * 4 + b.numel() * 4 + out_bytes
-        flops = 2.0 * bsr_t.nnz_blocks * bm * bn * n  # stored blocks only: this run's work
+        # What these inputs need: the stored slots' indices and blocks,
+        # the counts, b and the output, each once.
+        moved = nnzb * 4 + counts.numel() * 4 + nnzb * bm * bn * 4 + b.numel() * 4 + out_bytes
+        flops = 2.0 * nnzb * bm * bn * n
         bound_ms = max(moved / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS) * 1e3
-        kernel_ms = cuda_ms(lambda: bs.ell_matmul(idx, blocks, b), reps=5)
-        plain_ms = cuda_ms(lambda: bs.ell_matmul_reference(idx, blocks, b), reps=3)
+        reps = 5 if name == "AtA" else 50
+        kernel_fn = lambda: bs._ell_matmul_host_counts(idx, blocks, b, counts)
         lib_fn, lib_name = library_call(bsr_t, b)
-        library_ms = cuda_ms(lib_fn, reps=3)
-        lib_rel = rel_err(lib_fn(), bs.ell_matmul_reference(idx, blocks, b))
-        del lib_fn
-        shapes.append({
-            "call": name, **shape, "rel_err": rel, "max_abs_err": max_abs,
-            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        turns = {"kernel": [], "library": []}
+        for who, fn in (("kernel", kernel_fn), ("library", lib_fn), ("kernel", kernel_fn)):
+            turns[who].append(cuda_ms(fn, reps=reps))
+        plain_ms = cuda_ms(lambda: bs.ell_matmul_reference(idx, blocks, b, counts), reps=3)
+        ref = bs.ell_matmul_reference(idx, blocks, b, counts)
+        lib_rel = rel_err(lib_fn(), ref)
+        del lib_fn, ref
+        kernel_ms = sum(turns["kernel"]) / len(turns["kernel"])
+        entry = {
+            "call": name, **shape, "rel_err": rel, "rel_err_all_slots": rel_all_slots,
+            "max_abs_err": max_abs, "ms": kernel_ms, "ms_turns": turns["kernel"],
+            "plain_ms": plain_ms, "library_ms": turns["library"][0],
             "library_call": lib_name, "library_rel_err": lib_rel,
             "bound_ms": bound_ms,
             "bound_by": "bytes" if moved / PEAK_BYTES_PER_S >= flops / PEAK_FP32_FLOPS else "operations",
             "bytes": moved, "useful_flops": flops,
-            "padded_slot_share": 1.0 - bsr_t.nnz_blocks / idx.numel(),
-        })
-        log("kernel_shape", **shapes[-1])
-    del a, y, idx, blocks
+            "useful_tflops_per_s": flops / kernel_ms / 1e9,
+            "padded_slot_share": 1.0 - nnzb / idx.numel(),
+        }
+        if name == "AtY":
+            entry["ms_l2_flushed"] = cold_cuda_ms(kernel_fn, reps=20)
+        shapes.append(entry)
+        log("kernel_shape", **entry)
+    del a, y, idx, blocks, counts
     torch.cuda.empty_cache()
     edges = edge_cases(device)
     log("kernel_edges", cases=edges)
@@ -317,6 +381,72 @@ def fp64_reference_scores(bsr, y, test, device):
     return ((xt - mu_a) @ w + mu_b).float()
 
 
+def fit_breakdown(rows, y, device, model):
+    """The block-sparse fit of ``BlockLeastSquaresEstimator`` step by
+    step, as ``_fit_blocksparse`` runs it, with a host clock and
+    ``torch.cuda.synchronize()`` around each step: host BSR build, host
+    transpose + ELL, uploads (with the device scatter of dense A), the
+    two kernel launches, and the centered finish + BCD solve. The weights
+    must match ``model``'s. It is a copy of those steps, and it leaves out
+    two branches of ``_fit_blocksparse`` that this configuration does not
+    take: the λ floor for reg ≤ 0 and the padding of d to whole solver
+    blocks; it raises where either would apply."""
+    import torch
+
+    from keystone_tpu_torch.ops.cuda import blocksparse as bs
+    from keystone_tpu_torch.parallel import linalg
+    from keystone_tpu_torch.utils.sparse import BlockSparseMatrix
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    steps = {}
+    sync()
+    t = time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        sync()
+        now = time.perf_counter()
+        steps[name] = now - t
+        t = now
+
+    items = rows.collect()
+    d = int(items[0].shape[-1])
+    bsr = BlockSparseMatrix.from_csr_rows(items, bs.default_block_shape(d))
+    if bsr.density() > bs.density_threshold():
+        raise AssertionError("the breakdown's rows left the block-sparse path")
+    block = min(model.block_size, d)
+    if REG <= 0 or d % block:
+        raise AssertionError("the breakdown covers reg > 0 and d in whole solver blocks only")
+    lap("from_csr_rows_s")
+    bsr_t = bsr.transpose()
+    idx_np, blocks_np = bsr_t.to_ell()
+    counts_np = np.diff(bsr_t.indptr).astype(np.int32)
+    lap("transpose_to_ell_s")
+    n = bsr.shape[0]
+    mp, _ = bsr.padded_shape
+    idx, blocks, counts = (torch.from_numpy(v).to(device) for v in (idx_np, blocks_np, counts_np))
+    a = bs.bsr_to_dense(bsr, device)
+    yd = y.data.to(device=device, dtype=torch.float32)[:n]
+    yp = torch.zeros(mp, yd.shape[1], device=device)
+    yp[:n] = yd
+    lap("upload_s")
+    g = bs._ell_matmul_host_counts(idx, blocks, a, counts)
+    c = bs._ell_matmul_host_counts(idx, blocks, yp, counts)
+    totals = (g[:d, :d], c[:d], a.sum(dim=0)[:d], yp.sum(dim=0))
+    lap("kernels_s")
+    gc, cc, _, _ = linalg.gram_stream_finish(totals, n)
+    w = linalg.bcd_from_gram(gc, cc, reg=REG, num_epochs=1, block_size=block)
+    lap("finish_bcd_s")
+    steps["total_s"] = sum(steps.values())
+    steps["weights_rel_to_fit"] = rel_err(w, model.weights)
+    if not steps["weights_rel_to_fit"] <= SLICE_TOL:
+        raise AssertionError(f"the step-by-step fit differs from the estimator's: {steps}")
+    return steps
+
+
 def phase_slice(device):
     import torch
 
@@ -365,6 +495,9 @@ def phase_slice(device):
     if not dense_rel <= SLICE_TOL:
         raise AssertionError(f"sparse-path scores differ from the dense path by {dense_rel}")
 
+    breakdown = fit_breakdown(out["rows"], out["y"], device, out["model"])
+    log("fit_breakdown", **breakdown)
+
     # Small input: the same fit on the card (kernel) and on the CPU
     # (plain version).
     small_train, small_labels = topic_corpus(32, 16, SEED)
@@ -391,6 +524,13 @@ def phase_slice(device):
     return launches
 
 
+def card_name_and_limit() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     import torch
 
@@ -409,10 +549,7 @@ def main() -> int:
     phase_build()
     kernel = phase_kernels(device)
     kernel["launches"] = phase_slice(device)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card_name_and_limit()
     log("done", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": [kernel]}))
     print(smi)

@@ -2,10 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/lib<name>-<hash>.so`` at first use,
-then loaded with ``ctypes``. The hash covers the source and the flags, so
-an edited source rebuilds and a stale library is never loaded. Nothing is
-built or loaded at import time: the CPU tests import this module on
-machines without ``nvcc``.
+then loaded with ``ctypes``. The hash covers every file under ``csrc/``
+and the flags, so an edited source or header rebuilds and a stale
+library is never loaded. Nothing is built or loaded at import time: the
+CPU tests import this module on machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -49,9 +49,13 @@ def find_nvcc() -> Optional[str]:
 
 
 def library_path(name: str) -> Path:
-    source = (SOURCE_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, named by a hash of every file under ``csrc/``
+    (so an edited header rebuilds) and the flags."""
+    h = hashlib.sha256()
+    for path in sorted(p for p in SOURCE_DIR.rglob("*") if p.is_file()):
+        h.update(str(path.relative_to(SOURCE_DIR)).encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Sequence[str]) -> Dict[str, Path]:

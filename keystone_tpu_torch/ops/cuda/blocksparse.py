@@ -2,9 +2,10 @@
 
 Port of ``keystone_tpu/ops/pallas/blocksparse.py``. The host-side
 :class:`~keystone_tpu_torch.utils.sparse.BlockSparseMatrix` is flattened to
-a padded ELL view — ``K`` block slots per block row, unused slots holding
-a zero block at column 0 — and multiplied into a dense operand by
-:func:`ell_matmul`:
+a padded ELL view — ``K`` block slots per block row, the stored blocks in
+the leading ``counts[i]`` slots, unused slots holding a zero block at
+column 0 — and multiplied into a dense operand by :func:`ell_matmul`,
+which reads the stored slots only:
 
 - on CUDA tensors, the hand-written kernel ``csrc/ell_matmul.cu``
   (replacing the Pallas kernel ``_ell_matmul_pallas``), built at first
@@ -71,19 +72,29 @@ def density_threshold() -> float:
 
 
 def ell_matmul_reference(
-    indices: torch.Tensor, blocks: torch.Tensor, b: torch.Tensor
+    indices: torch.Tensor,
+    blocks: torch.Tensor,
+    b: torch.Tensor,
+    counts: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch padded-ELL × dense: block row i of the output is
-    Σ_k blocks[i, k] @ (panel of ``b`` at block column indices[i, k]).
-    A gather and a batched product per slot, summed in slot order (one
-    slot's gather at a time keeps memory at one (nbr, bn, N) panel set)."""
+    Σ_{k < counts[i]} blocks[i, k] @ (panel of ``b`` at block column
+    indices[i, k]); every slot when ``counts`` is None. A gather and a
+    batched product per slot, summed in slot order (one slot's gather at a
+    time keeps memory at one (nbr, bn, N) panel set); with ``counts``, only
+    the rows whose slot k is stored take part in it."""
     nbr, k_slots, bm, bn = blocks.shape
     n = b.shape[1]
     panels = b.reshape(b.shape[0] // bn, bn, n)
     idx = indices.long()
     out = torch.zeros(nbr, bm, n, dtype=torch.float32, device=b.device)
     for k in range(k_slots):
-        out += torch.bmm(blocks[:, k], panels[idx[:, k]])
+        if counts is None:
+            out += torch.bmm(blocks[:, k], panels[idx[:, k]])
+            continue
+        rows = torch.nonzero(counts > k).flatten()
+        if rows.numel():
+            out[rows] += torch.bmm(blocks[rows, k], panels[idx[rows, k]])
     return out.reshape(nbr * bm, n)
 
 
@@ -94,7 +105,7 @@ def _kernel():
     lib = _build.load_library("ell_matmul")
     fn = lib.keystone_ell_matmul_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 6 + [
             ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
@@ -103,26 +114,35 @@ def _kernel():
     return lib
 
 
-def _launch(indices: torch.Tensor, blocks: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _launch(
+    indices: torch.Tensor,
+    blocks: torch.Tensor,
+    b: torch.Tensor,
+    counts: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Launch the kernel on checked arguments (see :func:`ell_matmul`)."""
     nbr, k_slots, bm, bn = blocks.shape
     d_pad, n = b.shape
     device = b.device
-    if device.type != "cuda" or indices.device != device or blocks.device != device:
+    on_device = [indices.device, blocks.device] + ([] if counts is None else [counts.device])
+    if device.type != "cuda" or any(d != device for d in on_device):
         raise ValueError(
-            "ell_matmul needs indices, blocks and b on one CUDA device (or all "
-            f"on the CPU); got {indices.device}, {blocks.device}, {b.device}"
+            "ell_matmul needs indices, blocks, b (and counts) on one CUDA device "
+            f"(or all on the CPU); got {indices.device}, {blocks.device}, {b.device}"
+            + ("" if counts is None else f", {counts.device}")
         )
     if not (1 <= bm <= MAX_TILE and 1 <= bn <= MAX_TILE):
         raise ValueError(f"the CUDA ELL kernel takes tiles 1..{MAX_TILE}, got ({bm}, {bn})")
-    for name, t in (("indices", indices), ("blocks", blocks), ("b", b)):
-        if not t.is_contiguous():
+    for name, t in (("indices", indices), ("blocks", blocks), ("b", b), ("counts", counts)):
+        if t is not None and not t.is_contiguous():
             raise ValueError(f"ell_matmul: {name} must be contiguous")
     lib = _kernel()
     out = torch.empty(nbr * bm, n, dtype=torch.float32, device=device)
     if out.numel() == 0 or k_slots == 0:
         return out.zero_()
-    rc =lib.keystone_ell_matmul_f32(
-        indices.data_ptr(), blocks.data_ptr(), b.data_ptr(), out.data_ptr(),
+    rc = lib.keystone_ell_matmul_f32(
+        indices.data_ptr(), None if counts is None else counts.data_ptr(),
+        blocks.data_ptr(), b.data_ptr(), out.data_ptr(),
         nbr, k_slots, bm, bn, d_pad, n, device.index,
         torch.cuda.current_stream(device).cuda_stream,
     )
@@ -134,15 +154,9 @@ def _launch(indices: torch.Tensor, blocks: torch.Tensor, b: torch.Tensor) -> tor
     return out
 
 
-def ell_matmul(
-    indices: torch.Tensor, blocks: torch.Tensor, b: torch.Tensor
-) -> torch.Tensor:
-    """Padded-ELL block-sparse × dense matmul → (nbr·bm, N) float32.
-
-    ``indices`` int32 (nbr, K), ``blocks`` float32 (nbr, K, bm, bn), ``b``
-    float32 (d_pad, N) with ``d_pad % bn == 0``. CUDA tensors launch the
-    kernel (counted in ``ell_matmul.launches``); CPU tensors take
-    :func:`ell_matmul_reference`."""
+def _check_args(indices, blocks, b, counts) -> None:
+    """Dtypes and shapes of :func:`ell_matmul`'s arguments; reads nothing
+    back from the card."""
     if indices.dtype != torch.int32 or blocks.dtype != torch.float32 or b.dtype != torch.float32:
         raise TypeError(
             "ell_matmul takes int32 indices and float32 blocks and b; got "
@@ -155,9 +169,56 @@ def ell_matmul(
     bn = blocks.shape[3]
     if b.shape[0] % bn:
         raise ValueError(f"dense operand rows {b.shape[0]} not a multiple of bn={bn}")
-    if indices.device.type == blocks.device.type == b.device.type == "cpu":
-        return ell_matmul_reference(indices, blocks, b)
-    return _launch(indices, blocks, b)
+    if counts is not None:
+        if counts.dtype != torch.int32:
+            raise TypeError(f"ell_matmul takes int32 counts; got {counts.dtype}")
+        if tuple(counts.shape) != (indices.shape[0],):
+            raise ValueError(
+                f"counts {tuple(counts.shape)} do not match {indices.shape[0]} block rows"
+            )
+
+
+def _dispatch(indices, blocks, b, counts):
+    if all(t.device.type == "cpu" for t in (indices, blocks, b, counts) if t is not None):
+        return ell_matmul_reference(indices, blocks, b, counts)
+    return _launch(indices, blocks, b, counts)
+
+
+def _ell_matmul_host_counts(indices, blocks, b, counts):
+    """:func:`ell_matmul` for ``counts`` from :func:`ell_tensors`, which
+    lie in 0..K by construction: their range is not read back from the
+    card, so the main path's launches queue without a host sync."""
+    _check_args(indices, blocks, b, counts)
+    return _dispatch(indices, blocks, b, counts)
+
+
+def ell_matmul(
+    indices: torch.Tensor,
+    blocks: torch.Tensor,
+    b: torch.Tensor,
+    counts: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Padded-ELL block-sparse × dense matmul → (nbr·bm, N) float32.
+
+    ``indices`` int32 (nbr, K), ``blocks`` float32 (nbr, K, bm, bn), ``b``
+    float32 (d_pad, N) with ``d_pad % bn == 0``. ``counts``, int32 (nbr,)
+    with 0 ≤ counts ≤ K, says how many leading slots of each block row
+    are stored: slot k of row i takes part only where k < counts[i], and
+    the other slots are never read. None means every slot, as in the TPU
+    kernel. The two agree whenever the padded slots hold zero blocks at
+    column 0, except where panel 0 of ``b`` holds a non-finite value: a
+    padded slot then adds 0·inf or 0·NaN = NaN without counts and nothing
+    with them. CUDA tensors launch the kernel (counted in
+    ``ell_matmul.launches``); CPU tensors take
+    :func:`ell_matmul_reference`. Checking the range of ``counts`` on the
+    card reads it back to the host (a sync); :func:`bsr_matmul` and
+    :func:`bsr_gram_totals` build theirs valid and skip that."""
+    _check_args(indices, blocks, b, counts)
+    if counts is not None and counts.numel():
+        lo, hi = (int(v) for v in torch.aminmax(counts))
+        if lo < 0 or hi > indices.shape[1]:
+            raise ValueError(f"counts must lie in 0..{indices.shape[1]} (K); got {lo}..{hi}")
+    return _dispatch(indices, blocks, b, counts)
 
 
 ell_matmul.launches = 0
@@ -167,9 +228,14 @@ ell_matmul.launches = 0
 
 
 def ell_tensors(bsr: BlockSparseMatrix, device: torch.device):
-    """``bsr``'s padded ELL view as (indices, blocks) tensors on ``device``."""
+    """``bsr``'s padded ELL view as (indices, blocks, counts) tensors on
+    ``device``. ``to_ell`` puts the stored blocks of a row in its leading
+    slots, so counts = np.diff(indptr), the stored blocks per block row.
+    They lie in 0..K by construction: ``to_ell`` refuses a decreasing
+    ``indptr`` and sizes K to the largest count."""
     idx, blocks = bsr.to_ell()
-    return torch.from_numpy(idx).to(device), torch.from_numpy(blocks).to(device)
+    counts = np.diff(bsr.indptr).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(device) for a in (idx, blocks, counts))
 
 
 def bsr_to_dense(bsr: BlockSparseMatrix, device: torch.device) -> torch.Tensor:
@@ -202,8 +268,8 @@ def _pad_to(x: torch.Tensor, rows: int, cols: Optional[int] = None) -> torch.Ten
 def bsr_matmul(bsr: BlockSparseMatrix, b: torch.Tensor) -> torch.Tensor:
     """``bsr @ b`` → logical (rows, N) dense on ``b``'s device."""
     b = _pad_to(b.to(torch.float32), bsr.padded_shape[1])
-    idx, blocks = ell_tensors(bsr, b.device)
-    return ell_matmul(idx, blocks, b)[: bsr.shape[0]]
+    idx, blocks, counts = ell_tensors(bsr, b.device)
+    return _ell_matmul_host_counts(idx, blocks, b, counts)[: bsr.shape[0]]
 
 
 def bsr_gram_totals(
@@ -226,9 +292,9 @@ def bsr_gram_totals(
         a = bsr_to_dense(bsr, device)
     else:
         a = _pad_to(torch.as_tensor(a_dense, dtype=torch.float32).to(device), mp, dp)
-    idx_t, blocks_t = ell_tensors(bsr.transpose(), device)
-    g = ell_matmul(idx_t, blocks_t, a)
-    c = ell_matmul(idx_t, blocks_t, y)
+    idx_t, blocks_t, counts_t = ell_tensors(bsr.transpose(), device)
+    g = _ell_matmul_host_counts(idx_t, blocks_t, a, counts_t)
+    c = _ell_matmul_host_counts(idx_t, blocks_t, y, counts_t)
     sa = a.sum(dim=0)
     sb = y.sum(dim=0)
     return g[:d, :d], c[:d], sa[:d], sb
@@ -245,4 +311,5 @@ __all__ = [
     "density_threshold",
     "ell_matmul",
     "ell_matmul_reference",
+    "ell_tensors",
 ]

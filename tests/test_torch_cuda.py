@@ -5,7 +5,9 @@ machine without a card. On the card, where JAX is not installed (so the
 JAX test configuration in ``tests/conftest.py`` is left out):
 ``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q``.
 Tolerance: 1e-5 relative Frobenius (fp32 FFMA in another summation
-order than the plain version's batched products).
+order than the plain version's batched products). With ``counts``, the
+padded slots hold NaN blocks and out-of-range indices: the kernel must
+never read them.
 """
 
 import numpy as np
@@ -73,6 +75,66 @@ def test_kernel_unaligned_operand_takes_scalar_path(cuda):
     out = tbs.ell_matmul(idx_t, blocks_t, b_off)
     ref = tbs.ell_matmul_reference(idx_t, blocks_t, b_off)
     assert float((out - ref).norm() / ref.norm()) <= 1e-5
+
+
+def _counts_case(rng, nbr, k_slots, bm, bn, nbc, n):
+    """Random per-row counts in 0..K (row 0 empty, row 1 full), junk —
+    NaN blocks and out-of-range indices included — in the padded slots."""
+    counts = rng.randint(0, k_slots + 1, size=nbr).astype(np.int32)
+    counts[0], counts[min(1, nbr - 1)] = 0, k_slots
+    idx = rng.randint(0, nbc, size=(nbr, k_slots)).astype(np.int32)
+    blocks = rng.randn(nbr, k_slots, bm, bn).astype(np.float32)
+    padded = np.arange(k_slots)[None, :] >= counts[:, None]
+    blocks[padded] = np.nan
+    idx[padded] = rng.choice([-7, nbc, 10**6], size=int(padded.sum()))
+    b = rng.randn(nbc * bn, n).astype(np.float32)
+    return idx, blocks, b, counts
+
+
+@pytest.mark.parametrize(
+    "nbr,k_slots,bm,bn,nbc,n,unaligned",
+    [
+        (64, 6, 16, 16, 40, 300, False),  # wide tile, ragged N
+        (64, 6, 16, 16, 40, 20, False),   # narrow tile, N = 20
+        (13, 4, 16, 16, 9, 1, False),     # narrow tile, N = 1
+        (9, 4, 128, 8, 12, 131, False),   # bm = 128, bn = 8
+        (5, 3, 3, 5, 6, 37, False),
+        (16, 3, 16, 16, 8, 64, True),     # b not 16-byte aligned
+        (16, 3, 16, 16, 8, 20, True),
+    ],
+)
+def test_kernel_with_counts_skips_padded_slots(cuda, nbr, k_slots, bm, bn, nbc, n, unaligned):
+    rng = np.random.RandomState(nbr * 13 + n)
+    idx, blocks, b, counts = _counts_case(rng, nbr, k_slots, bm, bn, nbc, n)
+    b_t = torch.from_numpy(b).to(cuda)
+    if unaligned:
+        storage = torch.zeros(b.size + 1, device=cuda)
+        b_t = storage[1:].view(b.shape).copy_(b_t)
+    idx_t, blocks_t, counts_t = (torch.from_numpy(a).to(cuda) for a in (idx, blocks, counts))
+    before = tbs.ell_matmul.launches
+    out = tbs.ell_matmul(idx_t, blocks_t, b_t, counts_t)
+    torch.cuda.synchronize()
+    assert tbs.ell_matmul.launches == before + 1
+    ref = tbs.ell_matmul_reference(idx_t, blocks_t, b_t, counts_t)
+    assert torch.isfinite(out).all()
+    assert torch.equal(out.view(nbr, bm, n)[0], torch.zeros(bm, n, device=cuda))
+    rel = float((out - ref).norm() / ref.norm().clamp_min(1e-30))
+    assert rel <= 1e-5
+
+
+def test_kernel_rejects_bad_counts(cuda):
+    idx = torch.zeros(2, 3, dtype=torch.int32, device=cuda)
+    blocks = torch.ones(2, 3, 4, 4, device=cuda)
+    b = torch.ones(8, 5, device=cuda)
+    for counts, err in (
+        (torch.tensor([1, 4], dtype=torch.int32, device=cuda), ValueError),
+        (torch.tensor([1, -1], dtype=torch.int32, device=cuda), ValueError),
+        (torch.tensor([1, 2, 3], dtype=torch.int32, device=cuda), ValueError),
+        (torch.tensor([1, 2], device=cuda), TypeError),
+        (torch.tensor([1, 2], dtype=torch.int32), ValueError),  # on the CPU
+    ):
+        with pytest.raises(err):
+            tbs.ell_matmul(idx, blocks, b, counts)
 
 
 def test_kernel_rejects_tiles_above_128(cuda):
