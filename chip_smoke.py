@@ -24,7 +24,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    and a small fit on the card must match the same fit on the CPU. A
    second, instrumented run of the fit on the same rows splits ``fit_s``
    into its steps (host BSR build, host transpose + ELL, uploads, the
-   two launches, finish + BCD).
+   two launches, finish + BCD);
+4. mnist_default — ``run(MnistRandomFFTConfig())`` (8,192 / 2,048
+   synthetic rows, 4 FFTs, block 2,048) through the port's entry point,
+   train and test errors within 0.002 of the JAX package's; then
+   ``python -m keystone_tpu_torch mnist-random-fft --num-ffts 4
+   --block-size 2048`` in a subprocess must exit 0 with its JSON line;
+5. mnist_full — the same pipeline at MNIST's sizes (60,000 train, 10,000
+   test rows, d = 2,048, k = 10) through ``build_pipeline`` and
+   ``Pipeline.fit()``: ``optimize_s``, ``fit_s`` (untraced), ``apply_s``
+   per 10,000 rows (median of 5 after a warm-up), per-node times from a
+   second fit under ``trace()``,
+   nodes executed and peak memory; errors within 0.002 of the JAX
+   package's, scores within 1e-4 of a float64 run on the card,
+   save → load → apply bitwise equal, featurization and fit once each;
+6. mnist_small_cpu — 1,024 rows, 2 FFTs, block 512 on the card and on
+   the CPU: scores within 1e-4, predictions equal.
+
+Phases 4–6 reach no ELL kernel: each sets its count to 0 and fails if it
+moved. Every phase starts from a reset ``PipelineEnv`` and reports its
+peak device memory.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit
 from nvidia-smi, and last ``{"ok": true, "device": {...}}``. It exits
@@ -46,6 +65,21 @@ TOPICS, DOCS_PER_TOPIC, VOCAB_PER_TOPIC, SEED = 1024, 64, 12, 11
 NUM_FEATURES, NUM_CLASSES, BLOCK_SIZE, REG = 16384, 20, 4096, 1e-3
 REQUESTS, REQUEST_DOCS = 4, 1024
 KERNEL_TOL, SLICE_TOL = 1e-5, 1e-4
+
+# MNIST random-FFT path. The JAX package's errors on the same synthetic
+# data, which the port must reproduce to MNIST_ERROR_TOL. Produced on the
+# CPU (one device, default environment) by
+#   python -c "from keystone_tpu.pipelines.mnist_random_fft import *;
+#              r = run(MnistRandomFFTConfig()); print(r['train_error'], r['test_error'])"
+# and, for MNIST's own sizes, by
+#   cfg = MnistRandomFFTConfig(); p = build_pipeline(cfg, synthetic_mnist(60000, seed=0))
+#   evaluated with MulticlassClassifierEvaluator(10) on p(train.data) and on
+#   p(synthetic_mnist(10000, seed=1).data).
+MNIST_DEFAULT_JAX = {"train_error": 0.117431640625, "test_error": 0.60986328125}
+MNIST_FULL_JAX = {"train_error": 0.2911833, "test_error": 0.4028}
+MNIST_ERROR_TOL = 0.002
+MNIST_TRAIN_ROWS, MNIST_TEST_ROWS = 60000, 10000
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # NVIDIA H100 SXM data sheet peaks (dense, at 700 W): HBM3 bytes/s and
 # fp32 FLOP/s outside the tensor cores (the kernel runs fp32 FFMA).
@@ -237,7 +271,10 @@ def phase_kernels(device):
 
     from keystone_tpu_torch.ops.cuda import blocksparse as bs
     from keystone_tpu_torch.ops.nlp.text import block_sparse_features
+    from keystone_tpu_torch.workflow.executor import PipelineEnv
 
+    PipelineEnv.reset()
+    torch.cuda.reset_peak_memory_stats()
     train, labels = topic_corpus(TOPICS, DOCS_PER_TOPIC, SEED)
     rows = featurizer(NUM_FEATURES)(train).get().collect()
     bsr = block_sparse_features(rows)
@@ -288,7 +325,7 @@ def phase_kernels(device):
     del a, y, idx, blocks, counts
     torch.cuda.empty_cache()
     edges = edge_cases(device)
-    log("kernel_edges", cases=edges)
+    log("kernel_edges", cases=edges, peak_device_bytes=torch.cuda.max_memory_allocated())
     main = shapes[0]
     return {
         "name": "ell_matmul",
@@ -453,10 +490,12 @@ def phase_slice(device):
     from keystone_tpu_torch.ops.cuda import blocksparse as bs
     from keystone_tpu_torch.ops.learning.block import BlockLeastSquaresEstimator
     from keystone_tpu_torch.ops.nlp.text import block_sparse_features
+    from keystone_tpu_torch.workflow.executor import PipelineEnv
 
     train, labels = topic_corpus(TOPICS, DOCS_PER_TOPIC, SEED)
     test, test_labels = topic_corpus(TOPICS, REQUESTS * REQUEST_DOCS // TOPICS, SEED + 1)
 
+    PipelineEnv.reset()
     torch.cuda.reset_peak_memory_stats()
     bs.ell_matmul.launches = 0
     out = run_slice(train, labels, test, test_labels, device)
@@ -524,6 +563,241 @@ def phase_slice(device):
     return launches
 
 
+# -------------------------------------------------------------- phases 4-6
+#
+# The MNIST random-FFT path (README's main path): graph, optimizer,
+# executor, featurizers and the dense in-core solve. It reaches no ELL
+# kernel; each phase sets the kernel's count to 0 before it and checks it
+# is still 0 after.
+
+
+def _mapper_of(fitted):
+    """The fitted pipeline's ``BlockLinearMapper`` (scores before argmax)."""
+    from keystone_tpu_torch.ops.learning.block import BlockLinearMapper
+
+    mappers = [op for op in fitted.graph.operators.values() if isinstance(op, BlockLinearMapper)]
+    if len(mappers) != 1:
+        raise AssertionError(f"expected one BlockLinearMapper in the fitted pipeline, found {len(mappers)}")
+    return mappers[0]
+
+
+def _mnist_start():
+    """Fresh pipeline state, peak memory and ELL count for one phase."""
+    import torch
+
+    from keystone_tpu_torch.ops.cuda import blocksparse as bs
+    from keystone_tpu_torch.workflow.executor import PipelineEnv
+
+    PipelineEnv.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bs.ell_matmul.launches = 0
+
+
+def _mnist_end(phase: str) -> dict:
+    """The phase's peak memory; raises if the ELL kernel was launched."""
+    import torch
+
+    from keystone_tpu_torch.ops.cuda import blocksparse as bs
+
+    torch.cuda.synchronize()
+    if bs.ell_matmul.launches != 0:
+        raise AssertionError(f"{phase} launched the ELL kernel {bs.ell_matmul.launches} times")
+    return {"peak_device_bytes": torch.cuda.max_memory_allocated(), "ell_launches": 0}
+
+
+def _check_errors(phase: str, got: dict, want: dict) -> None:
+    for name, ref in want.items():
+        if not abs(got[name] - ref) <= MNIST_ERROR_TOL:
+            raise AssertionError(f"{phase}: {name} {got[name]} is not within {MNIST_ERROR_TOL} of {ref}")
+
+
+def phase_mnist_default(device) -> int:
+    """``run(MnistRandomFFTConfig())`` on the card, then the CLI in a
+    subprocess."""
+    from keystone_tpu_torch.pipelines.mnist_random_fft import MnistRandomFFTConfig, run
+
+    _mnist_start()
+    out = run(MnistRandomFFTConfig(), device=device)
+    result = {"train_error": out["train_error"], "test_error": out["test_error"],
+              "seconds": out["seconds"], **_mnist_end("mnist_default")}
+    _check_errors("mnist_default", result, MNIST_DEFAULT_JAX)
+    cmd = [sys.executable, "-m", "keystone_tpu_torch", "mnist-random-fft",
+           "--num-ffts", "4", "--block-size", "2048"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[1:])} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    if line.get("workload") != "mnist-random-fft":
+        raise AssertionError(f"the CLI printed no workload line: {proc.stdout[-500:]}")
+    _check_errors("mnist_default CLI", line, MNIST_DEFAULT_JAX)
+    result["cli"] = {"line": line, "seconds": time.perf_counter() - t0}
+    log("mnist_default", **result)
+    return 0
+
+
+def mnist_test_scores(cfg, fitted, test, device):
+    """Test scores (before argmax) of a fitted MNIST pipeline: the same
+    featurizer, then the fitted pipeline's ``BlockLinearMapper``."""
+    from keystone_tpu_torch.pipelines.mnist_random_fft import build_featurizer
+
+    features = build_featurizer(cfg, device=device)(test.data).get().data
+    return _mapper_of(fitted).apply_arrays(features)
+
+
+def fp64_mnist_scores(cfg, train, test, device, block):
+    """Test scores of the same pipeline with the features and the one-epoch
+    BCD in float64 on ``device``, λ by the estimator's own floor rule."""
+    import torch
+
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.ops.learning.block import _scale_aware_reg_floor
+    from keystone_tpu_torch.parallel import linalg
+    from keystone_tpu_torch.pipelines.mnist_random_fft import NUM_CLASSES, build_featurizer
+
+    feat = build_featurizer(cfg, device=device)
+    x = feat(ArrayDataset(train.data.data.double())).get().data
+    n = x.shape[0]
+    y = torch.full((n, NUM_CLASSES), -1.0, dtype=torch.float64, device=device)
+    y[torch.arange(n, device=device), train.labels.data.long()] = 1.0
+    mu_a, mu_b = x.mean(dim=0), y.mean(dim=0)
+    x -= mu_a
+    reg = cfg.reg or _scale_aware_reg_floor(x, n)
+    w = linalg.block_coordinate_descent(x, y - mu_b, reg, 1, block)
+    del x
+    xt = feat(ArrayDataset(test.data.data.double())).get().data
+    return (xt - mu_a) @ w + mu_b
+
+
+def phase_mnist_full(device) -> int:
+    """The slice at full width: MNIST's 60,000 / 10,000 rows, 4 FFTs,
+    d = 2,048, k = 10, block 2,048, one epoch, through ``build_pipeline``
+    and ``Pipeline.fit()``."""
+    import statistics
+    import tempfile
+    from collections import Counter, defaultdict
+
+    import torch
+
+    from keystone_tpu_torch.evaluation.multiclass import MulticlassClassifierEvaluator
+    from keystone_tpu_torch.pipelines.mnist_random_fft import (
+        NUM_CLASSES, MnistRandomFFTConfig, build_pipeline, synthetic_mnist,
+    )
+    from keystone_tpu_torch.workflow.executor import PipelineEnv
+    from keystone_tpu_torch.workflow.pipeline import FittedPipeline
+    from keystone_tpu_torch.workflow.tracing import trace
+
+    cfg = MnistRandomFFTConfig()
+    train = synthetic_mnist(MNIST_TRAIN_ROWS, seed=0, device=device)
+    test = synthetic_mnist(MNIST_TEST_ROWS, seed=1, device=device)
+    _mnist_start()
+    env = PipelineEnv.get_or_create()
+    pipeline = build_pipeline(cfg, train, device=device)
+    t0 = time.perf_counter()
+    env.optimizer.execute(pipeline.graph)
+    optimize_s = time.perf_counter() - t0
+    PipelineEnv.reset()  # the timed optimize above must not seed the fit's state
+    env = PipelineEnv.get_or_create()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fitted = pipeline.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_nodes = env.nodes_executed
+    fit_peak = torch.cuda.max_memory_allocated()
+    # Per-node times come from a second fit from fresh state under
+    # ``trace()``, which forces and synchronizes after every node, so
+    # ``fit_s`` above is not charged for that.
+    PipelineEnv.reset()
+    with trace() as tr:
+        t0 = time.perf_counter()
+        pipeline.fit()
+        torch.cuda.synchronize()
+        traced_fit_s = time.perf_counter() - t0
+    counts = Counter(t.label for t in tr.timings)
+    if counts["PaddedFFT"] != cfg.num_ffts or counts["BlockLeastSquaresEstimator"] != 1:
+        raise AssertionError(f"the fit did not featurize once and fit once: {dict(counts)}")
+    node_s = defaultdict(float)
+    for t in tr.timings:
+        node_s[t.label] += t.seconds
+
+    fitted.apply_batch(test.data)  # warm-up
+    apply_times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        test_pred = fitted.apply_batch(test.data).data
+        torch.cuda.synchronize()
+        apply_times.append(time.perf_counter() - t0)
+    train_pred = fitted.apply_batch(train.data).data
+    evaluator = MulticlassClassifierEvaluator(NUM_CLASSES)
+    errors = {
+        "train_error": evaluator.evaluate(train_pred, train.labels).total_error,
+        "test_error": evaluator.evaluate(test_pred, test.labels).total_error,
+    }
+    _check_errors("mnist_full", errors, MNIST_FULL_JAX)
+    if tuple(test_pred.shape) != (MNIST_TEST_ROWS,):
+        raise AssertionError(f"bad prediction shape {tuple(test_pred.shape)}")
+
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        path = os.path.join(tmp, "mnist_fitted.pt")
+        fitted.save(path)
+        loaded = FittedPipeline.load(path, device=device)
+        if not torch.equal(loaded.apply_batch(test.data).data, test_pred):
+            raise AssertionError("save → load → apply changed the predictions")
+    # One host (numpy) row through the fitted pipeline runs on the card
+    # and predicts what the batch did.
+    one = fitted.apply(test.data.data[7].cpu().numpy())
+    if one.device.type != "cuda" or int(one) != int(test_pred[7]):
+        raise AssertionError(f"single-datum apply gave {one} on {one.device}, batch {test_pred[7]}")
+
+    s32 = mnist_test_scores(cfg, fitted, test, device)
+    s64 = fp64_mnist_scores(cfg, train, test, device, cfg.block_size)
+    fp64_rel = rel_err(s32, s64)
+    if not fp64_rel <= SLICE_TOL:
+        raise AssertionError(f"fp32 scores are {fp64_rel} from the float64 run")
+    result = {
+        "rows": [MNIST_TRAIN_ROWS, MNIST_TEST_ROWS], "features": cfg.num_ffts * 512,
+        "optimize_s": optimize_s, "fit_s": fit_s, "traced_fit_s": traced_fit_s,
+        "apply_s_per_10000_rows": statistics.median(apply_times) * 10000 / MNIST_TEST_ROWS,
+        "apply_s_runs": apply_times, "node_s": dict(node_s), "node_counts": dict(counts),
+        "nodes_executed_in_fit": fit_nodes, "fit_peak_device_bytes": fit_peak,
+        **errors, "fp32_vs_fp64_scores_rel": fp64_rel, **_mnist_end("mnist_full"),
+    }
+    log("mnist_full", **result)
+    return 0
+
+
+def phase_mnist_small_cpu(device) -> int:
+    """1,024 rows, 2 FFTs, block 512, λ = 10, fit and applied on the card
+    and on the CPU: scores within ``SLICE_TOL``, predictions equal."""
+    import torch
+
+    from keystone_tpu_torch.pipelines.mnist_random_fft import (
+        MnistRandomFFTConfig, build_pipeline, synthetic_mnist,
+    )
+    from keystone_tpu_torch.workflow.executor import PipelineEnv
+
+    cfg = MnistRandomFFTConfig(num_ffts=2, block_size=512, reg=10.0)
+    _mnist_start()
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        PipelineEnv.reset()
+        train = synthetic_mnist(1024, seed=0, device=dev)
+        test = synthetic_mnist(256, seed=1, device=dev)
+        fitted = build_pipeline(cfg, train, device=dev).fit()
+        scores = mnist_test_scores(cfg, fitted, test, dev)
+        runs.append((scores.cpu(), fitted.apply_batch(test.data).data.cpu()))
+    (card_scores, card_pred), (cpu_scores, cpu_pred) = runs
+    rel = rel_err(card_scores, cpu_scores)
+    if not rel <= SLICE_TOL or not torch.equal(card_pred, cpu_pred):
+        raise AssertionError(f"small MNIST fit on the card differs from the CPU: scores rel {rel}")
+    log("mnist_small_cpu", card_vs_cpu_scores_rel=rel, **_mnist_end("mnist_small_cpu"))
+    return 0
+
+
 def card_name_and_limit() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -549,6 +823,12 @@ def main() -> int:
     phase_build()
     kernel = phase_kernels(device)
     kernel["launches"] = phase_slice(device)
+    kernel["launches_by_path"] = {
+        "hashing_tf": kernel["launches"],
+        "mnist_default": phase_mnist_default(device),
+        "mnist_full": phase_mnist_full(device),
+        "mnist_small_cpu": phase_mnist_small_cpu(device),
+    }
     smi = card_name_and_limit()
     log("done", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": [kernel]}))

@@ -1,13 +1,16 @@
 """Dataset substrate: host object lists and device tensors.
 
-Port of ``keystone_tpu/data/dataset.py``, cut to what the hashing-TF →
-block least-squares slice uses:
+Port of ``keystone_tpu/data/dataset.py``:
 
 - ``ObjectDataset`` — a host-side list of Python objects (strings, token
   lists, scipy CSR rows).
-- ``ArrayDataset`` — one tensor with a leading example axis on an
+- ``ArrayDataset`` — a tensor, or a tuple, list or dict of tensors (what
+  ``GatherTransformer`` emits), with a shared leading example axis on an
   explicit device. ``num_examples`` is the logical row count; rows past
   it are zero padding and are masked out of statistics.
+
+Left out for now: ``padded_to``, ``shard``, ``iter_chunks``,
+``fetch_rows`` and ``BucketedDataset``.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..utils.tree import tree_leaves, tree_map
 
 
 class Dataset:
@@ -31,6 +35,23 @@ class Dataset:
 
     def __len__(self) -> int:
         raise NotImplementedError
+
+    def take(self, n: int) -> List[Any]:
+        return self.collect()[:n]
+
+    def cache(self) -> "Dataset":
+        """Materialization point; both kinds are already materialized."""
+        return self
+
+    @property
+    def num_shards(self) -> int:
+        return 1
+
+    def per_shard_counts(self) -> List[int]:
+        n = len(self)
+        k = self.num_shards
+        base, extra = divmod(n, k)
+        return [base + (1 if i < extra else 0) for i in range(k)]
 
 
 class ObjectDataset(Dataset):
@@ -50,13 +71,21 @@ class ObjectDataset(Dataset):
         return len(self._items)
 
     def to_arrays(self, device: DeviceLike = None) -> "ArrayDataset":
-        """Stack equal-shape items into an ArrayDataset on ``device``."""
+        """Stack equal-shape items (tensors, arrays, or tuples/lists/dicts
+        of them) into an ArrayDataset on ``device``."""
         if not self._items:
             raise ValueError("cannot stack an empty dataset")
-        return ArrayDataset(np.stack([np.asarray(x) for x in self._items]), device=device)
+        stacked = tree_map(_stack, *self._items)
+        return ArrayDataset(stacked, device=device)
 
     def __repr__(self) -> str:
         return f"ObjectDataset(n={len(self._items)})"
+
+
+def _stack(*xs: Any) -> Any:
+    if isinstance(xs[0], torch.Tensor):
+        return torch.stack(xs)
+    return np.stack([np.asarray(x) for x in xs])
 
 
 def _as_tensor(data: Any, device: DeviceLike) -> torch.Tensor:
@@ -73,8 +102,22 @@ def _as_tensor(data: Any, device: DeviceLike) -> torch.Tensor:
     return torch.as_tensor(arr, device=resolve_device(device))
 
 
+def _leading_dim(tree: Any) -> int:
+    leaves = tree_leaves(tree)
+    if not leaves:
+        raise ValueError("empty pytree")
+    if any(leaf.ndim == 0 for leaf in leaves):
+        raise ValueError("an ArrayDataset needs a leading example axis")
+    n = leaves[0].shape[0]
+    for leaf in leaves:
+        if leaf.shape[0] != n:
+            raise ValueError("inconsistent leading dimensions in dataset pytree")
+    return n
+
+
 class ArrayDataset(Dataset):
-    """A tensor with a leading example axis, on one device."""
+    """A tensor, or a tuple/list/dict of tensors, with a shared leading
+    example axis, on one device."""
 
     def __init__(
         self,
@@ -82,10 +125,8 @@ class ArrayDataset(Dataset):
         num_examples: Optional[int] = None,
         device: DeviceLike = None,
     ):
-        self.data = _as_tensor(data, device)
-        if self.data.ndim == 0:
-            raise ValueError("an ArrayDataset needs a leading example axis")
-        physical = self.data.shape[0]
+        self.data = tree_map(lambda a: _as_tensor(a, device), data)
+        physical = _leading_dim(self.data)
         self.num_examples = num_examples if num_examples is not None else physical
         if self.num_examples > physical:
             raise ValueError("num_examples exceeds physical leading dim")
@@ -95,34 +136,36 @@ class ArrayDataset(Dataset):
 
     @property
     def device(self) -> torch.device:
-        return self.data.device
+        return tree_leaves(self.data)[0].device
 
     @property
     def physical_rows(self) -> int:
-        return self.data.shape[0]
+        return _leading_dim(self.data)
 
     def collect(self) -> List[Any]:
-        host = self.data[: self.num_examples].cpu().numpy()
-        return [host[i] for i in range(self.num_examples)]
+        return self.take(self.num_examples)
+
+    def take(self, n: int) -> List[Any]:
+        n = min(n, self.num_examples)
+        host = tree_map(lambda a: a[:n].cpu().numpy(), self.data)
+        return [tree_map(lambda a: a[i], host) for i in range(n)]
 
     def map(self, fn: Callable[[Any], Any]) -> ObjectDataset:
         """Per-item host map."""
         return ObjectDataset([fn(x) for x in self.collect()])
 
-    def map_batched(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "ArrayDataset":
-        """Apply ``fn`` to the whole batch tensor."""
+    def map_batched(self, fn: Callable[[Any], Any]) -> "ArrayDataset":
+        """Apply ``fn`` to the whole batch (a tensor or a tree of them)."""
         return ArrayDataset(fn(self.data), self.num_examples)
 
     def mask(self) -> torch.Tensor:
         """1.0 for real rows, 0.0 for padding — shape (physical_rows,)."""
-        rows = torch.arange(self.physical_rows, device=self.data.device)
+        rows = torch.arange(self.physical_rows, device=self.device)
         return (rows < self.num_examples).to(torch.float32)
 
     def __repr__(self) -> str:
-        return (
-            f"ArrayDataset(n={self.num_examples}, shape={tuple(self.data.shape)}, "
-            f"device={self.data.device})"
-        )
+        shapes = tree_map(lambda a: tuple(a.shape), self.data)
+        return f"ArrayDataset(n={self.num_examples}, shapes={shapes}, device={self.device})"
 
 
 def as_dataset(value: Any) -> Dataset:

@@ -1,7 +1,13 @@
-"""Vector conversion operators.
+"""Vector shaping / conversion operators.
 
-Port of ``keystone_tpu/ops/util/vectors.py::Densify``: sparse host rows
-become one dense float32 tensor on an explicit device.
+Port of ``keystone_tpu/ops/util/vectors.py``:
+
+- ``VectorCombiner`` — concatenate gathered branch outputs feature-wise.
+- ``Densify`` — sparse host rows become one dense float32 tensor on an
+  explicit device.
+
+Left out for now: ``VectorSplitter``, ``Cast``, ``MatrixVectorizer`` and
+``Sparsify``.
 """
 
 from __future__ import annotations
@@ -11,7 +17,19 @@ import torch
 
 from ...data.dataset import ArrayDataset, Dataset
 from ...device import DeviceLike, resolve_device
-from ...workflow.pipeline import Transformer
+from ...workflow.pipeline import BatchTransformer, Transformer
+
+
+class VectorCombiner(BatchTransformer):
+    """Concatenate a gathered tuple of (n, d_i) tensors into (n, Σd_i)."""
+
+    def apply_arrays(self, data):
+        if isinstance(data, (tuple, list)):
+            return torch.cat([p.reshape(p.shape[0], -1) for p in data], dim=-1)
+        return data
+
+    def apply(self, datum):
+        return torch.cat([torch.as_tensor(p).reshape(-1) for p in datum])
 
 
 class Densify(Transformer):

@@ -1,0 +1,119 @@
+"""Pull-based memoized graph execution + the process-wide pipeline env.
+
+Port of ``keystone_tpu/workflow/executor.py``
+(reference: workflow/GraphExecutor.scala:14-81, workflow/PipelineEnv.scala:7-37).
+
+``GraphExecutor`` optimizes its graph once (on first pull), then recursively
+executes dependencies with memoization. Results are lazy ``Expression``s:
+forcing one is what launches the device work.
+
+``PipelineEnv`` holds the prefix-state table used for cross-pipeline reuse
+of fit estimators and cached datasets, and the active optimizer stack. Its
+``nodes_executed`` counts the operators the executors have run since the
+last :meth:`PipelineEnv.reset`.
+
+Left out for now: the reliability hooks (``retry_policy``, ``checkpoint``,
+fault injection) and ``partition_decisions``.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, Optional
+
+from .graph import Graph, GraphId, NodeId, SinkId, SourceId
+from .operators import Expression
+from .prefix import Prefix
+from .tracing import timed_execute
+
+
+class PipelineEnv:
+    """Process-wide executor state (reference: PipelineEnv.scala:7-37)."""
+
+    _instance: Optional["PipelineEnv"] = None
+    _lock = threading.Lock()
+
+    def __init__(self):
+        self.state: Dict[Prefix, Expression] = {}
+        self.nodes_executed = 0
+        self._optimizer = None
+
+    @classmethod
+    def get_or_create(cls) -> "PipelineEnv":
+        with cls._lock:
+            if cls._instance is None:
+                cls._instance = PipelineEnv()
+            return cls._instance
+
+    @classmethod
+    def reset(cls) -> None:
+        """Drop all global state — required between tests
+        (reference: test fixture PipelineContext.scala:9-25)."""
+        with cls._lock:
+            cls._instance = None
+
+    @property
+    def optimizer(self):
+        if self._optimizer is None:
+            from .rules import default_optimizer
+
+            self._optimizer = default_optimizer()
+        return self._optimizer
+
+    @optimizer.setter
+    def optimizer(self, value) -> None:
+        self._optimizer = value
+
+
+class GraphExecutor:
+    """Memoized recursive interpreter over an (optionally optimized) graph."""
+
+    def __init__(self, graph: Graph, optimize: bool = True):
+        self._raw_graph = graph
+        self._optimize = optimize
+        self._optimized: Optional[Graph] = None
+        self._prefixes: Dict[NodeId, Prefix] = {}
+        self._memo: Dict[GraphId, Expression] = {}
+
+    @property
+    def graph(self) -> Graph:
+        """The optimized graph (optimizes on first access)."""
+        if self._optimized is None:
+            if self._optimize:
+                env = PipelineEnv.get_or_create()
+                self._optimized, self._prefixes = env.optimizer.execute(self._raw_graph)
+            else:
+                self._optimized = self._raw_graph
+        return self._optimized
+
+    @property
+    def raw_graph(self) -> Graph:
+        return self._raw_graph
+
+    def execute(self, graph_id: GraphId) -> Expression:
+        graph = self.graph
+        if graph_id in self._memo:
+            return self._memo[graph_id]
+        if isinstance(graph_id, SourceId):
+            raise ValueError(
+                f"cannot execute unbound source {graph_id}: bind pipeline inputs first"
+            )
+        if isinstance(graph_id, SinkId):
+            result = self.execute(graph.get_sink_dependency(graph_id))
+            self._memo[graph_id] = result
+            return result
+
+        deps = [self.execute(d) for d in graph.get_dependencies(graph_id)]
+        op = graph.get_operator(graph_id)
+        env = PipelineEnv.get_or_create()
+        env.nodes_executed += 1
+        expression = timed_execute(op, deps)
+
+        # Prefix write-back: make this node's result reusable by later
+        # pipelines (reference: GraphExecutor.scala:65-71).
+        prefix = self._prefixes.get(graph_id)
+        if prefix is not None:
+            env.state[prefix] = expression
+
+        self._memo[graph_id] = expression
+        return expression

@@ -1,125 +1,69 @@
 """Typed pipeline API: Transformer / Estimator / LabelEstimator / Pipeline.
 
-Port of ``keystone_tpu/workflow/pipeline.py`` with the same chaining
-surface: ``to_pipeline``, ``then``, ``then_estimator``,
-``then_label_estimator``, ``>>``, ``pipeline(data).get()`` and
-``Pipeline.fit()`` → :class:`FittedPipeline`.
+Port of ``keystone_tpu/workflow/pipeline.py``
+(reference: workflow/Transformer.scala:18-70, workflow/Estimator.scala:10-62,
+workflow/LabelEstimator.scala:13-100, workflow/Chainable.scala:13-126,
+workflow/Pipeline.scala:22-155, workflow/FittedPipeline.scala:22-48).
 
-A pipeline is a small immutable DAG of :class:`_Node` s between one
-input placeholder (the source) and one output (the sink). Nothing runs
-until ``.get()``; the executor is eager and memoised — within one
-``get`` each node runs once, and an estimator bound to data fits once
-per process (its fitted transformer is kept on its node). There is no
-graph optimizer here: the JAX package's common-subexpression, autocache,
-fusion, streaming and partitioning rules are later work.
+- ``a >> b >> est.with_data(data)`` builds an immutable graph
+  (``workflow/graph.py``); nothing runs until a result is forced.
+- Applying a pipeline yields lazy ``PipelineDataset``/``PipelineDatum``
+  handles; ``.get()`` runs the optimizer (``workflow/rules.py``: saved
+  state, CSE, node-level optimization) once, then executes with
+  memoization (``workflow/executor.py``).
+- Estimators bound to data fit **once** per process even across repeated
+  applications: results are memoized under structural prefixes in
+  ``PipelineEnv.state``.
+- ``Pipeline.fit()`` executes every estimator, splices the fit
+  transformers in place, prunes fit-time-only branches, and returns a
+  ``FittedPipeline`` holding only transformers, which ``save``/``load``
+  round-trip.
+
+Left out for now: the plan-time verifier in ``fit``,
+``FittedPipeline.fused()`` (no fusion pass yet) and ``CompiledApply``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+import threading
+from typing import Any, Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from ..data.dataset import ArrayDataset, Dataset, ObjectDataset, as_dataset
-
-
-# ------------------------------------------------------------------- graph
-
-
-class _Source:
-    """The unbound pipeline input."""
-
-
-class _Data:
-    """A bound dataset or datum."""
-
-    def __init__(self, value: Any):
-        self.value = value
-
-
-class _Fit:
-    """Fit ``estimator`` on its dependencies' outputs (once)."""
-
-    def __init__(self, estimator: "Estimator | LabelEstimator"):
-        self.estimator = estimator
-
-
-class _Delegate:
-    """Apply the transformer that dependency 0 produced to dependency 1."""
-
-
-class _Node:
-    """One vertex: ``op`` applied to the outputs of ``deps``."""
-
-    __slots__ = ("op", "deps", "fitted")
-
-    def __init__(self, op: Any, deps=()):
-        self.op = op
-        self.deps = tuple(deps)
-        self.fitted = None  # a _Fit node's transformer, once fit
-
-
-def _substitute(node: _Node, mapping: Dict[int, _Node], memo=None) -> _Node:
-    """``node``'s DAG with the nodes in ``mapping`` (by id) replaced.
-    Subgraphs that do not reach a replaced node are shared, so a bound
-    estimator keeps its fitted state."""
-    memo = {} if memo is None else memo
-    key = id(node)
-    if key in mapping:
-        return mapping[key]
-    if key not in memo:
-        deps = tuple(_substitute(d, mapping, memo) for d in node.deps)
-        if all(a is b for a, b in zip(deps, node.deps)):
-            memo[key] = node
-        else:
-            memo[key] = _Node(node.op, deps)
-    return memo[key]
-
-
-def _run_transformer(t: "Transformer", value: Any) -> Any:
-    return t.apply_batch(value) if isinstance(value, Dataset) else t.apply(value)
-
-
-def _evaluate(node: _Node, memo: Dict[int, Any]) -> Any:
-    key = id(node)
-    if key in memo:
-        return memo[key]
-    op = node.op
-    if isinstance(op, _Source):
-        raise ValueError("pipeline input is unbound; apply the pipeline to data")
-    if isinstance(op, _Data):
-        out = op.value
-    elif isinstance(op, _Fit):
-        if node.fitted is None:
-            node.fitted = op.estimator.fit_datasets(
-                [_evaluate(d, memo) for d in node.deps]
-            )
-        out = node.fitted
-    elif isinstance(op, _Delegate):
-        fitted = _evaluate(node.deps[0], memo)
-        out = _run_transformer(fitted, _evaluate(node.deps[1], memo))
-    else:
-        out = _run_transformer(op, _evaluate(node.deps[0], memo))
-    memo[key] = out
-    return out
+from ..data.dataset import ArrayDataset, Dataset, ObjectDataset, _as_tensor, as_dataset
+from ..device import DeviceLike, resolve_device
+from ..utils.tree import tree_map
+from .executor import GraphExecutor, PipelineEnv
+from .graph import Graph, NodeOrSourceId, SinkId, SourceId
+from .operators import (
+    DatasetOperator,
+    DatumOperator,
+    DelegatingOperator,
+    EstimatorOperator,
+    TransformerOperator,
+)
+from .rules import UnusedBranchRemovalRule
 
 
 # --------------------------------------------------------------------- results
 
 
 class PipelineResult:
-    """Lazy handle on a pipeline output."""
+    """Lazy handle on a pipeline output
+    (reference: workflow/PipelineResult.scala:13-20)."""
 
-    def __init__(self, node: _Node):
-        self.node = node
+    def __init__(self, executor: GraphExecutor, sink: SinkId, graph: Graph):
+        self._executor = executor
+        self._sink = sink
+        self.graph = graph  # unoptimized graph, for further composition
 
     def get(self) -> Any:
-        return _evaluate(self.node, {})
+        return self._executor.execute(self._sink).get()
 
 
 class PipelineDataset(PipelineResult):
-    """Lazy dataset result."""
+    """Lazy dataset result; duck-types enough of Dataset for evaluators."""
 
     def collect(self) -> List[Any]:
         return self.get().collect()
@@ -136,25 +80,29 @@ class PipelineDatum(PipelineResult):
 
 
 class Chainable:
-    """Mixin providing ``then`` / ``>>`` composition."""
+    """Mixin providing ``then`` / ``>>`` composition
+    (reference: workflow/Chainable.scala:13-126)."""
 
     def to_pipeline(self) -> "Pipeline":
         raise NotImplementedError
 
     def then(self, nxt: "Chainable") -> "Pipeline":
-        """``self`` then ``nxt``."""
+        """``self`` then ``nxt`` (reference ``andThen``)."""
         this = self.to_pipeline()
         other = nxt.to_pipeline()
-        sink = _substitute(other.sink, {id(other.source): this.sink})
-        return Pipeline(this.source, sink)
+        combined, _, sink_map = this.graph.connect_graph(other.graph, {other.source: this.sink})
+        return Pipeline(combined, this.source, sink_map[other.sink])
 
-    def then_estimator(self, est: "Estimator", data: Any) -> "Pipeline":
+    def then_estimator(self, est: "Estimator", data: Union[Dataset, PipelineDataset, Any]) -> "Pipeline":
         """Fit ``est`` on this pipeline applied to ``data``; the result
         applies self then the fit transformer."""
         return self.then(est.with_data(self.to_pipeline().apply(data)))
 
     def then_label_estimator(
-        self, est: "LabelEstimator", data: Any, labels: Any
+        self,
+        est: "LabelEstimator",
+        data: Union[Dataset, PipelineDataset, Any],
+        labels: Union[Dataset, PipelineDataset, Any],
     ) -> "Pipeline":
         return self.then(est.with_data(self.to_pipeline().apply(data), labels))
 
@@ -165,9 +113,12 @@ class Chainable:
 # ----------------------------------------------------------------- transformer
 
 
-class Transformer(Chainable):
-    """Typed unary transformer. Subclasses implement ``apply`` (one
-    datum) and optionally override ``apply_batch``."""
+class Transformer(TransformerOperator, Chainable):
+    """Typed unary transformer (reference: workflow/Transformer.scala:18-70).
+
+    Subclasses implement ``apply`` (one datum) and optionally override
+    ``apply_batch`` with a whole-batch implementation.
+    """
 
     def apply(self, datum: Any) -> Any:
         raise NotImplementedError
@@ -175,158 +126,334 @@ class Transformer(Chainable):
     def apply_batch(self, dataset: Dataset) -> Dataset:
         return dataset.map(self.apply)
 
+    # Operator protocol -----------------------------------------------------
+    def single_transform(self, datums: List[Any]) -> Any:
+        return self.apply(datums[0])
+
+    def batch_transform(self, datasets: List[Dataset]) -> Dataset:
+        return self.apply_batch(datasets[0])
+
+    # Chaining --------------------------------------------------------------
     def to_pipeline(self) -> "Pipeline":
-        source = _Node(_Source())
-        return Pipeline(source, _Node(self, [source]))
+        graph = Graph()
+        graph, source = graph.add_source()
+        graph, node = graph.add_node(self, [source])
+        graph, sink = graph.add_sink(node)
+        return Pipeline(graph, source, sink)
 
     def __call__(self, data: Any) -> Any:
         if isinstance(data, (Dataset, PipelineDataset)):
             return self.to_pipeline().apply(data)
         return self.apply(data)
 
+    @staticmethod
+    def from_fn(fn: Callable[[Any], Any], batch_fn: Optional[Callable] = None, name: str = "") -> "Transformer":
+        return _FnTransformer(fn, batch_fn, name)
+
+
+class _FnTransformer(Transformer):
+    def __init__(self, fn, batch_fn=None, name=""):
+        self.fn = fn
+        self.batch_fn = batch_fn
+        self.name = name or getattr(fn, "__name__", "fn")
+
+    @property
+    def label(self) -> str:
+        return self.name
+
+    def apply(self, datum):
+        return self.fn(datum)
+
+    def apply_batch(self, dataset):
+        if self.batch_fn is not None and isinstance(dataset, ArrayDataset):
+            return dataset.map_batched(self.batch_fn)
+        return dataset.map(self.fn)
+
+
+class Identity(Transformer):
+    """reference: workflow/Identity.scala:11"""
+
+    def apply(self, datum: Any) -> Any:
+        return datum
+
+    def apply_batch(self, dataset: Dataset) -> Dataset:
+        return dataset
+
+
+def _operator_device(op: Any) -> Optional[torch.device]:
+    """The device of the first tensor an operator holds, or None."""
+    for value in vars(op).values():
+        if isinstance(value, torch.Tensor):
+            return value.device
+    return None
+
 
 class BatchTransformer(Transformer):
     """Transformer whose native form is a whole-batch tensor function.
 
-    Subclasses implement ``apply_arrays(tensor) -> tensor``, which must be
-    row-independent. Batch application keeps rows past ``num_examples``
-    exactly zero, so downstream sums over the example axis ignore padding.
+    Subclasses implement ``apply_arrays(tree) -> tree`` over a tensor (or a
+    tuple/list/dict of tensors), which must be row-independent. Batch
+    application keeps rows past ``num_examples`` exactly zero, so
+    downstream sums over the example axis ignore padding.
     """
 
-    def apply_arrays(self, data: torch.Tensor) -> torch.Tensor:
+    def apply_arrays(self, data: Any) -> Any:
         raise NotImplementedError
 
     def apply(self, datum: Any) -> Any:
-        return self.apply_arrays(torch.as_tensor(datum)[None])[0]
+        # A tensor datum stays where it is; a host datum (numpy, a scalar,
+        # a list) goes to the device of this operator's tensors, or to the
+        # default CUDA device — never silently to the CPU.
+        device = _operator_device(self)
+        batched = tree_map(
+            lambda a: (a if isinstance(a, torch.Tensor) else _as_tensor(a, device))[None],
+            datum,
+        )
+        out = self.apply_arrays(batched)
+        return tree_map(lambda a: a[0], out)
 
     def apply_batch(self, dataset: Dataset) -> ArrayDataset:
         if isinstance(dataset, ObjectDataset):
-            dataset = dataset.to_arrays()
+            dataset = dataset.to_arrays(device=_operator_device(self))
         if not isinstance(dataset, ArrayDataset):
             raise TypeError(f"cannot batch-apply to {type(dataset).__name__}")
         out = dataset.map_batched(self.apply_arrays)
         if out.physical_rows > out.num_examples:
-            # where (not multiply): log/div turn zero pad rows into NaN/Inf,
-            # and 0*NaN is NaN — select restores exact 0.
-            real = out.mask().bool().reshape((-1,) + (1,) * (out.data.ndim - 1))
-            out = ArrayDataset(
-                torch.where(real, out.data, torch.zeros((), dtype=out.data.dtype,
-                                                        device=out.data.device)),
-                out.num_examples,
-            )
+            real_row = out.mask().bool()
+
+            def zero_pad_rows(a):
+                # where (not multiply): log/div turn zero pad rows into
+                # NaN/Inf, and 0*NaN is NaN — select restores exact 0.
+                m = real_row.reshape((-1,) + (1,) * (a.ndim - 1))
+                return torch.where(m, a, torch.zeros((), dtype=a.dtype, device=a.device))
+
+            out = ArrayDataset(tree_map(zero_pad_rows, out.data), out.num_examples)
         return out
 
 
 # ------------------------------------------------------------------ estimators
 
 
-def _bound(data: Any) -> _Node:
-    """A node producing ``data`` (a dataset or a lazy pipeline result)."""
-    if isinstance(data, PipelineDataset):
-        return data.node
-    return _Node(_Data(as_dataset(data)))
-
-
-class Estimator:
-    """Unsupervised estimator."""
+class Estimator(EstimatorOperator):
+    """Unsupervised estimator (reference: workflow/Estimator.scala:10-62)."""
 
     def fit(self, data: Dataset) -> Transformer:
         raise NotImplementedError
 
-    def fit_datasets(self, datasets: List[Dataset]) -> Transformer:
+    def fit_datasets(self, datasets: List[Dataset]) -> TransformerOperator:
         return self.fit(datasets[0])
 
-    def with_data(self, data: Any) -> "Pipeline":
-        """Bind training data now; the pipeline applies the (lazily) fit
-        transformer to its input."""
-        fit = _Node(_Fit(self), [_bound(data)])
-        source = _Node(_Source())
-        return Pipeline(source, _Node(_Delegate(), [fit, source]))
+    def with_data(self, data: Union[Dataset, PipelineDataset, Any]) -> "Pipeline":
+        """Bind training data now; returns a pipeline applying the (lazily)
+        fit transformer to its input (reference: Estimator.scala:29-46)."""
+        graph = Graph()
+        graph, data_dep = _attach_data(graph, data)
+        graph, est_node = graph.add_node(self, [data_dep])
+        graph, source = graph.add_source()
+        graph, delegating = graph.add_node(DelegatingOperator(), [est_node, source])
+        graph, sink = graph.add_sink(delegating)
+        return Pipeline(graph, source, sink)
 
 
-class LabelEstimator:
-    """Supervised estimator."""
+class LabelEstimator(EstimatorOperator):
+    """Supervised estimator (reference: workflow/LabelEstimator.scala:13-100)."""
 
     def fit(self, data: Dataset, labels: Dataset) -> Transformer:
         raise NotImplementedError
 
-    def fit_datasets(self, datasets: List[Dataset]) -> Transformer:
+    def fit_datasets(self, datasets: List[Dataset]) -> TransformerOperator:
         return self.fit(datasets[0], datasets[1])
 
-    def with_data(self, data: Any, labels: Any) -> "Pipeline":
-        fit = _Node(_Fit(self), [_bound(data), _bound(labels)])
-        source = _Node(_Source())
-        return Pipeline(source, _Node(_Delegate(), [fit, source]))
+    def with_data(
+        self,
+        data: Union[Dataset, PipelineDataset, Any],
+        labels: Union[Dataset, PipelineDataset, Any],
+    ) -> "Pipeline":
+        graph = Graph()
+        graph, data_dep = _attach_data(graph, data)
+        graph, labels_dep = _attach_data(graph, labels)
+        graph, est_node = graph.add_node(self, [data_dep, labels_dep])
+        graph, source = graph.add_source()
+        graph, delegating = graph.add_node(DelegatingOperator(), [est_node, source])
+        graph, sink = graph.add_sink(delegating)
+        return Pipeline(graph, source, sink)
+
+
+def _attach_data(graph: Graph, data: Any):
+    """Attach a dataset (or lazy pipeline result graph) to ``graph``."""
+    if isinstance(data, PipelineDataset):
+        combined, _, sink_map = graph.add_graph(data.graph)
+        inner_sink = sink_map[data._sink]
+        dep = combined.get_sink_dependency(inner_sink)
+        return combined.remove_sink(inner_sink), dep
+    dataset = as_dataset(data)
+    graph, node = graph.add_node(DatasetOperator(dataset), [])
+    return graph, node
 
 
 # -------------------------------------------------------------------- pipeline
 
 
-def _is_dataset_like(data: Any) -> bool:
-    return isinstance(data, (Dataset, list, tuple, np.ndarray, torch.Tensor))
-
-
 class Pipeline(Chainable):
     """A single-input single-output dataflow with fit-on-demand semantics."""
 
-    def __init__(self, source: _Node, sink: _Node):
+    def __init__(self, graph: Graph, source: SourceId, sink: SinkId):
+        self.graph = graph
         self.source = source
         self.sink = sink
 
     def to_pipeline(self) -> "Pipeline":
         return self
 
+    # ------------------------------------------------------------------ apply
     def apply(self, data: Any) -> PipelineResult:
         if isinstance(data, PipelineDataset):
-            return PipelineDataset(_substitute(self.sink, {id(self.source): data.node}))
-        if _is_dataset_like(data):
-            bound = _Node(_Data(as_dataset(data)))
-            return PipelineDataset(_substitute(self.sink, {id(self.source): bound}))
-        bound = _Node(_Data(data))
-        return PipelineDatum(_substitute(self.sink, {id(self.source): bound}))
+            combined, source_map, sink_map = data.graph.add_graph(self.graph)
+            new_source = source_map[self.source]
+            inner_dep = combined.get_sink_dependency(data._sink)
+            combined = combined.remove_sink(data._sink)
+            combined = combined.replace_dependency(new_source, inner_dep)
+            combined = combined.remove_source(new_source)
+            sink = sink_map[self.sink]
+            return PipelineDataset(GraphExecutor(combined), sink, combined)
+        if isinstance(data, (Dataset, list, tuple, np.ndarray, torch.Tensor)):
+            dataset = as_dataset(data)
+            graph, node = self.graph.add_node(DatasetOperator(dataset), [])
+            graph = graph.replace_dependency(self.source, node)
+            graph = graph.remove_source(self.source)
+            return PipelineDataset(GraphExecutor(graph), self.sink, graph)
+        # single datum
+        graph, node = self.graph.add_node(DatumOperator(data), [])
+        graph = graph.replace_dependency(self.source, node)
+        graph = graph.remove_source(self.source)
+        return PipelineDatum(GraphExecutor(graph), self.sink, graph)
 
     def __call__(self, data: Any) -> PipelineResult:
         return self.apply(data)
 
+    # -------------------------------------------------------------------- fit
     def fit(self) -> "FittedPipeline":
-        """Fit every bound estimator and return a transformer-only
-        pipeline: each delegating node becomes its fit transformer."""
-        memo: Dict[int, _Node] = {}
+        """Execute all estimator fits and return a transformer-only pipeline
+        (reference: Pipeline.scala:38-65)."""
+        env = PipelineEnv.get_or_create()
+        graph, prefixes = env.optimizer.execute(self.graph)
+        executor = GraphExecutor(graph, optimize=False)
+        executor._prefixes = prefixes
 
-        def splice(node: _Node) -> _Node:
-            key = id(node)
-            if key not in memo:
-                if isinstance(node.op, _Delegate):
-                    fitted = _evaluate(node.deps[0], {})
-                    memo[key] = _Node(fitted, [splice(node.deps[1])])
-                elif node.deps:
-                    memo[key] = _Node(node.op, [splice(d) for d in node.deps])
-                else:
-                    memo[key] = node
-            return memo[key]
+        for node in sorted(graph.nodes):
+            op = graph.operators.get(node)
+            if not isinstance(op, DelegatingOperator):
+                continue
+            deps = graph.get_dependencies(node)
+            transformer_dep, data_deps = deps[0], deps[1:]
+            fit_transformer = executor.execute(transformer_dep).get()
+            if not isinstance(fit_transformer, TransformerOperator):
+                raise TypeError(
+                    f"delegating node {node} resolved to {type(fit_transformer).__name__}"
+                )
+            graph = graph.set_operator(node, fit_transformer)
+            graph = graph.set_dependencies(node, data_deps)
+            # keep executor and graph views consistent for later delegating nodes
+            executor._optimized = graph
+            executor._memo.pop(node, None)
 
-        return FittedPipeline(self.source, splice(self.sink))
+        graph, _ = UnusedBranchRemovalRule().apply(graph, {})
+        return FittedPipeline(graph, self.source, self.sink)
+
+    # ------------------------------------------------------------------ gather
+    @staticmethod
+    def gather(branches: Sequence[Chainable]) -> "Pipeline":
+        """Merge parallel branches into one pipeline emitting, per input,
+        the list of branch outputs (reference: Pipeline.scala:119-154)."""
+        from ..ops.util.gather import GatherTransformer
+
+        graph = Graph()
+        graph, source = graph.add_source()
+        ends: List[NodeOrSourceId] = []
+        for branch in branches:
+            bp = branch.to_pipeline()
+            combined, source_map, sink_map = graph.add_graph(bp.graph)
+            mapped_source = source_map[bp.source]
+            combined = combined.replace_dependency(mapped_source, source)
+            combined = combined.remove_source(mapped_source)
+            mapped_sink = sink_map[bp.sink]
+            ends.append(combined.get_sink_dependency(mapped_sink))
+            graph = combined.remove_sink(mapped_sink)
+        graph, gather_node = graph.add_node(GatherTransformer(), ends)
+        graph, sink = graph.add_sink(gather_node)
+        return Pipeline(graph, source, sink)
+
+    def to_dot(self) -> str:
+        return self.graph.to_dot()
 
 
 # ------------------------------------------------------------- fitted pipeline
 
 
 class FittedPipeline(Transformer):
-    """Transformer-only pipeline: no estimators, no re-fitting."""
+    """Transformer-only pipeline: serializable, no estimators, no re-fitting
+    (reference: workflow/FittedPipeline.scala:22-48)."""
 
-    def __init__(self, source: _Node, sink: _Node):
+    def __init__(self, graph: Graph, source: SourceId, sink: SinkId):
+        self.graph = graph
         self.source = source
         self.sink = sink
+        # The datum-bound graph is built once and reused; only the
+        # DatumOperator's payload is swapped per call, under a lock, so
+        # concurrent calls can't read each other's datum. Safe because
+        # per-datum execution runs with optimize=False: a fresh executor
+        # per call, no cross-call memo, no prefix write-back.
+        self._datum_op: Optional[DatumOperator] = None
+        self._datum_graph: Optional[Graph] = None
+        self._datum_lock = threading.Lock()
 
-    def _run(self, value: Any) -> Any:
-        bound = _Node(_Data(value))
-        return _evaluate(_substitute(self.sink, {id(self.source): bound}), {})
+    def __getstate__(self):
+        # save() must not pickle the last served datum or the lock.
+        state = self.__dict__.copy()
+        state["_datum_op"] = None
+        state["_datum_graph"] = None
+        state["_datum_lock"] = None
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._datum_lock = threading.Lock()
 
     def apply(self, datum: Any) -> Any:
-        return self._run(datum)
+        with self._datum_lock:
+            if self._datum_graph is None:
+                self._datum_op = DatumOperator(datum)
+                graph, node = self.graph.add_node(self._datum_op, [])
+                graph = graph.replace_dependency(self.source, node)
+                self._datum_graph = graph.remove_source(self.source)
+            else:
+                self._datum_op.datum = datum
+            executor = GraphExecutor(self._datum_graph, optimize=False)
+            return executor.execute(self.sink).get()
 
     def apply_batch(self, dataset: Dataset) -> Dataset:
-        return self._run(dataset)
+        graph, node = self.graph.add_node(DatasetOperator(dataset), [])
+        graph = graph.replace_dependency(self.source, node)
+        graph = graph.remove_source(self.source)
+        executor = GraphExecutor(graph, optimize=False)
+        return executor.execute(self.sink).get()
+
+    # ---------------------------------------------------------- serialization
+    def save(self, path: str) -> None:
+        """Write the pipeline with ``torch.save`` (a pickle whose tensor
+        storages ``load`` can place on another device)."""
+        torch.save(self, path)
+
+    @staticmethod
+    def load(path: str, device: DeviceLike = None) -> "FittedPipeline":
+        """Read a pipeline written by :meth:`save`, with every tensor on
+        ``device`` (default CUDA; pass ``device="cpu"`` on a machine
+        without a card). ``weights_only=False`` because the file holds
+        pipeline classes: load only files this program wrote."""
+        out = torch.load(path, map_location=resolve_device(device), weights_only=False)
+        if not isinstance(out, FittedPipeline):
+            raise TypeError(f"{path} does not contain a FittedPipeline")
+        return out
 
 
 __all__ = [
@@ -334,6 +461,7 @@ __all__ = [
     "Chainable",
     "Estimator",
     "FittedPipeline",
+    "Identity",
     "LabelEstimator",
     "Pipeline",
     "PipelineDataset",

@@ -51,6 +51,22 @@ print(json.dumps({"imported": names, "bad": bad}))
         "keystone_tpu_torch.parallel.linalg",
         "keystone_tpu_torch.ops.learning.block",
         "keystone_tpu_torch.evaluation.multiclass",
+        "keystone_tpu_torch.utils.tree",
+        "keystone_tpu_torch.workflow.graph",
+        "keystone_tpu_torch.workflow.analysis",
+        "keystone_tpu_torch.workflow.prefix",
+        "keystone_tpu_torch.workflow.operators",
+        "keystone_tpu_torch.workflow.tracing",
+        "keystone_tpu_torch.workflow.rules",
+        "keystone_tpu_torch.workflow.optimize",
+        "keystone_tpu_torch.workflow.executor",
+        "keystone_tpu_torch.ops.util.misc",
+        "keystone_tpu_torch.ops.util.gather",
+        "keystone_tpu_torch.ops.stats.core",
+        "keystone_tpu_torch.data.loaders.csv",
+        "keystone_tpu_torch.pipelines.mnist_random_fft",
+        "keystone_tpu_torch.cli",
+        "keystone_tpu_torch.__main__",
     }
     assert expected <= set(result["imported"])
 
@@ -81,6 +97,23 @@ def test_entry_points_without_device_raise_when_no_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         BlockLeastSquaresEstimator(2).fit(x, y)
     assert resolve_device("cpu") == torch.device("cpu")
+
+    from keystone_tpu_torch.ops.stats.core import RandomSignNode
+    from keystone_tpu_torch.pipelines.mnist_random_fft import (
+        MnistRandomFFTConfig,
+        run,
+        synthetic_mnist,
+    )
+    from keystone_tpu_torch.workflow.pipeline import FittedPipeline
+
+    for entry_point in (
+        lambda: synthetic_mnist(4),
+        lambda: RandomSignNode.create(4),
+        lambda: run(MnistRandomFFTConfig(num_ffts=1)),
+        lambda: FittedPipeline.load("unused.pt"),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry_point()
 
 
 class _CudaLooking(torch.Tensor):

@@ -32,6 +32,7 @@ from keystone_tpu_torch.ops.nlp import text as ttext
 from keystone_tpu_torch.ops.util.labels import ClassLabelIndicators, MaxClassifier
 from keystone_tpu_torch.ops.util.vectors import Densify
 from keystone_tpu_torch.parallel import linalg as tlinalg
+from keystone_tpu_torch.workflow.executor import PipelineEnv
 
 TOL = 1e-5
 SOLVE_TOL = 1e-4
@@ -62,6 +63,13 @@ def _featurizer(mod):
     return mod.Trim().to_pipeline().then(mod.LowerCase()).then(mod.Tokenizer()).then(
         mod.HashingTF(D)
     )
+
+
+@pytest.fixture(autouse=True)
+def _reset_port_pipeline_env():
+    PipelineEnv.reset()
+    yield
+    PipelineEnv.reset()
 
 
 @pytest.fixture

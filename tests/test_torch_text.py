@@ -8,6 +8,14 @@ from keystone_tpu.data.dataset import ObjectDataset as JObjectDataset
 from keystone_tpu.ops.nlp import text as jtext
 from keystone_tpu_torch.data.dataset import ObjectDataset
 from keystone_tpu_torch.ops.nlp import text as ttext
+from keystone_tpu_torch.workflow.executor import PipelineEnv
+
+
+@pytest.fixture(autouse=True)
+def _reset_port_pipeline_env():
+    PipelineEnv.reset()
+    yield
+    PipelineEnv.reset()
 
 
 def _docs(seed, n=40):
