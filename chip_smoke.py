@@ -38,10 +38,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    nodes executed and peak memory; errors within 0.002 of the JAX
    package's, scores within 1e-4 of a float64 run on the card,
    save → load → apply bitwise equal, featurization and fit once each;
-6. mnist_small_cpu — 1,024 rows, 2 FFTs, block 512 on the card and on
+6. serve_mnist — phase 5's fitted pipeline saved, loaded through
+   ``ModelRegistry.load_fitted`` and served by ``PipelineServer``
+   (max_batch 64, max_wait 2 ms, queue 1,024) after warming every
+   bucket: 256 requests one after another (the single-request floor),
+   then 8 client threads sending 512 test rows each with at most 64 in
+   flight (offered load), then the same load again while the same
+   artifact is published as version 2 once half of it is answered (hot
+   swap), and the same load on a one-node model (``MaxClassifier`` over
+   the raw rows: the server's own cost). Every served label must equal
+   ``apply_batch`` on the same rows; sheds, timeouts, failures, retries
+   and ``cufft_plans_since_warmup`` must be 0, and no request may be
+   dropped. Then ``python -m keystone_tpu_torch serve --model PATH
+   --max-batch 16 --queue-depth 256`` in a subprocess answers 256 JSON
+   lines with the same labels (the queue holds every line, so the stdin
+   reader outrunning the server sheds nothing);
+7. mnist_small_cpu — 1,024 rows, 2 FFTs, block 512 on the card and on
    the CPU: scores within 1e-4, predictions equal.
 
-Phases 4–6 reach no ELL kernel: each sets its count to 0 and fails if it
+Phases 4–7 reach no ELL kernel: each sets its count to 0 and fails if it
 moved. Every phase starts from a reset ``PipelineEnv`` and reports its
 peak device memory.
 
@@ -670,10 +685,11 @@ def fp64_mnist_scores(cfg, train, test, device, block):
     return (xt - mu_a) @ w + mu_b
 
 
-def phase_mnist_full(device) -> int:
+def phase_mnist_full(device):
     """The slice at full width: MNIST's 60,000 / 10,000 rows, 4 FFTs,
     d = 2,048, k = 10, block 2,048, one epoch, through ``build_pipeline``
-    and ``Pipeline.fit()``."""
+    and ``Pipeline.fit()``. Returns the fitted pipeline and the test set
+    for ``phase_serve_mnist``."""
     import statistics
     import tempfile
     from collections import Counter, defaultdict
@@ -767,6 +783,253 @@ def phase_mnist_full(device) -> int:
         **errors, "fp32_vs_fp64_scores_rel": fp64_rel, **_mnist_end("mnist_full"),
     }
     log("mnist_full", **result)
+    return fitted, test
+
+
+SERVE_FLOOR_REQUESTS, SERVE_CLIENTS, SERVE_ROWS_PER_CLIENT, SERVE_WINDOW = 256, 8, 512, 64
+SERVE_CLI_REQUESTS = 256
+
+
+def _served_labels(futures, timeout=60.0):
+    return np.array([int(np.asarray(f.result(timeout=timeout))) for f in futures])
+
+
+def _check_labels(phase, got, want, scores):
+    """Served labels against ``apply_batch``'s; a mismatch prints the
+    top-two score margin of its row, then raises."""
+    bad = np.nonzero(got != want)[0]
+    if len(bad):
+        top2 = np.sort(scores[bad], axis=1)[:, -2:]
+        log(f"{phase}_mismatches", rows=bad.tolist(), served=got[bad].tolist(),
+            apply_batch=want[bad].tolist(), top2_margin=(top2[:, 1] - top2[:, 0]).tolist())
+        raise AssertionError(f"{phase}: {len(bad)} served labels differ from apply_batch")
+
+
+def _offered_load(server, rows, on_half=None, model=None):
+    """``SERVE_CLIENTS`` threads, each submitting its ``SERVE_ROWS_PER_CLIENT``
+    rows with at most ``SERVE_WINDOW`` in flight. Returns the served
+    labels in row order, the per-request latencies (submit to result),
+    the wall seconds and the interpreter's garbage-collection pauses in
+    the run; ``on_half`` runs once half the requests are done."""
+    import gc
+    import threading
+
+    n = SERVE_CLIENTS * SERVE_ROWS_PER_CLIENT
+    futures = [None] * n
+    latency = np.zeros(n)
+    done = {"n": 0}
+    lock = threading.Lock()
+    half = threading.Event()
+    errors = []
+
+    def client(k):
+        window = threading.Semaphore(SERVE_WINDOW)
+        try:
+            for i in range(k * SERVE_ROWS_PER_CLIENT, (k + 1) * SERVE_ROWS_PER_CLIENT):
+                window.acquire()
+                t_sub = time.monotonic()
+                futures[i] = server.submit(rows[i], model=model)
+
+                def finished(_, i=i, t_sub=t_sub):
+                    latency[i] = time.monotonic() - t_sub
+                    window.release()
+                    with lock:
+                        done["n"] += 1
+                        if done["n"] == n // 2:
+                            half.set()
+
+                futures[i].add_done_callback(finished)
+        except Exception as exc:  # surfaced below: a client must not die silently
+            errors.append(exc)
+            half.set()
+
+    gc_started, gc_pauses = [0.0], []
+
+    def on_gc(phase, info):  # collections run one at a time, under the GIL
+        if phase == "start":
+            gc_started[0] = time.perf_counter()
+        else:
+            gc_pauses.append((info["generation"], time.perf_counter() - gc_started[0]))
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(SERVE_CLIENTS)]
+    gc.callbacks.append(on_gc)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    if on_half is not None:
+        half.wait(timeout=120)
+        on_half()
+    for t in threads:
+        t.join(timeout=120)
+    gc.callbacks.remove(on_gc)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"offered-load clients failed: {errors}")
+    labels = _served_labels(futures)
+    wall = time.perf_counter() - t0
+    gc_stats = {
+        "collections": len(gc_pauses),
+        "gen2_collections": sum(1 for g, _ in gc_pauses if g == 2),
+        "max_pause_ms": max((p for _, p in gc_pauses), default=0.0) * 1e3,
+        "total_pause_ms": sum(p for _, p in gc_pauses) * 1e3,
+    }
+    return labels, latency.tolist(), wall, gc_stats
+
+
+def _batch_breakdown(entry, rows, device, reps=20):
+    """Median seconds of one full 64-row batch's steps, each ended by a
+    synchronize: the pageable host→device copy, the apply, and the one
+    device→host copy of its labels."""
+    import statistics
+
+    import torch
+
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+
+    steps = {"h2d_s": [], "apply_s": [], "d2h_s": []}
+    batch = np.ascontiguousarray(rows[:64])
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dataset = ArrayDataset(batch, device=device)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = entry.batch_apply(dataset)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out.data.cpu()
+        t3 = time.perf_counter()
+        for name, seconds in (("h2d_s", t1 - t0), ("apply_s", t2 - t1), ("d2h_s", t3 - t2)):
+            steps[name].append(seconds)
+    return {name: statistics.median(v) for name, v in steps.items()}
+
+
+def phase_serve_mnist(device, fitted, test) -> int:
+    """``mnist_full``'s fitted pipeline behind ``PipelineServer``: warm
+    every bucket, the single-request floor, offered load from 8 clients
+    with a hot swap in the middle, label parity with ``apply_batch``,
+    then the ``serve`` CLI over stdin/JSON."""
+    import tempfile
+
+    import torch
+
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.obs.metrics import percentile
+    from keystone_tpu_torch.pipelines.mnist_random_fft import MnistRandomFFTConfig
+    from keystone_tpu_torch.ops.util.labels import MaxClassifier
+    from keystone_tpu_torch.serving import ModelRegistry, PipelineServer, ServingConfig
+    from keystone_tpu_torch.workflow.pipeline import FittedPipeline
+
+    _mnist_start()
+    rows = test.data.data.cpu().numpy()  # clients send host rows
+    n_load = SERVE_CLIENTS * SERVE_ROWS_PER_CLIENT
+    # Reference labels and scores first: their shapes' cuFFT plans then
+    # predate the server's warmup baseline.
+    want = fitted.apply_batch(ArrayDataset(rows, device=device)).data.cpu().numpy()
+    scores = mnist_test_scores(MnistRandomFFTConfig(), fitted, test, device).cpu().numpy()
+    config = ServingConfig(max_batch=64, max_wait_ms=2.0, queue_depth=1024)
+    result = {"max_batch": config.max_batch, "max_wait_ms": config.max_wait_ms,
+              "queue_depth": config.queue_depth}
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        path = os.path.join(tmp, "mnist_fitted.pt")
+        fitted.save(path)
+        registry = ModelRegistry()
+        registry.load_fitted("mnist", path, device=device)
+        server = PipelineServer(config=config, registry=registry, name="mnist", device=device)
+        server.start()
+        try:
+            t0 = time.perf_counter()
+            result["warmup_bucket_s"] = server.warmup(rows[0])["mnist"]
+            result["warmup_s"] = time.perf_counter() - t0
+
+            floor_latency, floor_futures = [], []
+            for i in range(SERVE_FLOOR_REQUESTS):
+                t_sub = time.monotonic()
+                floor_futures.append(server.submit(rows[i]))
+                floor_futures[-1].result(timeout=30)
+                floor_latency.append(time.monotonic() - t_sub)
+            _check_labels("serve_mnist floor", _served_labels(floor_futures),
+                          want[:SERVE_FLOOR_REQUESTS], scores)
+            result["floor"] = {
+                "requests": SERVE_FLOOR_REQUESTS,
+                "p50_ms": percentile(floor_latency, 50) * 1e3,
+                "p99_ms": percentile(floor_latency, 99) * 1e3,
+            }
+
+            def swap():
+                t_swap = time.perf_counter()
+                registry.load_fitted("mnist", path, device=device)
+                result["hot_swap_publish_s"] = time.perf_counter() - t_swap
+
+            # Steady offered load, then the same load with a hot swap of
+            # version 2 once half of it is answered.
+            # The server's own cost at the same load: a one-node model
+            # (MaxClassifier over the raw rows) behind the same server.
+            null = MaxClassifier().to_pipeline()
+            registry.publish("null", FittedPipeline(null.graph, null.source, null.sink))
+            server.warmup(rows[0], models=["null"])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for run, on_half, model, run_want in (
+                ("load", None, None, want),
+                ("load_hot_swap", swap, None, want),
+                ("load_null_model", None, "null", rows.argmax(axis=1)),
+            ):
+                before = server.stats()
+                labels, latency, wall, gc_stats = _offered_load(server, rows, on_half=on_half, model=model)
+                after = server.stats()  # before any work at a new shape
+                _check_labels(f"serve_mnist {run}", labels, run_want[:n_load], scores)
+                delta = {k: after[k] - before[k] for k in
+                         ("served", "batches", "sheds", "timeouts", "failures", "retries")}
+                result[run] = {
+                    "clients": SERVE_CLIENTS, "requests": n_load, "window_per_client": SERVE_WINDOW,
+                    "wall_s": wall, "requests_per_s": n_load / wall,
+                    "p50_ms": percentile(latency, 50) * 1e3,
+                    "p95_ms": percentile(latency, 95) * 1e3,
+                    "p99_ms": percentile(latency, 99) * 1e3,
+                    "max_ms": max(latency) * 1e3,
+                    "mean_batch_occupancy": delta["served"] / delta["batches"] / config.max_batch,
+                    **delta,
+                    "cufft_plans_since_warmup": after["cufft_plans_since_warmup"],
+                    "label_mismatches": 0,
+                    "gc": gc_stats,
+                }
+                if delta["served"] != n_load or any(delta[k] for k in ("sheds", "timeouts", "failures", "retries")):
+                    raise AssertionError(f"serve_mnist {run} dropped or failed requests: {delta}")
+                if after["cufft_plans_since_warmup"] != 0:
+                    raise AssertionError(f"serving built {after['cufft_plans_since_warmup']} cuFFT plans after warmup")
+            torch.cuda.synchronize()
+            result["load_peak_device_bytes"] = torch.cuda.max_memory_allocated()
+            result["models"] = after["models"]
+            if after["models"]["mnist"]["current"] != 2 or registry.swaps != 1:
+                raise AssertionError(f"the hot swap did not land: {after['models']}")
+            result["batch_breakdown_64"] = _batch_breakdown(registry.resolve("mnist"), rows, device)
+        finally:
+            server.stop()
+
+        lines = "".join(
+            json.dumps({"id": i, "x": rows[i].tolist()}) + "\n" for i in range(SERVE_CLI_REQUESTS)
+        )
+        cmd = [sys.executable, "-m", "keystone_tpu_torch", "serve", "--model", path,
+               "--max-batch", "16", "--queue-depth", str(SERVE_CLI_REQUESTS)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, input=lines, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"serve CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    out = proc.stdout.strip().splitlines()
+    stats = json.loads(out[-1][len("SERVE_STATS:"):]) if out[-1].startswith("SERVE_STATS:") else None
+    responses = {r["id"]: r for r in map(json.loads, out[:-1])}
+    if stats is None or sorted(responses) != list(range(SERVE_CLI_REQUESTS)) or len(out) != SERVE_CLI_REQUESTS + 1:
+        raise AssertionError(f"serve CLI printed {len(out)} lines: {proc.stdout[-500:]}")
+    if any("error" in r or "latency_ms" not in r for r in responses.values()):
+        raise AssertionError(f"serve CLI answered with errors: {proc.stdout[-500:]}")
+    cli_labels = np.array([responses[i]["y"] for i in range(SERVE_CLI_REQUESTS)])
+    _check_labels("serve_mnist CLI", cli_labels, want[:SERVE_CLI_REQUESTS], scores)
+    if stats["sheds"] != 0 or stats["served"] != SERVE_CLI_REQUESTS or stats.get("cufft_plans_since_warmup") != 0:
+        raise AssertionError(f"serve CLI stats: {stats}")
+    result["cli"] = {"seconds": time.perf_counter() - t0, "requests": SERVE_CLI_REQUESTS,
+                     "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+                     "sheds": stats["sheds"], "cufft_plans_since_warmup": stats["cufft_plans_since_warmup"]}
+    log("serve_mnist", **result, **_mnist_end("serve_mnist"))
     return 0
 
 
@@ -823,12 +1086,13 @@ def main() -> int:
     phase_build()
     kernel = phase_kernels(device)
     kernel["launches"] = phase_slice(device)
-    kernel["launches_by_path"] = {
-        "hashing_tf": kernel["launches"],
-        "mnist_default": phase_mnist_default(device),
-        "mnist_full": phase_mnist_full(device),
-        "mnist_small_cpu": phase_mnist_small_cpu(device),
-    }
+    launches_by_path = {"hashing_tf": kernel["launches"], "mnist_default": phase_mnist_default(device)}
+    fitted, test = phase_mnist_full(device)
+    launches_by_path["mnist_full"] = 0  # phase_mnist_full raises otherwise
+    launches_by_path["serve_mnist"] = phase_serve_mnist(device, fitted, test)
+    del fitted, test
+    launches_by_path["mnist_small_cpu"] = phase_mnist_small_cpu(device)
+    kernel["launches_by_path"] = launches_by_path
     smi = card_name_and_limit()
     log("done", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": [kernel]}))

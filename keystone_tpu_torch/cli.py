@@ -5,9 +5,12 @@ subcommand per workload, generated from the workload's config dataclass
 (field names become ``--flags``, field types parsers, defaults defaults),
 plus ``--device`` (default: the CUDA device; ``--device cpu`` runs on the
 CPU). It prints one JSON line ``{"workload": ..., <scalar results>}``.
+The ``serve`` subcommand answers JSON request lines on stdin with a fitted
+pipeline (``serving/server.py``).
 
 Usage:
     python -m keystone_tpu_torch <workload> [--flag value ...] [--device cpu]
+    python -m keystone_tpu_torch serve (--model PATH | --synthetic D) [--device cpu]
     python -m keystone_tpu_torch --list
 
 Left out for now: every other subcommand and workload of the JAX package.
@@ -95,6 +98,11 @@ def main(argv: Optional[list] = None) -> int:
         if name == selected:
             resolved[name] = _resolve(name)
             add_config_arguments(sp, resolved[name][0])
+    serve = sub.add_parser("serve", help="serve a fitted pipeline over stdin/JSON lines")
+    if selected is None and "serve" in argv:
+        from .serving.server import add_serve_arguments
+
+        add_serve_arguments(serve)
 
     args = parser.parse_args(argv)
     logging.basicConfig(
@@ -104,6 +112,10 @@ def main(argv: Optional[list] = None) -> int:
         for name, entry in sorted(WORKLOADS.items()):
             print(f"{name:28s} {entry[-1]}")
         return 0
+    if args.workload == "serve":
+        from .serving.server import serve_from_args
+
+        return serve_from_args(args)
 
     config_cls, run_fn = resolved[args.workload]
     results = run_fn(build_config(config_cls, args), device=args.device)

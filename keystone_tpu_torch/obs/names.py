@@ -1,0 +1,66 @@
+"""The stable metric-name registry.
+
+A copy of the ``keystone_serving_*`` and ``keystone_reliability_*``
+series of ``keystone_tpu/obs/names.py`` — the series the port's
+modules publish. Names, kinds, help texts and labels are the JAX
+package's, so dashboards read both packages alike; the other families
+arrive with the modules that publish them.
+
+The serving telemetry registers its series under these names; the
+recovery ledger's counter comes from :func:`metric`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+from .metrics import DEFAULT_BUCKETS, RATIO_BUCKETS, MetricsRegistry, get_registry
+
+# ----------------------------------------------------------------- reliability
+RELIABILITY_EVENTS = "keystone_reliability_events_total"
+
+# --------------------------------------------------------------------- serving
+SERVING_REQUESTS = "keystone_serving_requests_total"
+SERVING_BATCHES = "keystone_serving_batches_total"
+SERVING_SHEDS = "keystone_serving_sheds_total"
+SERVING_TIMEOUTS = "keystone_serving_timeouts_total"
+SERVING_RETRIES = "keystone_serving_retries_total"
+SERVING_FAILURES = "keystone_serving_failures_total"
+SERVING_BUCKET_HITS = "keystone_serving_bucket_hits_total"
+SERVING_BUCKET_COMPILES = "keystone_serving_bucket_compiles_total"
+SERVING_LATENCY_SECONDS = "keystone_serving_latency_seconds"
+SERVING_QUEUE_WAIT_SECONDS = "keystone_serving_queue_wait_seconds"
+SERVING_BATCH_OCCUPANCY = "keystone_serving_batch_occupancy"
+
+
+# name → (kind, help, label names). Histograms may carry a 4th element
+# naming a bucket preset ("ratio" → RATIO_BUCKETS).
+SCHEMA: Dict[str, Tuple] = {
+    RELIABILITY_EVENTS: ("counter", "Recovery-ledger events", ("kind",)),
+    SERVING_REQUESTS: ("counter", "Requests served to completion", ("model",)),
+    SERVING_BATCHES: ("counter", "Micro-batches dispatched", ("model",)),
+    SERVING_SHEDS: ("counter", "Requests shed by admission control", ("model",)),
+    SERVING_TIMEOUTS: ("counter", "Requests expired before batch assembly", ("model",)),
+    SERVING_RETRIES: ("counter", "Apply-path retry attempts", ("model",)),
+    SERVING_FAILURES: ("counter", "Requests failed by apply errors", ("model",)),
+    SERVING_BUCKET_HITS: ("counter", "Batches padded onto an already-warm bucket", ("model",)),
+    SERVING_BUCKET_COMPILES: ("counter", "First batches at a cold bucket", ("model",)),
+    SERVING_LATENCY_SECONDS: ("histogram", "End-to-end request latency", ("model",)),
+    SERVING_QUEUE_WAIT_SECONDS: ("histogram", "Submit-to-apply queue wait", ("model",)),
+    SERVING_BATCH_OCCUPANCY: ("histogram", "Batch size / max_batch", ("model",), "ratio"),
+}
+
+
+def metric(name: str, registry: MetricsRegistry = None):
+    """Get-or-create a schema metric by name — kind, help text, label
+    names, and bucket preset all come from :data:`SCHEMA`, so call sites
+    can never drift from the documented registry."""
+    registry = registry or get_registry()
+    spec = SCHEMA[name]
+    kind, help_text, labels = spec[0], spec[1], spec[2]
+    if kind == "counter":
+        return registry.counter(name, help_text, labels)
+    if kind == "gauge":
+        return registry.gauge(name, help_text, labels)
+    buckets = RATIO_BUCKETS if len(spec) > 3 and spec[3] == "ratio" else DEFAULT_BUCKETS
+    return registry.histogram(name, help_text, labels, buckets=buckets)

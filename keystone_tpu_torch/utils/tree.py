@@ -24,6 +24,16 @@ def tree_leaves(tree: Any) -> List[Any]:
     return [tree]
 
 
+def tree_structure(tree: Any) -> Any:
+    """A hashable description of ``tree``'s containers with its leaves
+    left out: two trees with equal structures map leaf for leaf."""
+    if isinstance(tree, dict):
+        return ("dict", tuple((key, tree_structure(tree[key])) for key in sorted(tree)))
+    if isinstance(tree, (tuple, list)):
+        return (type(tree).__name__, tuple(tree_structure(sub) for sub in tree))
+    return "*"
+
+
 def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
     """``fn`` applied leafwise to ``tree`` (and to the matching leaves of
     ``rest``, which must have the same structure); containers keep their

@@ -21,6 +21,7 @@ from __future__ import annotations
 import threading
 from typing import Dict, Optional
 
+from ..reliability.recovery import reset_recovery_log
 from .graph import Graph, GraphId, NodeId, SinkId, SourceId
 from .operators import Expression
 from .prefix import Prefix
@@ -48,9 +49,11 @@ class PipelineEnv:
     @classmethod
     def reset(cls) -> None:
         """Drop all global state — required between tests
-        (reference: test fixture PipelineContext.scala:9-25)."""
+        (reference: test fixture PipelineContext.scala:9-25). Clears the
+        recovery ledger too: it is per-run state like the prefix table."""
         with cls._lock:
             cls._instance = None
+        reset_recovery_log()
 
     @property
     def optimizer(self):

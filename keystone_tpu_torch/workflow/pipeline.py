@@ -18,9 +18,14 @@ workflow/Pipeline.scala:22-155, workflow/FittedPipeline.scala:22-48).
   transformers in place, prunes fit-time-only branches, and returns a
   ``FittedPipeline`` holding only transformers, which ``save``/``load``
   round-trip.
+- ``FittedPipeline.compiled_apply()`` is the serving loop's batch handle
+  (``CompiledApply``): the graph bound once, only the dataset swapped
+  per call.
 
-Left out for now: the plan-time verifier in ``fit``,
-``FittedPipeline.fused()`` (no fusion pass yet) and ``CompiledApply``.
+Left out for now: the plan-time verifier in ``fit``, the fusion pass
+behind ``FittedPipeline.fused()`` (which returns the pipeline itself, as
+the JAX package does with fusion off), and ``CompiledApply.partition``
+(multi-device serving).
 """
 
 from __future__ import annotations
@@ -406,18 +411,23 @@ class FittedPipeline(Transformer):
         self._datum_op: Optional[DatumOperator] = None
         self._datum_graph: Optional[Graph] = None
         self._datum_lock = threading.Lock()
+        self._compiled: Optional["CompiledApply"] = None
 
     def __getstate__(self):
-        # save() must not pickle the last served datum or the lock.
+        # save() must not pickle the last served datum, the lock, or the
+        # serving handle's bound graph and payload.
         state = self.__dict__.copy()
         state["_datum_op"] = None
         state["_datum_graph"] = None
         state["_datum_lock"] = None
+        state["_compiled"] = None
         return state
 
     def __setstate__(self, state):
         self.__dict__.update(state)
         self._datum_lock = threading.Lock()
+        # Artifacts saved before the serving layer existed lack the slot.
+        self._compiled = None
 
     def apply(self, datum: Any) -> Any:
         with self._datum_lock:
@@ -438,6 +448,21 @@ class FittedPipeline(Transformer):
         executor = GraphExecutor(graph, optimize=False)
         return executor.execute(self.sink).get()
 
+    def fused(self) -> "FittedPipeline":
+        """This pipeline with transformer chains fused. The port has no
+        fusion pass yet, so it returns ``self`` — what the JAX package
+        returns with fusion off."""
+        return self
+
+    def compiled_apply(self) -> "CompiledApply":
+        """The serving-loop batch handle: graph bound once, only the
+        dataset payload swapped per call (the batch analog of the datum
+        path above). Cached on the pipeline — all servers applying this
+        fitted pipeline share one handle."""
+        if self._compiled is None:
+            self._compiled = CompiledApply(self)
+        return self._compiled
+
     # ---------------------------------------------------------- serialization
     def save(self, path: str) -> None:
         """Write the pipeline with ``torch.save`` (a pickle whose tensor
@@ -456,9 +481,50 @@ class FittedPipeline(Transformer):
         return out
 
 
+class CompiledApply:
+    """Reusable batch-apply handle over a :class:`FittedPipeline`.
+
+    ``apply_batch`` rebuilds the dataset-bound graph on every call; a
+    serving loop calls apply thousands of times per second, so this
+    handle binds the graph ONCE and swaps only the ``DatasetOperator``
+    payload per call, under a lock (same contract as the datum path:
+    per-call execution runs optimize=False with a fresh executor, so no
+    cross-call memo or prefix write-back sees the mutation).
+
+    Shape discipline is the caller's job: feeding batches whose padded
+    physical shapes cycle through a small bucket set keeps the per-shape
+    device state underneath (cuFFT plans on the card) to that set — see
+    serving/batcher.py and utils/aot.warm_buckets.
+    """
+
+    def __init__(self, fitted: FittedPipeline):
+        self._fitted = fitted
+        self._op: Optional[DatasetOperator] = None
+        self._graph: Optional[Graph] = None
+        self._lock = threading.Lock()
+        self.calls = 0
+
+    def __call__(self, dataset: Union[Dataset, Any]) -> Dataset:
+        if not isinstance(dataset, Dataset):
+            dataset = as_dataset(dataset)
+        fitted = self._fitted
+        with self._lock:
+            if self._graph is None:
+                self._op = DatasetOperator(dataset)
+                graph, node = fitted.graph.add_node(self._op, [])
+                graph = graph.replace_dependency(fitted.source, node)
+                self._graph = graph.remove_source(fitted.source)
+            else:
+                self._op.dataset = dataset
+            self.calls += 1
+            executor = GraphExecutor(self._graph, optimize=False)
+            return executor.execute(fitted.sink).get()
+
+
 __all__ = [
     "BatchTransformer",
     "Chainable",
+    "CompiledApply",
     "Estimator",
     "FittedPipeline",
     "Identity",

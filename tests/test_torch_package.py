@@ -67,6 +67,25 @@ print(json.dumps({"imported": names, "bad": bad}))
         "keystone_tpu_torch.pipelines.mnist_random_fft",
         "keystone_tpu_torch.cli",
         "keystone_tpu_torch.__main__",
+        "keystone_tpu_torch.reliability",
+        "keystone_tpu_torch.reliability.errors",
+        "keystone_tpu_torch.reliability.recovery",
+        "keystone_tpu_torch.reliability.retry",
+        "keystone_tpu_torch.reliability.degrade",
+        "keystone_tpu_torch.reliability.faultinject",
+        "keystone_tpu_torch.obs",
+        "keystone_tpu_torch.obs.metrics",
+        "keystone_tpu_torch.obs.names",
+        "keystone_tpu_torch.obs.spans",
+        "keystone_tpu_torch.utils.aot",
+        "keystone_tpu_torch.serving",
+        "keystone_tpu_torch.serving.config",
+        "keystone_tpu_torch.serving.batcher",
+        "keystone_tpu_torch.serving.admission",
+        "keystone_tpu_torch.serving.telemetry",
+        "keystone_tpu_torch.serving.registry",
+        "keystone_tpu_torch.serving.synthetic",
+        "keystone_tpu_torch.serving.server",
     }
     assert expected <= set(result["imported"])
 
