@@ -27,36 +27,54 @@ Phases, in order; any failure raises and the script exits non-zero:
    two launches, finish + BCD);
 4. mnist_default — ``run(MnistRandomFFTConfig())`` (8,192 / 2,048
    synthetic rows, 4 FFTs, block 2,048) through the port's entry point,
-   train and test errors within 0.002 of the JAX package's; then
-   ``python -m keystone_tpu_torch mnist-random-fft --num-ffts 4
-   --block-size 2048`` in a subprocess must exit 0 with its JSON line;
+   train and test errors within 0.002 of the JAX package's, on the fused
+   plan (one ``Fused[RandomSignNode+PaddedFFT+LinearRectifier]`` node per
+   branch, no ``StreamFit``); then ``python -m keystone_tpu_torch
+   mnist-random-fft --num-ffts 4 --block-size 2048`` in a subprocess must
+   exit 0 with its JSON line;
 5. mnist_full — the same pipeline at MNIST's sizes (60,000 train, 10,000
    test rows, d = 2,048, k = 10) through ``build_pipeline`` and
-   ``Pipeline.fit()``: ``optimize_s``, ``fit_s`` (untraced), ``apply_s``
-   per 10,000 rows (median of 5 after a warm-up), per-node times from a
-   second fit under ``trace()``,
-   nodes executed and peak memory; errors within 0.002 of the JAX
-   package's, scores within 1e-4 of a float64 run on the card,
-   save → load → apply bitwise equal, featurization and fit once each;
-6. serve_mnist — phase 5's fitted pipeline saved, loaded through
-   ``ModelRegistry.load_fitted`` and served by ``PipelineServer``
-   (max_batch 64, max_wait 2 ms, queue 1,024) after warming every
-   bucket: 256 requests one after another (the single-request floor),
-   then 8 client threads sending 512 test rows each with at most 64 in
-   flight (offered load), then the same load again while the same
-   artifact is published as version 2 once half of it is answered (hot
-   swap), and the same load on a one-node model (``MaxClassifier`` over
-   the raw rows: the server's own cost). Every served label must equal
-   ``apply_batch`` on the same rows; sheds, timeouts, failures, retries
-   and ``cufft_plans_since_warmup`` must be 0, and no request may be
-   dropped. Then ``python -m keystone_tpu_torch serve --model PATH
-   --max-batch 16 --queue-depth 256`` in a subprocess answers 256 JSON
-   lines with the same labels (the queue holds every line, so the stdin
-   reader outrunning the server sheds nothing);
+   ``Pipeline.fit()``: the optimized fit graph and the fitted graph must
+   hold the JAX package's fused plan; ``optimize_s``, ``fit_s``
+   (untraced), ``apply_s`` per 10,000 rows (median of 5 after a warm-up),
+   per-node times from a second fit under ``trace()``, nodes executed and
+   the fit's peak memory (beside the unfused plan's 3,960,183,808 B); errors
+   within 0.002 of the JAX package's, scores within 1e-4 of a float64 run
+   on the card, save → load → apply bitwise equal, featurization and fit
+   once each; then one fit under ``fusion_disabled()`` whose test scores
+   must equal the fused fit's to 1e-6 (both peaks printed);
+6. serve_mnist — phase 5's fused fitted pipeline saved, loaded through
+   ``ModelRegistry.load_fitted`` (which re-fuses) and served by
+   ``PipelineServer`` (max_batch 64, max_wait 2 ms, queue 1,024) after
+   warming every bucket: 256 requests one after another (the
+   single-request floor), then 8 client threads sending 512 test rows
+   each with at most 64 in flight (offered load), then the same load
+   again while the same artifact is published as version 2 once half of
+   it is answered (hot swap), and the same load on a one-node model
+   (``MaxClassifier`` over the raw rows: the server's own cost). Every
+   served label must equal ``apply_batch`` on the same rows; sheds,
+   timeouts, failures, retries and ``cufft_plans_since_warmup`` must be
+   0, and no request may be dropped. The fused and unfused batch
+   applications of one 64-row batch are counted. Then ``python -m
+   keystone_tpu_torch serve --model PATH --max-batch 16 --queue-depth
+   256`` in a subprocess answers 256 JSON lines with the same labels;
 7. mnist_small_cpu — 1,024 rows, 2 FFTs, block 512 on the card and on
-   the CPU: scores within 1e-4, predictions equal.
+   the CPU: scores within 1e-4, predictions equal, fused plans;
+8. stream_fit — the JAX package's streaming bench leg at its full size
+   (``bench.py::_bench_streaming``): 131,072 host records of 768 uint8
+   values → ``RandomSignNode`` → ``LinearRectifier`` →
+   ``BlockLeastSquaresEstimator(512, reg=1e-3)`` with 16 targets from a
+   CPU ``ArrayDataset``, chunks of 16,384 rows, prefetch 4. Fit warm,
+   then timed, streamed and under ``streaming_disabled()``: one
+   ``StreamFit`` node over [RandomSignNode, LinearRectifier], no
+   fallback, 8 chunks, 109,576,192 bytes uploaded, host buffers ≤ 5
+   chunks, no new chunk shape after the first chunk, host-clock and
+   CUDA-event overlap, streamed predictions within 1e-5 of the
+   materialized ones (both printed against a float64 fit), and both fits'
+   wall time and peak device memory; then the same fit from a
+   CUDA-resident dataset, which must upload nothing.
 
-Phases 4–7 reach no ELL kernel: each sets its count to 0 and fails if it
+Phases 4–8 reach no ELL kernel: each sets its count to 0 and fails if it
 moved. Every phase starts from a reset ``PipelineEnv`` and reports its
 peak device memory.
 
@@ -94,6 +112,39 @@ MNIST_DEFAULT_JAX = {"train_error": 0.117431640625, "test_error": 0.60986328125}
 MNIST_FULL_JAX = {"train_error": 0.2911833, "test_error": 0.4028}
 MNIST_ERROR_TOL = 0.002
 MNIST_TRAIN_ROWS, MNIST_TEST_ROWS = 60000, 10000
+# The JAX package's plans for this pipeline, operator labels sorted, as
+#   p = build_pipeline(MnistRandomFFTConfig(num_ffts=F), synthetic_mnist(N))
+#   sorted(op.label for op in PipelineEnv.get_or_create().optimizer.execute(p.graph)[0].operators.values())
+#   sorted(op.label for op in p.fit().graph.operators.values())
+# print them on the CPU (F = 4, N = 8,192 and F = 2, N = 1,024): a fused
+# sign → FFT → ReLU node per branch on each side of the fit, no StreamFit.
+FUSED_BRANCH = "Fused[RandomSignNode+PaddedFFT+LinearRectifier]"
+
+
+def jax_fit_plan(num_ffts: int, rows: int) -> list:
+    return sorted(
+        ["BlockLeastSquaresEstimator", "ClassLabelIndicators", f"Dataset[n={rows}]",
+         f"Dataset[n={rows}]", "DelegatingOperator", "Gather", "Gather", "MaxClassifier",
+         "VectorCombiner", "VectorCombiner"] + [FUSED_BRANCH] * (2 * num_ffts)
+    )
+
+
+def jax_fitted_plan(num_ffts: int) -> list:
+    return sorted(
+        ["Fused[BlockLinearMapper+MaxClassifier]", "Gather", "VectorCombiner"]
+        + [FUSED_BRANCH] * num_ffts
+    )
+
+
+# mnist_full's fit peak on an H100 before the port had a fusion pass
+# (PERF.md).
+MNIST_FULL_UNFUSED_PEAK = 3960183808
+FUSION_TOL = 1e-6
+
+# Streaming fit: the JAX package's streaming bench leg, full size
+# (bench.py::_bench_streaming).
+STREAM_ROWS, STREAM_CHUNK, STREAM_D, STREAM_K = 131072, 16384, 768, 16
+STREAM_PREFETCH, STREAM_BLOCK, STREAM_REG, STREAM_TOL = 4, 512, 1e-3, 1e-5
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # NVIDIA H100 SXM data sheet peaks (dense, at 700 W): HBM3 bytes/s and
@@ -590,7 +641,9 @@ def _mapper_of(fitted):
     """The fitted pipeline's ``BlockLinearMapper`` (scores before argmax)."""
     from keystone_tpu_torch.ops.learning.block import BlockLinearMapper
 
-    mappers = [op for op in fitted.graph.operators.values() if isinstance(op, BlockLinearMapper)]
+    ops = fitted.graph.operators.values()
+    members = [m for op in ops for m in getattr(op, "members", (op,))]  # inside fused chains too
+    mappers = [m for m in members if isinstance(m, BlockLinearMapper)]
     if len(mappers) != 1:
         raise AssertionError(f"expected one BlockLinearMapper in the fitted pipeline, found {len(mappers)}")
     return mappers[0]
@@ -627,15 +680,48 @@ def _check_errors(phase: str, got: dict, want: dict) -> None:
             raise AssertionError(f"{phase}: {name} {got[name]} is not within {MNIST_ERROR_TOL} of {ref}")
 
 
+def plan_labels(graph) -> list:
+    return sorted(str(op.label) for op in graph.operators.values())
+
+
+def fusion_dispatches():
+    """(fused, unfused) batch applications counted so far."""
+    from keystone_tpu_torch.obs import names
+
+    counter = names.metric(names.FUSION_BATCH_DISPATCHES)
+    return counter.value(fused="1"), counter.value(fused="0")
+
+
 def phase_mnist_default(device) -> int:
     """``run(MnistRandomFFTConfig())`` on the card, then the CLI in a
     subprocess."""
-    from keystone_tpu_torch.pipelines.mnist_random_fft import MnistRandomFFTConfig, run
+    from keystone_tpu_torch.pipelines.mnist_random_fft import (
+        MnistRandomFFTConfig, build_pipeline, run, synthetic_mnist,
+    )
+    from keystone_tpu_torch.workflow.executor import PipelineEnv
 
     _mnist_start()
     out = run(MnistRandomFFTConfig(), device=device)
+    env = PipelineEnv.get_or_create()
+    nodes_executed = env.nodes_executed
+    # The fitted plan of the pipeline run() evaluated (its fit is reused
+    # from the state table, not run again), and the optimized fit plan of
+    # the same pipeline built again from fresh state.
+    fitted_plan = plan_labels(out["pipeline"].fit().graph)
+    PipelineEnv.reset()
+    cfg = MnistRandomFFTConfig()
+    rebuilt = build_pipeline(cfg, synthetic_mnist(8192, seed=cfg.seed, device=device), device=device)
+    fit_plan = plan_labels(PipelineEnv.get_or_create().optimizer.execute(rebuilt.graph)[0])
+    if fit_plan != jax_fit_plan(4, 8192) or fitted_plan != jax_fitted_plan(4):
+        raise AssertionError(f"mnist_default: plans {fit_plan} / {fitted_plan} are not the JAX package's")
+    # A second run in the same process: what of the first run's seconds
+    # is one-time set-up (library loading, cuFFT plans).
+    PipelineEnv.reset()
+    second_s = run(cfg, device=device)["seconds"]
     result = {"train_error": out["train_error"], "test_error": out["test_error"],
-              "seconds": out["seconds"], **_mnist_end("mnist_default")}
+              "seconds": out["seconds"], "seconds_second_run": second_s,
+              "optimized_fit_plan": fit_plan, "fitted_plan": fitted_plan,
+              "nodes_executed": nodes_executed, **_mnist_end("mnist_default")}
     _check_errors("mnist_default", result, MNIST_DEFAULT_JAX)
     cmd = [sys.executable, "-m", "keystone_tpu_torch", "mnist-random-fft",
            "--num-ffts", "4", "--block-size", "2048"]
@@ -701,6 +787,7 @@ def phase_mnist_full(device):
         NUM_CLASSES, MnistRandomFFTConfig, build_pipeline, synthetic_mnist,
     )
     from keystone_tpu_torch.workflow.executor import PipelineEnv
+    from keystone_tpu_torch.workflow.fusion import fusion_disabled
     from keystone_tpu_torch.workflow.pipeline import FittedPipeline
     from keystone_tpu_torch.workflow.tracing import trace
 
@@ -711,8 +798,11 @@ def phase_mnist_full(device):
     env = PipelineEnv.get_or_create()
     pipeline = build_pipeline(cfg, train, device=device)
     t0 = time.perf_counter()
-    env.optimizer.execute(pipeline.graph)
+    optimized, _ = env.optimizer.execute(pipeline.graph)
     optimize_s = time.perf_counter() - t0
+    fit_plan = plan_labels(optimized)
+    if fit_plan != jax_fit_plan(cfg.num_ffts, MNIST_TRAIN_ROWS):
+        raise AssertionError(f"mnist_full: optimized fit plan {fit_plan} is not the JAX package's")
     PipelineEnv.reset()  # the timed optimize above must not seed the fit's state
     env = PipelineEnv.get_or_create()
 
@@ -733,7 +823,7 @@ def phase_mnist_full(device):
         torch.cuda.synchronize()
         traced_fit_s = time.perf_counter() - t0
     counts = Counter(t.label for t in tr.timings)
-    if counts["PaddedFFT"] != cfg.num_ffts or counts["BlockLeastSquaresEstimator"] != 1:
+    if counts[FUSED_BRANCH] != cfg.num_ffts or counts["BlockLeastSquaresEstimator"] != 1:
         raise AssertionError(f"the fit did not featurize once and fit once: {dict(counts)}")
     node_s = defaultdict(float)
     for t in tr.timings:
@@ -769,19 +859,46 @@ def phase_mnist_full(device):
     if one.device.type != "cuda" or int(one) != int(test_pred[7]):
         raise AssertionError(f"single-datum apply gave {one} on {one.device}, batch {test_pred[7]}")
 
+    fitted_plan = plan_labels(fitted.graph)
+    if fitted_plan != jax_fitted_plan(cfg.num_ffts):
+        raise AssertionError(f"mnist_full: fitted plan {fitted_plan} is not the JAX package's")
     s32 = mnist_test_scores(cfg, fitted, test, device)
     s64 = fp64_mnist_scores(cfg, train, test, device, cfg.block_size)
     fp64_rel = rel_err(s32, s64)
     if not fp64_rel <= SLICE_TOL:
         raise AssertionError(f"fp32 scores are {fp64_rel} from the float64 run")
+    del s64
+
+    # The same fit with fusion off: the same kernels in the same order.
+    PipelineEnv.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with fusion_disabled():
+        t0 = time.perf_counter()
+        unfused = pipeline.fit()
+        torch.cuda.synchronize()
+        unfused_fit_s = time.perf_counter() - t0
+    unfused_nodes = PipelineEnv.get_or_create().nodes_executed
+    unfused_peak = torch.cuda.max_memory_allocated()
+    unfused_rel = rel_err(s32, mnist_test_scores(cfg, unfused, test, device))
+    unfused_pred_equal = torch.equal(unfused.apply_batch(test.data).data, test_pred)
+    if not (unfused_rel <= FUSION_TOL and unfused_pred_equal):
+        raise AssertionError(f"fused and unfused fits differ: scores rel {unfused_rel}")
     result = {
         "rows": [MNIST_TRAIN_ROWS, MNIST_TEST_ROWS], "features": cfg.num_ffts * 512,
+        "optimized_fit_plan": fit_plan, "fitted_plan": fitted_plan,
         "optimize_s": optimize_s, "fit_s": fit_s, "traced_fit_s": traced_fit_s,
         "apply_s_per_10000_rows": statistics.median(apply_times) * 10000 / MNIST_TEST_ROWS,
         "apply_s_runs": apply_times, "node_s": dict(node_s), "node_counts": dict(counts),
         "nodes_executed_in_fit": fit_nodes, "fit_peak_device_bytes": fit_peak,
+        "unfused_fit_peak_device_bytes_before_fusion_pass": MNIST_FULL_UNFUSED_PEAK,
+        "unfused_fit_peak_device_bytes": unfused_peak, "unfused_fit_s": unfused_fit_s,
+        "unfused_nodes_executed_in_fit": unfused_nodes, "unfused_plan": plan_labels(unfused.graph),
+        "fused_vs_unfused_scores_rel": unfused_rel,
+        "fused_vs_unfused_scores_bitwise": bool(unfused_rel == 0.0),
         **errors, "fp32_vs_fp64_scores_rel": fp64_rel, **_mnist_end("mnist_full"),
     }
+    del unfused
     log("mnist_full", **result)
     return fitted, test
 
@@ -1003,6 +1120,18 @@ def phase_serve_mnist(device, fitted, test) -> int:
             if after["models"]["mnist"]["current"] != 2 or registry.swaps != 1:
                 raise AssertionError(f"the hot swap did not land: {after['models']}")
             result["batch_breakdown_64"] = _batch_breakdown(registry.resolve("mnist"), rows, device)
+            # The registry serves the fused plan; count the batch
+            # applications (fused chains and unfused nodes) of one 64-row batch.
+            entry = registry.resolve("mnist")
+            result["served_plan"] = plan_labels(entry.model.graph)
+            if result["served_plan"] != jax_fitted_plan(4):
+                raise AssertionError(f"serve_mnist: the served plan is not fused: {result['served_plan']}")
+            fused0, unfused0 = fusion_dispatches()
+            entry.batch_apply(ArrayDataset(np.ascontiguousarray(rows[:64]), device=device))
+            fused1, unfused1 = fusion_dispatches()
+            result["batch_applications_per_64_rows"] = {
+                "fused": fused1 - fused0, "unfused": unfused1 - unfused0,
+            }
         finally:
             server.stop()
 
@@ -1045,19 +1174,190 @@ def phase_mnist_small_cpu(device) -> int:
 
     cfg = MnistRandomFFTConfig(num_ffts=2, block_size=512, reg=10.0)
     _mnist_start()
-    runs = []
+    runs, nodes = [], []
     for dev in (device, torch.device("cpu")):
         PipelineEnv.reset()
         train = synthetic_mnist(1024, seed=0, device=dev)
         test = synthetic_mnist(256, seed=1, device=dev)
-        fitted = build_pipeline(cfg, train, device=dev).fit()
+        pipeline = build_pipeline(cfg, train, device=dev)
+        fit_plan = plan_labels(PipelineEnv.get_or_create().optimizer.execute(pipeline.graph)[0])
+        PipelineEnv.reset()
+        fitted = pipeline.fit()
+        nodes.append(PipelineEnv.get_or_create().nodes_executed)
+        fitted_plan = plan_labels(fitted.graph)
+        if fit_plan != jax_fit_plan(2, 1024) or fitted_plan != jax_fitted_plan(2):
+            raise AssertionError(f"mnist_small_cpu: plans on {dev} are not the JAX package's: {fit_plan} / {fitted_plan}")
         scores = mnist_test_scores(cfg, fitted, test, dev)
         runs.append((scores.cpu(), fitted.apply_batch(test.data).data.cpu()))
     (card_scores, card_pred), (cpu_scores, cpu_pred) = runs
     rel = rel_err(card_scores, cpu_scores)
     if not rel <= SLICE_TOL or not torch.equal(card_pred, cpu_pred):
         raise AssertionError(f"small MNIST fit on the card differs from the CPU: scores rel {rel}")
-    log("mnist_small_cpu", card_vs_cpu_scores_rel=rel, **_mnist_end("mnist_small_cpu"))
+    log("mnist_small_cpu", card_vs_cpu_scores_rel=rel, optimized_fit_plan=fit_plan, fitted_plan=fitted_plan,
+        nodes_executed_in_fit={"card": nodes[0], "cpu": nodes[1]}, **_mnist_end("mnist_small_cpu"))
+    return 0
+
+
+def stream_problem():
+    """``_bench_streaming``'s data, drawn in its order from seed 17: the
+    uint8 records, their float32 copy and the 16 noisy linear targets."""
+    rng = np.random.default_rng(17)
+    imgs = rng.integers(0, 256, size=(STREAM_ROWS, STREAM_D), dtype=np.uint8)
+    w_true = rng.normal(size=(STREAM_D, STREAM_K)).astype(np.float32)
+    x = imgs.astype(np.float32)
+    y = (x @ w_true + 0.1 * rng.normal(size=(STREAM_ROWS, STREAM_K))).astype(np.float32)
+    return imgs, x, y
+
+
+def fp64_stream_predictions(imgs, y, signs, device):
+    """Predictions on the training rows of the same one-epoch block fit
+    (block 512, λ = 1e-3) run in float64 on the featurized rows."""
+    import torch
+
+    from keystone_tpu_torch.parallel import linalg
+
+    x = torch.from_numpy(imgs).to(device).double()
+    x = torch.clamp_min(x * signs.double(), 0.0)
+    yd = torch.from_numpy(y).to(device).double()
+    mu_a, mu_b = x.mean(dim=0), yd.mean(dim=0)
+    x -= mu_a
+    d_pad = -(-STREAM_D // STREAM_BLOCK) * STREAM_BLOCK
+    xc = torch.nn.functional.pad(x, (0, d_pad - STREAM_D))
+    w = linalg.block_coordinate_descent(xc, yd - mu_b, STREAM_REG, 1, STREAM_BLOCK)
+    del xc
+    return x @ w[:STREAM_D] + mu_b
+
+
+def phase_stream_fit(device) -> int:
+    """The streaming bench leg at full size, streamed and materialized
+    (module docstring, phase 8)."""
+    import torch
+
+    from keystone_tpu_torch.data.dataset import ArrayDataset, ObjectDataset
+    from keystone_tpu_torch.obs.spans import tracing_session
+    from keystone_tpu_torch.ops.learning.block import BlockLeastSquaresEstimator
+    from keystone_tpu_torch.ops.stats.core import LinearRectifier, RandomSignNode
+    from keystone_tpu_torch.workflow.executor import PipelineEnv
+    from keystone_tpu_torch.workflow.streaming import (
+        StreamingFitOperator, last_stream_report, streaming_disabled,
+    )
+
+    os.environ["KEYSTONE_STREAM_CHUNK_ROWS"] = str(STREAM_CHUNK)
+    os.environ["KEYSTONE_STREAM_PREFETCH"] = str(STREAM_PREFETCH)
+    _mnist_start()
+    t0 = time.perf_counter()
+    imgs, x, y = stream_problem()
+    records = [imgs[i] for i in range(STREAM_ROWS)]
+    host_labels = ArrayDataset(y, device="cpu")
+    data_s = time.perf_counter() - t0
+
+    def build(data, labels=host_labels):
+        feat = RandomSignNode.create(STREAM_D, seed=3, device=device).to_pipeline().then(LinearRectifier(0.0))
+        est = BlockLeastSquaresEstimator(STREAM_BLOCK, num_iter=1, reg=STREAM_REG, device=device)
+        return feat.then_label_estimator(est, data, labels)
+
+    def timed_fit(pipe):
+        """Warm fit, then a timed fit from a reset PipelineEnv under a
+        tracing session: (fitted, seconds, peak bytes, stream:fit spans)."""
+        PipelineEnv.reset()
+        pipe.fit()
+        PipelineEnv.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with tracing_session() as session:
+            t0 = time.perf_counter()
+            fitted = pipe.fit()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        return fitted, seconds, torch.cuda.max_memory_allocated(), session.find("stream:fit")
+
+    def predict(fitted):
+        return fitted.apply_batch(ArrayDataset(x, device=device)).data
+
+    pipe = build(ObjectDataset(records))
+    PipelineEnv.reset()
+    plan, _ = PipelineEnv.get_or_create().optimizer.execute(pipe.graph)
+    stream_ops = [op for op in plan.operators.values() if isinstance(op, StreamingFitOperator)]
+    members = [type(m).__name__ for op in stream_ops for m in op.members]
+    if len(stream_ops) != 1 or members != ["RandomSignNode", "LinearRectifier"]:
+        raise AssertionError(f"stream_fit: expected one StreamFit over the sign and ReLU: {plan_labels(plan)}")
+
+    # Diagnostic first: the same streamed fit with one prefetch worker
+    # (the workers stack records under the interpreter lock).
+    os.environ["KEYSTONE_INGEST_WORKERS"] = "1"
+    try:
+        _, one_worker_s, _, _ = timed_fit(pipe)
+        one_worker_stall_s = last_stream_report().stall_s
+    finally:
+        del os.environ["KEYSTONE_INGEST_WORKERS"]
+    fitted, stream_s, stream_peak, spans = timed_fit(pipe)
+    rep = last_stream_report()
+    fallbacks = [sp.attributes.get("fallback") for sp in spans]
+    chunk_bytes = STREAM_CHUNK * STREAM_D + STREAM_CHUNK * STREAM_K * 4 + STREAM_CHUNK * 4
+    checks = {
+        "no_fallback": len(spans) == 1 and fallbacks == [None],
+        "chunks": rep.chunks == STREAM_ROWS // STREAM_CHUNK,
+        "bytes_transferred": rep.bytes_transferred == (STREAM_ROWS // STREAM_CHUNK) * chunk_bytes,
+        "host_buffer_peak": rep.host_buffer_peak_bytes <= (STREAM_PREFETCH + 1) * chunk_bytes,
+        "compiles_steady_state": rep.compiles_steady_state == 0,
+        "overlap_ok": rep.overlap_ok(),
+        "device_overlap_ok": rep.device_overlap_ok is True,
+    }
+    streamed = predict(fitted)
+    report = {
+        "chunks": rep.chunks, "chunk_rows": rep.chunk_rows, "bytes_transferred": rep.bytes_transferred,
+        "host_buffer_peak_bytes": rep.host_buffer_peak_bytes, "one_chunk_bytes": chunk_bytes,
+        "stall_s": rep.stall_s, "compiles_first_chunk": rep.compiles_first_chunk,
+        "compiles_steady_state": rep.compiles_steady_state, "overlap_ok": rep.overlap_ok(),
+        "device_overlap_ok": rep.device_overlap_ok, "device_copy_ms": rep.device_copy_ms,
+        "device_compute_ms": rep.device_compute_ms, "upload_issued_t": rep.upload_issued_t,
+        "dispatch_t": rep.dispatch_t, "compute_done_t": rep.compute_done_t,
+    }
+    del fitted, pipe
+
+    with streaming_disabled():
+        fitted_m, mat_s, mat_peak, _ = timed_fit(build(ObjectDataset(records)))
+        materialized = predict(fitted_m)
+        mat_plan = plan_labels(fitted_m.graph)
+    del fitted_m
+
+    signs = RandomSignNode.create(STREAM_D, seed=3, device=device).signs
+    exact = fp64_stream_predictions(imgs, y, signs, device)
+    errors = {
+        "streamed_vs_materialized_rel": rel_err(streamed, materialized),
+        "streamed_vs_fp64_rel": rel_err(streamed, exact),
+        "materialized_vs_fp64_rel": rel_err(materialized, exact),
+    }
+    del exact
+
+    # The same fit from CUDA-resident records and labels: chunks are
+    # device slices, and nothing crosses the host link.
+    resident = build(ArrayDataset(imgs, device=device), ArrayDataset(y, device=device))
+    PipelineEnv.reset()
+    resident_preds = predict(resident.fit())
+    resident_rep = last_stream_report()
+    errors["device_resident_vs_streamed_rel"] = rel_err(resident_preds, streamed)
+    checks["device_resident_uploads_nothing"] = (
+        resident_rep is not rep and resident_rep.chunks == rep.chunks
+        and resident_rep.bytes_transferred == 0
+    )
+    checks["streamed_vs_materialized"] = errors["streamed_vs_materialized_rel"] <= STREAM_TOL
+    checks["device_resident_vs_streamed"] = errors["device_resident_vs_streamed_rel"] <= STREAM_TOL
+    finite = bool(torch.isfinite(streamed).all()) and tuple(streamed.shape) == (STREAM_ROWS, STREAM_K)
+    checks["finite_predictions"] = finite
+    result = {
+        "rows": STREAM_ROWS, "d": STREAM_D, "k": STREAM_K, "prefetch": STREAM_PREFETCH,
+        "data_s": data_s, "streamed_fit_s": stream_s, "materialized_fit_s": mat_s,
+        "streamed_fit_s_one_worker": one_worker_s, "stall_s_one_worker": one_worker_stall_s,
+        "streamed_fit_peak_device_bytes": stream_peak, "materialized_fit_peak_device_bytes": mat_peak,
+        "materialized_plan": mat_plan, "fallbacks": fallbacks, "report": report, **errors,
+        "device_resident_bytes_transferred": resident_rep.bytes_transferred,
+        "checks": checks,
+    }
+    log("stream_fit", **result, **_mnist_end("stream_fit"))
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"stream_fit failed {failed}")
     return 0
 
 
@@ -1092,6 +1392,7 @@ def main() -> int:
     launches_by_path["serve_mnist"] = phase_serve_mnist(device, fitted, test)
     del fitted, test
     launches_by_path["mnist_small_cpu"] = phase_mnist_small_cpu(device)
+    launches_by_path["stream_fit"] = phase_stream_fit(device)
     kernel["launches_by_path"] = launches_by_path
     smi = card_name_and_limit()
     log("done", seconds=time.perf_counter() - t0)

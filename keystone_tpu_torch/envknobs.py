@@ -14,6 +14,12 @@ import os
 _OFF_VALUES = ("off", "0", "disabled")
 
 
+def env_raw(name: str):
+    """The raw value, or ``None`` when unset (knobs whose precedence
+    depends on presence, like ``KEYSTONE_SOLVER_PRECISION``)."""
+    return os.environ.get(name)
+
+
 def env_str(name: str, default: str = "") -> str:
     return os.environ.get(name, default)
 

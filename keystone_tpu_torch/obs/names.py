@@ -1,13 +1,17 @@
 """The stable metric-name registry.
 
-A copy of the ``keystone_serving_*`` and ``keystone_reliability_*``
-series of ``keystone_tpu/obs/names.py`` — the series the port's
-modules publish. Names, kinds, help texts and labels are the JAX
-package's, so dashboards read both packages alike; the other families
-arrive with the modules that publish them.
+A copy of the ``keystone_fusion_*``, ``keystone_stream_*``,
+``keystone_serving_*`` and ``keystone_reliability_*`` series of
+``keystone_tpu/obs/names.py`` — the series the port's modules publish.
+Names, kinds, help texts and labels are the JAX package's, so dashboards
+read both packages alike; the other families arrive with the modules
+that publish them. One help text says what its series counts in the
+port, which traces nothing: a fused chain's "compile" is its first
+application at a new input shape and dtype.
 
 The serving telemetry registers its series under these names; the
-recovery ledger's counter comes from :func:`metric`.
+recovery ledger, the fusion pass and the streaming engine take theirs
+from :func:`metric`.
 """
 
 from __future__ import annotations
@@ -15,6 +19,21 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 from .metrics import DEFAULT_BUCKETS, RATIO_BUCKETS, MetricsRegistry, get_registry
+
+# ---------------------------------------------------------------------- fusion
+FUSION_CHAINS = "keystone_fusion_chains_total"
+FUSION_FUSED_NODES = "keystone_fusion_fused_nodes_total"
+FUSION_DISPATCHES_SAVED = "keystone_fusion_dispatches_saved_total"
+FUSION_COMPILES = "keystone_fusion_compiles_total"
+FUSION_BATCH_DISPATCHES = "keystone_fusion_batch_dispatches_total"
+
+# ------------------------------------------------------------------- streaming
+STREAM_PLANS = "keystone_stream_plans_total"
+STREAM_CHUNKS = "keystone_stream_chunks_total"
+STREAM_BYTES = "keystone_stream_bytes_transferred_total"
+STREAM_STALL_SECONDS = "keystone_stream_stall_seconds_total"
+STREAM_PREFETCH_DEPTH = "keystone_stream_prefetch_depth"
+STREAM_HOST_BUFFER_PEAK = "keystone_stream_host_buffer_peak_bytes"
 
 # ----------------------------------------------------------------- reliability
 RELIABILITY_EVENTS = "keystone_reliability_events_total"
@@ -36,6 +55,17 @@ SERVING_BATCH_OCCUPANCY = "keystone_serving_batch_occupancy"
 # name → (kind, help, label names). Histograms may carry a 4th element
 # naming a bucket preset ("ratio" → RATIO_BUCKETS).
 SCHEMA: Dict[str, Tuple] = {
+    FUSION_CHAINS: ("counter", "Fused operator chains created by NodeFusionRule", ()),
+    FUSION_FUSED_NODES: ("counter", "Member transformer nodes absorbed into fused operators", ()),
+    FUSION_DISPATCHES_SAVED: ("counter", "Per-execution dispatches avoided by fusion (members-1 per chain)", ()),
+    FUSION_COMPILES: ("counter", "Fused-chain first applications (one per new shape/dtype)", ()),
+    FUSION_BATCH_DISPATCHES: ("counter", "Transformer batch-apply dispatches, split fused vs unfused", ("fused",)),
+    STREAM_PLANS: ("counter", "Estimator fits rewritten onto the streaming engine by StreamingPlanRule", ()),
+    STREAM_CHUNKS: ("counter", "Chunks dispatched by the streaming execution engine", ()),
+    STREAM_BYTES: ("counter", "Host-to-device bytes uploaded by the streaming engine (post narrow-dtype)", ()),
+    STREAM_STALL_SECONDS: ("counter", "Seconds the streaming dispatch loop spent waiting on the host prefetch pipeline", ()),
+    STREAM_PREFETCH_DEPTH: ("gauge", "Chunks currently buffered in the host prefetch queue", ()),
+    STREAM_HOST_BUFFER_PEAK: ("gauge", "Peak bytes of host chunk buffers concurrently live in the last streaming fit", ()),
     RELIABILITY_EVENTS: ("counter", "Recovery-ledger events", ("kind",)),
     SERVING_REQUESTS: ("counter", "Requests served to completion", ("model",)),
     SERVING_BATCHES: ("counter", "Micro-batches dispatched", ("model",)),

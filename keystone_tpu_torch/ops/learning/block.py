@@ -11,9 +11,14 @@ Port of ``keystone_tpu/ops/learning/block.py``: ``BlockLinearMapper`` and
   are densified once on the device and take the dense path;
 - dense: the in-core block coordinate descent.
 
+``fit_stream`` is the chunked fit of the streaming engine
+(``workflow/streaming.py``): it accumulates the same sufficient
+statistics chunk by chunk, and the streamed fit and the block-sparse fit
+share one finish, :meth:`BlockLeastSquaresEstimator._finish_from_stats`.
+
 Left out (later slices): the OOM degradation ladder, obs spans and
-metrics, the profile store, ``fit_stream``, host streaming, 2-D meshes
-and the refit state mixin.
+metrics, the profile store, host streaming, 2-D meshes and the refit
+state mixin (``fit_stream`` takes no ``state``).
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from ...data.dataset import ArrayDataset, Dataset, ObjectDataset
+from ...data.dataset import ArrayDataset, BucketedDataset, Dataset, ObjectDataset
 from ...device import DeviceLike, resolve_device
 from ...envknobs import env_disabled, env_int
 from ...parallel import linalg
@@ -61,6 +66,8 @@ class BlockLinearMapper(BatchTransformer):
 def _as_array_dataset(data: Dataset, device: torch.device) -> ArrayDataset:
     if isinstance(data, ArrayDataset):
         return data
+    if isinstance(data, BucketedDataset):
+        return data.concat()
     return data.to_arrays(device=device)  # type: ignore[attr-defined]
 
 
@@ -68,6 +75,10 @@ class BlockLeastSquaresEstimator(LabelEstimator):
     """Feature-block coordinate-descent least squares: ``num_iter`` full
     epochs over the feature blocks, λ applied per block. Fits on
     ``device`` (default CUDA)."""
+
+    #: Chunked-fit protocol (workflow/streaming.py): this estimator can
+    #: consume featurized row chunks incrementally via Gram accumulation.
+    supports_fit_stream = True
 
     def __init__(
         self,
@@ -80,6 +91,37 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         self.num_iter = num_iter
         self.reg = reg
         self.device = device
+
+    def fit_stream(self, stream) -> BlockLinearMapper:
+        """Row-chunked fit: accumulate (AᵀA, AᵀY, Σx, Σy) one chunk at a
+        time on the stream's device, then run the SAME Gauss-Seidel block
+        updates as the in-core solver from the centered statistics —
+        O(d²) residency instead of O(n·d); the feature matrix never
+        exists."""
+
+        def init(feat_spec, y_spec):
+            d, k = _stream_shapes(feat_spec, y_spec)
+            return linalg.gram_stream_init(d, k, stream.device)
+
+        carry, info = stream.fold(init, linalg.gram_stream_step)
+        return self._finish_from_stats(carry, info["num_examples"])
+
+    def _finish_from_stats(self, carry, n: int) -> BlockLinearMapper:
+        """Gauss-Seidel block solve from accumulated statistics alone —
+        shared by the streamed and the block-sparse fits (no data pass,
+        O(d²) inputs)."""
+        gc, cc, mu_a, mu_b = linalg.gram_stream_finish(carry, n)
+        d = gc.shape[0]
+        block = min(self.block_size, d)
+        # The in-core fit's λ floor: 1e-6 of the mean Gram diagonal —
+        # trace(Gc)/(n·d) is E[x²] of the centered data.
+        reg = self.reg if self.reg > 0 else max(1e-6 * float(torch.trace(gc)) / d, 1e-6)
+        d_pad = _round_up(d, block)
+        if d_pad != d:  # zero pad rows/cols are inert (λ keeps PD)
+            gc = torch.nn.functional.pad(gc, (0, d_pad - d, 0, d_pad - d))
+            cc = torch.nn.functional.pad(cc, (0, 0, 0, d_pad - d))
+        w = linalg.bcd_from_gram(gc, cc, reg=reg, num_epochs=self.num_iter, block_size=block)
+        return BlockLinearMapper(w, block_size=block, intercept=mu_b, feature_mean=mu_a)
 
     def fit(self, data: Dataset, labels: Dataset) -> BlockLinearMapper:
         device = resolve_device(self.device)
@@ -173,26 +215,33 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         a_dense: Optional[torch.Tensor] = None,
     ) -> BlockLinearMapper:
         """Fit from block-sparse sufficient statistics (AᵀA, AᵀY, Σx, Σy),
-        then the centered finish + Gauss-Seidel block updates of the
-        streaming fit."""
-        n, d = bsr.shape
+        then the streamed fit's finish (:meth:`_finish_from_stats`)."""
+        n = bsr.shape[0]
         y = targets.data.to(device=resolve_device(self.device), dtype=torch.float32)[:n]
         totals = _bs.bsr_gram_totals(bsr, y, a_dense=a_dense)
-        gc, cc, mu_a, mu_b = linalg.gram_stream_finish(totals, n)
-        block = min(self.block_size, d)
-        reg = self.reg if self.reg > 0 else max(1e-6 * float(torch.trace(gc)) / d, 1e-6)
-        d_pad = _round_up(d, block)
-        if d_pad != d:  # zero pad rows/cols are inert (λ keeps PD)
-            gc = torch.nn.functional.pad(gc, (0, d_pad - d, 0, d_pad - d))
-            cc = torch.nn.functional.pad(cc, (0, 0, 0, d_pad - d))
-        w = linalg.bcd_from_gram(gc, cc, reg=reg, num_epochs=self.num_iter, block_size=block)
-        return BlockLinearMapper(w, block_size=block, intercept=mu_b, feature_mean=mu_a)
+        return self._finish_from_stats(totals, n)
 
 
 def _blocksparse_probe_bytes() -> int:
     """Ceiling on the host feature matrix the fast path will tile-probe.
     ``KEYSTONE_BLOCKSPARSE_PROBE_BYTES`` overrides."""
     return env_int("KEYSTONE_BLOCKSPARSE_PROBE_BYTES", int(512e6))
+
+
+def _stream_shapes(feat_spec, y_spec):
+    """(d, k) from the streaming engine's featurized / label chunk specs;
+    rejects chains that do not end in one (rows, d) matrix (the engine
+    falls back to the materialized path)."""
+    from ...utils.tree import tree_leaves
+    from ...workflow.streaming import StreamingFallback
+
+    leaves = tree_leaves(feat_spec)
+    if len(leaves) != 1 or len(leaves[0].shape) != 2:
+        raise StreamingFallback(
+            "gram streaming needs a single (rows, d) feature chunk, got "
+            f"{[tuple(leaf.shape) for leaf in leaves]}"
+        )
+    return leaves[0].shape[1], y_spec.shape[1]
 
 
 def _scale_aware_reg_floor(x_sample: torch.Tensor, n: int) -> float:

@@ -15,7 +15,7 @@ Random parameters are drawn on the host with ``np.random.default_rng(seed)``
 exactly as the JAX package draws them, then placed on ``device`` (default
 CUDA), so both packages hold the same signs and weights.
 
-Left out for now: ``ColumnSampler`` (needs ``BucketedDataset``).
+Left out for now: ``ColumnSampler`` (ROADMAP Queue A item 4).
 """
 
 from __future__ import annotations

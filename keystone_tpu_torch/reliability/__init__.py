@@ -10,7 +10,8 @@
 - :mod:`recovery`    — the process-wide ledger of how a run survived.
 
 The serving layer uses them (its retry policy, admission ladder and
-``serving.apply`` probe). The executor's per-node retry, deadline and
+``serving.apply`` probe), and the streaming engine its
+``streaming.chunk`` probe. The executor's per-node retry, deadline and
 checkpoint hooks, the solvers' OOM ladders, ``checkpoint.py`` and
 ``durable.py`` are not ported yet.
 """

@@ -164,11 +164,12 @@ _current: Optional[FaultInjector] = None
 
 #: Every probe site the port exposes, by its exact label. Chaos specs
 #: target sites by these names; a site is registered next to the code
-#: that adds it. (The JAX package registers more: its streaming, refit,
-#: ingest, solver-ladder and worker sites, which the port has not yet.)
+#: that adds it. (The JAX package registers more: its refit, ingest,
+#: solver-ladder, shard-loss and worker sites, which the port has not yet.)
 KNOWN_PROBE_SITES = frozenset(
     {
         "serving.apply",  # serving/server.py: per-batch apply
+        "streaming.chunk",  # workflow/streaming.py: per-chunk dispatch
     }
 )
 

@@ -38,7 +38,12 @@ from .config import (
 )
 from .registry import ModelEntry, ModelRegistry
 from .server import PipelineServer
-from .synthetic import SyntheticDense, synthetic_fitted_pipeline, synthetic_requests
+from .synthetic import (
+    SyntheticDense,
+    synthetic_chain_pipeline,
+    synthetic_fitted_pipeline,
+    synthetic_requests,
+)
 from .telemetry import ServingTelemetry, percentile
 
 __all__ = [
@@ -61,6 +66,7 @@ __all__ = [
     "bucket_for",
     "default_bucket_sizes",
     "percentile",
+    "synthetic_chain_pipeline",
     "synthetic_fitted_pipeline",
     "synthetic_requests",
 ]

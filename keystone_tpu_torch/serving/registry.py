@@ -123,9 +123,9 @@ class ModelRegistry:
 
     def load_fitted(self, name: str, path: str, device: DeviceLike = None) -> ModelEntry:
         """Publish a ``FittedPipeline.save`` artifact with every tensor on
-        ``device`` (default CUDA; ``"cpu"`` on a machine without a card).
-        ``fused()`` is a no-op in the port (no fusion pass yet) and is
-        kept so artifacts take the JAX package's load path."""
+        ``device`` (default CUDA; ``"cpu"`` on a machine without a card),
+        re-fused: an artifact saved unfused (or before fusion existed)
+        serves the fused plan that ``Pipeline.fit`` makes."""
         from ..workflow.pipeline import FittedPipeline
 
         fitted = FittedPipeline.load(path, device=device).fused()

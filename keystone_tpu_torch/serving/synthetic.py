@@ -5,7 +5,6 @@ pipeline with tunable compute per request.
 Port of ``keystone_tpu/serving/synthetic.py``. The JAX ``trace_log``
 records each new shape XLA traces; here it records the first application
 at each new input shape, which is what a warm bucket must not see again.
-``synthetic_chain_pipeline`` waits for the fusion pass.
 """
 
 from __future__ import annotations
@@ -61,6 +60,35 @@ def synthetic_fitted_pipeline(
     ]
     pipeline = SyntheticDense(weights, trace_log=trace_log).to_pipeline()
     return FittedPipeline(pipeline.graph, pipeline.source, pipeline.sink)
+
+
+def synthetic_chain_pipeline(
+    num_nodes: int = 4,
+    d: int = 64,
+    seed: int = 0,
+    fused: bool = True,
+    device: DeviceLike = None,
+) -> FittedPipeline:
+    """A transformer-only FittedPipeline that is a CHAIN of ``num_nodes``
+    single-layer dense ops (each its own graph node), on ``device``
+    (default CUDA) — the fusion smoke workload. With ``fused=True`` the
+    chain collapses into one
+    :class:`~keystone_tpu_torch.workflow.fusion.FusedTransformerOperator`;
+    ``fused=False`` keeps one node per op. Both compute identical outputs
+    for the same ``seed``, with the JAX package's weights."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    scale = 1.0 / np.sqrt(d)
+    pipeline = None
+    for _ in range(max(1, num_nodes)):
+        w = (rng.standard_normal((d, d)) * scale).astype(np.float32)
+        node = SyntheticDense([torch.from_numpy(w).to(device)])
+        pipeline = node.to_pipeline() if pipeline is None else pipeline.then(node)
+    fitted = FittedPipeline(pipeline.graph, pipeline.source, pipeline.sink)
+    # fused=False returns the graph as built without touching the
+    # process-wide fusion switch (a fusion_disabled() window here would
+    # race concurrent fits in serving threads).
+    return fitted.fused() if fused else fitted
 
 
 def synthetic_requests(n: int, d: int = 64, seed: int = 1) -> List[Any]:

@@ -12,9 +12,6 @@ Equality: operators compare by identity (Python's default), except the two
 constant operators, which compare by the identity of what they hold. No
 operator defines an ``__eq__`` over tensors — the CSE and prefix rules key
 dictionaries on operators, and a tensor-valued ``==`` would raise there.
-
-Left out for now: ``EstimatorOperator``'s ``solver_precision`` scope and
-``fit_stream``.
 """
 
 from __future__ import annotations
@@ -189,10 +186,28 @@ class TransformerOperator(Operator):
 
 
 class EstimatorOperator(Operator):
-    """Fits datasets into a TransformerOperator (reference: Operator.scala:112-124)."""
+    """Fits datasets into a TransformerOperator (reference: Operator.scala:112-124).
+
+    Estimators that can consume their training data INCREMENTALLY — via
+    sufficient statistics (Gram accumulation) rather than a materialized
+    feature matrix — advertise ``supports_fit_stream = True`` and
+    implement :meth:`fit_stream`; the streaming planner
+    (``workflow/streaming.py``) then rewrites eligible
+    ``ingest → featurize → fit`` graphs into chunked plans where the full
+    feature matrix never exists.
+    """
+
+    #: True when :meth:`fit_stream` is implemented (streaming planner gate).
+    supports_fit_stream: bool = False
 
     def fit_datasets(self, datasets: List[Dataset]) -> TransformerOperator:
         raise NotImplementedError
+
+    def fit_stream(self, stream) -> TransformerOperator:
+        """Fit from a :class:`~keystone_tpu_torch.workflow.streaming.ChunkStream`
+        (see its ``fold`` contract). Only called when
+        ``supports_fit_stream`` is True."""
+        raise NotImplementedError(f"{self.label} does not support fit_stream")
 
     def execute(self, deps: Sequence[Expression]) -> TransformerExpression:
         def thunk() -> TransformerOperator:
@@ -202,7 +217,16 @@ class EstimatorOperator(Operator):
                 if not isinstance(value, Dataset):
                     raise TypeError(f"{self.label}: estimator dependencies must be datasets")
                 datasets.append(value)
-            return self.fit_datasets(datasets)
+            # A precision pin on the operator (``solver_precision``)
+            # applies around THIS fit only — thread-local and restored on
+            # exit, so it never leaks into solves not planned under it.
+            mode = getattr(self, "solver_precision", None)
+            if mode is None:
+                return self.fit_datasets(datasets)
+            from ..parallel import linalg
+
+            with linalg.solver_mode_scope(mode):
+                return self.fit_datasets(datasets)
 
         return TransformerExpression(thunk)
 

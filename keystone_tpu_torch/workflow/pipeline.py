@@ -16,16 +16,15 @@ workflow/Pipeline.scala:22-155, workflow/FittedPipeline.scala:22-48).
   ``PipelineEnv.state``.
 - ``Pipeline.fit()`` executes every estimator, splices the fit
   transformers in place, prunes fit-time-only branches, and returns a
-  ``FittedPipeline`` holding only transformers, which ``save``/``load``
+  ``FittedPipeline`` holding only transformers, with its transformer
+  chains fused (``workflow/fusion.py``), which ``save``/``load``
   round-trip.
 - ``FittedPipeline.compiled_apply()`` is the serving loop's batch handle
   (``CompiledApply``): the graph bound once, only the dataset swapped
   per call.
 
-Left out for now: the plan-time verifier in ``fit``, the fusion pass
-behind ``FittedPipeline.fused()`` (which returns the pipeline itself, as
-the JAX package does with fusion off), and ``CompiledApply.partition``
-(multi-device serving).
+Left out for now: the plan-time verifier in ``fit`` and
+``CompiledApply.partition`` (multi-device serving).
 """
 
 from __future__ import annotations
@@ -36,8 +35,16 @@ from typing import Any, Callable, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ..data.dataset import ArrayDataset, Dataset, ObjectDataset, _as_tensor, as_dataset
+from ..data.dataset import (
+    ArrayDataset,
+    BucketedDataset,
+    Dataset,
+    ObjectDataset,
+    _as_tensor,
+    as_dataset,
+)
 from ..device import DeviceLike, resolve_device
+from ..obs import names as _names
 from ..utils.tree import tree_map
 from .executor import GraphExecutor, PipelineEnv
 from .graph import Graph, NodeOrSourceId, SinkId, SourceId
@@ -186,10 +193,15 @@ class Identity(Transformer):
 
 
 def _operator_device(op: Any) -> Optional[torch.device]:
-    """The device of the first tensor an operator holds, or None."""
+    """The device of the first tensor an operator holds — or, for a fused
+    chain, its first member holding one — or None."""
     for value in vars(op).values():
         if isinstance(value, torch.Tensor):
             return value.device
+    for member in getattr(op, "members", ()):
+        device = _operator_device(member)
+        if device is not None:
+            return device
     return None
 
 
@@ -200,7 +212,17 @@ class BatchTransformer(Transformer):
     tuple/list/dict of tensors), which must be row-independent. Batch
     application keeps rows past ``num_examples`` exactly zero, so
     downstream sums over the example axis ignore padding.
+
+    Row independence is also the contract the fusion pass
+    (``workflow/fusion.py``) relies on to compose consecutive
+    transformers into one operator. Ops that manage their own dispatch
+    set ``fusable = False`` to opt out.
     """
+
+    #: Chain-fusion opt-out (see workflow/fusion.py).
+    fusable: bool = True
+    #: True only on FusedTransformerOperator (dispatch accounting label).
+    _is_fused: bool = False
 
     def apply_arrays(self, data: Any) -> Any:
         raise NotImplementedError
@@ -217,7 +239,14 @@ class BatchTransformer(Transformer):
         out = self.apply_arrays(batched)
         return tree_map(lambda a: a[0], out)
 
-    def apply_batch(self, dataset: Dataset) -> ArrayDataset:
+    def apply_batch(self, dataset: Dataset) -> Dataset:
+        if isinstance(dataset, BucketedDataset):
+            # One application per static-shape bucket.
+            return dataset.map_datasets(self.apply_batch)
+        # Dispatch accounting: one count per batch application; a fused
+        # chain counts once (fused="1") where its members unfused count
+        # once each — the direct evidence for the fusion pass.
+        _names.metric(_names.FUSION_BATCH_DISPATCHES).inc(fused="1" if self._is_fused else "0")
         if isinstance(dataset, ObjectDataset):
             dataset = dataset.to_arrays(device=_operator_device(self))
         if not isinstance(dataset, ArrayDataset):
@@ -363,7 +392,11 @@ class Pipeline(Chainable):
             executor._memo.pop(node, None)
 
         graph, _ = UnusedBranchRemovalRule().apply(graph, {})
-        return FittedPipeline(graph, self.source, self.sink)
+        # The spliced graph is transformer-only: newly adjacent chains
+        # (a fit transformer next to its featurization) fuse for the
+        # apply/serving path. The optimizer's own fusion batch cannot see
+        # them: they exist only after the delegating nodes collapse.
+        return FittedPipeline(graph, self.source, self.sink).fused()
 
     # ------------------------------------------------------------------ gather
     @staticmethod
@@ -449,10 +482,19 @@ class FittedPipeline(Transformer):
         return executor.execute(self.sink).get()
 
     def fused(self) -> "FittedPipeline":
-        """This pipeline with transformer chains fused. The port has no
-        fusion pass yet, so it returns ``self`` — what the JAX package
-        returns with fusion off."""
-        return self
+        """This pipeline with transformer chains collapsed into single
+        operators (``workflow/fusion.py``). Returns ``self`` when fusion is
+        disabled or nothing fuses; otherwise a NEW pipeline (graph surgery
+        never mutates in place). ``Pipeline.fit`` calls this, and the
+        serving registry re-fuses artifacts saved unfused."""
+        from .fusion import fuse_graph, fusion_enabled
+
+        if not fusion_enabled():
+            return self
+        graph = fuse_graph(self.graph)
+        if graph == self.graph:
+            return self
+        return FittedPipeline(graph, self.source, self.sink)
 
     def compiled_apply(self) -> "CompiledApply":
         """The serving-loop batch handle: graph bound once, only the

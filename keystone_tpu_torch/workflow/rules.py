@@ -10,9 +10,8 @@ Rules rewrite ``(Graph, prefix-map)`` pairs. The prefix map marks nodes whose
 results should be persisted to the process-wide state table after execution,
 enabling cross-pipeline reuse of fit estimator work.
 
-Left out for now: the ``fusion``, ``streaming``, ``measured-knobs`` and
-``partition`` batches, ``auto_caching_optimizer``, and the rule counters
-and spans.
+Left out for now: the ``measured-knobs`` and ``partition`` batches,
+``auto_caching_optimizer``, and the rule counters and spans.
 """
 
 from __future__ import annotations
@@ -179,9 +178,15 @@ class SavedStateLoadRule(Rule):
 
 
 def default_optimizer() -> RuleExecutor:
-    """Saved-state reuse → CSE → node-level optimization, the first three
-    batches of the JAX package's stack (reference: DefaultOptimizer.scala:8-26)."""
+    """Saved-state reuse → CSE → node-level optimization → chain fusion →
+    streaming, the JAX package's stack in its order without its last two
+    batches (reference: DefaultOptimizer.scala:8-26). Fusion runs late so
+    every structural decision upstream sees real node boundaries;
+    streaming runs after it so it can absorb already-fused chains into
+    chunked fit plans."""
+    from .fusion import NodeFusionRule
     from .optimize import NodeOptimizationRule
+    from .streaming import StreamingPlanRule
 
     return RuleExecutor(
         [
@@ -191,5 +196,7 @@ def default_optimizer() -> RuleExecutor:
             ),
             Batch("cse", [EquivalentNodeMergeRule()], fixed_point=True),
             Batch("node-level-optimization", [NodeOptimizationRule()]),
+            Batch("fusion", [NodeFusionRule()]),
+            Batch("streaming", [StreamingPlanRule()]),
         ]
     )

@@ -141,3 +141,51 @@ def test_kernel_rejects_tiles_above_128(cuda):
     idx = torch.zeros(1, 1, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="tiles 1..128"):
         tbs.ell_matmul(idx, torch.ones(1, 1, 129, 4, device=cuda), torch.ones(4, 3, device=cuda))
+
+
+def test_streamed_fit_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """A streamed fit on the card (pinned uploads on a copy stream, a
+    padded tail chunk) against the same streamed fit on the CPU, and the
+    same fit from CUDA-resident records and labels, which uploads
+    nothing. Tolerance 1e-5 relative (the streamed-fit parity bound)."""
+    from keystone_tpu_torch.data.dataset import ArrayDataset, ObjectDataset
+    from keystone_tpu_torch.ops.learning.block import BlockLeastSquaresEstimator
+    from keystone_tpu_torch.ops.stats.core import LinearRectifier, RandomSignNode
+    from keystone_tpu_torch.workflow.executor import PipelineEnv
+    from keystone_tpu_torch.workflow.streaming import last_stream_report
+
+    chunk, d, k = 512, 96, 3
+    monkeypatch.setenv("KEYSTONE_STREAM_CHUNK_ROWS", str(chunk))
+    monkeypatch.setenv("KEYSTONE_STREAM_PREFETCH", "2")
+    rng = np.random.default_rng(17)
+    n = 8 * chunk + 100
+    imgs = rng.integers(0, 256, size=(n, d), dtype=np.uint8)
+    y = (imgs.astype(np.float32) @ rng.normal(size=(d, k)).astype(np.float32)).astype(np.float32)
+
+    def fit(device, data, labels):
+        PipelineEnv.reset()
+        feat = RandomSignNode.create(d, seed=3, device=device).to_pipeline().then(LinearRectifier(0.0))
+        est = BlockLeastSquaresEstimator(64, num_iter=1, reg=1e-3, device=device)
+        fitted = feat.then_label_estimator(est, data, labels).fit()
+        preds = fitted.apply_batch(ArrayDataset(imgs.astype(np.float32), device=device)).data
+        return preds.cpu().double(), last_stream_report()
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    records = ObjectDataset([imgs[i] for i in range(n)])
+    host_y = ArrayDataset(y, device="cpu")
+    try:
+        card, rep = fit(cuda, records, host_y)
+        cpu, cpu_rep = fit(torch.device("cpu"), records, host_y)
+        resident, res_rep = fit(cuda, ArrayDataset(imgs, device=cuda), ArrayDataset(y, device=cuda))
+    finally:
+        PipelineEnv.reset()
+    assert rel(card, cpu) <= 1e-5 and rel(resident, card) <= 1e-5
+    per_chunk = chunk * d + chunk * k * 4 + chunk * 4  # uint8 rows + labels + mask
+    assert rep.chunks == cpu_rep.chunks == 9
+    assert rep.bytes_transferred == cpu_rep.bytes_transferred == 9 * per_chunk
+    assert rep.compiles_steady_state == 0 and rep.overlap_ok()
+    assert rep.device_overlap_ok is True and len(rep.device_copy_ms) == 9
+    assert res_rep.chunks == 9 and res_rep.bytes_transferred == 0
+    assert res_rep.device_overlap_ok is None

@@ -240,7 +240,8 @@ def test_slice_semantics_featurize_once_fit_once_fit_leaves_no_estimator(tmp_pat
     with trace() as t_test:
         test_pred = pipe(test.data).get().data
     labels = [t.label for t in t_train.timings]
-    assert labels.count("PaddedFFT") == cfg.num_ffts  # CSE: one featurize pass
+    # CSE: one featurize pass, each branch one fused node
+    assert labels.count("Fused[RandomSignNode+PaddedFFT+LinearRectifier]") == cfg.num_ffts
     assert labels.count("BlockLeastSquaresEstimator") == 1
     assert "BlockLeastSquaresEstimator" not in [t.label for t in t_test.timings]
     fitted = pipe.fit()
@@ -281,7 +282,9 @@ def test_jax_fitted_pipeline_carried_across():
     j_pred = np.asarray((featurizer >> model >> JMax())(JArrayDataset(x)).get().data)[:256]
     t_pred = carried.apply_batch(ArrayDataset(x, device=CPU)).data.numpy()
     np.testing.assert_array_equal(t_pred, j_pred)
-    mapper = next(op for op in carried.graph.operators.values() if hasattr(op, "weights"))
+    ops = carried.graph.operators.values()
+    members = [m for op in ops for m in getattr(op, "members", (op,))]  # fit() fuses chains
+    mapper = next(m for m in members if hasattr(m, "weights"))
     combiner_out = tm.build_featurizer(cfg, device=CPU)(ArrayDataset(x, device=CPU)).get()
     t_scores = mapper.apply_arrays(combiner_out.data).numpy()
     assert _rel(t_scores, j_scores) <= CARRY_TOL

@@ -86,6 +86,10 @@ print(json.dumps({"imported": names, "bad": bad}))
         "keystone_tpu_torch.serving.registry",
         "keystone_tpu_torch.serving.synthetic",
         "keystone_tpu_torch.serving.server",
+        "keystone_tpu_torch.data.ingest",
+        "keystone_tpu_torch.workflow.fusion",
+        "keystone_tpu_torch.workflow.streaming",
+        "keystone_tpu_torch.ops.learning.linear",
     }
     assert expected <= set(result["imported"])
 
@@ -130,6 +134,24 @@ def test_entry_points_without_device_raise_when_no_cuda(monkeypatch):
         lambda: RandomSignNode.create(4),
         lambda: run(MnistRandomFFTConfig(num_ffts=1)),
         lambda: FittedPipeline.load("unused.pt"),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry_point()
+
+
+def test_stream_and_fusion_entry_points_without_device_raise_when_no_cuda(monkeypatch):
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.ops.learning.linear import LinearMapEstimator
+    from keystone_tpu_torch.serving.synthetic import synthetic_chain_pipeline
+    from keystone_tpu_torch.workflow.streaming import ChunkStream
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = ArrayDataset(np.eye(4, dtype=np.float32), device="cpu")
+    y = ArrayDataset(np.ones((4, 2), np.float32), device="cpu")
+    for entry_point in (
+        lambda: ChunkStream(x, y, ()),
+        lambda: LinearMapEstimator(reg=1.0).fit(x, y),
+        lambda: synthetic_chain_pipeline(num_nodes=2, d=4),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry_point()

@@ -318,7 +318,8 @@ def test_saved_state_load_splices_expression():
 def test_default_optimizer_batches():
     names = [(b.name, b.fixed_point) for b in default_optimizer().batches]
     assert names == [
-        ("load-saved-state", False), ("cse", True), ("node-level-optimization", False)
+        ("load-saved-state", False), ("cse", True), ("node-level-optimization", False),
+        ("fusion", False), ("streaming", False),
     ]
 
 
@@ -520,7 +521,7 @@ def test_trace_records_per_node_times_and_is_off_by_default():
     with trace() as t:
         pipeline(ds).get()
     labels = [x.label for x in t.timings]
-    assert "LinearRectifier" in labels and "NormalizeRows" in labels
+    assert "Fused[LinearRectifier+NormalizeRows]" in labels  # one node: the fused chain
     assert all(x.seconds >= 0 for x in t.timings) and "TOTAL" in t.report()
     assert current_trace() is None
 
@@ -611,3 +612,89 @@ def test_shuffler_permutes_rows_like_numpy():
     np.testing.assert_array_equal(out.data.numpy(), x[perm])
     items = ShufflerOperator(seed=7).batch_transform([ObjectDataset(list(range(5)))]).collect()
     assert sorted(items) == list(range(5))
+
+
+# ------------------------------------------- fusion in fit, precision modes
+
+
+def test_fit_returns_fused_pipeline_and_fused_is_stable():
+    from keystone_tpu_torch.workflow.fusion import FusedTransformerOperator, fusion_disabled
+
+    x = _cpu(np.random.default_rng(1).normal(size=(6, 4)))
+    chain = RandomSignNode.create(4, seed=2, device=CPU) >> LinearRectifier(0.0) >> NormalizeRows()
+    fitted = chain.fit()
+    (fused,) = fitted.graph.operators.values()
+    assert isinstance(fused, FusedTransformerOperator)
+    assert fused.label == "Fused[RandomSignNode+LinearRectifier+NormalizeRows]"
+    assert fitted.fused() is fitted  # nothing left to fuse
+    with fusion_disabled():
+        unfused = chain.fit()
+    assert len(unfused.graph.operators) == 3 and unfused.fused() is not unfused
+    assert torch.equal(fitted.apply_batch(x).data, unfused.apply_batch(x).data)
+
+
+def test_solver_mode_env_precedence_and_thread_local_scope(monkeypatch):
+    from keystone_tpu_torch.parallel import linalg
+
+    monkeypatch.delenv("KEYSTONE_SOLVER_PRECISION", raising=False)
+    assert linalg.solver_mode() == "refine"
+    seen = {}
+    with linalg.solver_mode_scope("highest"):
+        assert linalg.solver_mode() == "highest"
+        other = threading.Thread(target=lambda: seen.setdefault("mode", linalg.solver_mode()))
+        other.start()
+        other.join(timeout=10)
+        assert not other.is_alive()
+        monkeypatch.setenv("KEYSTONE_SOLVER_PRECISION", "HIGH")  # the env var wins
+        assert linalg.solver_mode() == "high"
+        monkeypatch.delenv("KEYSTONE_SOLVER_PRECISION")
+    assert seen["mode"] == "refine"  # the scope never leaks to another thread
+    assert linalg.solver_mode() == "refine"
+    with linalg.solver_mode_scope(None):
+        assert linalg.solver_mode() == "refine"
+    with pytest.raises(ValueError, match="expected one of"):
+        linalg.set_solver_mode_override("fast")
+    monkeypatch.setenv("KEYSTONE_SOLVER_PRECISION", "typo")
+    with pytest.raises(ValueError, match="KEYSTONE_SOLVER_PRECISION"):
+        linalg.solver_mode()
+
+
+def test_estimator_execute_scopes_its_solver_precision():
+    from keystone_tpu_torch.parallel import linalg
+
+    seen = []
+
+    class Pinned(Estimator):
+        solver_precision = "highest"
+
+        def fit(self, data):
+            seen.append(linalg.solver_mode())
+            return Plus(0)
+
+    Pinned().with_data(ObjectDataset([1.0]))(ObjectDataset([0.0])).get()
+    assert seen == ["highest"] and linalg.solver_mode() == "refine"
+
+
+def test_gram_stream_step_accumulates_in_place_and_solvers_agree_with_float64():
+    from keystone_tpu_torch.parallel import linalg
+
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(300, 7)).astype(np.float32) + 3.0
+    y = rng.normal(size=(300, 2)).astype(np.float32)
+    carry = linalg.gram_stream_init(7, 2, CPU)
+    ids = [id(t) for t in carry]
+    for s in range(0, 300, 128):
+        out = linalg.gram_stream_step(carry, torch.from_numpy(x[s : s + 128]), torch.from_numpy(y[s : s + 128]))
+        assert out is carry and [id(t) for t in out] == ids
+    gc, cc, _, _ = linalg.gram_stream_finish(carry, 300)
+    xd, yd = x.astype(np.float64), y.astype(np.float64)
+    xc, yc = xd - xd.mean(0), yd - yd.mean(0)
+    want = np.linalg.solve(xc.T @ xc + 0.5 * np.eye(7), xc.T @ yc)
+    w_stream = linalg.solve_from_gram(gc, cc, reg=0.5).numpy()
+    for steps in (0, 2):
+        w, mu_a, mu_b = linalg.centered_solve_refined(torch.from_numpy(x), torch.from_numpy(y), 300, 0.5, steps)
+        assert np.linalg.norm(w.numpy() - want) / np.linalg.norm(want) <= 1e-5
+        np.testing.assert_allclose(mu_a.numpy(), xd.mean(0), rtol=1e-5)
+    assert np.linalg.norm(w_stream - want) / np.linalg.norm(want) <= 1e-5
+    with pytest.raises(FloatingPointError, match="reg > 0"):
+        linalg.check_finite(torch.tensor([1.0, float("nan")]), "test")
