@@ -72,14 +72,53 @@ Phases, in order; any failure raises and the script exits non-zero:
    CUDA-event overlap, streamed predictions within 1e-5 of the
    materialized ones (both printed against a float64 fit), and both fits'
    wall time and peak device memory; then the same fit from a
-   CUDA-resident dataset, which must upload nothing.
+   CUDA-resident dataset, which must upload nothing;
+9. solver_precision — ``torch.set_float32_matmul_precision("high")``
+   after the port is imported, then ``mnist_small_cpu``'s fit on the card:
+   scores within 1e-5 of the same fit at "highest", IEEE fp32 solver
+   products launched, ``allow_tf32`` as read during each fit printed;
+   and whether a Cholesky factor and solve (PyTorch's cuSOLVER) change
+   under the global;
+10. gram_modes — a (1,000,000, 1,024) Gram per product kind (bf16 inputs,
+   ``default``, ``high``, ``highest``): median of 5 by CUDA events after a
+   warm-up, TFLOP/s against the card's data-sheet peak for the kind; on a
+   (65,536, 1,024) slice each kind against its plain emulation (inputs
+   rounded to nearest, fp32 products) and against float64: ``default``
+   ≤ 1e-5 from its emulation, ``highest`` ≤ 1e-5 from float64 and
+   ``default`` at least 10× further;
+11. timit_exact — ``bench.py::_bench_timit_exact`` at full size:
+   ``LinearMapEstimator(reg=1e-2)`` at (2,200,000, 1,024, 138) under
+   ``refine``, ``highest`` and ``default`` (one warm fit, median of 3),
+   weights against ``centered_solve_refined(gram_precision="highest",
+   refine_steps=2)``, ``train_mse`` on 65,536 rows, whether the refine
+   guard fired, peak memory;
+12. timit_wide_block — ``bench.py::_bench_timit_wide_block`` at full size:
+   ``block_coordinate_descent_rematerialized`` at (2,200,000, 16,384),
+   block 1,024, k = 138, one epoch (one warm fit, median of 3), beside
+   the reference system's 580,555 ms on 16 Spark nodes; a (65,536,
+   4,096) run must equal the materialized BCD;
+13. timit — ``pipelines/timit.py`` at the published width (50 × 4,096
+   cosine features, block 4,096, 5 epochs, λ by the estimator's floor)
+   on ``synthetic_timit`` 4,096 / 1,024 rows: ``fit_s``, errors, peak,
+   nodes executed, scores against a float64 BCD of the same blocks
+   (training rows ≤ 1e-5, held-out rows ≤ 0.15: ``TIMIT_FP64_TEST_TOL``
+   says why); then
+   ``python -m keystone_tpu_torch timit --num-cosines 4`` in a subprocess,
+   errors within 0.003 of the JAX package's;
+14. host_streaming_bcd — ``BlockLeastSquaresEstimator(1,024, reg=1e-3)``
+   on a (131,072, 8,192) float32 CPU tensor (4.3 GB > the 4e9-byte
+   threshold, so the fit streams by itself): predictions within 1e-5 of
+   the in-core fit of the same rows on the card, bytes uploaded, wall
+   time and a peak of a few panels.
 
-Phases 4–8 reach no ELL kernel: each sets its count to 0 and fails if it
+Phases 4–14 reach no ELL kernel: each sets its count to 0 and fails if it
 moved. Every phase starts from a reset ``PipelineEnv`` and reports its
-peak device memory.
+peak device memory and the solver binding's calls per product kind
+(``ops/cuda/gemm.py``).
 
-It prints a ``{"kernels": [...]}`` line, the card's name and power limit
-from nvidia-smi, and last ``{"ok": true, "device": {...}}``. It exits
+It prints a ``{"library_bindings": [...]}`` line (the cuBLAS binding, not
+a TPU kernel), a ``{"kernels": [...]}`` line, the card's name and power
+limit from nvidia-smi, and last ``{"ok": true, "device": {...}}``. It exits
 non-zero, printing no result, where no CUDA device is available.
 """
 
@@ -147,6 +186,33 @@ STREAM_ROWS, STREAM_CHUNK, STREAM_D, STREAM_K = 131072, 16384, 768, 16
 STREAM_PREFETCH, STREAM_BLOCK, STREAM_REG, STREAM_TOL = 4, 512, 1e-3, 1e-5
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
+# Solver phases: the JAX package's bench shapes (bench.py).
+GRAM_ROWS, GRAM_D, GRAM_SLICE, GRAM_TOL = 1_000_000, 1024, 65_536, 1e-5
+EXACT_N, EXACT_D, EXACT_K, EXACT_REG = 2_200_000, 1024, 138, 1e-2
+WIDE_N, WIDE_D, WIDE_K, WIDE_BLOCK, WIDE_REG = 2_200_000, 16_384, 138, 1024, 1e-2
+# bench.py::TIMIT_WIDE_BASELINE_MS: the reference KeystoneML system's block
+# solver at this shape on a 16-node Spark cluster
+# (scripts/solver-comparisons-final.csv:26 of the reference).
+WIDE_SPARK_16_NODE_MS = 580_555.0
+STREAM_BCD_N, STREAM_BCD_D, STREAM_BCD_K, STREAM_BCD_BLOCK = 131_072, 8192, 16, 1024
+STREAM_BCD_REG, STREAM_BCD_TOL = 1e-3, 1e-5
+# The JAX package's TIMIT errors at 4 cosine branches (d = 16,384, the
+# defaults otherwise: 4,096 / 1,024 synthetic rows, block 4,096, 5
+# epochs, λ floor), produced on the CPU by
+#   python -c "from keystone_tpu.pipelines.timit import *;
+#              r = run(TimitConfig(num_cosines=4)); print(r['train_error'], r['test_error'])"
+TIMIT4_JAX = {"train_error": 0.0, "test_error": 0.9921875}
+TIMIT_ERROR_TOL = 0.003
+# The published-width TIMIT fit's scores against the same BCD in float64
+# (relative Frobenius). n = 4,096 rows against 4,096-wide blocks: each
+# centred block Gram has rank ≤ 4,095 and only the λ floor (1e-6 of its
+# mean diagonal) holds its null space, so fp32 rounding moves the weights
+# along directions the training rows do not see. Training scores agree
+# closely (2.8e-6 on an H100); held-out scores do not (8.0e-2, 87.7% of
+# predictions equal). Bounds: the training scores at the slice's 1e-5,
+# the held-out scores at 0.15.
+TIMIT_FP64_TRAIN_TOL, TIMIT_FP64_TEST_TOL = 1e-5, 0.15
+
 # NVIDIA H100 SXM data sheet peaks (dense, at 700 W): HBM3 bytes/s and
 # fp32 FLOP/s outside the tensor cores (the kernel runs fp32 FFMA).
 PEAK_BYTES_PER_S = 3.35e12
@@ -207,10 +273,22 @@ def log(phase: str, **fields) -> None:
 def phase_build() -> None:
     from keystone_tpu_torch.ops.cuda import _build
 
+    from keystone_tpu_torch.ops.cuda import gemm
+
     t0 = time.perf_counter()
-    _build.build(["ell_matmul"])
-    log("build", seconds=time.perf_counter() - t0, nvcc_seconds=_build.build_seconds)
+    paths = _build.build(["ell_matmul", "solver_gemm"])
+    build_s = time.perf_counter() - t0
     print(_build.build_log("ell_matmul").strip(), flush=True)
+    gemm._lib()
+    # -lcublas names the toolkit's libcublas.so.12; the loader must reuse
+    # the one PyTorch loaded (same soname): one cuBLAS in the process.
+    with open("/proc/self/maps") as maps:
+        mapped = sorted({line.split()[-1] for line in maps if "libcublas.so" in line})
+    ldd = subprocess.run(["ldd", str(paths["solver_gemm"])], capture_output=True, text=True).stdout
+    log("build", seconds=build_s, nvcc_seconds=_build.build_seconds, cublas_mapped=mapped,
+        ldd_cublas=[ln.strip() for ln in ldd.splitlines() if "cublas" in ln])
+    if len(mapped) != 1:
+        raise AssertionError(f"expected one libcublas in the process, found {mapped}")
 
 
 # -------------------------------------------------------------- phase 2
@@ -390,6 +468,8 @@ def phase_kernels(device):
         log("kernel_shape", **entry)
     del a, y, idx, blocks, counts
     torch.cuda.empty_cache()
+    gram_bsr = check_gram_bsr(bsr, device)
+    log("gram_bsr", **gram_bsr)
     edges = edge_cases(device)
     log("kernel_edges", cases=edges, peak_device_bytes=torch.cuda.max_memory_allocated())
     main = shapes[0]
@@ -409,7 +489,36 @@ def phase_kernels(device):
         "library_call": main["library_call"],
         "timed_shape": "AtA",
         "shapes": shapes,
+        "gram_bsr_launches": gram_bsr["ell_launches"],
     }
+
+
+def check_gram_bsr(bsr, device) -> dict:
+    """``linalg.gram`` of the hashing-TF ``BlockSparseMatrix`` (the entry
+    point that reaches the ELL kernel through ``bsr_gram_totals``) against
+    the dense Gram of the same matrix at IEEE fp32: ≤ ``KERNEL_TOL``, with
+    the kernel launched."""
+    import torch
+
+    from keystone_tpu_torch.ops.cuda import blocksparse as bs
+    from keystone_tpu_torch.parallel import linalg
+
+    before = bs.ell_matmul.launches
+    g, _ = linalg.gram(bsr, device=device)
+    launches = bs.ell_matmul.launches - before
+    n, d = bsr.shape
+    a = bs.bsr_to_dense(bsr, device)[:n, :d]
+    with linalg.solver_mode_scope("highest"):
+        dense = linalg.mm_t(a, a)
+    del a
+    rel = rel_err(g, dense)
+    out = {"shape": [n, d], "ell_launches": launches, "rel_err_vs_dense": rel,
+           "max_abs_err": float((g - dense).abs().max())}
+    del g, dense
+    torch.cuda.empty_cache()
+    if launches < 1 or not rel <= KERNEL_TOL:
+        raise AssertionError(f"linalg.gram(BlockSparseMatrix) failed: {out}")
+    return out
 
 
 # -------------------------------------------------------------- phase 3
@@ -561,11 +670,15 @@ def phase_slice(device):
     train, labels = topic_corpus(TOPICS, DOCS_PER_TOPIC, SEED)
     test, test_labels = topic_corpus(TOPICS, REQUESTS * REQUEST_DOCS // TOPICS, SEED + 1)
 
+    from keystone_tpu_torch.ops.cuda import gemm
+
     PipelineEnv.reset()
     torch.cuda.reset_peak_memory_stats()
     bs.ell_matmul.launches = 0
+    gemm.reset_launches()
     out = run_slice(train, labels, test, test_labels, device)
     launches = bs.ell_matmul.launches
+    gemm_launches = SOLVER_GEMM_CALLS["hashing_tf"] = dict(gemm.launches)
     peak = torch.cuda.max_memory_allocated()
     if launches != 2:
         raise AssertionError(f"the fit launched the ELL kernel {launches} times, expected 2")
@@ -621,7 +734,7 @@ def phase_slice(device):
         "featurize_s": out["featurize_s"], "fit_s": out["fit_s"],
         "request_s": out["request_s"], "request_docs": len(test) // REQUESTS,
         "test_error": out["test_error"], "peak_device_bytes": peak,
-        "ell_launches_in_fit": launches,
+        "ell_launches_in_fit": launches, "solver_gemm_launches": gemm_launches,
         "dense_fit_s": dense_fit_s, "sparse_vs_dense_scores_rel": dense_rel,
         "small_card_vs_cpu_weights_rel": small_rel,
     }
@@ -656,22 +769,33 @@ def _mnist_start():
     from keystone_tpu_torch.ops.cuda import blocksparse as bs
     from keystone_tpu_torch.workflow.executor import PipelineEnv
 
+    from keystone_tpu_torch.ops.cuda import gemm
+
     PipelineEnv.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     bs.ell_matmul.launches = 0
+    gemm.reset_launches()
 
 
 def _mnist_end(phase: str) -> dict:
-    """The phase's peak memory; raises if the ELL kernel was launched."""
+    """The phase's peak memory and solver-binding calls per product kind;
+    raises if the ELL kernel was launched."""
     import torch
 
     from keystone_tpu_torch.ops.cuda import blocksparse as bs
+    from keystone_tpu_torch.ops.cuda import gemm
 
     torch.cuda.synchronize()
     if bs.ell_matmul.launches != 0:
         raise AssertionError(f"{phase} launched the ELL kernel {bs.ell_matmul.launches} times")
-    return {"peak_device_bytes": torch.cuda.max_memory_allocated(), "ell_launches": 0}
+    SOLVER_GEMM_CALLS[phase] = dict(gemm.launches)
+    return {"peak_device_bytes": torch.cuda.max_memory_allocated(), "ell_launches": 0,
+            "solver_gemm_launches": dict(gemm.launches)}
+
+
+#: Solver-binding calls per product kind, by phase (filled as phases end).
+SOLVER_GEMM_CALLS: dict = {}
 
 
 def _check_errors(phase: str, got: dict, want: dict) -> None:
@@ -1361,6 +1485,515 @@ def phase_stream_fit(device) -> int:
     return 0
 
 
+# -------------------------------------------------------------- phases 9-14
+#
+# The solver slice: per-call precision on the cuBLAS binding, the JAX
+# package's solver bench shapes, the TIMIT pipeline at its published
+# width and host-streamed BCD. None reaches the ELL kernel.
+
+
+def _precision_flags() -> list:
+    import torch
+
+    return [torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+            torch.get_float32_matmul_precision()]
+
+
+def phase_solver_precision(device, flags_around_import) -> int:
+    """``mnist_small_cpu``'s fit on the card with the global matmul
+    precision at "highest" and then at "high" (set after the import):
+    the solver products must stay IEEE fp32 — scores within 1e-5."""
+    import torch
+
+    from keystone_tpu_torch.ops.cuda import gemm
+    from keystone_tpu_torch.pipelines.mnist_random_fft import (
+        MnistRandomFFTConfig, build_pipeline, synthetic_mnist,
+    )
+    from keystone_tpu_torch.workflow.executor import PipelineEnv
+
+    cfg = MnistRandomFFTConfig(num_ffts=2, block_size=512, reg=10.0)
+    _mnist_start()
+    runs = {}
+    for precision in ("highest", "high"):
+        torch.set_float32_matmul_precision(precision)
+        try:
+            PipelineEnv.reset()  # a fresh fit, not the first one's saved state
+            before = dict(gemm.launches)
+            fitted = build_pipeline(cfg, synthetic_mnist(1024, seed=0, device=device), device=device).fit()
+            test = synthetic_mnist(256, seed=1, device=device)
+            scores = mnist_test_scores(cfg, fitted, test, device)
+            torch.cuda.synchronize()
+            runs[precision] = {
+                "scores": scores,
+                "allow_tf32_during_fit": torch.backends.cuda.matmul.allow_tf32,
+                "launches": {k: gemm.launches[k] - before[k] for k in gemm.launches},
+            }
+        finally:
+            torch.set_float32_matmul_precision("highest")
+    rel = rel_err(runs["high"]["scores"], runs["highest"]["scores"])
+    # The factorisations stay on PyTorch's cuSOLVER / cuBLAS handles: do
+    # they follow the global? A Cholesky factor and solve under each.
+    g = torch.Generator(device=device).manual_seed(5)
+    a = torch.randn(8192, 2048, device=device, generator=g)
+    spd = torch.addmm(torch.eye(2048, device=device), a.T, a)
+    rhs = torch.randn(2048, 16, device=device, generator=g)
+    factored = {}
+    for precision in ("highest", "high"):
+        torch.set_float32_matmul_precision(precision)
+        try:
+            factor = torch.linalg.cholesky(spd)
+            factored[precision] = (factor, torch.cholesky_solve(rhs, factor))
+        finally:
+            torch.set_float32_matmul_precision("highest")
+    factorisations_equal = all(
+        torch.equal(x, y) for x, y in zip(factored["high"], factored["highest"])
+    )
+    del a, spd, rhs, factored
+    result = {
+        "flags_before_import": flags_around_import[0], "flags_after_import": flags_around_import[1],
+        "high_vs_highest_scores_rel": rel,
+        "cholesky_and_solve_bitwise_equal_under_high": factorisations_equal,
+        **{f"{p}_{k}": v for p, r in runs.items() for k, v in r.items() if k != "scores"},
+        **_mnist_end("solver_precision"),
+    }
+    log("solver_precision", **result)
+    if not (rel <= 1e-5 and runs["high"]["allow_tf32_during_fit"] and runs["high"]["launches"]["ieee_fp32"] > 0):
+        raise AssertionError(f"solver_precision failed: {result}")
+    return 0
+
+
+def card_peaks() -> dict:
+    """Data-sheet dense peaks (FLOP/s) of the card by its name: bf16 and
+    TF32 on the tensor cores, fp32 outside them. Raises for a card it
+    does not know."""
+    import torch
+
+    name = torch.cuda.get_device_name(0)
+    if "H100" in name and "PCIe" in name:
+        return {"bf16": 756e12, "tf32": 378e12, "fp32": 51e12, "bytes_per_s": 2.0e12}
+    if "H100" in name or "H200" in name:
+        return {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12,
+                "bytes_per_s": 4.8e12 if "H200" in name else 3.35e12}
+    raise AssertionError(f"no data-sheet peaks for {name!r}")
+
+
+def event_ms(fn, reps: int = 5) -> list:
+    """Milliseconds of each of ``reps`` calls by CUDA events, after a
+    warm-up call."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+GRAM_KINDS = (  # (label, mode, product kind, peak key)
+    ("bf16_inputs", None, "bf16_inputs", "bf16"),
+    ("default", "default", "bf16", "bf16"),
+    ("high", "high", "tf32", "tf32"),
+    ("highest", "highest", "ieee_fp32", "fp32"),
+)
+
+
+def phase_gram_modes(device) -> dict:
+    """``bench.py::_bench_gram_mfu``'s counterpart (module docstring,
+    phase 10). Returns the binding's entry for the ``library_bindings``
+    line."""
+    import statistics
+
+    import torch
+
+    from keystone_tpu_torch.ops.cuda import gemm
+    from keystone_tpu_torch.parallel import linalg
+
+    peaks = card_peaks()
+    _mnist_start()
+    if torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("the plain versions need IEEE fp32 torch.matmul")
+    x = torch.randn(GRAM_ROWS, GRAM_D, device=device, generator=torch.Generator(device=device).manual_seed(1))
+    flops = 2.0 * GRAM_ROWS * GRAM_D * GRAM_D
+    kinds = {}
+    for label, mode, kind, peak_key in GRAM_KINDS:
+        xk = x.to(torch.bfloat16) if kind == "bf16_inputs" else x
+        with linalg.solver_mode_scope(mode):
+            times = event_ms(lambda: linalg.gram(xk))
+            # The slice, against its emulation and float64.
+            xs = xk[:GRAM_SLICE]
+            got = linalg.gram(xs)[0]
+        plain = gemm.gemm_tn_chunked_reference(xs, xs, kind)
+        exact = xs.double().T @ xs.double()
+        ms = statistics.median(times)
+        in_bytes = xk.numel() * xk.element_size() + GRAM_D * GRAM_D * 4
+        bound_s = max(flops / peaks[peak_key], in_bytes / peaks["bytes_per_s"])
+        kinds[label] = {
+            "product_kind": kind, "ms": ms, "ms_runs": times, "tflops_per_s": flops / ms / 1e9,
+            "peak_tflops_per_s": peaks[peak_key] / 1e12,
+            "share_of_peak": flops / ms / 1e9 / (peaks[peak_key] / 1e12),
+            "bound_ms": bound_s * 1e3, "bound_by": "operations" if flops / peaks[peak_key] >= in_bytes / peaks["bytes_per_s"] else "bytes",
+            "slice_vs_emulation_rel": rel_err(got, plain), "slice_vs_fp64_rel": rel_err(got, exact),
+            "slice_max_abs_err_vs_emulation": float((got - plain).abs().max()),
+        }
+        if label in ("highest", "high"):
+            # One PyTorch call computing the same product: torch.matmul at
+            # the matching global precision, restored after.
+            torch.set_float32_matmul_precision(label)
+            try:
+                kinds[label]["library_ms"] = statistics.median(event_ms(lambda: torch.matmul(x.T, x)))
+            finally:
+                torch.set_float32_matmul_precision("highest")
+        else:
+            kinds[label]["library_ms"] = None
+        del xk, xs, got, plain, exact
+    # The plain version at full size: rounding plus chunked fp32 products.
+    plain_ms = statistics.median(event_ms(lambda: gemm.gemm_tn_chunked_reference(x, x, "bf16"), reps=3))
+    del x
+    torch.cuda.empty_cache()
+    result = {"shape": [GRAM_ROWS, GRAM_D], "slice_rows": GRAM_SLICE, "kinds": kinds,
+              "default_plain_ms": plain_ms, **_mnist_end("gram_modes")}
+    log("gram_modes", **result)
+    d, h = kinds["default"], kinds["highest"]
+    checks = {
+        "default_vs_emulation": d["slice_vs_emulation_rel"] <= GRAM_TOL,
+        "highest_vs_fp64": h["slice_vs_fp64_rel"] <= GRAM_TOL,
+        "default_10x_highest_vs_fp64": d["slice_vs_fp64_rel"] >= 10 * h["slice_vs_fp64_rel"],
+        "high_vs_emulation": kinds["high"]["slice_vs_emulation_rel"] <= 1e-4,
+        "shares_at_most_1": all(k["share_of_peak"] <= 1.0 for k in kinds.values()),
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"gram_modes failed {failed}")
+    return {
+        "name": "solver_gemm", "route": "cuda",
+        "source": "keystone_tpu_torch/ops/cuda/csrc/solver_gemm.cu",
+        "replaces": None, "binds": "cuBLAS cublasGemmEx at an explicit compute type",
+        "launches": None,  # filled from the main paths
+        "max_abs_err": d["slice_max_abs_err_vs_emulation"],
+        "ms": d["ms"], "plain_ms": plain_ms, "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
+        "library_ms": None, "timed_shape": f"default Gram ({GRAM_ROWS}, {GRAM_D})",
+        "kinds": kinds,
+    }
+
+
+def timit_exact_problem(device):
+    """``_bench_timit_exact``'s problem on the card: columns scaled by
+    logspace(0, -2) (Gram cond ≈ 1e4), a planted ``w_true`` and noise 0.1,
+    from a seeded generator."""
+    import torch
+
+    from keystone_tpu_torch.ops.cuda import gemm
+
+    g = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn(EXACT_N, EXACT_D, device=device, generator=g)
+    x.mul_(torch.logspace(0.0, -2.0, EXACT_D, device=device))
+    w_true = torch.randn(EXACT_D, EXACT_K, device=device, generator=g)
+    y = gemm.gemm(x, w_true, "ieee_fp32")
+    y.add_(torch.randn(EXACT_N, EXACT_K, device=device, generator=g), alpha=0.1)
+    return x, y
+
+
+def phase_timit_exact(device) -> int:
+    import statistics
+
+    import torch
+
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.ops.cuda import gemm
+    from keystone_tpu_torch.ops.learning.linear import LinearMapEstimator
+    from keystone_tpu_torch.parallel import linalg
+
+    _mnist_start()
+    x, y = timit_exact_problem(device)
+    features, labels = ArrayDataset(x), ArrayDataset(y)
+    w_ref, _, _ = linalg.centered_solve_refined(
+        x, y, EXACT_N, EXACT_REG, gram_precision="highest", refine_steps=2
+    )
+    head = 65_536
+    modes = {}
+    for mode in ("refine", "highest", "default"):
+        est = LinearMapEstimator(reg=EXACT_REG, device=device)
+        fired0 = linalg.centered_solve_refined.guard_fired
+        checks0 = linalg.centered_solve_refined.guard_checks
+        launches0 = dict(gemm.launches)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with linalg.solver_mode_scope(mode):
+            model = est.fit(features, labels)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                est.fit(features, labels)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        pred = gemm.gemm(x[:head] - model.feature_mean, model.weights, "ieee_fp32") + model.intercept
+        modes[mode] = {
+            "fit_ms": statistics.median(times), "fit_ms_runs": times,
+            "weight_rel_err_vs_converged": rel_err(model.weights, w_ref),
+            "train_mse": float(((pred - y[:head]) ** 2).mean()),
+            "guard_decisions": linalg.centered_solve_refined.guard_checks - checks0,
+            "guard_fired": linalg.centered_solve_refined.guard_fired - fired0,
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "launches": {k: gemm.launches[k] - launches0[k] for k in gemm.launches},
+        }
+        del model, pred
+    result = {"shape": [EXACT_N, EXACT_D, EXACT_K], "reg": EXACT_REG,
+              "x_bytes": x.numel() * 4, "y_bytes": y.numel() * 4, "modes": modes,
+              **_mnist_end("timit_exact")}
+    del x, y, features, labels, w_ref
+    torch.cuda.empty_cache()
+    log("timit_exact", **result)
+    # ``default`` solves once from a bf16 Gram at cond ≈ 1e4: its weights
+    # are far from converged by design; the other two must not be.
+    bad = [m for m, r in modes.items() if not np.isfinite(r["train_mse"])
+           or (m != "default" and not r["weight_rel_err_vs_converged"] < 1e-3)]
+    if bad or modes["refine"]["guard_decisions"] != 4 or modes["refine"]["launches"]["bf16"] == 0:
+        raise AssertionError(f"timit_exact failed for {bad}: {modes}")
+    return 0
+
+
+def phase_timit_wide_block(device) -> int:
+    import statistics
+
+    import torch
+
+    from keystone_tpu_torch.parallel import linalg
+
+    _mnist_start()
+
+    def block_fn(b, row_offset, rows):
+        gen = torch.Generator(device=device).manual_seed(7 * 1_000_003 + b)  # seeded by (7, b)
+        return torch.randn(rows, WIDE_BLOCK, device=device, generator=gen)
+
+    # A small run first: rematerialized against materialized BCD.
+    small_n, small_blocks = 65_536, 4
+    y_small = torch.randn(small_n, WIDE_K, device=device, generator=torch.Generator(device=device).manual_seed(3))
+    w_remat = linalg.block_coordinate_descent_rematerialized(
+        lambda b, off, rows: block_fn(b, off, rows), y_small, WIDE_REG, 2, WIDE_BLOCK, small_blocks
+    )
+    a_small = torch.cat([block_fn(b, 0, small_n) for b in range(small_blocks)], dim=1)
+    w_mat = linalg.block_coordinate_descent(a_small, y_small, WIDE_REG, 2, WIDE_BLOCK)
+    small_rel = rel_err(w_remat, w_mat)
+    del a_small, y_small, w_remat, w_mat
+
+    num_blocks = WIDE_D // WIDE_BLOCK
+    y = torch.randn(WIDE_N, WIDE_K, device=device, generator=torch.Generator(device=device).manual_seed(3))
+
+    def fit():
+        return linalg.block_coordinate_descent_rematerialized(
+            block_fn, y, WIDE_REG, 1, WIDE_BLOCK, num_blocks
+        )
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    w = fit()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        w = fit()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    fit_ms = statistics.median(times)
+    flops = 2.0 * WIDE_N * WIDE_BLOCK * (WIDE_BLOCK + 3 * WIDE_K) * num_blocks
+    result = {
+        "shape": [WIDE_N, WIDE_D, WIDE_K], "block_size": WIDE_BLOCK, "num_epochs": 1,
+        "fit_ms": fit_ms, "fit_ms_runs": times, "solver_tflop": flops / 1e12,
+        "tflops_per_s": flops / fit_ms / 1e9,
+        "vs_spark_16_node_block_solver": WIDE_SPARK_16_NODE_MS / fit_ms,
+        "spark_16_node_ms": WIDE_SPARK_16_NODE_MS,
+        "small_remat_vs_materialized_rel": small_rel,
+        "weights_finite": bool(torch.isfinite(w).all()), **_mnist_end("timit_wide_block"),
+    }
+    del w, y
+    torch.cuda.empty_cache()
+    log("timit_wide_block", **result)
+    if not (result["weights_finite"] and small_rel <= 1e-5):
+        raise AssertionError(f"timit_wide_block failed: {result}")
+    return 0
+
+
+def fp64_timit_scores(cfg, train, test, device, reg):
+    """Train and test scores of the TIMIT fit with the features and the BCD
+    (same blocks, same order, same λ) in float64 on the card."""
+    import torch
+
+    from keystone_tpu_torch.ops.stats.core import CosineRandomFeatures
+    from keystone_tpu_torch.parallel import linalg
+    from keystone_tpu_torch.pipelines.timit import NUM_CLASSES, TIMIT_DIMENSION
+
+    branches = [
+        CosineRandomFeatures.create(TIMIT_DIMENSION, cfg.num_cosine_features, cfg.gamma,
+                                    dist=cfg.rf_type, seed=cfg.seed + i, device=device)
+        for i in range(cfg.num_cosines)
+    ]
+
+    def featurize(x):
+        x = x.double()
+        return torch.cat([torch.cos(x @ op.w.double().T + op.b.double()) for op in branches], dim=1)
+
+    x = featurize(train.data.data)
+    n = x.shape[0]
+    y = torch.full((n, NUM_CLASSES), -1.0, dtype=torch.float64, device=device)
+    y[torch.arange(n, device=device), train.labels.data.long()] = 1.0
+    mu_a, mu_b = x.mean(dim=0), y.mean(dim=0)
+    x -= mu_a
+    w = linalg.block_coordinate_descent(x, y - mu_b, reg, cfg.num_epochs, cfg.num_cosine_features)
+    train_scores = x @ w + mu_b
+    del x
+    test_scores = (featurize(test.data.data) - mu_a) @ w + mu_b
+    return train_scores, test_scores
+
+
+def phase_timit(device) -> int:
+    """The TIMIT pipeline at its published width (module docstring, phase 13)."""
+    import torch
+
+    from keystone_tpu_torch.evaluation.multiclass import MulticlassClassifierEvaluator
+    from keystone_tpu_torch.ops.learning.block import _scale_aware_reg_floor
+    from keystone_tpu_torch.pipelines.timit import (
+        NUM_CLASSES, TimitConfig, build_featurizer, build_pipeline, synthetic_timit,
+    )
+    from keystone_tpu_torch.workflow.executor import PipelineEnv
+
+    cfg = TimitConfig()
+    train = synthetic_timit(4096, seed=cfg.seed, device=device)
+    test = synthetic_timit(1024, seed=cfg.seed + 1, device=device)
+    _mnist_start()
+    env = PipelineEnv.get_or_create()
+    pipeline = build_pipeline(cfg, train, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fitted = pipeline.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    nodes = env.nodes_executed
+    fit_peak = torch.cuda.max_memory_allocated()
+    evaluator = MulticlassClassifierEvaluator(NUM_CLASSES)
+    errors = {
+        "train_error": evaluator.evaluate(fitted.apply_batch(train.data).data, train.labels).total_error,
+        "test_error": evaluator.evaluate(fitted.apply_batch(test.data).data, test.labels).total_error,
+    }
+    mapper = _mapper_of(fitted)
+    feat = build_featurizer(cfg, device=device)
+    x = feat(train.data).get().data
+    d = x.shape[1]
+    reg = _scale_aware_reg_floor(x - x.mean(dim=0), x.shape[0])
+    s32_train = mapper.apply_arrays(x)
+    del x
+    s32_test = mapper.apply_arrays(feat(test.data).get().data)
+    del fitted, pipeline, mapper, feat
+    PipelineEnv.reset()
+    torch.cuda.empty_cache()
+    s64_train, s64_test = fp64_timit_scores(cfg, train, test, device, reg)
+    fp64 = {"train_scores_vs_fp64_rel": rel_err(s32_train, s64_train),
+            "test_scores_vs_fp64_rel": rel_err(s32_test, s64_test),
+            "test_predictions_equal_fp64_share": float((s32_test.argmax(1) == s64_test.argmax(1)).float().mean())}
+    del s32_train, s32_test, s64_train, s64_test
+    torch.cuda.empty_cache()
+    result = {"features": d, "branches": cfg.num_cosines, "block_size": cfg.num_cosine_features,
+              "epochs": cfg.num_epochs, "reg_floor": reg, "rows": [4096, 1024], "fit_s": fit_s,
+              "nodes_executed_in_fit": nodes, "fit_peak_device_bytes": fit_peak, **errors, **fp64}
+    cmd = [sys.executable, "-m", "keystone_tpu_torch", "timit", "--num-cosines", "4"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[1:])} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    result["cli"] = {"line": line, "seconds": time.perf_counter() - t0, "jax_errors": TIMIT4_JAX}
+    log("timit", **result, **_mnist_end("timit"))
+    if line.get("workload") != "timit":
+        raise AssertionError(f"the CLI printed no workload line: {proc.stdout[-500:]}")
+    for name, ref in TIMIT4_JAX.items():
+        if not abs(line[name] - ref) <= TIMIT_ERROR_TOL:
+            raise AssertionError(f"timit CLI: {name} {line[name]} is not within {TIMIT_ERROR_TOL} of {ref}")
+    if not (fp64["train_scores_vs_fp64_rel"] <= TIMIT_FP64_TRAIN_TOL
+            and fp64["test_scores_vs_fp64_rel"] <= TIMIT_FP64_TEST_TOL):
+        raise AssertionError(f"timit: fp32 scores are not within the float64 bounds: {fp64}")
+    return 0
+
+
+def phase_host_streaming_bcd(device) -> int:
+    """Host-streamed BCD picked by the estimator itself (module docstring,
+    phase 14)."""
+    import torch
+
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.ops.cuda import gemm
+    from keystone_tpu_torch.ops.learning import block
+    from keystone_tpu_torch.parallel import linalg
+
+    n, d, k, bs = STREAM_BCD_N, STREAM_BCD_D, STREAM_BCD_K, STREAM_BCD_BLOCK
+    _mnist_start()
+    g = torch.Generator(device=device).manual_seed(23)
+    x_dev = torch.randn(n, d, device=device, generator=g)
+    y = gemm.gemm(x_dev, torch.randn(d, k, device=device, generator=g), "ieee_fp32")
+    y.add_(torch.randn(n, k, device=device, generator=g), alpha=0.1)
+    t0 = time.perf_counter()
+    x_host = x_dev.cpu()
+    to_host_s = time.perf_counter() - t0
+    del x_dev
+    torch.cuda.empty_cache()
+    auto = block._auto_host_streaming(x_host, device)
+    stream_fn = linalg.block_coordinate_descent_streaming
+    blocks0, bytes0 = stream_fn.blocks_uploaded, stream_fn.bytes_uploaded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    streamed = block.BlockLeastSquaresEstimator(bs, num_iter=1, reg=STREAM_BCD_REG, device=device).fit(
+        ArrayDataset(x_host), ArrayDataset(y)
+    )
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    stream_peak = torch.cuda.max_memory_allocated()
+    uploaded = {"blocks": stream_fn.blocks_uploaded - blocks0, "bytes": stream_fn.bytes_uploaded - bytes0}
+
+    x_dev = x_host.to(device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    in_core = block.BlockLeastSquaresEstimator(
+        bs, num_iter=1, reg=STREAM_BCD_REG, device=device, host_streaming=False
+    ).fit(
+        ArrayDataset(x_dev), ArrayDataset(y)
+    )
+    torch.cuda.synchronize()
+    in_core_s = time.perf_counter() - t0
+    in_core_peak = torch.cuda.max_memory_allocated()
+    p_stream = streamed.apply_arrays(x_dev)
+    p_core = in_core.apply_arrays(x_dev)
+    rel = rel_err(p_stream, p_core)
+    finite = bool(torch.isfinite(p_stream).all()) and tuple(p_stream.shape) == (n, k)
+    del x_dev, p_stream, p_core, streamed, in_core, x_host
+    torch.cuda.empty_cache()
+    panel = n * bs * 4
+    result = {
+        "shape": [n, d, k], "block_size": bs, "matrix_bytes": n * d * 4, "panel_bytes": panel,
+        "auto_selected_streaming": auto, "uploaded": uploaded, "streamed_fit_s": stream_s,
+        "in_core_fit_s": in_core_s, "device_to_host_s": to_host_s,
+        "streamed_fit_peak_device_bytes": stream_peak, "in_core_fit_peak_device_bytes": in_core_peak,
+        "streamed_vs_in_core_predictions_rel": rel, **_mnist_end("host_streaming_bcd"),
+    }
+    log("host_streaming_bcd", **result)
+    checks = {
+        "auto": auto and uploaded["blocks"] == d // bs,
+        "bytes": uploaded["bytes"] == n * d * 4,
+        "peak_of_a_few_panels": stream_peak <= 3 * panel,
+        "parity": rel <= STREAM_BCD_TOL and finite,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"host_streaming_bcd failed {failed}")
+    return 0
+
+
 def card_name_and_limit() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1377,9 +2010,15 @@ def main() -> int:
     os.environ["KEYSTONE_BLOCKSPARSE_BLOCK"] = "16x16"
     os.environ.pop("KEYSTONE_BLOCKSPARSE_THRESHOLD", None)
     os.environ.pop("KEYSTONE_BLOCKSPARSE", None)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    import keystone_tpu_torch.parallel.linalg  # noqa: F401  (sets fp32 matmuls)
+    # Importing the port must leave PyTorch's precision flags as it
+    # found them: the solvers pin precision per call.
+    flags_before = _precision_flags()
+    import keystone_tpu_torch.parallel.linalg  # noqa: F401
+
+    flags_around_import = (flags_before, _precision_flags())
+    log("precision_flags", before_import=flags_around_import[0], after_import=flags_around_import[1])
+    if flags_around_import[0] != flags_around_import[1]:
+        raise AssertionError(f"importing the port changed {flags_around_import}")
 
     device = torch.device("cuda")
     t0 = time.perf_counter()
@@ -1393,9 +2032,22 @@ def main() -> int:
     del fitted, test
     launches_by_path["mnist_small_cpu"] = phase_mnist_small_cpu(device)
     launches_by_path["stream_fit"] = phase_stream_fit(device)
+    launches_by_path["solver_precision"] = phase_solver_precision(device, flags_around_import)
+    binding = phase_gram_modes(device)
+    launches_by_path["gram_modes"] = 0
+    launches_by_path["timit_exact"] = phase_timit_exact(device)
+    launches_by_path["timit_wide_block"] = phase_timit_wide_block(device)
+    launches_by_path["timit"] = phase_timit(device)
+    launches_by_path["host_streaming_bcd"] = phase_host_streaming_bcd(device)
+    # The binding's calls on the paths (gram_modes times it and is left out).
+    paths = {p: c for p, c in SOLVER_GEMM_CALLS.items() if p != "gram_modes"}
+    binding["launches"] = {k: sum(c[k] for c in paths.values()) for k in next(iter(paths.values()))}
+    binding["launches_by_path"] = paths
+    launches_by_path["gram_bsr"] = kernel.pop("gram_bsr_launches")
     kernel["launches_by_path"] = launches_by_path
     smi = card_name_and_limit()
     log("done", seconds=time.perf_counter() - t0)
+    print(json.dumps({"library_bindings": [binding]}))
     print(json.dumps({"kernels": [kernel]}))
     print(smi)
     print(json.dumps({

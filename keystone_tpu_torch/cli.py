@@ -66,6 +66,10 @@ WORKLOADS: Dict[str, Tuple[str, str, str, str]] = {
         "mnist_random_fft", "MnistRandomFFTConfig", "run",
         "MNIST random-FFT featurization + linear solve",
     ),
+    "timit": (
+        "timit", "TimitConfig", "run",
+        "TIMIT cosine random features + block least squares",
+    ),
 }
 
 

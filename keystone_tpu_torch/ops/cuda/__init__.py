@@ -1,2 +1,3 @@
-"""Hand-written CUDA kernels of the port (sources under ``csrc/``, built
-at first use by ``_build.py``) and their PyTorch wrappers."""
+"""Hand-written CUDA kernels of the port and its cuBLAS binding for solver
+products (sources under ``csrc/``, built at first use by ``_build.py``),
+with their PyTorch wrappers."""

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/lib<name>-<hash>.so`` at first use,
-then loaded with ``ctypes``. The hash covers every file under ``csrc/``
-and the flags, so an edited source or header rebuilds and a stale
-library is never loaded. Nothing is built or loaded at import time: the
+then loaded with ``ctypes``; a source that calls a CUDA library names it
+in :data:`LINK_FLAGS`. The hash covers every file under ``csrc/`` and the
+flags, so an edited source or header rebuilds and a stale library is
+never loaded. Nothing is built or loaded at import time: the
 CPU tests import this module on machines without ``nvcc``.
 """
 
@@ -17,7 +18,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 from ...envknobs import env_str
 
@@ -28,6 +29,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+#: Per-source link flags. ``-lcublas`` resolves to the toolkit's
+#: ``libcublas.so.<major>``; at load time the dynamic linker reuses the
+#: cuBLAS that PyTorch already loaded under the same soname.
+LINK_FLAGS: Dict[str, Tuple[str, ...]] = {"solver_gemm": ("-lcublas",)}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -54,7 +60,7 @@ def library_path(name: str) -> Path:
     h = hashlib.sha256()
     for path in sorted(p for p in SOURCE_DIR.rglob("*") if p.is_file()):
         h.update(str(path.relative_to(SOURCE_DIR)).encode() + b"\0" + path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS.get(name, ())).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -79,7 +85,8 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
     procs = {}
     for name in todo:
         tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE_DIR / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE_DIR / f"{name}.cu"),
+               *LINK_FLAGS.get(name, ())]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ))

@@ -9,7 +9,16 @@ Port of ``keystone_tpu/ops/learning/block.py``: ``BlockLinearMapper`` and
   ``linalg.gram_stream_finish`` + ``linalg.bcd_from_gram``;
 - ``densify``: CSR rows that are too dense (or ``KEYSTONE_BLOCKSPARSE=off``)
   are densified once on the device and take the dense path;
-- dense: the in-core block coordinate descent.
+- dense: the in-core block coordinate descent, or, for a host matrix too
+  large for the card, host streaming (``linalg.block_coordinate_descent_streaming``:
+  one feature block uploaded per update).
+
+Host streaming (``host_streaming=None``, the default, decides it): the fit
+streams when its device is a card and the features are a CPU tensor
+larger than ``KEYSTONE_STREAM_BYTES`` (default 4e9 bytes). ``ArrayDataset``
+uploads a numpy array when it is built, so a host matrix is an
+``ArrayDataset`` of a CPU tensor or one built with ``device="cpu"``.
+``True`` / ``False`` force the choice.
 
 ``fit_stream`` is the chunked fit of the streaming engine
 (``workflow/streaming.py``): it accumulates the same sufficient
@@ -17,8 +26,8 @@ statistics chunk by chunk, and the streamed fit and the block-sparse fit
 share one finish, :meth:`BlockLeastSquaresEstimator._finish_from_stats`.
 
 Left out (later slices): the OOM degradation ladder, obs spans and
-metrics, the profile store, host streaming, 2-D meshes and the refit
-state mixin (``fit_stream`` takes no ``state``).
+metrics, the profile store, 2-D meshes and the refit state mixin
+(``fit_stream`` takes no ``state``).
 """
 
 from __future__ import annotations
@@ -74,7 +83,8 @@ def _as_array_dataset(data: Dataset, device: torch.device) -> ArrayDataset:
 class BlockLeastSquaresEstimator(LabelEstimator):
     """Feature-block coordinate-descent least squares: ``num_iter`` full
     epochs over the feature blocks, λ applied per block. Fits on
-    ``device`` (default CUDA)."""
+    ``device`` (default CUDA). ``host_streaming``: None decides by the
+    rule in the module docstring; True or False force it."""
 
     #: Chunked-fit protocol (workflow/streaming.py): this estimator can
     #: consume featurized row chunks incrementally via Gram accumulation.
@@ -86,11 +96,13 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         num_iter: int = 1,
         reg: float = 0.0,
         device: DeviceLike = None,
+        host_streaming: Optional[bool] = None,
     ):
         self.block_size = block_size
         self.num_iter = num_iter
         self.reg = reg
         self.device = device
+        self.host_streaming = host_streaming
 
     def fit_stream(self, stream) -> BlockLinearMapper:
         """Row-chunked fit: accumulate (AᵀA, AᵀY, Σx, Σy) one chunk at a
@@ -138,8 +150,29 @@ class BlockLeastSquaresEstimator(LabelEstimator):
             data = ArrayDataset(_bs.bsr_to_dense(bsr, device)[:m, :d])
         features = _as_array_dataset(data, device)
         targets = _as_array_dataset(labels, device)
-        block = min(self.block_size, features.data.shape[1])
+        raw = features.data
+        block = min(self.block_size, raw.shape[1])
+        stream = self.host_streaming
+        if stream is None:
+            stream = _auto_host_streaming(raw, device)
+        if stream:
+            return self._fit_streaming(features, targets, block, device)
         return self._fit_in_core(features, targets, block, device)
+
+    def _fit_streaming(
+        self, features: ArrayDataset, targets: ArrayDataset, block: int,
+        device: torch.device,
+    ) -> BlockLinearMapper:
+        """One feature block of the host matrix uploaded per update
+        (``linalg.block_coordinate_descent_streaming``)."""
+        raw = features.data.cpu()
+        n = features.num_examples
+        reg = self.reg if self.reg > 0 else _scale_aware_reg_floor(raw[: min(n, 4096)], n)
+        w, mu_a, mu_b = linalg.block_coordinate_descent_streaming(
+            raw, targets.data, reg=reg, num_epochs=self.num_iter, block_size=block,
+            num_examples=n, device=device,
+        )
+        return BlockLinearMapper(w, block_size=block, intercept=mu_b, feature_mean=mu_a)
 
     def _fit_in_core(
         self, features: ArrayDataset, targets: ArrayDataset, block: int,
@@ -226,6 +259,25 @@ def _blocksparse_probe_bytes() -> int:
     """Ceiling on the host feature matrix the fast path will tile-probe.
     ``KEYSTONE_BLOCKSPARSE_PROBE_BYTES`` overrides."""
     return env_int("KEYSTONE_BLOCKSPARSE_PROBE_BYTES", int(512e6))
+
+
+def _auto_host_streaming(raw: torch.Tensor, device: torch.device) -> bool:
+    """``host_streaming=None``'s rule: stream a CPU-tensor feature matrix
+    larger than :func:`_host_streaming_threshold_bytes` into a fit on a
+    card."""
+    return (
+        device.type == "cuda"
+        and raw.device.type == "cpu"
+        and raw.numel() * raw.element_size() > _host_streaming_threshold_bytes()
+    )
+
+
+def _host_streaming_threshold_bytes() -> int:
+    """Above this many bytes a host feature matrix is streamed block by
+    block instead of uploaded whole (the in-core path also holds a
+    centered copy, so its residency is about twice the matrix).
+    ``KEYSTONE_STREAM_BYTES`` overrides."""
+    return env_int("KEYSTONE_STREAM_BYTES", int(4e9))
 
 
 def _stream_shapes(feat_spec, y_spec):

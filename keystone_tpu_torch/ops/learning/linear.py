@@ -7,8 +7,9 @@ labels, solves (AᵀA + λI) X = AᵀB on the centered data, and the model
 applies ``(x − μ_A)·X + μ_B``.
 
 ``LinearMapEstimator`` has both fits of the streaming protocol: ``fit``
-through ``linalg.centered_solve_refined`` (with two refinement steps
-under the default ``refine`` precision mode), and ``fit_stream``, which
+through ``linalg.centered_solve_refined`` (under the default ``refine``
+precision mode a bf16 Gram on the card, two IEEE fp32 refinement steps
+and the divergence guard), and ``fit_stream``, which
 accumulates the same normal equations chunk by chunk — the exact
 streamed-versus-materialized parity case.
 
@@ -94,12 +95,19 @@ class LinearMapEstimator(LabelEstimator):
         targets = _as_array_dataset(labels, device)
         x = features.data.to(device=device, dtype=torch.float32)
         y = targets.data.to(device=device, dtype=torch.float32)
-        # The JAX package's ``refine`` mode: a fast Gram plus two
-        # refinement steps against the true residual; every other mode
-        # solves once. All modes run IEEE fp32 here (parallel/linalg.py).
-        refine_steps = 2 if linalg.solver_mode() == "refine" else 0
+        # ``refine`` (the default mode): a fast Gram at the ``default``
+        # product (bf16 on the card) plus two refinement steps against the
+        # true residual at IEEE fp32, under the divergence guard. Every
+        # other mode solves once from a Gram at its own product, read per
+        # call (parallel/linalg.py).
+        mode = linalg.solver_mode()
+        if mode == "refine":
+            gram_precision, refine_steps = "default", 2
+        else:
+            gram_precision, refine_steps = mode, 0
         w, mu_a, mu_b = linalg.centered_solve_refined(
-            x, y, features.num_examples, self.reg or 0.0, refine_steps=refine_steps
+            x, y, features.num_examples, self.reg or 0.0,
+            gram_precision=gram_precision, refine_steps=refine_steps,
         )
         if not self.reg:  # singular-risk case only: fail loudly, not NaN
             linalg.check_finite(w, "LinearMapEstimator (reg=0)")

@@ -1,4 +1,5 @@
-"""The CUDA ELL kernel against its plain PyTorch version, on the card.
+"""The CUDA ELL kernel and the solver-product binding against their plain
+PyTorch versions, on the card.
 
 Marked ``cuda``: these need an NVIDIA GPU and ``nvcc`` and skip on a
 machine without a card. On the card, where JAX is not installed (so the
@@ -23,7 +24,6 @@ pytestmark = pytest.mark.cuda
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -189,3 +189,130 @@ def test_streamed_fit_on_the_card_matches_the_cpu(cuda, monkeypatch):
     assert rep.device_overlap_ok is True and len(rep.device_copy_ms) == 9
     assert res_rep.chunks == 9 and res_rep.bytes_transferred == 0
     assert res_rep.device_overlap_ok is None
+
+
+# ------------------------------------------------ solver-product binding
+#
+# Bounds: each product kind against its plain version (inputs rounded as
+# the kind rounds them, then an fp32 product) ≤ 1e-5 relative for
+# products of random matrices — summation order and the tensor cores' own
+# accumulation (on an H100: 0.0 for ieee_fp32, ≤ 7e-7 for tf32). A Gram's
+# diagonal sums are all positive, so the tensor cores' accumulation
+# rounding does not average out there: ≤ 2e-5 for tf32 and bf16 Grams
+# (measured 6.1e-6 and 8.9e-6 at 65,536 rows). Against float64 the kinds
+# sit at their rounding.
+
+
+def _rel(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("kind", ["ieee_fp32", "tf32", "bf16"])
+@pytest.mark.parametrize("m,k,n", [(257, 1000, 131), (64, 4096, 256)])
+def test_binding_matches_its_plain_version(cuda, kind, m, k, n):
+    from keystone_tpu_torch.ops.cuda import gemm as tgemm
+
+    g = torch.Generator(device=cuda).manual_seed(m + n)
+    a = torch.randn(m, k, device=cuda, generator=g)
+    at = torch.randn(k, m, device=cuda, generator=g)
+    b = torch.randn(k, n, device=cuda, generator=g)
+    c0 = torch.randn(m, n, device=cuda, generator=g)
+    before = tgemm.launches[kind]
+    plain = tgemm.gemm(a, b, kind)
+    transposed = tgemm.gemm(at.T, b, kind)
+    accumulated = tgemm.gemm(a, b, kind, out=c0.clone(), beta=1.0)
+    torch.cuda.synchronize()
+    assert tgemm.launches[kind] == before + 3
+    assert _rel(plain, tgemm.gemm_reference(a, b, kind)) <= 1e-5
+    assert _rel(transposed, tgemm.gemm_reference(at.T, b, kind)) <= 1e-5
+    assert _rel(accumulated, c0 + tgemm.gemm_reference(a, b, kind)) <= 1e-5
+    exact = a.double() @ b.double()
+    assert _rel(plain, exact) <= {"ieee_fp32": 1e-6, "tf32": 2e-3, "bf16": 1e-2}[kind]
+
+
+@pytest.mark.parametrize("kind", ["ieee_fp32", "tf32", "bf16"])
+def test_chunked_gram_matches_its_plain_version(cuda, kind):
+    from keystone_tpu_torch.ops.cuda import gemm as tgemm
+
+    x = torch.randn(16384 + 77, 256, device=cuda, generator=torch.Generator(device=cuda).manual_seed(3))
+    got = tgemm.gemm_tn_chunked(x, x, kind)
+    assert _rel(got, tgemm.gemm_tn_chunked_reference(x, x, kind)) <= (1e-6 if kind == "ieee_fp32" else 2e-5)
+    exact = x.double().T @ x.double()
+    highest = tgemm.gemm_tn_chunked(x, x, "ieee_fp32")
+    assert _rel(highest, exact) <= 1e-6
+    if kind == "bf16":  # one bf16 pass: far from float64, not at fp32's error
+        assert _rel(got, exact) >= 10 * _rel(highest, exact)
+
+
+def test_binding_runs_on_the_current_stream_and_thread(cuda):
+    import threading
+
+    from keystone_tpu_torch.ops.cuda import gemm as tgemm
+
+    x = torch.randn(8192, 128, device=cuda)
+    want = x.double().T @ x.double()
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        on_stream = tgemm.gemm_tn_chunked(x, x)
+    stream.synchronize()
+    assert _rel(on_stream, want) <= 1e-6
+    seen = {}
+
+    def worker():
+        with torch.cuda.stream(torch.cuda.Stream()):
+            seen["out"] = tgemm.gemm_tn_chunked(x, x)
+            torch.cuda.current_stream().synchronize()
+
+    thread = threading.Thread(target=worker)
+    thread.start()
+    thread.join(timeout=60)
+    assert not thread.is_alive() and _rel(seen["out"], want) <= 1e-6
+
+
+def test_float64_runs_ieee_fp64_through_mm(cuda):
+    from keystone_tpu_torch.ops.cuda import gemm as tgemm
+    from keystone_tpu_torch.parallel import linalg
+
+    a = torch.randn(300, 40, device=cuda, dtype=torch.float64)
+    b = torch.randn(40, 7, device=cuda, dtype=torch.float64)
+    before = tgemm.launches["fp64"]
+    for mode in ("default", "highest"):
+        with linalg.solver_mode_scope(mode):
+            assert _rel(linalg.mm(a, b), (a.cpu() @ b.cpu()).to(cuda)) <= 1e-12
+            assert _rel(linalg.mm_t(a, a), (a.cpu().T @ a.cpu()).to(cuda)) <= 1e-12
+    assert tgemm.launches["fp64"] == before + 4
+    with pytest.raises(TypeError, match="float32, float64 or bfloat16"):
+        linalg.mm(a.half(), b.half())
+
+
+def test_solver_precision_survives_a_global_tf32_switch(cuda):
+    """``torch.set_float32_matmul_precision("high")`` after the port is
+    imported leaves its solver products in IEEE fp32: a small MNIST fit
+    scores within 1e-5 of the same fit with the global at "highest"."""
+    from keystone_tpu_torch.ops.cuda import gemm as tgemm
+    from keystone_tpu_torch.ops.learning.block import BlockLinearMapper
+    from keystone_tpu_torch.pipelines.mnist_random_fft import (
+        MnistRandomFFTConfig, build_featurizer, build_pipeline, synthetic_mnist,
+    )
+    from keystone_tpu_torch.workflow.executor import PipelineEnv
+
+    cfg = MnistRandomFFTConfig(num_ffts=2, block_size=512, reg=10.0)
+    scores = {}
+    for precision in ("highest", "high"):
+        torch.set_float32_matmul_precision(precision)
+        try:
+            PipelineEnv.reset()
+            before = tgemm.launches["ieee_fp32"]
+            fitted = build_pipeline(cfg, synthetic_mnist(1024, seed=0, device=cuda), device=cuda).fit()
+            assert tgemm.launches["ieee_fp32"] > before
+            assert torch.backends.cuda.matmul.allow_tf32 == (precision == "high")
+            mapper = next(
+                m for op in fitted.graph.operators.values()
+                for m in getattr(op, "members", (op,)) if isinstance(m, BlockLinearMapper)
+            )
+            test = synthetic_mnist(256, seed=1, device=cuda)
+            scores[precision] = mapper.apply_arrays(build_featurizer(cfg, device=cuda)(test.data).get().data)
+        finally:
+            torch.set_float32_matmul_precision("highest")
+            PipelineEnv.reset()
+    assert _rel(scores["high"], scores["highest"]) <= 1e-5

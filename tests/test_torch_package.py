@@ -90,13 +90,55 @@ print(json.dumps({"imported": names, "bad": bad}))
         "keystone_tpu_torch.workflow.fusion",
         "keystone_tpu_torch.workflow.streaming",
         "keystone_tpu_torch.ops.learning.linear",
+        "keystone_tpu_torch.ops.cuda.gemm",
+        "keystone_tpu_torch.data.loaders.timit",
+        "keystone_tpu_torch.pipelines.timit",
     }
     assert expected <= set(result["imported"])
 
 
 def test_kernel_sources_ship_in_the_package():
-    assert (Path(keystone_tpu_torch.__file__).parent / "ops/cuda/csrc/ell_matmul.cu").is_file()
-    assert _build.library_path("ell_matmul").parent == _build.BUILD_DIR
+    for name in ("ell_matmul", "solver_gemm"):
+        assert (Path(keystone_tpu_torch.__file__).parent / f"ops/cuda/csrc/{name}.cu").is_file()
+        assert _build.library_path(name).parent == _build.BUILD_DIR
+    assert _build.LINK_FLAGS["solver_gemm"] == ("-lcublas",)
+
+
+@pytest.mark.parametrize(
+    "setup",
+    [
+        "pass",
+        "torch.set_float32_matmul_precision('high')",
+        "torch.set_float32_matmul_precision('medium')",
+        "torch.backends.cuda.matmul.allow_tf32 = True; torch.backends.cudnn.allow_tf32 = False",
+    ],
+)
+def test_importing_the_port_changes_no_global_precision_flag(setup):
+    """``import keystone_tpu_torch`` and its solvers leave PyTorch's
+    process-wide TF32 flags and matmul precision as they found them."""
+    script = f"""
+import json, torch
+{setup}
+def flags():
+    try:
+        precision = torch.get_float32_matmul_precision()
+    except RuntimeError as exc:  # legacy and new APIs mixed
+        precision = str(exc)[:60]
+    return [torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32, precision]
+seen = flags()
+import keystone_tpu_torch
+import keystone_tpu_torch.parallel.linalg
+import keystone_tpu_torch.ops.learning.linear
+import keystone_tpu_torch.pipelines.timit
+print(json.dumps([seen, flags()]))
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
+        timeout=120, check=True,
+    )
+    seen, after = json.loads(out.stdout.strip().splitlines()[-1])
+    assert after == seen
+    assert seen[0] == ("high" in setup or "= True" in setup or "medium" in setup)
 
 
 def test_entry_points_without_device_raise_when_no_cuda(monkeypatch):
@@ -182,6 +224,35 @@ def test_cuda_tensor_with_kernel_library_missing_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         tbs.ell_matmul(idx, blocks, b)
     assert tbs.ell_matmul.launches == before
+
+
+def test_solver_products_on_cuda_tensors_never_fall_back(monkeypatch, tmp_path):
+    """A CUDA tensor reaches the cuBLAS binding (here: its missing build)
+    at every mode; neither the plain version nor ``torch.matmul`` runs."""
+    from keystone_tpu_torch.ops.cuda import gemm as tgemm
+    from keystone_tpu_torch.parallel import linalg
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "find_nvcc", lambda: None)
+    monkeypatch.setattr(_build, "_loaded", {})
+
+    def plain_must_not_run(*args, **kwargs):
+        raise AssertionError("a CUDA tensor fell back to a plain product")
+
+    for name in ("gemm_reference", "gemm_tn_chunked_reference"):
+        monkeypatch.setattr(tgemm, name, plain_must_not_run)
+    monkeypatch.setattr(torch, "matmul", plain_must_not_run)
+    a = torch.ones(8, 4).as_subclass(_CudaLooking)
+    b = torch.ones(8, 3).as_subclass(_CudaLooking)
+    before = dict(tgemm.launches)
+    for mode in ("highest", "high", "default", "refine"):
+        with linalg.solver_mode_scope(mode):
+            for call in (lambda: linalg.mm(a.T, b), lambda: linalg.mm_t(a, b)):
+                with pytest.raises(RuntimeError, match="nvcc not found"):
+                    call()
+    with pytest.raises(TypeError, match="float32, float64 or bfloat16"):
+        tgemm.gemm(a.half().T, b.half())
+    assert tgemm.launches == before
 
 
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():

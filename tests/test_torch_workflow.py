@@ -692,7 +692,9 @@ def test_gram_stream_step_accumulates_in_place_and_solvers_agree_with_float64():
     want = np.linalg.solve(xc.T @ xc + 0.5 * np.eye(7), xc.T @ yc)
     w_stream = linalg.solve_from_gram(gc, cc, reg=0.5).numpy()
     for steps in (0, 2):
-        w, mu_a, mu_b = linalg.centered_solve_refined(torch.from_numpy(x), torch.from_numpy(y), 300, 0.5, steps)
+        w, mu_a, mu_b = linalg.centered_solve_refined(
+            torch.from_numpy(x), torch.from_numpy(y), 300, 0.5, refine_steps=steps
+        )
         assert np.linalg.norm(w.numpy() - want) / np.linalg.norm(want) <= 1e-5
         np.testing.assert_allclose(mu_a.numpy(), xd.mean(0), rtol=1e-5)
     assert np.linalg.norm(w_stream - want) / np.linalg.norm(want) <= 1e-5
