@@ -109,12 +109,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    on a (131,072, 8,192) float32 CPU tensor (4.3 GB > the 4e9-byte
    threshold, so the fit streams by itself): predictions within 1e-5 of
    the in-core fit of the same rows on the card, bytes uploaded, wall
-   time and a peak of a few panels.
+   time and a peak of a few panels;
+15. reliability — the OOM degradation ladder, executor retry, spans and
+   the profile store under the ported fits, each printed on its own line:
+   ``oom_real`` refits phase 14's matrix at block 4,096 under
+   ``torch.cuda.set_per_process_memory_fraction``, capped midway between
+   what an uncapped block-2,048 fit reserved and the 4,096 rung's panel:
+   rung 0 must fail with a real ``OutOfMemoryError``, the model carry
+   ``degradation`` {rung 2,048, rung_index 1, first_rung 4,096}, the
+   recovery log one ``degrade`` event, the rung counter grow by 2, the
+   card's allocated bytes be back at their pre-fit value as rung 1 starts,
+   and predictions lie within 1e-5 of the uncapped 2,048 fit;
+   ``oom_injected_sparse`` refits phase 3's rows under an OOM injected at
+   ``BlockLeastSquaresEstimator.solve``'s first call: block 4,096 → 2,048,
+   two ELL launches, scores within 1e-5 of a direct 2,048 fit; ``retry``
+   fits ``mnist_default``'s pipeline with a ``RetryPolicy`` and one
+   transient fault at a fused branch: one retry, scores bitwise equal to
+   a clean fit; ``traced_fit`` fits ``mnist_full``'s pipeline untraced
+   (three times, beside PR 6's ``fit_s``) and under ``trace()``: one
+   ``node:*`` span and one node-seconds observation per executed node,
+   the optimizer's batch spans and rule counters, a ``solver:fit`` span
+   under the estimator's node; ``profile_store`` reads the run's store
+   (a fresh temporary file): ``solver:block_ls…`` entries with a
+   torch/CUDA/card fingerprint that a fresh store hits, and a stored
+   ``blocksparse:threshold`` of 0.0 for phase 3's rows bucket turning
+   its dispatch from ``sparse`` to ``densify`` (and back once marked
+   stale).
 
 Phases 4–14 reach no ELL kernel: each sets its count to 0 and fails if it
-moved. Every phase starts from a reset ``PipelineEnv`` and reports its
-peak device memory and the solver binding's calls per product kind
-(``ops/cuda/gemm.py``).
+moved; phase 15 launches it only in ``oom_injected_sparse``. Every phase
+starts from a reset ``PipelineEnv`` and reports its peak device memory
+and the solver binding's calls per product kind (``ops/cuda/gemm.py``).
 
 It prints a ``{"library_bindings": [...]}`` line (the cuBLAS binding, not
 a TPU kernel), a ``{"kernels": [...]}`` line, the card's name and power
@@ -128,6 +153,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -660,6 +686,8 @@ def fit_breakdown(rows, y, device, model):
 
 
 def phase_slice(device):
+    """Phase 3. Returns the kernel's launches in the fit and the fitted
+    rows, labels and test documents."""
     import torch
 
     from keystone_tpu_torch.ops.cuda import blocksparse as bs
@@ -739,7 +767,8 @@ def phase_slice(device):
         "small_card_vs_cpu_weights_rel": small_rel,
     }
     log("slice", **result)
-    return launches
+    # The featurized rows, labels and held-out documents, for phase 15.
+    return launches, {"rows": out["rows"], "y": out["y"], "test": test}
 
 
 # -------------------------------------------------------------- phases 4-6
@@ -901,7 +930,6 @@ def phase_mnist_full(device):
     and ``Pipeline.fit()``. Returns the fitted pipeline and the test set
     for ``phase_serve_mnist``."""
     import statistics
-    import tempfile
     from collections import Counter, defaultdict
 
     import torch
@@ -1149,7 +1177,6 @@ def phase_serve_mnist(device, fitted, test) -> int:
     every bucket, the single-request floor, offered load from 8 clients
     with a hot swap in the middle, label parity with ``apply_batch``,
     then the ``serve`` CLI over stdin/JSON."""
-    import tempfile
 
     import torch
 
@@ -1922,7 +1949,7 @@ def phase_timit(device) -> int:
 
 def phase_host_streaming_bcd(device) -> int:
     """Host-streamed BCD picked by the estimator itself (module docstring,
-    phase 14)."""
+    phase 14). Returns the host matrix and its targets for phase 15."""
     import torch
 
     from keystone_tpu_torch.data.dataset import ArrayDataset
@@ -1971,7 +1998,7 @@ def phase_host_streaming_bcd(device) -> int:
     p_core = in_core.apply_arrays(x_dev)
     rel = rel_err(p_stream, p_core)
     finite = bool(torch.isfinite(p_stream).all()) and tuple(p_stream.shape) == (n, k)
-    del x_dev, p_stream, p_core, streamed, in_core, x_host
+    del x_dev, p_stream, p_core, streamed, in_core
     torch.cuda.empty_cache()
     panel = n * bs * 4
     result = {
@@ -1991,7 +2018,340 @@ def phase_host_streaming_bcd(device) -> int:
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"host_streaming_bcd failed {failed}")
-    return 0
+    return x_host, y
+
+
+# -------------------------------------------------------------- phase 15
+#
+# Reliability and observability under the ported fits. PR 6's fit_s of
+# mnist_full, untraced, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md).
+MNIST_FULL_FIT_S_PR6 = (0.0234, 0.0388)
+RELIABILITY_TOL = 1e-5
+SOLVE_SITE = "BlockLeastSquaresEstimator.solve"
+OOM_BLOCK = 4096
+
+
+def _rung_attempts(solver: str) -> float:
+    from keystone_tpu_torch.obs import names
+
+    return names.metric(names.SOLVER_RUNG_ATTEMPTS).value(solver=solver)
+
+
+def _reliability_oom_real(device, x_host, y) -> dict:
+    """A real allocator OOM walked down by the ladder: the host-streamed
+    fit at block 4,096 under a per-process memory cap that its panel
+    cannot fit in and the 2,048 rung can."""
+    import torch
+
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.ops.learning.block import BlockLeastSquaresEstimator
+    from keystone_tpu_torch.parallel import linalg
+    from keystone_tpu_torch.reliability import get_recovery_log
+    from keystone_tpu_torch.workflow.executor import PipelineEnv
+
+    n, half = x_host.shape[0], OOM_BLOCK // 2
+
+    def fit(block):
+        return BlockLeastSquaresEstimator(block, num_iter=1, reg=STREAM_BCD_REG, device=device).fit(
+            ArrayDataset(x_host), ArrayDataset(y)
+        )
+
+    # The uncapped fit at the half block: the reference, and what it needs.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    reference = fit(half)
+    torch.cuda.synchronize()
+    need_half = torch.cuda.max_memory_reserved() - reserved0
+    need_half_allocated = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
+    panel_full = n * OOM_BLOCK * 4
+    if not need_half < 0.9 * panel_full:
+        raise AssertionError(f"oom_real: the {half} rung needs {need_half} B, no cap separates it "
+                             f"from the {OOM_BLOCK} rung's {panel_full} B panel")
+    budget = (need_half + panel_full) // 2
+
+    stream_fn = linalg.block_coordinate_descent_streaming
+    entries = []
+
+    def on_entry(*args, **kwargs):  # reads the card's allocated bytes as each rung starts
+        entries.append(torch.cuda.memory_allocated())
+        return stream_fn(*args, **kwargs)
+
+    on_entry.blocks_uploaded, on_entry.bytes_uploaded = 0, 0  # the real one counts on its name
+    PipelineEnv.reset()
+    attempts0 = _rung_attempts("block_ls")
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    total = torch.cuda.get_device_properties(index).total_memory
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    allocated_before = torch.cuda.memory_allocated()
+    cap = torch.cuda.memory_reserved() + budget
+    torch.cuda.reset_peak_memory_stats()
+    linalg.block_coordinate_descent_streaming = on_entry
+    torch.cuda.set_per_process_memory_fraction(cap / total, index)
+    try:
+        t0 = time.perf_counter()
+        model = fit(OOM_BLOCK)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        capped_peak = torch.cuda.max_memory_reserved()
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, index)
+        linalg.block_coordinate_descent_streaming = stream_fn
+    log_events = get_recovery_log().events()
+    degradation = dict(getattr(model, "degradation", {}))
+    rows = x_host[:16384].to(device)
+    rel = rel_err(model.apply_arrays(rows), reference.apply_arrays(rows))
+    result = {
+        "shape": list(x_host.shape), "first_block": OOM_BLOCK, "cap_bytes": cap,
+        "budget_bytes": budget, "total_bytes": total,
+        "uncapped_half_block_peak_reserved_bytes": need_half,
+        "uncapped_half_block_peak_allocated_bytes": need_half_allocated,
+        "full_block_panel_bytes": panel_full, "capped_peak_reserved_bytes": capped_peak,
+        "capped_fit_s": fit_s, "degradation": degradation,
+        "recovery_events": [e.kind for e in log_events],
+        "rung_attempts": _rung_attempts("block_ls") - attempts0,
+        "allocated_before_fit": allocated_before, "allocated_at_rung_entries": entries,
+        "vs_uncapped_half_block_predictions_rel": rel,
+    }
+    checks = {
+        "real_oom": degradation.get("reduction_reason", "").startswith("OutOfMemoryError:")
+        and "injected" not in degradation.get("reduction_reason", ""),
+        "degraded": {k: degradation.get(k) for k in ("rung", "rung_index", "first_rung", "reduced")}
+        == {"rung": half, "rung_index": 1, "first_rung": OOM_BLOCK, "reduced": True},
+        "one_degrade_event": [e.kind for e in log_events] == ["degrade"],
+        "two_rung_attempts": result["rung_attempts"] == 2,
+        "memory_back_at_rung_1": len(entries) == 2 and entries[1] == allocated_before,
+        "parity": rel <= RELIABILITY_TOL,
+    }
+    result["failed"] = [name for name, ok in checks.items() if not ok]
+    return result
+
+
+def _reliability_oom_injected_sparse(device, slice_fit) -> dict:
+    """The hashing-TF slice fit under an OOM injected at its first attempt:
+    the ladder halves the block, and the kernel launches twice."""
+    import torch
+
+    from keystone_tpu_torch.ops.cuda import blocksparse as bs
+    from keystone_tpu_torch.ops.learning.block import BlockLeastSquaresEstimator
+    from keystone_tpu_torch.reliability import FaultSpec, get_recovery_log, injected
+    from keystone_tpu_torch.workflow.executor import PipelineEnv
+
+    PipelineEnv.reset()
+    attempts0 = _rung_attempts("block_ls_sparse")
+    bs.ell_matmul.launches = 0
+    t0 = time.perf_counter()
+    with injected(FaultSpec(match=SOLVE_SITE, kind="oom", first_n=1)):
+        model = BlockLeastSquaresEstimator(BLOCK_SIZE, num_iter=1, reg=REG, device=device).fit(
+            slice_fit["rows"], slice_fit["y"]
+        )
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = bs.ell_matmul.launches
+    summary = get_recovery_log().summary()
+    attempts = _rung_attempts("block_ls_sparse") - attempts0
+    # The reference: a direct fit at the half block (its launches are not
+    # the main path's).
+    direct = BlockLeastSquaresEstimator(BLOCK_SIZE // 2, num_iter=1, reg=REG, device=device).fit(
+        slice_fit["rows"], slice_fit["y"]
+    )
+    rel = rel_err(scores(model, slice_fit["test"], device), scores(direct, slice_fit["test"], device))
+    degradation = dict(getattr(model, "degradation", {}))
+    result = {
+        "documents": len(slice_fit["rows"]), "fit_s": fit_s, "ell_launches": launches,
+        "degradation": degradation, "rung_attempts": attempts,
+        "recovery_events": [e["kind"] for e in summary["events"]],
+        "vs_direct_half_block_scores_rel": rel,
+    }
+    checks = {
+        "two_launches": launches == 2,
+        "degraded": degradation.get("rung") == BLOCK_SIZE // 2 and degradation.get("first_rung") == BLOCK_SIZE,
+        "events": result["recovery_events"] == ["fault", "degrade"] and attempts == 2,
+        "parity": rel <= RELIABILITY_TOL,
+    }
+    result["failed"] = [name for name, ok in checks.items() if not ok]
+    return result
+
+
+def _reliability_retry(device) -> dict:
+    """``mnist_default``'s fit with a retry policy and one transient fault
+    at the first forcing of a fused featurizer branch."""
+    import torch
+
+    from keystone_tpu_torch.pipelines.mnist_random_fft import (
+        MnistRandomFFTConfig, build_pipeline, synthetic_mnist,
+    )
+    from keystone_tpu_torch.reliability import FaultSpec, RetryPolicy, get_recovery_log, injected
+    from keystone_tpu_torch.workflow.executor import PipelineEnv
+
+    cfg = MnistRandomFFTConfig()
+    train = synthetic_mnist(8192, seed=cfg.seed, device=device)
+    test = synthetic_mnist(2048, seed=cfg.seed + 1, device=device)
+    PipelineEnv.reset()
+    clean = mnist_test_scores(cfg, build_pipeline(cfg, train, device=device).fit(), test, device)
+    PipelineEnv.reset()
+    PipelineEnv.get_or_create().retry_policy = RetryPolicy(max_attempts=3, seed=0)
+    t0 = time.perf_counter()
+    with injected(FaultSpec(match=FUSED_BRANCH, kind="transient", calls=(1,))):
+        fitted = build_pipeline(cfg, train, device=device).fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    summary = get_recovery_log().summary()
+    retried = mnist_test_scores(cfg, fitted, test, device)
+    PipelineEnv.reset()
+    bitwise = bool(torch.equal(retried, clean))
+    result = {
+        "rows": 8192, "num_ffts": cfg.num_ffts, "fault_at": FUSED_BRANCH, "fit_s": fit_s,
+        "retries": summary["retries"], "recovery_events": [e["kind"] for e in summary["events"]],
+        "scores_bitwise_equal_to_clean_fit": bitwise,
+    }
+    checks = {"one_retry": summary["retries"] == 1 and result["recovery_events"] == ["fault", "retry"],
+              "bitwise": bitwise}
+    result["failed"] = [name for name, ok in checks.items() if not ok]
+    return result
+
+
+def _reliability_traced_fit(device) -> dict:
+    """``mnist_full``'s fit untraced, then under ``trace()``: a node span
+    and a node-seconds observation per executed node, the optimizer's
+    batch spans and rule counters, the solver's span under its node."""
+    import torch
+
+    from keystone_tpu_torch.obs import names
+    from keystone_tpu_torch.pipelines.mnist_random_fft import (
+        MnistRandomFFTConfig, build_pipeline, synthetic_mnist,
+    )
+    from keystone_tpu_torch.workflow.executor import PipelineEnv
+    from keystone_tpu_torch.workflow.tracing import trace
+
+    cfg = MnistRandomFFTConfig()
+    pipeline = build_pipeline(cfg, synthetic_mnist(MNIST_TRAIN_ROWS, seed=0, device=device), device=device)
+    PipelineEnv.reset()
+    pipeline.fit()  # warm: this pipeline's first fit in the process
+    untraced = []
+    for _ in range(3):
+        PipelineEnv.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipeline.fit()
+        torch.cuda.synchronize()
+        untraced.append(time.perf_counter() - t0)
+
+    hist = names.metric(names.NODE_SECONDS)
+    runs, rewrites = names.metric(names.RULE_RUNS), names.metric(names.RULE_REWRITES)
+
+    def totals():
+        return (sum(s.count for s in hist.series().values()), dict(runs.series()), dict(rewrites.series()),
+                names.metric(names.NODES_EXECUTED).total())
+
+    PipelineEnv.reset()
+    env = PipelineEnv.get_or_create()
+    before = totals()
+    with trace() as tr:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipeline.fit()
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    after = totals()
+    spans = tr.session.spans()
+    node_spans = [sp for sp in spans if sp.name.startswith("node:")]
+    batch_names = [b.name for b in env.optimizer.batches]
+    batch_spans = sorted(sp.name for sp in spans if sp.name.startswith("optimize:batch:"))
+    by_id = {sp.span_id: sp for sp in spans}
+    solver_spans = [sp for sp in spans if sp.name == "solver:fit"]
+    solver_parents = [by_id[sp.parent_id].name for sp in solver_spans if sp.parent_id in by_id]
+    rule_runs = {dict(k)["rule"]: v - before[1].get(k, 0.0) for k, v in after[1].items()}
+    rule_rewrites = {dict(k)["rule"]: v - before[2].get(k, 0.0) for k, v in after[2].items()}
+    nodes = env.nodes_executed
+    result = {
+        "rows": MNIST_TRAIN_ROWS, "untraced_fit_s": untraced, "untraced_fit_s_pr6": list(MNIST_FULL_FIT_S_PR6),
+        "traced_fit_s": traced_s, "nodes_executed": nodes,
+        "nodes_executed_counter": after[3] - before[3], "node_spans": len(node_spans),
+        "node_seconds_observations": after[0] - before[0], "spans": len(spans),
+        "batch_spans": batch_spans, "solver_fit_spans": [sp.attributes.get("solver") for sp in solver_spans],
+        "solver_fit_parents": solver_parents, "rule_runs": rule_runs, "rule_rewrites": rule_rewrites,
+    }
+    checks = {
+        "node_spans": len(node_spans) == nodes == after[3] - before[3] > 0,
+        "node_seconds": after[0] - before[0] == nodes,
+        "batch_spans": batch_spans == sorted(f"optimize:batch:{b}" for b in batch_names),
+        "solver_span": result["solver_fit_spans"] == ["block_ls"]
+        and solver_parents == ["node:BlockLeastSquaresEstimator"],
+        "rules": bool(rule_runs) and all(v >= 1 for v in rule_runs.values()),
+    }
+    result["failed"] = [name for name, ok in checks.items() if not ok]
+    return result
+
+
+def _reliability_profile_store(device, slice_fit) -> dict:
+    """The store the earlier phases wrote to: solver observations with a
+    torch/CUDA/card fingerprint, read back by a fresh store; a tuned
+    threshold of 0.0 for the slice's rows bucket flips its dispatch."""
+    import torch
+
+    from keystone_tpu_torch.obs import store as obs_store
+    from keystone_tpu_torch.ops.learning.block import BlockLeastSquaresEstimator
+
+    store = obs_store.get_store()
+    fingerprint = obs_store.environment_fingerprint()
+    expected = {"torch": torch.__version__, "backend": "cuda", "device_kind": torch.cuda.get_device_name()}
+    solver = sorted((k, s) for k, s, _ in store.entries(key_prefix="solver:block_ls"))
+    fresh = obs_store.ProfileStore(store.path)
+    hits = [fresh.lookup(k, s) is not None for k, s in solver]
+    est = BlockLeastSquaresEstimator(BLOCK_SIZE, num_iter=1, reg=REG, device=device)
+    rows = slice_fit["rows"]
+    shape = f"{obs_store.rows_bucket(obs_store.shape_class(len(rows)))}|{NUM_FEATURES}|float32"
+    store.record("blocksparse:threshold", shape, threshold=0.0, speedup=1.0, source="tune")
+    tuned = est._blocksparse_dispatch(rows)[0]
+    # A stale mark is the store's way to stop a replay (the entry stays on file).
+    store.mark_stale("blocksparse:threshold", shape)
+    untuned = est._blocksparse_dispatch(rows)[0]
+    result = {
+        "path": store.path, "fingerprint": fingerprint, "solver_entries": [k for k, _ in solver],
+        "fresh_store_hits": fresh.stats()["hits"], "threshold_shape": shape,
+        "dispatch_with_threshold_0": tuned, "dispatch_after_stale_mark": untuned,
+    }
+    checks = {
+        "fingerprint": fingerprint == expected,
+        "solver_entries": any(k.startswith("solver:block_ls:bs") and ":prec" in k for k, _ in solver),
+        "round_trip": bool(hits) and all(hits),
+        "dispatch": (tuned, untuned) == ("densify", "sparse"),
+    }
+    result["failed"] = [name for name, ok in checks.items() if not ok]
+    return result
+
+
+def phase_reliability(device, host_problem, slice_fit) -> int:
+    """Phase 15 (module docstring). Returns the ELL kernel's launches in
+    the injected-OOM hashing-TF fit."""
+    from keystone_tpu_torch.ops.cuda import blocksparse as bs
+    from keystone_tpu_torch.ops.cuda import gemm
+
+    _mnist_start()
+    t0 = time.perf_counter()
+    parts = {"oom_real": _reliability_oom_real(device, *host_problem)}
+    if bs.ell_matmul.launches:
+        parts["oom_real"]["failed"].append("ell_launched")
+    parts["oom_injected_sparse"] = _reliability_oom_injected_sparse(device, slice_fit)
+    launches = parts["oom_injected_sparse"]["ell_launches"]
+    bs.ell_matmul.launches = 0
+    parts["retry"] = _reliability_retry(device)
+    parts["traced_fit"] = _reliability_traced_fit(device)
+    parts["profile_store"] = _reliability_profile_store(device, slice_fit)
+    if bs.ell_matmul.launches:
+        parts["profile_store"]["failed"].append(f"ell_launched_{bs.ell_matmul.launches}")
+    for name, part in parts.items():
+        log(f"reliability_{name}", **part)
+    SOLVER_GEMM_CALLS["reliability"] = dict(gemm.launches)
+    failed = {name: part["failed"] for name, part in parts.items() if part["failed"]}
+    log("reliability", seconds=time.perf_counter() - t0, ell_launches=launches,
+        solver_gemm_launches=dict(gemm.launches), failed=failed)
+    if failed:
+        raise AssertionError(f"reliability failed {failed}")
+    return launches
 
 
 def card_name_and_limit() -> str:
@@ -2007,6 +2367,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    # A store of this run's own: a tuned threshold left in ~/.cache by an
+    # earlier run must not change this run's dispatch.
+    store_dir = tempfile.TemporaryDirectory(prefix="keystone-profile-store-")
+    os.environ["KEYSTONE_PROFILE_STORE"] = os.path.join(store_dir.name, "profile-store.jsonl")
     os.environ["KEYSTONE_BLOCKSPARSE_BLOCK"] = "16x16"
     os.environ.pop("KEYSTONE_BLOCKSPARSE_THRESHOLD", None)
     os.environ.pop("KEYSTONE_BLOCKSPARSE", None)
@@ -2024,7 +2388,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     kernel = phase_kernels(device)
-    kernel["launches"] = phase_slice(device)
+    kernel["launches"], slice_fit = phase_slice(device)
     launches_by_path = {"hashing_tf": kernel["launches"], "mnist_default": phase_mnist_default(device)}
     fitted, test = phase_mnist_full(device)
     launches_by_path["mnist_full"] = 0  # phase_mnist_full raises otherwise
@@ -2038,7 +2402,10 @@ def main() -> int:
     launches_by_path["timit_exact"] = phase_timit_exact(device)
     launches_by_path["timit_wide_block"] = phase_timit_wide_block(device)
     launches_by_path["timit"] = phase_timit(device)
-    launches_by_path["host_streaming_bcd"] = phase_host_streaming_bcd(device)
+    host_problem = phase_host_streaming_bcd(device)
+    launches_by_path["host_streaming_bcd"] = 0  # phase_host_streaming_bcd raises otherwise
+    launches_by_path["reliability"] = phase_reliability(device, host_problem, slice_fit)
+    del host_problem, slice_fit
     # The binding's calls on the paths (gram_modes times it and is left out).
     paths = {p: c for p, c in SOLVER_GEMM_CALLS.items() if p != "gram_modes"}
     binding["launches"] = {k: sum(c[k] for c in paths.values()) for k in next(iter(paths.values()))}
@@ -2050,6 +2417,7 @@ def main() -> int:
     print(json.dumps({"library_bindings": [binding]}))
     print(json.dumps({"kernels": [kernel]}))
     print(smi)
+    store_dir.cleanup()
     print(json.dumps({
         "ok": True,
         "device": {

@@ -11,11 +11,10 @@ import glob
 import os
 from collections import Counter
 from dataclasses import dataclass
-from typing import Any, Dict, List
-
 import numpy as np
 
 from ...device import DeviceLike
+from ...reliability.recovery import QuarantineCounts
 from ..dataset import ArrayDataset
 
 
@@ -26,49 +25,27 @@ def load_csv(path: str, dtype=np.float32, device: DeviceLike = None) -> ArrayDat
     skipped-and-quarantined instead of aborting the load: the fast
     ``np.loadtxt`` path runs first, and only a file that trips it is
     re-parsed line-by-line. The returned dataset carries a ``.quarantine``
-    dict with counts (publishing them to a recovery log is not ported
-    yet). A file with NO parsable rows still raises — an entirely-garbage input is a wrong-path
-    error, not a degraded read.
+    dict with counts, and totals land in the process recovery log. A file
+    with NO parsable rows still raises — an entirely-garbage input is a
+    wrong-path error, not a degraded read.
     """
     files = _expand(path)
-    quarantine = _Quarantine()
+    quarantine = QuarantineCounts()
     parts = [_load_one(f, dtype, quarantine) for f in files]
+    quarantine.publish("load_csv", source=path)
     out = ArrayDataset(np.concatenate(parts, axis=0), device=device)
     out.quarantine = quarantine.as_dict()
     return out
 
 
-class _Quarantine:
-    """Skip-and-quarantine tally: per-reason counts plus the first few
-    offending ``file:line`` names (the JAX package's ``QuarantineCounts``,
-    without the recovery log)."""
-
-    def __init__(self, max_examples: int = 8):
-        self.counts: Dict[str, int] = {}
-        self.examples: List[str] = []
-        self._max_examples = max_examples
-
-    @property
-    def total(self) -> int:
-        return sum(self.counts.values())
-
-    def add(self, reason: str, name: str) -> None:
-        self.counts[reason] = self.counts.get(reason, 0) + 1
-        if len(self.examples) < self._max_examples:
-            self.examples.append(name)
-
-    def as_dict(self) -> Dict[str, Any]:
-        return {"quarantined": self.total, **self.counts, "examples": list(self.examples)}
-
-
-def _load_one(path: str, dtype, quarantine: _Quarantine) -> np.ndarray:
+def _load_one(path: str, dtype, quarantine: QuarantineCounts) -> np.ndarray:
     try:
         return np.loadtxt(path, delimiter=",", dtype=dtype, ndmin=2)
     except ValueError:
         return _tolerant_parse(path, dtype, quarantine)
 
 
-def _tolerant_parse(path: str, dtype, quarantine: _Quarantine) -> np.ndarray:
+def _tolerant_parse(path: str, dtype, quarantine: QuarantineCounts) -> np.ndarray:
     """Line-by-line fallback parse. The row width is the MAJORITY width of
     the parsable rows (a truncated first row must not redefine the file's
     shape and quarantine everything after it); rows that disagree — and

@@ -13,6 +13,9 @@ import os
 #: Spellings that mean "off" for default-on feature switches.
 _OFF_VALUES = ("off", "0", "disabled")
 
+#: Spellings that mean "on" for default-off switches.
+_ON_VALUES = ("1", "true", "on", "yes")
+
 
 def env_raw(name: str):
     """The raw value, or ``None`` when unset (knobs whose precedence
@@ -42,6 +45,14 @@ def env_float(name: str, default: float) -> float:
     if not raw:
         return default
     return float(raw)
+
+
+def env_flag(name: str, default: bool = False) -> bool:
+    """Default-off boolean switch: on iff the value spells true."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    return raw.lower() in _ON_VALUES
 
 
 def env_disabled(name: str) -> bool:

@@ -1,17 +1,19 @@
 """The stable metric-name registry.
 
-A copy of the ``keystone_fusion_*``, ``keystone_stream_*``,
-``keystone_serving_*`` and ``keystone_reliability_*`` series of
-``keystone_tpu/obs/names.py`` — the series the port's modules publish.
+A copy of the series of ``keystone_tpu/obs/names.py`` that the port's
+modules publish: the executor and optimizer (``keystone_executor_*``,
+``keystone_optimizer_*``), fusion, streaming, the profile store, the
+block-sparse dispatch, the solvers, the recovery ledger and serving.
 Names, kinds, help texts and labels are the JAX package's, so dashboards
 read both packages alike; the other families arrive with the modules
 that publish them. One help text says what its series counts in the
 port, which traces nothing: a fused chain's "compile" is its first
 application at a new input shape and dtype.
 
-The serving telemetry registers its series under these names; the
-recovery ledger, the fusion pass and the streaming engine take theirs
-from :func:`metric`.
+The serving telemetry registers its series under these names; every
+other module takes its series from :func:`metric`. :func:`register_all`
+pre-registers the whole schema so an export is complete (a zero-valued
+series is an answer: "no retries happened").
 """
 
 from __future__ import annotations
@@ -19,6 +21,14 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 from .metrics import DEFAULT_BUCKETS, RATIO_BUCKETS, MetricsRegistry, get_registry
+
+# ----------------------------------------------------------- executor/workflow
+NODES_EXECUTED = "keystone_executor_nodes_executed_total"
+MEMO_HITS = "keystone_executor_memo_hits_total"
+NODE_SECONDS = "keystone_executor_node_seconds"
+OPTIMIZE_SECONDS = "keystone_optimizer_seconds"
+RULE_RUNS = "keystone_optimizer_rule_runs_total"
+RULE_REWRITES = "keystone_optimizer_rule_rewrites_total"
 
 # ---------------------------------------------------------------------- fusion
 FUSION_CHAINS = "keystone_fusion_chains_total"
@@ -34,6 +44,24 @@ STREAM_BYTES = "keystone_stream_bytes_transferred_total"
 STREAM_STALL_SECONDS = "keystone_stream_stall_seconds_total"
 STREAM_PREFETCH_DEPTH = "keystone_stream_prefetch_depth"
 STREAM_HOST_BUFFER_PEAK = "keystone_stream_host_buffer_peak_bytes"
+
+# --------------------------------------------------------------- profile store
+PROFILE_STORE_HITS = "keystone_profile_store_hits_total"
+PROFILE_STORE_MISSES = "keystone_profile_store_misses_total"
+PROFILE_STORE_WRITES = "keystone_profile_store_writes_total"
+PROFILE_STORE_EVICTIONS = "keystone_profile_store_evictions_total"
+PROFILE_STORE_INVALIDATIONS = "keystone_profile_store_invalidations_total"
+PROFILE_STORE_ENTRIES = "keystone_profile_store_entries"
+PROFILE_STORE_KNOB_OVERRIDES = "keystone_profile_store_knob_overrides_total"
+
+# ---------------------------------------------------------------- block-sparse
+BLOCKSPARSE_FITS = "keystone_blocksparse_fits_total"
+BLOCKSPARSE_BLOCKS_SKIPPED = "keystone_blocksparse_blocks_skipped_total"
+
+# --------------------------------------------------------------------- solvers
+SOLVER_FIT_SECONDS = "keystone_solver_fit_seconds"
+SOLVER_RUNG_ATTEMPTS = "keystone_solver_rung_attempts_total"
+SOLVER_ITERATIONS = "keystone_solver_iterations_total"
 
 # ----------------------------------------------------------------- reliability
 RELIABILITY_EVENTS = "keystone_reliability_events_total"
@@ -55,6 +83,12 @@ SERVING_BATCH_OCCUPANCY = "keystone_serving_batch_occupancy"
 # name → (kind, help, label names). Histograms may carry a 4th element
 # naming a bucket preset ("ratio" → RATIO_BUCKETS).
 SCHEMA: Dict[str, Tuple] = {
+    NODES_EXECUTED: ("counter", "Graph nodes executed (memo misses)", ()),
+    MEMO_HITS: ("counter", "Graph-node memo table hits", ()),
+    NODE_SECONDS: ("histogram", "Per-node forced execution wall time (traced runs)", ("op",)),
+    OPTIMIZE_SECONDS: ("histogram", "Whole optimizer-stack runs", ()),
+    RULE_RUNS: ("counter", "Optimizer rule applications", ("rule",)),
+    RULE_REWRITES: ("counter", "Optimizer rule applications that changed the graph", ("rule",)),
     FUSION_CHAINS: ("counter", "Fused operator chains created by NodeFusionRule", ()),
     FUSION_FUSED_NODES: ("counter", "Member transformer nodes absorbed into fused operators", ()),
     FUSION_DISPATCHES_SAVED: ("counter", "Per-execution dispatches avoided by fusion (members-1 per chain)", ()),
@@ -66,6 +100,18 @@ SCHEMA: Dict[str, Tuple] = {
     STREAM_STALL_SECONDS: ("counter", "Seconds the streaming dispatch loop spent waiting on the host prefetch pipeline", ()),
     STREAM_PREFETCH_DEPTH: ("gauge", "Chunks currently buffered in the host prefetch queue", ()),
     STREAM_HOST_BUFFER_PEAK: ("gauge", "Peak bytes of host chunk buffers concurrently live in the last streaming fit", ()),
+    PROFILE_STORE_HITS: ("counter", "Profile-store lookups served from a valid persisted entry", ()),
+    PROFILE_STORE_MISSES: ("counter", "Profile-store lookups with no usable entry", ()),
+    PROFILE_STORE_WRITES: ("counter", "Observations appended to the profile store", ()),
+    PROFILE_STORE_EVICTIONS: ("counter", "Entries evicted (LRU-by-write) at profile-store compaction", ()),
+    PROFILE_STORE_INVALIDATIONS: ("counter", "Entries rejected for a stale environment fingerprint", ()),
+    PROFILE_STORE_ENTRIES: ("gauge", "Live entries in the profile store", ()),
+    PROFILE_STORE_KNOB_OVERRIDES: ("counter", "Plan knobs overridden from measured observations by MeasuredKnobRule", ("knob",)),
+    BLOCKSPARSE_FITS: ("counter", "Estimator fits dispatched onto the block-sparse Gram path, by kernel impl", ("impl",)),
+    BLOCKSPARSE_BLOCKS_SKIPPED: ("counter", "Zero feature tiles skipped by block-sparse kernels (MACs never dispatched)", ()),
+    SOLVER_FIT_SECONDS: ("histogram", "Solver fit wall time", ("solver",)),
+    SOLVER_RUNG_ATTEMPTS: ("counter", "Degradation-ladder rung attempts inside solvers", ("solver",)),
+    SOLVER_ITERATIONS: ("counter", "Host-level solver iterations (e.g. L-BFGS steps)", ("solver",)),
     RELIABILITY_EVENTS: ("counter", "Recovery-ledger events", ("kind",)),
     SERVING_REQUESTS: ("counter", "Requests served to completion", ("model",)),
     SERVING_BATCHES: ("counter", "Micro-batches dispatched", ("model",)),
@@ -94,3 +140,12 @@ def metric(name: str, registry: MetricsRegistry = None):
         return registry.gauge(name, help_text, labels)
     buckets = RATIO_BUCKETS if len(spec) > 3 and spec[3] == "ratio" else DEFAULT_BUCKETS
     return registry.histogram(name, help_text, labels, buckets=buckets)
+
+
+def register_all(registry: MetricsRegistry = None) -> MetricsRegistry:
+    """Pre-register every schema metric (idempotent) so exports include
+    zero-valued series. Returns the registry."""
+    registry = registry or get_registry()
+    for name in SCHEMA:
+        metric(name, registry)
+    return registry

@@ -37,6 +37,24 @@ LINK_FLAGS: Dict[str, Tuple[str, ...]] = {"solver_gemm": ("-lcublas",)}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
+#: ``cudaErrorMemoryAllocation``: the code a source returns when a CUDA
+#: allocation of its own failed.
+CUDA_ERROR_MEMORY_ALLOCATION = 2
+
+
+def raise_status(name: str, text: str, out_of_memory: bool) -> None:
+    """Raise for a source's non-zero return code, whose error string is
+    ``text``. An allocation failure raises
+    ``torch.cuda.OutOfMemoryError`` with "out of memory" in its message,
+    so the reliability layer classes it as OOM (a degradation ladder
+    steps down a rung); any other failure is a ``RuntimeError``, which it
+    classes as permanent and re-raises."""
+    import torch
+
+    if out_of_memory:
+        raise torch.cuda.OutOfMemoryError(f"{name} failed: out of memory ({text})")
+    raise RuntimeError(f"{name} failed: {text}")
+
 #: Seconds each kernel took to build in this process (0.0 when a
 #: library built earlier was reused).
 build_seconds: Dict[str, float] = {}

@@ -32,9 +32,8 @@ from ...envknobs import env_float, env_set, env_str
 from ...utils.sparse import BlockSparseMatrix
 from . import _build
 
-#: Dispatch at or below this stored-block fraction when no env threshold
-#: is set (the JAX package's default; its profile-store lookup is not
-#: ported).
+#: Dispatch at or below this stored-block fraction when neither the env
+#: nor the profile store sets a threshold (the JAX package's default).
 DEFAULT_DENSITY_THRESHOLD = 0.05
 
 #: Feature-tile default, as in the JAX package. ``KEYSTONE_BLOCKSPARSE_BLOCK``
@@ -59,12 +58,34 @@ def default_block_shape(d: Optional[int] = None) -> Tuple[int, int]:
     return bm, bn
 
 
-def density_threshold() -> float:
+def density_threshold(rows: Optional[str] = None) -> float:
     """The block-density ceiling at or below which fits take the
-    block-sparse path: ``KEYSTONE_BLOCKSPARSE_THRESHOLD``, else
-    :data:`DEFAULT_DENSITY_THRESHOLD`."""
+    block-sparse path. Resolution order, as in the JAX package: explicit
+    ``KEYSTONE_BLOCKSPARSE_THRESHOLD`` → the highest-speedup
+    ``blocksparse:threshold`` entry of the profile store for the rows
+    bucket ``rows`` (``obs.store.rows_bucket``; None reads every bucket)
+    → :data:`DEFAULT_DENSITY_THRESHOLD`. Only entries whose environment
+    fingerprint names this torch and this card are read."""
     if env_set("KEYSTONE_BLOCKSPARSE_THRESHOLD"):
         return env_float("KEYSTONE_BLOCKSPARSE_THRESHOLD", DEFAULT_DENSITY_THRESHOLD)
+    try:
+        from ...obs import store as _store
+
+        store = _store.get_store()
+        if store is not None:
+            best, best_speedup = None, None
+            for _key, _shape, m in sorted(
+                store.entries(key_prefix="blocksparse:threshold", rows=rows)
+            ):
+                if "threshold" not in m:
+                    continue
+                speedup = float(m.get("speedup", 0.0))
+                if best_speedup is None or speedup > best_speedup:
+                    best, best_speedup = float(m["threshold"]), speedup
+            if best is not None:
+                return best
+    except Exception:  # a broken store must never block a fit
+        pass
     return DEFAULT_DENSITY_THRESHOLD
 
 
@@ -147,8 +168,9 @@ def _launch(
         torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(
-            f"ell_matmul CUDA kernel failed: {lib.keystone_ell_matmul_error(rc).decode()}"
+        _build.raise_status(
+            "ell_matmul CUDA kernel", lib.keystone_ell_matmul_error(rc).decode(),
+            rc == _build.CUDA_ERROR_MEMORY_ALLOCATION,
         )
     ell_matmul.launches += 1
     return out

@@ -20,7 +20,11 @@ Product kinds (:data:`KINDS`):
 - ``bf16_inputs``: bfloat16 tensors, fp32 output and accumulation.
 
 On CUDA tensors :func:`gemm` and :func:`gemm_tn_chunked` call the binding
-or raise; nothing falls back to ``torch.matmul``. On CPU tensors they take
+or raise; nothing falls back to ``torch.matmul``. A failed allocation in
+the binding (cuBLAS's own workspace or handle) raises
+``torch.cuda.OutOfMemoryError``, as PyTorch's allocator does, so an OOM
+degradation ladder steps down a rung; any other status raises
+``RuntimeError``. On CPU tensors they take
 :func:`gemm_reference`, the plain version: the inputs rounded as the kind
 rounds them (:func:`round_inputs`), then a ``torch.matmul`` in the
 inputs' own type (float32 for the fp32 and bf16 kinds). Each binding call
@@ -175,9 +179,19 @@ def _out_tensor(out, m, n, dtype, device, name):
     return out
 
 
+#: The binding returns a cuBLAS status offset by this (``csrc/solver_gemm.cu``).
+CUBLAS_ERR_BASE = 100000
+
+#: The binding's return codes for a failed allocation: the CUDA status
+#: from ``prepare`` and ``CUBLAS_STATUS_ALLOC_FAILED`` (3).
+ALLOC_FAILURES = frozenset({_build.CUDA_ERROR_MEMORY_ALLOCATION, CUBLAS_ERR_BASE + 3})
+
+
 def _raise_on(rc: int, lib, name: str) -> None:
+    """Raise for a non-zero binding status; an allocation failure raises
+    ``torch.cuda.OutOfMemoryError`` (``_build.raise_status``)."""
     if rc != 0:
-        raise RuntimeError(f"{name} failed: {lib.keystone_gemm_error(rc).decode()}")
+        _build.raise_status(name, lib.keystone_gemm_error(rc).decode(), rc in ALLOC_FAILURES)
 
 
 def _dispatch_dtypes(a: torch.Tensor, b: torch.Tensor, kind: str, name: str):

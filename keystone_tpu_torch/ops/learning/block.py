@@ -25,13 +25,30 @@ uploads a numpy array when it is built, so a host matrix is an
 statistics chunk by chunk, and the streamed fit and the block-sparse fit
 share one finish, :meth:`BlockLeastSquaresEstimator._finish_from_stats`.
 
-Left out (later slices): the OOM degradation ladder, obs spans and
-metrics, the profile store, 2-D meshes and the refit state mixin
+Reliability and observability, as in the JAX package:
+
+- an OOM degradation ladder (``DegradationLadder(halving_rungs(block0,
+  block0 // 4))``) around the sparse, in-core and host-streamed fits: an
+  out-of-memory error at one block size (``torch.cuda.OutOfMemoryError``
+  from the allocator or the solver binding, or an injected OOM) retries
+  at half the block, two halvings at most, and a model fitted at a
+  smaller block carries ``model.degradation``; any other error is
+  re-raised;
+- ``probe("BlockLeastSquaresEstimator.solve")`` at the head of each fit
+  attempt and of ``fit_stream``, the fault-injection site;
+- ``solver:fit`` and ``solver:iteration`` spans with the solver
+  histogram and rung counter (``obs/solver.py``);
+- one ``solver:<solver>:bs<block>:prec<mode>`` observation per fit in the
+  profile store (``obs/store.py``), and the dispatch threshold read from
+  it per rows bucket.
+
+Left out (later slices): 2-D meshes and the refit state mixin
 (``fit_stream`` takes no ``state``).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import torch
@@ -39,7 +56,11 @@ import torch
 from ...data.dataset import ArrayDataset, BucketedDataset, Dataset, ObjectDataset
 from ...device import DeviceLike, resolve_device
 from ...envknobs import env_disabled, env_int
+from ...obs import names as _names
+from ...obs import solver as solver_obs
+from ...obs import store as obs_store
 from ...parallel import linalg
+from ...reliability import DegradationLadder, halving_rungs, probe
 from ...utils.sparse import BlockSparseMatrix, block_density_exceeds, is_sparse_rows
 from ...workflow.pipeline import BatchTransformer, LabelEstimator
 from ..cuda import blocksparse as _bs
@@ -110,21 +131,34 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         updates as the in-core solver from the centered statistics —
         O(d²) residency instead of O(n·d); the feature matrix never
         exists."""
+        probe("BlockLeastSquaresEstimator.solve")
 
         def init(feat_spec, y_spec):
             d, k = _stream_shapes(feat_spec, y_spec)
             return linalg.gram_stream_init(d, k, stream.device)
 
-        carry, info = stream.fold(init, linalg.gram_stream_step)
-        return self._finish_from_stats(carry, info["num_examples"])
+        t_fit = time.perf_counter()
+        with solver_obs.fit_span(
+            "block_ls_stream", epochs=self.num_iter, **solver_obs.predicted_attrs(self)
+        ):
+            carry, info = stream.fold(init, linalg.gram_stream_step)
+            n = info["num_examples"]
+            mapper = self._finish_from_stats(carry, n)
+        _record_solver_observation(
+            "block_ls_stream", rows=n, d=int(carry[0].shape[0]),
+            block_size=mapper.block_size, wall_s=time.perf_counter() - t_fit,
+            rungs_attempted=1,
+        )
+        return mapper
 
-    def _finish_from_stats(self, carry, n: int) -> BlockLinearMapper:
+    def _finish_from_stats(self, carry, n: int, block: Optional[int] = None) -> BlockLinearMapper:
         """Gauss-Seidel block solve from accumulated statistics alone —
         shared by the streamed and the block-sparse fits (no data pass,
-        O(d²) inputs)."""
+        O(d²) inputs). ``block`` is the ladder's rung (default
+        ``block_size``)."""
         gc, cc, mu_a, mu_b = linalg.gram_stream_finish(carry, n)
         d = gc.shape[0]
-        block = min(self.block_size, d)
+        block = min(block or self.block_size, d)
         # The in-core fit's λ floor: 1e-6 of the mean Gram diagonal —
         # trace(Gc)/(n·d) is E[x²] of the centered data.
         reg = self.reg if self.reg > 0 else max(1e-6 * float(torch.trace(gc)) / d, 1e-6)
@@ -141,9 +175,27 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         if dispatch is not None:
             kind, bsr, a_dense, threshold = dispatch
             if kind == "sparse":
-                return self._fit_blocksparse(
-                    bsr, _as_array_dataset(labels, device), threshold, a_dense=a_dense
+                targets = _as_array_dataset(labels, device)
+                # The dense paths' OOM contract: a smaller block shrinks
+                # bcd_from_gram's per-block factor and workspace, two
+                # halvings before giving up.
+                block0 = min(self.block_size, bsr.shape[1])
+                ladder = DegradationLadder(
+                    halving_rungs(block0, max(block0 // 4, 1)),
+                    label="BlockLeastSquaresEstimator.fit",
                 )
+                attempts = iter(range(len(ladder.rungs)))
+
+                def sparse_attempt(block):
+                    with solver_obs.rung_span("block_ls_sparse", block, next(attempts)):
+                        return self._fit_blocksparse(
+                            bsr, targets, threshold, a_dense=a_dense, block=block
+                        )
+
+                model = ladder.run(sparse_attempt)
+                if ladder.reduced:
+                    model.degradation = dict(ladder.record)
+                return model
             # CSR rows that are too dense (or dispatch disabled): densify
             # once through BSR — the only way this estimator consumes them.
             m, d = bsr.shape
@@ -151,13 +203,40 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         features = _as_array_dataset(data, device)
         targets = _as_array_dataset(labels, device)
         raw = features.data
-        block = min(self.block_size, raw.shape[1])
+        d = raw.shape[1]
         stream = self.host_streaming
         if stream is None:
             stream = _auto_host_streaming(raw, device)
-        if stream:
-            return self._fit_streaming(features, targets, block, device)
-        return self._fit_in_core(features, targets, block, device)
+        block0 = min(self.block_size, d)
+        # OOM degradation: a smaller block shrinks the live Gram workspace
+        # and (streaming) the per-block panel on the card; two halvings
+        # cover the realistic headroom gap before the problem itself is
+        # too big.
+        ladder = DegradationLadder(
+            halving_rungs(block0, max(block0 // 4, 1)),
+            label="BlockLeastSquaresEstimator.fit",
+        )
+        fit_impl = self._fit_streaming if stream else self._fit_in_core
+        attempts = iter(range(len(ladder.rungs)))
+
+        def attempt(block):
+            with solver_obs.rung_span("block_ls", block, next(attempts)):
+                return fit_impl(features, targets, block, device)
+
+        t_fit = time.perf_counter()
+        with solver_obs.fit_span(
+            "block_ls", d=d, epochs=self.num_iter, streaming=bool(stream),
+            **solver_obs.predicted_attrs(self),
+        ):
+            model = ladder.run(attempt)
+        if ladder.reduced:
+            model.degradation = dict(ladder.record)
+        _record_solver_observation(
+            "block_ls", rows=features.num_examples, d=d, block_size=model.block_size,
+            wall_s=time.perf_counter() - t_fit,
+            rungs_attempted=1 + int(ladder.record.get("rung_index", 0)),
+        )
+        return model
 
     def _fit_streaming(
         self, features: ArrayDataset, targets: ArrayDataset, block: int,
@@ -165,6 +244,7 @@ class BlockLeastSquaresEstimator(LabelEstimator):
     ) -> BlockLinearMapper:
         """One feature block of the host matrix uploaded per update
         (``linalg.block_coordinate_descent_streaming``)."""
+        probe("BlockLeastSquaresEstimator.solve")
         raw = features.data.cpu()
         n = features.num_examples
         reg = self.reg if self.reg > 0 else _scale_aware_reg_floor(raw[: min(n, 4096)], n)
@@ -178,6 +258,7 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         self, features: ArrayDataset, targets: ArrayDataset, block: int,
         device: torch.device,
     ) -> BlockLinearMapper:
+        probe("BlockLeastSquaresEstimator.solve")
         x = features.data.to(device=device, dtype=torch.float32)
         y = targets.data.to(device=device, dtype=torch.float32)
         n = features.num_examples
@@ -219,7 +300,9 @@ class BlockLeastSquaresEstimator(LabelEstimator):
                 return None
             d = int(items[0].shape[-1])
             bsr = BlockSparseMatrix.from_csr_rows(items, _bs.default_block_shape(d))
-            threshold = _bs.density_threshold()
+            threshold = _bs.density_threshold(
+                obs_store.rows_bucket(obs_store.shape_class(bsr.shape[0]))
+            )
             if not disabled and bsr.density() <= threshold:
                 return ("sparse", bsr, None, threshold)
             return ("densify", bsr, None, threshold)
@@ -235,7 +318,7 @@ class BlockLeastSquaresEstimator(LabelEstimator):
             return None
         host = raw.numpy()
         block_shape = _bs.default_block_shape(host.shape[1])
-        threshold = _bs.density_threshold()
+        threshold = _bs.density_threshold(obs_store.rows_bucket(obs_store.shape_class(host.shape[0])))
         if block_density_exceeds(host, block_shape, threshold):
             return None
         return ("sparse", BlockSparseMatrix.from_dense(host, block_shape), raw, threshold)
@@ -246,19 +329,68 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         targets: ArrayDataset,
         threshold: float,
         a_dense: Optional[torch.Tensor] = None,
+        block: Optional[int] = None,
     ) -> BlockLinearMapper:
         """Fit from block-sparse sufficient statistics (AᵀA, AᵀY, Σx, Σy),
-        then the streamed fit's finish (:meth:`_finish_from_stats`)."""
-        n = bsr.shape[0]
-        y = targets.data.to(device=resolve_device(self.device), dtype=torch.float32)[:n]
-        totals = _bs.bsr_gram_totals(bsr, y, a_dense=a_dense)
-        return self._finish_from_stats(totals, n)
+        then the streamed fit's finish (:meth:`_finish_from_stats`) at
+        ``block`` (the ladder's rung). ``impl`` names what multiplied:
+        ``cuda`` (the ELL kernel) or ``reference`` (its plain version,
+        on CPU tensors)."""
+        probe("BlockLeastSquaresEstimator.solve")
+        device = resolve_device(self.device)
+        impl = "cuda" if device.type == "cuda" else "reference"
+        n, d = bsr.shape
+        t_fit = time.perf_counter()
+        with solver_obs.fit_span(
+            "block_ls_sparse", d=d, epochs=self.num_iter,
+            density=round(bsr.density(), 4), impl=impl,
+        ):
+            y = targets.data.to(device=device, dtype=torch.float32)[:n]
+            totals = _bs.bsr_gram_totals(bsr, y, a_dense=a_dense)
+            model = self._finish_from_stats(totals, n, block)
+        _names.metric(_names.BLOCKSPARSE_FITS).inc(impl=impl)
+        _names.metric(_names.BLOCKSPARSE_BLOCKS_SKIPPED).inc(bsr.blocks_skipped())
+        _record_solver_observation(
+            "block_ls_sparse", rows=n, d=d, block_size=model.block_size,
+            wall_s=time.perf_counter() - t_fit, rungs_attempted=1,
+            density=round(bsr.density(), 6), blocks_skipped=bsr.blocks_skipped(),
+            threshold=threshold,
+        )
+        return model
 
 
 def _blocksparse_probe_bytes() -> int:
     """Ceiling on the host feature matrix the fast path will tile-probe.
     ``KEYSTONE_BLOCKSPARSE_PROBE_BYTES`` overrides."""
     return env_int("KEYSTONE_BLOCKSPARSE_PROBE_BYTES", int(512e6))
+
+
+def _record_solver_observation(
+    solver: str,
+    rows: int,
+    d: int,
+    block_size: int,
+    wall_s: float,
+    rungs_attempted: int,
+    **extra,
+) -> None:
+    """Remember what this (block size, precision) pair cost on this shape
+    class, under ``solver:<solver>:bs<block>:prec<mode>``. Best effort: a
+    disabled or broken store never blocks a fit (``record`` logs and
+    swallows its own errors)."""
+    store = obs_store.get_store()
+    if store is None:
+        return
+    mode = linalg.solver_mode()
+    store.record(
+        f"solver:{solver}:bs{block_size}:prec{mode}",
+        obs_store.shape_class(rows, (d,), "float32"),
+        wall_s=round(wall_s, 6),
+        block_size=block_size,
+        precision=mode,
+        solver_rung=rungs_attempted,
+        **extra,
+    )
 
 
 def _auto_host_streaming(raw: torch.Tensor, device: torch.device) -> bool:

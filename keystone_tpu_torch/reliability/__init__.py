@@ -7,13 +7,16 @@
 - :mod:`degrade`     — `DegradationLadder`: shrink a configuration on
                        OOM and say what was given up.
 - :mod:`faultinject` — deterministic fault injection for tests.
-- :mod:`recovery`    — the process-wide ledger of how a run survived.
+- :mod:`recovery`    — the process-wide ledger of how a run survived,
+                       and the loaders' `QuarantineCounts`.
 
 The serving layer uses them (its retry policy, admission ladder and
-``serving.apply`` probe), and the streaming engine its
-``streaming.chunk`` probe. The executor's per-node retry, deadline and
-checkpoint hooks, the solvers' OOM ladders, ``checkpoint.py`` and
-``durable.py`` are not ported yet.
+``serving.apply`` probe), the streaming engine its ``streaming.chunk``
+probe, the executor its per-node retry, deadline and fault injection
+(``PipelineEnv.retry_policy``), the block solver its OOM ladder and
+``BlockLeastSquaresEstimator.solve`` probe, and ``load_csv`` its
+quarantine publishing. The executor's checkpoint hook,
+``checkpoint.py`` and ``durable.py`` are not ported yet.
 """
 
 from .degrade import DegradationLadder, LadderExhausted, halving_rungs

@@ -10,7 +10,12 @@ failures must be classified explicitly:
                     connections. Worth retrying with backoff (retry.py).
 - ``OOM``         — RESOURCE_EXHAUSTED / allocator failures, including
                     ``torch.cuda.OutOfMemoryError`` ("CUDA out of
-                    memory"). Retrying the same shape re-OOMs; the
+                    memory"), which the port's CUDA sources also raise,
+                    with "out of memory" in the message, for their own
+                    failed allocations (``ops/cuda/_build.raise_status``:
+                    cuBLAS's ``CUBLAS_STATUS_ALLOC_FAILED`` reads "the
+                    resource allocation failed", which no pattern
+                    matches). Retrying the same shape re-OOMs; the
                     recovery is a
                     :class:`~keystone_tpu_torch.reliability.degrade.DegradationLadder`
                     rung at a smaller block/batch size.

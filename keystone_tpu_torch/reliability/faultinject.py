@@ -164,14 +164,24 @@ _current: Optional[FaultInjector] = None
 
 #: Every probe site the port exposes, by its exact label. Chaos specs
 #: target sites by these names; a site is registered next to the code
-#: that adds it. (The JAX package registers more: its refit, ingest,
-#: solver-ladder, shard-loss and worker sites, which the port has not yet.)
+#: that adds it. The JAX package registers more, and each arrives with
+#: the module that probes it: ``LeastSquaresEstimator.solve`` and
+#: ``KernelRidgeRegression.solve`` with the least-squares family,
+#: ``sketch.finish`` with the sketch tier, the refit sites with refit, the
+#: ingest site with the archive loaders, the worker and shard-loss sites
+#: with the multi-worker and multi-device runtimes.
 KNOWN_PROBE_SITES = frozenset(
     {
         "serving.apply",  # serving/server.py: per-batch apply
         "streaming.chunk",  # workflow/streaming.py: per-chunk dispatch
+        "BlockLeastSquaresEstimator.solve",  # ops/learning/block.py: each ladder rung
     }
 )
+
+
+def current() -> Optional[FaultInjector]:
+    """The active injector, or None (the executor wraps nodes only then)."""
+    return _current
 
 
 def probe(label: str) -> None:

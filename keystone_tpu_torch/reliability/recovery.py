@@ -2,10 +2,10 @@
 fault lands here so a run can report HOW it survived, not just that it
 did.
 
-A copy of ``keystone_tpu/reliability/recovery.py`` without two parts:
-the flight-recorder hook (``obs/flight.py``, fleet-plane machinery the
-port does not have yet) and ``QuarantineCounts`` (the loaders' tally,
-which waits for the loaders' wiring into the ledger).
+A copy of ``keystone_tpu/reliability/recovery.py`` without the
+flight-recorder hook (``obs/flight.py``, fleet-plane machinery the port
+does not have yet). ``QuarantineCounts`` is the loaders' skip-and-
+quarantine tally, which ``publish``es its total into the ledger.
 
 The log is module-global (like ``PipelineEnv``) and reset alongside it —
 ``PipelineEnv.reset()`` clears both, so tests stay isolated without a
@@ -61,12 +61,22 @@ class RecoveryLog:
             self._events.clear()
 
     def summary(self) -> Dict[str, Any]:
-        """The shape run results embed: counts per kind plus compact events."""
+        """The shape run results embed: counts per kind plus compact events.
+
+        ``quarantined_records`` sums record counts (one quarantine event may
+        cover a whole batch of skipped records). ``checkpoint_hits`` keeps
+        the JAX package's shape; the port has no checkpoint store yet, so
+        no event of that kind is recorded.
+        """
         with self._lock:
             events = list(self._events)
         out: Dict[str, Any] = {
             "retries": sum(1 for e in events if e.kind == "retry"),
             "degradations": sum(1 for e in events if e.kind == "degrade"),
+            "checkpoint_hits": sum(1 for e in events if e.kind == "checkpoint_hit"),
+            "quarantined_records": sum(
+                int(e.detail.get("count", 1)) for e in events if e.kind == "quarantine"
+            ),
         }
         out["events"] = [
             {"kind": e.kind, "label": e.label, **e.detail} for e in events[-50:]
@@ -83,3 +93,43 @@ def get_recovery_log() -> RecoveryLog:
 
 def reset_recovery_log() -> None:
     _log.clear()
+
+
+class QuarantineCounts:
+    """Skip-and-quarantine tally shared by the data loaders: per-reason
+    counts plus the first few offending names for the audit trail.
+    Attach ``as_dict()`` to the returned dataset and ``publish`` the total
+    into the recovery log so run results surface how many records a
+    'successful' ingest actually dropped."""
+
+    def __init__(self, max_examples: int = 8):
+        self.counts: Dict[str, int] = {}
+        self.examples: List[str] = []
+        self._max_examples = max_examples
+        # add() may run from loader thread pools; an unlocked
+        # read-modify-write would drop counts.
+        self._lock = threading.Lock()
+
+    def add(self, reason: str, name: str) -> None:
+        with self._lock:
+            self.counts[reason] = self.counts.get(reason, 0) + 1
+            if len(self.examples) < self._max_examples:
+                self.examples.append(name)
+
+    @property
+    def total(self) -> int:
+        return sum(self.counts.values())
+
+    def as_dict(self) -> Dict[str, Any]:
+        return {
+            "quarantined": self.total,
+            **self.counts,
+            "examples": list(self.examples),
+        }
+
+    def publish(self, label: str, **extra: Any) -> None:
+        if self.total:
+            get_recovery_log().record(
+                "quarantine", label, count=self.total,
+                examples=list(self.examples), **self.counts, **extra,
+            )

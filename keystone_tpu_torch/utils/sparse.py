@@ -193,6 +193,25 @@ class BlockSparseMatrix:
         )
 
 
+def block_density(a: np.ndarray, block_shape: Tuple[int, int], tol: float = 0.0) -> float:
+    """Stored-block fraction of a dense matrix at tile granularity —
+    the cheap dispatch probe. Pure reductions over a reshaped view (max
+    and −min instead of an |a| copy); only a non-block-aligned shape
+    pays one padded copy. No block gather, no BSR materialization."""
+    a = np.asarray(a)
+    m, d = a.shape
+    bm, bn = int(block_shape[0]), int(block_shape[1])
+    mp, dp = _round_up(max(m, 1), bm), _round_up(max(d, 1), bn)
+    if (mp, dp) != (m, d):
+        padded = np.zeros((mp, dp), dtype=a.dtype)
+        padded[:m, :d] = a
+        a = padded
+    tiles = a.reshape(mp // bm, bm, dp // bn, bn)
+    peak = np.maximum(tiles.max(axis=(1, 3)), -tiles.min(axis=(1, 3)))
+    keep = peak > tol
+    return float(keep.mean()) if keep.size else 1.0
+
+
 def block_density_exceeds(
     a: np.ndarray,
     block_shape: Tuple[int, int],

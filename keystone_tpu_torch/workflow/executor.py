@@ -8,12 +8,17 @@ executes dependencies with memoization. Results are lazy ``Expression``s:
 forcing one is what launches the device work.
 
 ``PipelineEnv`` holds the prefix-state table used for cross-pipeline reuse
-of fit estimators and cached datasets, and the active optimizer stack. Its
-``nodes_executed`` counts the operators the executors have run since the
-last :meth:`PipelineEnv.reset`.
+of fit estimators and cached datasets, the active optimizer stack, and the
+reliability hook the executor consults per node: ``retry_policy`` (a
+``reliability.RetryPolicy`` — transient faults retried, per-node deadline
+enforced). Its ``nodes_executed`` counts the operators the executors have
+run since the last :meth:`PipelineEnv.reset`; the
+``keystone_executor_nodes_executed_total`` and ``_memo_hits_total``
+counters count the same across resets, and optimizing opens an
+``optimize`` span.
 
-Left out for now: the reliability hooks (``retry_policy``, ``checkpoint``,
-fault injection) and ``partition_decisions``.
+Left out for now: the ``checkpoint`` hook (``reliability/checkpoint.py``),
+the auto-cache counters and ``partition_decisions``.
 """
 
 from __future__ import annotations
@@ -21,6 +26,9 @@ from __future__ import annotations
 import threading
 from typing import Dict, Optional
 
+from ..obs import names as _names
+from ..obs import spans as _spans
+from ..reliability import faultinject
 from ..reliability.recovery import reset_recovery_log
 from .graph import Graph, GraphId, NodeId, SinkId, SourceId
 from .operators import Expression
@@ -38,6 +46,9 @@ class PipelineEnv:
         self.state: Dict[Prefix, Expression] = {}
         self.nodes_executed = 0
         self._optimizer = None
+        # Reliability hook, default OFF (zero per-node overhead): a
+        # reliability.RetryPolicy applied to every node forcing.
+        self.retry_policy = None
 
     @classmethod
     def get_or_create(cls) -> "PipelineEnv":
@@ -84,7 +95,8 @@ class GraphExecutor:
         if self._optimized is None:
             if self._optimize:
                 env = PipelineEnv.get_or_create()
-                self._optimized, self._prefixes = env.optimizer.execute(self._raw_graph)
+                with _spans.span("optimize"):
+                    self._optimized, self._prefixes = env.optimizer.execute(self._raw_graph)
             else:
                 self._optimized = self._raw_graph
         return self._optimized
@@ -96,6 +108,8 @@ class GraphExecutor:
     def execute(self, graph_id: GraphId) -> Expression:
         graph = self.graph
         if graph_id in self._memo:
+            if isinstance(graph_id, NodeId):
+                _names.metric(_names.MEMO_HITS).inc()
             return self._memo[graph_id]
         if isinstance(graph_id, SourceId):
             raise ValueError(
@@ -110,7 +124,8 @@ class GraphExecutor:
         op = graph.get_operator(graph_id)
         env = PipelineEnv.get_or_create()
         env.nodes_executed += 1
-        expression = timed_execute(op, deps)
+        _names.metric(_names.NODES_EXECUTED).inc()
+        expression = _wrap_reliability(op, deps, timed_execute(op, deps))
 
         # Prefix write-back: make this node's result reusable by later
         # pipelines (reference: GraphExecutor.scala:65-71).
@@ -120,3 +135,47 @@ class GraphExecutor:
 
         self._memo[graph_id] = expression
         return expression
+
+
+def _wrap_reliability(op, deps, expression: Expression) -> Expression:
+    """Layer the reliability hooks around a node's lazy result.
+
+    Expressions are call-by-name memoized and a failing thunk leaves the
+    memo unset, so re-forcing after a failure genuinely re-executes —
+    which is what makes wrapping the *expression* (not the eager execute
+    call) the right retry boundary: the heavy work happens at force time.
+
+    Wrapping order, innermost out:
+      1. fault injection — stands in for the op itself failing;
+      2. (checkpoint — a digest hit skips the op; not ported yet);
+      3. retry + per-node deadline — sees injected and real faults alike.
+    Both default off; with neither active the original expression is
+    returned untouched.
+
+    Each retry executes the op FRESH (``timed_execute(op, deps)`` only
+    builds lazy thunks; deps stay memoized) rather than re-entering the
+    shared Expression: after a deadline abandonment the watchdog thread
+    may still be inside the old expression's ``get`` holding its lock,
+    and a retry re-entering it would block behind the hung attempt. The
+    wrapper expression memoizes the one successful result for all
+    downstream readers.
+    """
+    injector = faultinject.current()
+    policy = PipelineEnv.get_or_create().retry_policy
+    if injector is None and policy is None:
+        return expression
+
+    label = str(getattr(op, "label", type(op).__name__))
+
+    def thunk(_first=[expression]):
+        # The first attempt consumes the already-built expression;
+        # retries get a fresh one (see docstring).
+        inner = _first.pop() if _first else timed_execute(op, deps)
+        return inner.get()
+
+    if injector is not None:
+        thunk = injector.wrap(label, thunk)
+    if policy is not None:
+        attempt = thunk
+        thunk = lambda: policy.call(attempt, label=label)  # noqa: E731
+    return type(expression)(thunk)

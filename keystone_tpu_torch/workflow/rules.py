@@ -10,16 +10,25 @@ Rules rewrite ``(Graph, prefix-map)`` pairs. The prefix map marks nodes whose
 results should be persisted to the process-wide state table after execution,
 enabling cross-pipeline reuse of fit estimator work.
 
-Left out for now: the ``measured-knobs`` and ``partition`` batches,
-``auto_caching_optimizer``, and the rule counters and spans.
+:class:`RuleExecutor` publishes, as the JAX package does, the
+``keystone_optimizer_rule_runs_total`` / ``_rule_rewrites_total``
+counters per rule and the ``keystone_optimizer_seconds`` histogram, and
+opens ``optimize:rules`` and ``optimize:batch:<name>`` spans (a
+``rule_rewrite`` event per rewrite) under an active span session.
+
+Left out for now: the ``measured-knobs`` and ``partition`` batches and
+``auto_caching_optimizer``.
 """
 
 from __future__ import annotations
 
 import logging
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from ..obs import names as _names
+from ..obs import spans as _spans
 from .analysis import get_ancestors
 from .graph import Graph, NodeId
 from .operators import EstimatorOperator, ExpressionOperator
@@ -58,18 +67,30 @@ class RuleExecutor:
         self.batches = list(batches)
 
     def execute(self, graph: Graph, prefixes: Optional[PrefixMap] = None) -> Tuple[Graph, PrefixMap]:
+        runs_c = _names.metric(_names.RULE_RUNS)
+        rewrites_c = _names.metric(_names.RULE_REWRITES)
         prefixes = dict(prefixes or {})
-        for batch in self.batches:
-            iterations = batch.max_iterations if batch.fixed_point else 1
-            for _ in range(iterations):
-                before = graph
-                for rule in batch.rules:
-                    new_graph, prefixes = rule.apply(graph, prefixes)
-                    if logger.isEnabledFor(logging.DEBUG) and new_graph != graph:
-                        logger.debug("rule %s rewrote graph:\n%s", rule.name, new_graph.to_dot())
-                    graph = new_graph
-                if graph == before:
-                    break
+        t0 = time.perf_counter()
+        with _spans.span("optimize:rules", batches=len(self.batches)):
+            for batch in self.batches:
+                iterations = batch.max_iterations if batch.fixed_point else 1
+                with _spans.span(f"optimize:batch:{batch.name}"):
+                    for _ in range(iterations):
+                        before = graph
+                        for rule in batch.rules:
+                            new_graph, prefixes = rule.apply(graph, prefixes)
+                            runs_c.inc(rule=rule.name)
+                            if new_graph != graph:
+                                rewrites_c.inc(rule=rule.name)
+                                _spans.add_span_event("rule_rewrite", rule=rule.name)
+                                if logger.isEnabledFor(logging.DEBUG):
+                                    logger.debug(
+                                        "rule %s rewrote graph:\n%s", rule.name, new_graph.to_dot()
+                                    )
+                            graph = new_graph
+                        if graph == before:
+                            break
+        _names.metric(_names.OPTIMIZE_SECONDS).observe(time.perf_counter() - t0)
         return graph, prefixes
 
 

@@ -9,6 +9,10 @@ Tolerance: 1e-5 relative Frobenius (fp32 FFMA in another summation
 order than the plain version's batched products). With ``counts``, the
 padded slots hold NaN blocks and out-of-range indices: the kernel must
 never read them.
+
+The port's fits record observations in the profile store. The JAX test
+configuration that points ``KEYSTONE_PROFILE_STORE`` at a temporary file
+is not loaded on the card, so this module does that itself.
 """
 
 import numpy as np
@@ -18,6 +22,11 @@ import torch
 from keystone_tpu_torch.ops.cuda import blocksparse as tbs
 
 pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def _private_profile_store(tmp_path, monkeypatch):
+    monkeypatch.setenv("KEYSTONE_PROFILE_STORE", str(tmp_path / "profile-store.jsonl"))
 
 
 @pytest.fixture
@@ -316,3 +325,58 @@ def test_solver_precision_survives_a_global_tf32_switch(cuda):
             torch.set_float32_matmul_precision("highest")
             PipelineEnv.reset()
     assert _rel(scores["high"], scores["highest"]) <= 1e-5
+
+
+# ------------------------------------------------ allocation failures, OOM ladder
+
+
+def test_binding_allocation_failure_raises_out_of_memory(cuda):
+    """cuBLAS's own text for ``CUBLAS_STATUS_ALLOC_FAILED`` matches no
+    OOM pattern; the binding's wrapper raises ``OutOfMemoryError`` for it
+    (and for a failed CUDA allocation), which the ladder degrades on."""
+    from keystone_tpu_torch.ops.cuda import _build
+    from keystone_tpu_torch.ops.cuda import gemm as tgemm
+    from keystone_tpu_torch.reliability import ErrorClass, classify_error, is_oom
+
+    lib = tgemm._lib()
+    texts = {}
+    for code in sorted(tgemm.ALLOC_FAILURES):
+        texts[code] = lib.keystone_gemm_error(code).decode()
+        with pytest.raises(torch.cuda.OutOfMemoryError) as info:
+            tgemm._raise_on(code, lib, "gemm")
+        assert is_oom(info.value) and texts[code] in str(info.value)
+    alloc = tgemm.CUBLAS_ERR_BASE + 3
+    assert texts[alloc] == "the resource allocation failed"
+    assert classify_error(RuntimeError(texts[alloc])) is ErrorClass.PERMANENT
+    assert texts[_build.CUDA_ERROR_MEMORY_ALLOCATION] == "out of memory"
+    execution_failed = tgemm.CUBLAS_ERR_BASE + 13
+    with pytest.raises(RuntimeError) as info:
+        tgemm._raise_on(execution_failed, lib, "gemm")
+    assert classify_error(info.value) is ErrorClass.PERMANENT
+
+
+def test_injected_oom_degrades_the_sparse_fit_through_the_kernel(cuda, monkeypatch):
+    """The block-sparse fit under an OOM injected at its first attempt:
+    the ladder halves the block, the kernel launches only in the second
+    attempt (twice), and the model equals a direct fit at the half block
+    (≤ 1e-5 relative, measured with the kernel on both sides)."""
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.ops.learning.block import BlockLeastSquaresEstimator
+    from keystone_tpu_torch.reliability import FaultSpec, injected
+
+    monkeypatch.setenv("KEYSTONE_BLOCKSPARSE_BLOCK", "8x16")
+    monkeypatch.setenv("KEYSTONE_BLOCKSPARSE_THRESHOLD", "0.3")
+    rng = np.random.RandomState(3)
+    keep = rng.rand(64, 16) < 0.2
+    keep[0, 0] = True
+    x = (rng.randn(64, 8, 16, 16).astype(np.float32) * keep[:, None, :, None]).reshape(512, 256)
+    y = rng.randn(512, 2).astype(np.float32)
+    before = tbs.ell_matmul.launches
+    with injected(FaultSpec(match="BlockLeastSquaresEstimator.solve", kind="oom", first_n=1)):
+        model = BlockLeastSquaresEstimator(64, reg=1e-3, device=cuda).fit(
+            ArrayDataset(x, device="cpu"), ArrayDataset(y, device="cpu"))
+    assert tbs.ell_matmul.launches - before == 2
+    assert model.degradation["rung"] == 32 and model.degradation["first_rung"] == 64
+    direct = BlockLeastSquaresEstimator(32, reg=1e-3, device=cuda).fit(
+        ArrayDataset(x, device="cpu"), ArrayDataset(y, device="cpu"))
+    assert _rel(model.weights, direct.weights) <= 1e-5
