@@ -134,10 +134,43 @@ Phases, in order; any failure raises and the script exits non-zero:
    torch/CUDA/card fingerprint that a fresh store hits, and a stored
    ``blocksparse:threshold`` of 0.0 for phase 3's rows bucket turning
    its dispatch from ``sparse`` to ``densify`` (and back once marked
-   stale).
+   stale);
+16. solver_ladder — the first four rows of the JAX sweep's ``FULL_GRID``
+   (``scripts/solver_comparison.py``): (500,000, 1,024, 138),
+   (500,000, 2,048, 138) and (1,000,000, 1,024, 138) dense, drawn on the
+   card, and (1,000,000, 1,024, 2) at density 0.005 as a host CSR matrix.
+   Each eligible rung of the sweep's ``solvers()`` (``exact``, ``block``
+   1,024 × 3 epochs, ``lbfgs`` 20 iterations; ``sparse_lbfgs`` on the
+   sparse row) is timed after one warm fit, with its train MSE; every
+   dense rung's predictions lie within 1e-4 of a float64 solve of its own
+   objective. Then ``LeastSquaresEstimator(reg=1e-3)`` in a ``Pipeline``
+   under node-level optimization: the rung it picked under
+   ``cuda_weights()``, every candidate's predicted cost, and whether the
+   pick was the fastest rung measured (printed, not a gate);
+17. least_squares_ladder — ``LeastSquaresEstimator.fit`` (no optimizer)
+   on phase 3's hashing-TF rows under ``FaultSpec(match=
+   "LeastSquaresEstimator.solve", kind="oom", first_n=1)``: the first rung
+   (``dense_lbfgs``) fails, the ``block`` rung fits through the ELL kernel
+   (two launches). The spec's match is a substring of the block solver's
+   own site too, whose ladder halves 4,096 → 2,048; scores within 1e-6 of
+   a direct block fit at 2,048;
+18. newsgroups — ``run_newsgroups`` on a synthetic 20-class directory tree
+   of 11,314 train and 7,532 test documents (Zipf vocabularies from the
+   seed), 2-grams, 100,000 common features: the vectorizer is exactly
+   100,000 wide, naive Bayes's (π, θ) within 1e-5 of a float64 closed
+   form on the card over the fit's own inputs; ``featurize_s``,
+   ``densify_s``, ``fit_s``, ``apply_s`` from ``trace()``, test error and
+   the host's peak RSS;
+19. amazon_reviews — ``run_amazon`` on synthetic JSON-lines reviews
+   (polarity lexicons plus Zipf filler), threshold 3.5, 2-grams, 100,000
+   common features, 20 iterations, the reference's 65M rows cut to 32,768
+   train / 8,192 test (a 13.1 GB dense train matrix): L-BFGS iterations,
+   objective evaluations, the objective per iteration (non-increasing to
+   the line search's 1e-6·|f| allowance), ``fit_s`` and accuracy.
 
-Phases 4–14 reach no ELL kernel: each sets its count to 0 and fails if it
-moved; phase 15 launches it only in ``oom_injected_sparse``. Every phase
+Phases 4–14, 16, 18 and 19 reach no ELL kernel: each sets its count to 0
+and fails if it moved; phase 15 launches it only in
+``oom_injected_sparse``, phase 17 exactly twice. Every phase
 starts from a reset ``PipelineEnv`` and reports its peak device memory
 and the solver binding's calls per product kind (``ops/cuda/gemm.py``).
 
@@ -2354,6 +2387,603 @@ def phase_reliability(device, host_problem, slice_fit) -> int:
     return launches
 
 
+# -------------------------------------------------------------- phases 16-19
+#
+# The least-squares meta-solver and the text pipelines (ROADMAP item 9).
+
+# solver_ladder: the first four rows of the JAX sweep's FULL_GRID
+# (scripts/solver_comparison.py:44-54), (n, d, k, density), with the
+# sweep's rungs (``solvers()``: reg 1e-3, block 1,024 × 3 epochs, 20
+# L-BFGS iterations) and its ceiling on densified sparse problems.
+LADDER_GRID = (
+    (500_000, 1024, 138, 1.0),
+    (500_000, 2048, 138, 1.0),
+    (1_000_000, 1024, 138, 1.0),
+    (1_000_000, 1024, 2, 0.005),
+)
+LADDER_REG, LADDER_ITERS, LADDER_BLOCK, LADDER_EPOCHS = 1e-3, 20, 1024, 3
+DENSE_ELEMS_LIMIT = 2e8
+# Every dense rung's predictions on the head rows against a float64 solve
+# of its own objective ((Gc + λI) for exact and block, (Gc + nλI) for
+# L-BFGS, whose loss divides by n): fp32 products over 5e5–1e6 rows on a
+# Gram of condition ≈ 1.2–1.3. The limit sits between the IEEE fp32
+# rungs' readings and those of a control, the exact and L-BFGS rungs
+# with their products at TF32, which must fail it (PERF.md §5).
+LADDER_FP64_TOL = 4e-6
+LADDER_CONTROL_MODE, LADDER_CONTROL_RUNGS = "high", ("exact", "lbfgs")
+# least_squares_ladder: the meta-solver's block rung against a direct
+# block fit of the same rows.
+LS_LADDER_TOL = 1e-6
+LS_SITE = "LeastSquaresEstimator.solve"
+# newsgroups: the published split sizes (20news-bydate: 11,314 train,
+# 7,532 test) and configuration (NewsgroupsPipeline: 2-grams, 100,000
+# common features); the NB parameters against a float64 closed form.
+NG_TRAIN, NG_TEST, NG_FEATURES, NB_TOL = 11_314, 7_532, 100_000, 1e-5
+# The synthetic text's own parameters have no public source: the tokens
+# per document, the vocabulary and lexicon sizes, the topic and polarity
+# shares and the Zipf exponent (1.1, near the exponent of about 1 of
+# Zipf's law for word frequencies) were chosen so that more than 100,000
+# distinct uni- and bigrams occur. Timings of the text phases' host
+# featurization on this corpus say nothing of real text.
+NG_DOC_TOKENS, NG_VOCAB, NG_TOPIC_WORDS, NG_TOPIC_SHARE = 100, 50_000, 2_000, 0.25
+# amazon_reviews: AmazonReviewsPipeline's configuration (threshold 3.5,
+# 2-grams, 100,000 common features, 20 iterations) with the rows cut from
+# the reference's 65M reviews to 32,768 / 8,192: a 13.1 GB dense float32
+# train matrix after Densify.
+AMAZON_TRAIN, AMAZON_TEST, AMAZON_REFERENCE_ROWS, AMAZON_FEATURES = 32_768, 8_192, 65_000_000, 100_000
+AMAZON_DOC_TOKENS, AMAZON_LEXICON, AMAZON_POLAR_SHARE, AMAZON_NOISE_SHARE = 60, 300, 0.15, 0.03
+
+
+def ladder_problem(n, d, k, density, device, seed=0):
+    """``make_problem``'s problem: dense rows drawn on the card from a
+    seeded generator (x ~ N(0, 1), y = x·w + 0.1·noise); sparse rows a
+    host CSR matrix with a fixed count of nonzeros per row, as the sweep
+    builds it."""
+    import torch
+
+    from keystone_tpu_torch.ops.cuda import gemm
+
+    if density < 1.0:
+        import scipy.sparse as sp
+
+        rng = np.random.default_rng(seed)
+        w_true = rng.normal(size=(d, k)).astype(np.float32)
+        per_row = max(1, round(d * density))
+        indices = rng.integers(0, d, size=n * per_row, dtype=np.int32)
+        indptr = np.arange(0, n * per_row + 1, per_row, dtype=np.int64)
+        data = rng.random(n * per_row, dtype=np.float32)
+        x = sp.csr_matrix((data, indices, indptr), shape=(n, d))
+        y = np.asarray(x @ w_true, dtype=np.float32)
+        y += 0.1 * rng.normal(size=(n, k)).astype(np.float32)
+        return x, y
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(n, d, device=device, generator=g)
+    y = gemm.gemm(x, torch.randn(d, k, device=device, generator=g), "ieee_fp32")
+    y.add_(torch.randn(n, k, device=device, generator=g), alpha=0.1)
+    return x, y
+
+
+def ladder_rungs(n, d, density, device) -> dict:
+    """The sweep's ``solvers()`` for one row: name → estimator factory."""
+    from keystone_tpu_torch.ops.learning.block import BlockLeastSquaresEstimator
+    from keystone_tpu_torch.ops.learning.lbfgs import DenseLBFGSEstimator, SparseLBFGSEstimator
+    from keystone_tpu_torch.ops.learning.linear import LinearMapEstimator
+
+    rungs = {}
+    if density >= 1.0 or n * d <= DENSE_ELEMS_LIMIT:
+        rungs["exact"] = lambda: LinearMapEstimator(LADDER_REG, device=device)
+        rungs["block"] = lambda: BlockLeastSquaresEstimator(
+            LADDER_BLOCK, num_iter=LADDER_EPOCHS, reg=LADDER_REG, device=device)
+        rungs["lbfgs"] = lambda: DenseLBFGSEstimator(
+            num_iterations=LADDER_ITERS, reg=LADDER_REG, device=device)
+    if density < 1.0:
+        rungs["sparse_lbfgs"] = lambda: SparseLBFGSEstimator(
+            num_iterations=LADDER_ITERS, reg=LADDER_REG, device=device)
+    return rungs
+
+
+#: The meta-solver's candidate names by the estimator type it returns.
+RUNG_OF = {"LinearMapEstimator": "exact", "BlockLeastSquaresEstimator": "block",
+           "DenseLBFGSEstimator": "lbfgs", "SparseLBFGSEstimator": "sparse_lbfgs"}
+
+
+def fp64_ridge_predictions(x, y, lam, head):
+    """Predictions on ``x[:head]`` of the float64 solve of
+    (Xcᵀ·Xc + lam·I) W = Xcᵀ·Yc, the Gram summed over 65,536-row chunks on
+    the card (PyTorch float64 products, a reference only)."""
+    import torch
+
+    n, d = x.shape
+    k = y.shape[1]
+    dev = x.device
+    gram = torch.zeros(d, d, dtype=torch.float64, device=dev)
+    cross = torch.zeros(d, k, dtype=torch.float64, device=dev)
+    sx = torch.zeros(d, dtype=torch.float64, device=dev)
+    sy = torch.zeros(k, dtype=torch.float64, device=dev)
+    for s in range(0, n, 65_536):
+        xc, yc = x[s : s + 65_536].double(), y[s : s + 65_536].double()
+        gram += xc.T @ xc
+        cross += xc.T @ yc
+        sx += xc.sum(0)
+        sy += yc.sum(0)
+    mu_x, mu_y = sx / n, sy / n
+    gram -= n * torch.outer(mu_x, mu_x)
+    cross -= n * torch.outer(mu_x, mu_y)
+    w = torch.linalg.solve(gram + lam * torch.eye(d, dtype=torch.float64, device=dev), cross)
+    return (x[:head].double() - mu_x) @ w + mu_y
+
+
+def _timed_fit(make, xd, yd):
+    """One warm fit, then one timed: (model, ms)."""
+    import torch
+
+    make().fit(xd, yd)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = make().fit(xd, yd)
+    torch.cuda.synchronize()
+    return model, (time.perf_counter() - t0) * 1e3
+
+
+def _ladder_row(n, d, k, density, device) -> dict:
+    import torch
+
+    from keystone_tpu_torch.data.dataset import ArrayDataset, ObjectDataset
+    from keystone_tpu_torch.ops.learning.cost import cuda_weights
+    from keystone_tpu_torch.ops.learning.least_squares import LeastSquaresEstimator
+    from keystone_tpu_torch.parallel import linalg
+    from keystone_tpu_torch.workflow.executor import PipelineEnv
+
+    sparse = density < 1.0
+    t0 = time.perf_counter()
+    x, y = ladder_problem(n, d, k, density, device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    head = min(n, 65_536, max(1024, int(1e8 / d)))
+    if sparse:
+        xd, yd = ObjectDataset([x]), ArrayDataset(y, device="cpu")
+        xh = torch.as_tensor(x[:head].toarray(), device=device)
+        yh = torch.as_tensor(y[:head], device=device)
+    else:
+        xd, yd = ArrayDataset(x), ArrayDataset(y)
+        xh, yh = x[:head], y[:head]
+    references = {}
+
+    def vs_fp64(name, pred):
+        lam = LADDER_REG * (n if name == "lbfgs" else 1)
+        if lam not in references:
+            references[lam] = fp64_ridge_predictions(x, y, lam, head)
+        return rel_err(pred, references[lam])
+
+    rungs, failed = {}, []
+    for name, make in ladder_rungs(n, d, density, device).items():
+        model, ms = _timed_fit(make, xd, yd)
+        pred = model.apply_arrays(xh)
+        entry = {"ms": ms, "train_mse": float(((pred - yh) ** 2).mean())}
+        if not sparse:
+            entry["vs_fp64_predictions_rel"] = vs_fp64(name, pred)
+            if not entry["vs_fp64_predictions_rel"] <= LADDER_FP64_TOL:
+                failed.append(f"{name}_vs_fp64")
+        if name == "lbfgs":
+            entry.update({key: model.lbfgs[key] for key in ("iterations", "evaluations", "objective")})
+        if not np.isfinite(entry["train_mse"]):
+            failed.append(f"{name}_mse")
+        rungs[name] = entry
+        del model, pred
+    # The control: the gate must reject rungs whose products ran at TF32.
+    control = {}
+    if not sparse:
+        makers = ladder_rungs(n, d, density, device)
+        for name in LADDER_CONTROL_RUNGS:
+            with linalg.solver_mode_scope(LADDER_CONTROL_MODE):
+                model = makers[name]().fit(xd, yd)
+            control[name] = vs_fp64(name, model.apply_arrays(xh))
+            if not control[name] > LADDER_FP64_TOL:
+                failed.append(f"{name}_{LADDER_CONTROL_MODE}_control_passes_the_gate")
+            del model
+    # The meta-solver inside a Pipeline, node-level optimization on: its
+    # pick under the card's weights, every candidate's predicted cost.
+    PipelineEnv.reset()
+    # The sparse row goes in as the sweep hands it over: one CSR matrix in
+    # one ObjectDataset item.
+    pipeline = LeastSquaresEstimator(reg=LADDER_REG, device=device).with_data(xd, yd)
+    env = PipelineEnv.get_or_create()
+    t0 = time.perf_counter()
+    optimized, _ = env.optimizer.execute(pipeline.graph)
+    optimize_s = time.perf_counter() - t0
+    # A picked rung that streams sits inside a StreamFit operator.
+    estimators = [getattr(op, "estimator", op) for op in optimized.operators.values()]
+    picked = [e for e in estimators if getattr(e, "predicted_cost", None) is not None]
+    plan = plan_labels(optimized)
+    t0 = time.perf_counter()
+    fitted = pipeline.fit()
+    pred = fitted.apply_batch(ArrayDataset(xh)).data
+    torch.cuda.synchronize()
+    pipeline_fit_s = time.perf_counter() - t0
+    if len(picked) != 1:
+        failed.append("pick")
+        pick, candidates = None, []
+    else:
+        prediction = picked[0].predicted_cost
+        pick = RUNG_OF.get(type(picked[0]).__name__, type(picked[0]).__name__)
+        candidates = [{"rung": c[0], "predicted_s": c[1], "reason": c[2]} for c in prediction.candidates]
+    fastest = min(rungs, key=lambda r: rungs[r]["ms"])
+    weights = cuda_weights()
+    del x, y, xd, yd, xh, yh, pipeline, fitted, optimized
+    PipelineEnv.reset()
+    torch.cuda.empty_cache()
+    return {
+        "shape": [n, d, k], "density": density, "build_s": build_s, "rungs": rungs,
+        f"{LADDER_CONTROL_MODE}_control_vs_fp64_predictions_rel": control,
+        "pick": pick, "fastest_measured": fastest, "pick_is_fastest": pick == fastest,
+        "predicted": candidates, "weights": [weights.cpu, weights.mem, weights.network],
+        "optimize_s": optimize_s, "pipeline_plan": plan, "pipeline_fit_and_apply_s": pipeline_fit_s,
+        "pipeline_finite": bool(torch.isfinite(pred).all()), "failed": failed,
+    }
+
+
+def phase_solver_ladder(device) -> int:
+    """Phase 16: the JAX sweep's first four rows, each rung timed, and the
+    meta-solver's pick under ``cuda_weights()`` (module docstring)."""
+    _mnist_start()
+    t0 = time.perf_counter()
+    rows = []
+    for n, d, k, density in LADDER_GRID:
+        row = _ladder_row(n, d, k, density, device)
+        log("solver_ladder_row", **row)
+        rows.append(row)
+    end = _mnist_end("solver_ladder")
+    failed = {f"{r['shape']}": r["failed"] for r in rows if r["failed"] or not r["pipeline_finite"]}
+    log("solver_ladder", seconds=time.perf_counter() - t0,
+        picks=[[r["shape"], r["pick"], r["fastest_measured"]] for r in rows], failed=failed, **end)
+    if failed:
+        raise AssertionError(f"solver_ladder failed {failed}")
+    return 0
+
+
+def phase_least_squares_ladder(device, slice_fit) -> int:
+    """Phase 17: ``LeastSquaresEstimator.fit`` (no optimizer) on phase 3's
+    hashing-TF rows under an OOM injected at its first rung: the
+    ``block`` rung fits through the ELL kernel. Returns its launches."""
+    import torch
+
+    from keystone_tpu_torch.ops.cuda import blocksparse as bs
+    from keystone_tpu_torch.ops.cuda import gemm
+    from keystone_tpu_torch.ops.learning.block import BlockLeastSquaresEstimator
+    from keystone_tpu_torch.ops.learning.least_squares import LeastSquaresEstimator
+    from keystone_tpu_torch.reliability import FaultSpec, get_recovery_log, injected
+
+    _mnist_start()
+    t_phase = t0 = time.perf_counter()
+    with injected(FaultSpec(match=LS_SITE, kind="oom", first_n=1)):
+        model = LeastSquaresEstimator(
+            reg=REG, block_size=BLOCK_SIZE, block_iters=1, device=device
+        ).fit(slice_fit["rows"], slice_fit["y"])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = bs.ell_matmul.launches
+    gemm_launches = SOLVER_GEMM_CALLS["least_squares_ladder"] = dict(gemm.launches)
+    summary = get_recovery_log().summary()
+    degradation = dict(getattr(model, "degradation", {}))
+    # The spec's match is a substring of the block solver's own probe site
+    # ("BlockLeastSquaresEstimator.solve") too, so that site's first call
+    # also runs out of memory and the block rung's own ladder halves the
+    # block: the reference is a direct block fit of the same rows at the
+    # block the model landed on (its launches are not the path's).
+    direct = BlockLeastSquaresEstimator(model.block_size, num_iter=1, reg=REG, device=device).fit(
+        slice_fit["rows"], slice_fit["y"]
+    )
+    got, want = scores(model, slice_fit["test"], device), scores(direct, slice_fit["test"], device)
+    rel = rel_err(got, want)
+    result = {
+        "seconds": time.perf_counter() - t_phase, "documents": len(slice_fit["rows"]),
+        "block_size": BLOCK_SIZE, "fit_s": fit_s,
+        "ell_launches": launches, "landed_block_size": model.block_size, "degradation": degradation,
+        "recovery_events": [e["kind"] for e in summary["events"]],
+        "vs_direct_block_scores_rel": rel, "solver_gemm_launches": gemm_launches,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+    }
+    log("least_squares_ladder", **result)
+    checks = {
+        "two_launches": launches == 2,
+        "block_rung": degradation.get("rung") == "block" and degradation.get("first_rung") == "dense_lbfgs"
+        and degradation.get("inner", {}).get("rung") == BLOCK_SIZE // 2 == model.block_size,
+        "events": sorted(result["recovery_events"]) == ["degrade", "degrade", "fault", "fault"],
+        "parity": rel <= LS_LADDER_TOL and bool(torch.isfinite(got).all()),
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"least_squares_ladder failed {failed}")
+    return launches
+
+
+class Zipf:
+    """Ranks in [0, size) with P(r) ∝ 1/(r+1)^exponent, drawn by inverse
+    CDF from a numpy generator."""
+
+    def __init__(self, size, exponent=1.1):
+        p = 1.0 / np.arange(1, size + 1, dtype=np.float64) ** exponent
+        self.cdf = np.cumsum(p / p.sum())
+        self.size = size
+
+    def draw(self, rng, count):
+        return np.minimum(np.searchsorted(self.cdf, rng.random(count), side="right"), self.size - 1)
+
+
+def _split_docs(words, lengths):
+    """Per-document strings from one flat array of token strings."""
+    offsets = np.concatenate([[0], np.cumsum(lengths)])
+    return [" ".join(words[offsets[i] : offsets[i + 1]].tolist()) for i in range(len(lengths))]
+
+
+def newsgroups_corpus(root, seed):
+    """The 20-class directory tree (``load_newsgroups``'s layout) with
+    20news-bydate's 11,314 train and 7,532 test documents under ``root``.
+    A document of class c has 10 + Poisson(100) tokens: each, with odds 3
+    in 4, from a Zipf law over a shared 50,000-word vocabulary, else from
+    a Zipf law over class c's own 2,000 topic words (a seeded draw from
+    the vocabulary). These text parameters are unsourced (see
+    ``NG_DOC_TOKENS``)."""
+    from keystone_tpu_torch.data.loaders.text import NEWSGROUPS_CLASSES
+
+    rng = np.random.default_rng(seed)
+    vocab = np.array([f"w{i:x}" for i in range(NG_VOCAB)])
+    topics = np.stack([rng.permutation(NG_VOCAB)[:NG_TOPIC_WORDS] for _ in NEWSGROUPS_CLASSES])
+    shared, topical = Zipf(NG_VOCAB), Zipf(NG_TOPIC_WORDS)
+    for split, count in (("train", NG_TRAIN), ("test", NG_TEST)):
+        labels = rng.integers(0, len(NEWSGROUPS_CLASSES), size=count)
+        lengths = rng.poisson(NG_DOC_TOKENS, size=count) + 10
+        ids = shared.draw(rng, int(lengths.sum()))
+        on_topic = rng.random(ids.size) < NG_TOPIC_SHARE
+        token_class = np.repeat(labels, lengths)[on_topic]
+        ids[on_topic] = topics[token_class, topical.draw(rng, int(on_topic.sum()))]
+        for cls in NEWSGROUPS_CLASSES:
+            os.makedirs(os.path.join(root, split, cls), exist_ok=True)
+        for i, (label, doc) in enumerate(zip(labels, _split_docs(vocab[ids], lengths))):
+            with open(os.path.join(root, split, NEWSGROUPS_CLASSES[label], f"{i:06d}"), "w") as f:
+                f.write(doc)
+    return os.path.join(root, "train"), os.path.join(root, "test")
+
+
+def amazon_corpus(root, seed):
+    """JSON-lines reviews (``load_amazon_reviews``'s format). A review is
+    positive or negative with equal odds (``overall`` 4 or 5, 1 or 2) and
+    has 5 + Poisson(60) tokens: each, with odds 0.15, from a Zipf law over
+    its polarity's 300-word lexicon, with odds 0.03 from the other
+    polarity's, else from a Zipf law over a 50,000-word filler
+    vocabulary. These text parameters are unsourced (see
+    ``NG_DOC_TOKENS``)."""
+    rng = np.random.default_rng(seed)
+    filler = np.array([f"w{i:x}" for i in range(NG_VOCAB)])
+    lexicons = np.stack([np.array([f"{tag}{i:x}" for i in range(AMAZON_LEXICON)], dtype="<U8")
+                         for tag in ("neg", "pos")])
+    shared, lexical = Zipf(NG_VOCAB), Zipf(AMAZON_LEXICON)
+    paths = []
+    for split, count in (("train", AMAZON_TRAIN), ("test", AMAZON_TEST)):
+        positive = (rng.random(count) < 0.5).astype(np.int64)
+        lengths = rng.poisson(AMAZON_DOC_TOKENS, size=count) + 5
+        words = filler[shared.draw(rng, int(lengths.sum()))].astype("<U8")
+        polarity = np.repeat(positive, lengths)
+        source = rng.random(words.size)
+        own = source < AMAZON_POLAR_SHARE
+        other = (source >= AMAZON_POLAR_SHARE) & (source < AMAZON_POLAR_SHARE + AMAZON_NOISE_SHARE)
+        words[own] = lexicons[polarity[own], lexical.draw(rng, int(own.sum()))]
+        words[other] = lexicons[1 - polarity[other], lexical.draw(rng, int(other.sum()))]
+        ratings = np.where(positive == 1, rng.choice([4.0, 5.0], size=count), rng.choice([1.0, 2.0], size=count))
+        path = os.path.join(root, f"{split}.json")
+        with open(path, "w") as f:
+            for doc, rating in zip(_split_docs(words, lengths), ratings):
+                f.write(json.dumps({"reviewText": doc, "overall": float(rating)}) + "\n")
+        paths.append(path)
+    return paths
+
+
+def _host_rss() -> int:
+    """The process's resident bytes (``VmRSS``)."""
+    with open("/proc/self/status") as f:
+        return next(int(line.split()[1]) * 1024 for line in f if line.startswith("VmRSS:"))
+
+
+class HostPeak:
+    """The process's resident bytes before and after the block and the
+    largest seen during it, sampled every 50 ms by a thread (the kernel
+    of the card's machine keeps no ``VmHWM`` to reset)."""
+
+    def __enter__(self):
+        import threading
+
+        self.before = self.peak = _host_rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.05):
+            self.peak = max(self.peak, _host_rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.after = _host_rss()
+        self.peak = max(self.peak, self.after)
+
+    def report(self) -> dict:
+        return {"host_rss_before_bytes": self.before, "host_rss_after_bytes": self.after,
+                "host_peak_rss_sampled_bytes": self.peak}
+
+
+def _node_seconds(timings) -> dict:
+    """A traced run's node seconds, summed into featurize / densify / fit
+    / apply by operator label. Each ``DelegatingOperator`` applies a
+    fitted transformer: the one completing just before a ``Densify`` is
+    the fitted vectorizer (featurization), any other one the model."""
+    featurize = ("Trim", "LowerCase", "Tokenizer", "NGramsFeaturizer", "TermFrequency",
+                 "CommonSparseFeatures")
+    out = {"featurize_s": 0.0, "densify_s": 0.0, "fit_s": 0.0, "apply_s": 0.0, "other_s": 0.0}
+    labels = [str(t.label) for t in timings]
+    for i, t in enumerate(timings):
+        label, after = labels[i], labels[i + 1] if i + 1 < len(labels) else ""
+        if label.startswith(featurize) or (label == "DelegatingOperator" and after == "Densify"):
+            out["featurize_s"] += t.seconds
+        elif label == "Densify":
+            out["densify_s"] += t.seconds
+        elif label.endswith("Estimator"):
+            out["fit_s"] += t.seconds
+        elif label.startswith("Dataset"):
+            out["other_s"] += t.seconds
+        else:
+            out["apply_s"] += t.seconds
+    return out
+
+
+def _fitted_member(fitted, cls):
+    ops = fitted.graph.operators.values()
+    found = [m for op in ops for m in getattr(op, "members", (op,)) if isinstance(m, cls)]
+    if len(found) != 1:
+        raise AssertionError(f"expected one {cls.__name__} in the fitted pipeline, found {len(found)}")
+    return found[0]
+
+
+def fp64_naive_bayes(x, y, k, lam):
+    """(π, Θ) in float64 by plain PyTorch on the card, independent of
+    ``nb_fit`` and the solver binding: per-class sums by ``index_add_``,
+    then the smoothed logs of NaiveBayesModel.scala:57-69."""
+    import torch
+
+    sums = torch.zeros(k, x.shape[1], dtype=torch.float64, device=x.device)
+    for s in range(0, x.shape[0], 2048):
+        sums.index_add_(0, y[s : s + 2048], x[s : s + 2048].double())
+    counts = torch.bincount(y, minlength=k).double()
+    pi = torch.log(counts + lam) - np.log(y.numel() + k * lam)
+    theta = torch.log(sums + lam) - torch.log(sums.sum(1, keepdim=True) + lam * x.shape[1])
+    return pi, theta
+
+
+def phase_newsgroups(device) -> int:
+    """Phase 18: ``run_newsgroups`` on the synthetic 20-class tree at the
+    published split sizes and configuration (module docstring)."""
+    import torch
+
+    from keystone_tpu_torch.ops.learning import naive_bayes
+    from keystone_tpu_torch.ops.util.sparse import SparseFeatureVectorizer
+    from keystone_tpu_torch.pipelines import text
+    from keystone_tpu_torch.workflow.tracing import trace
+
+    _mnist_start()
+    captured = {}
+    base = text.NaiveBayesEstimator
+
+    class RecordingNaiveBayesEstimator(base):  # the fit's own inputs, for the float64 check
+        def fit(self, data, labels):
+            captured["data"], captured["labels"] = data, labels
+            return super().fit(data, labels)
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="keystone-20news-") as root, HostPeak() as host:
+        t0 = time.perf_counter()
+        train_dir, test_dir = newsgroups_corpus(root, SEED)
+        corpus_s = time.perf_counter() - t0
+        text.NaiveBayesEstimator = RecordingNaiveBayesEstimator
+        try:
+            with trace() as tr:
+                t0 = time.perf_counter()
+                res = text.run_newsgroups(text.NewsgroupsConfig(
+                    train_location=train_dir, test_location=test_dir, n_grams=2,
+                    common_features=NG_FEATURES), device=device)
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t0
+        finally:
+            text.NaiveBayesEstimator = base
+    fitted = res["pipeline"].fit()
+    width = len(_fitted_member(fitted, SparseFeatureVectorizer).feature_space)
+    model = _fitted_member(fitted, naive_bayes.NaiveBayesModel)
+    x = captured["data"].data
+    y = torch.as_tensor(np.asarray(captured["labels"].collect()), dtype=torch.long, device=device)
+    pi64, theta64 = fp64_naive_bayes(x, y, len(text.NEWSGROUPS_CLASSES), 1.0)
+    pi_err = float((model.pi.double() - pi64).abs().max())
+    theta_err = float((model.theta.double() - theta64).abs().max())
+    result = {
+        "seconds": time.perf_counter() - t_phase, "train_docs": NG_TRAIN, "test_docs": NG_TEST, "n_grams": 2, "common_features": NG_FEATURES,
+        "vectorizer_width": width, "train_matrix_shape": list(x.shape),
+        "train_matrix_bytes": x.numel() * x.element_size(), "corpus_s": corpus_s, "run_s": run_s,
+        **_node_seconds(tr.timings), "test_error": res["metrics"].total_error,
+        "nb_pi_vs_fp64_max_abs": pi_err, "nb_theta_vs_fp64_max_abs": theta_err,
+        **host.report(), **_mnist_end("newsgroups"),
+    }
+    del captured, x, y, pi64, theta64, fitted, model, res
+    torch.cuda.empty_cache()
+    log("newsgroups", **result)
+    checks = {
+        "width": width == NG_FEATURES and result["train_matrix_shape"] == [NG_TRAIN, NG_FEATURES],
+        "nb_fp64": pi_err <= NB_TOL and theta_err <= NB_TOL,
+        "error": 0.0 <= result["test_error"] < 0.5,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"newsgroups failed {failed}")
+    return 0
+
+
+def phase_amazon_reviews(device) -> int:
+    """Phase 19: ``run_amazon`` on synthetic JSON-lines reviews at the
+    published configuration, rows cut to 32,768 / 8,192 (module
+    docstring)."""
+    import torch
+
+    from keystone_tpu_torch.ops.learning.lbfgs import APPROX_DEC_RTOL
+    from keystone_tpu_torch.ops.learning.linear import LinearMapper
+    from keystone_tpu_torch.ops.util.sparse import SparseFeatureVectorizer
+    from keystone_tpu_torch.pipelines import text
+    from keystone_tpu_torch.workflow.tracing import trace
+
+    _mnist_start()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="keystone-amazon-") as root, HostPeak() as host:
+        t0 = time.perf_counter()
+        train_path, test_path = amazon_corpus(root, SEED + 1)
+        corpus_s = time.perf_counter() - t0
+        with trace() as tr:
+            t0 = time.perf_counter()
+            res = text.run_amazon(text.AmazonReviewsConfig(
+                train_location=train_path, test_location=test_path, threshold=3.5, n_grams=2,
+                common_features=AMAZON_FEATURES, num_iters=20), device=device)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+    fitted = res["pipeline"].fit()
+    width = len(_fitted_member(fitted, SparseFeatureVectorizer).feature_space)
+    info = _fitted_member(fitted, LinearMapper).lbfgs
+    objective = info["objective"]
+    # The line search accepts a step whose value exceeds the start by at
+    # most approx_dec_rtol·|f| (optax's approximate Wolfe test): the
+    # objective is non-increasing to that allowance.
+    increases = [b - a for a, b in zip(objective, objective[1:]) if b > a + APPROX_DEC_RTOL * abs(a)]
+    result = {
+        "seconds": time.perf_counter() - t_phase, "train_reviews": AMAZON_TRAIN, "test_reviews": AMAZON_TEST,
+        "rows_cut": f"{AMAZON_REFERENCE_ROWS} reference reviews -> {AMAZON_TRAIN} train / {AMAZON_TEST} test",
+        "threshold": 3.5, "n_grams": 2, "common_features": AMAZON_FEATURES, "num_iters": 20,
+        "vectorizer_width": width, "train_matrix_bytes": AMAZON_TRAIN * width * 4,
+        "corpus_s": corpus_s, "run_s": run_s, **_node_seconds(tr.timings),
+        "lbfgs_iterations": info["iterations"], "objective_evaluations": info["evaluations"],
+        "linesearch_steps": info["linesearch_steps"], "objective": objective,
+        "accuracy": res["metrics"].accuracy, **host.report(),
+        **_mnist_end("amazon_reviews"),
+    }
+    del fitted, res
+    torch.cuda.empty_cache()
+    log("amazon_reviews", **result)
+    checks = {
+        "width": width == AMAZON_FEATURES,
+        "iterations": 1 <= info["iterations"] <= 20 and len(objective) == info["iterations"] + 1,
+        "non_increasing": not increases and all(np.isfinite(objective)),
+        "accuracy": result["accuracy"] > 0.8,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"amazon_reviews failed {failed}: increases {increases}")
+    return 0
+
+
 def card_name_and_limit() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2405,7 +3035,12 @@ def main() -> int:
     host_problem = phase_host_streaming_bcd(device)
     launches_by_path["host_streaming_bcd"] = 0  # phase_host_streaming_bcd raises otherwise
     launches_by_path["reliability"] = phase_reliability(device, host_problem, slice_fit)
-    del host_problem, slice_fit
+    del host_problem
+    launches_by_path["solver_ladder"] = phase_solver_ladder(device)
+    launches_by_path["least_squares_ladder"] = phase_least_squares_ladder(device, slice_fit)
+    del slice_fit
+    launches_by_path["newsgroups"] = phase_newsgroups(device)
+    launches_by_path["amazon_reviews"] = phase_amazon_reviews(device)
     # The binding's calls on the paths (gram_modes times it and is left out).
     paths = {p: c for p, c in SOLVER_GEMM_CALLS.items() if p != "gram_modes"}
     binding["launches"] = {k: sum(c[k] for c in paths.values()) for k in next(iter(paths.values()))}

@@ -70,6 +70,14 @@ WORKLOADS: Dict[str, Tuple[str, str, str, str]] = {
         "timit", "TimitConfig", "run",
         "TIMIT cosine random features + block least squares",
     ),
+    "amazon-reviews": (
+        "text", "AmazonReviewsConfig", "run_amazon",
+        "Amazon reviews n-gram logistic/LBFGS text pipeline",
+    ),
+    "newsgroups": (
+        "text", "NewsgroupsConfig", "run_newsgroups",
+        "20 Newsgroups n-gram naive-bayes/least-squares pipeline",
+    ),
 }
 
 

@@ -57,9 +57,9 @@ def count_iteration(solver: str, n: int = 1, **attributes: Any) -> None:
 
 def predicted_attrs(estimator: Any) -> dict:
     """Span attributes for a cost prediction pinned on an estimator
-    (``predicted_cost``). The port has no cost model yet, so no estimator
-    carries one and this returns ``{}``; the join surface stays in place
-    for when one does."""
+    (``predicted_cost``, an ``obs/cost.py::Prediction`` that
+    ``LeastSquaresEstimator.optimize`` pins on the rung it picks); ``{}``
+    for an estimator without one."""
     prediction = getattr(estimator, "predicted_cost", None)
     if prediction is None:
         return {}

@@ -3,19 +3,23 @@
 Port of ``keystone_tpu/ops/util/vectors.py``:
 
 - ``VectorCombiner`` — concatenate gathered branch outputs feature-wise.
+- ``VectorSplitter`` — split an (n, d) dataset into feature blocks, each
+  a column view of the same tensor (no copy).
 - ``Densify`` — sparse host rows become one dense float32 tensor on an
-  explicit device.
+  explicit device. The CSR rows are cast to float32 before they are
+  densified, so the host holds the dense matrix once, in float32.
 
-Left out for now: ``VectorSplitter``, ``Cast``, ``MatrixVectorizer`` and
-``Sparsify``.
+Left out for now: ``Cast``, ``MatrixVectorizer`` and ``Sparsify``.
 """
 
 from __future__ import annotations
 
+from typing import List
+
 import numpy as np
 import torch
 
-from ...data.dataset import ArrayDataset, Dataset
+from ...data.dataset import ArrayDataset, Dataset, ObjectDataset
 from ...device import DeviceLike, resolve_device
 from ...workflow.pipeline import BatchTransformer, Transformer
 
@@ -30,6 +34,34 @@ class VectorCombiner(BatchTransformer):
 
     def apply(self, datum):
         return torch.cat([torch.as_tensor(p).reshape(-1) for p in datum])
+
+
+class VectorSplitter(Transformer):
+    """Split an (n, d) dataset into feature blocks [(n, b), ...].
+
+    The reference materializes ``Seq[RDD[DenseVector]]``; here a block is a
+    column view of the same tensor, so no copy happens until a solver
+    touches the block.
+    """
+
+    def __init__(self, block_size: int):
+        self.block_size = block_size
+
+    def split(self, dataset: Dataset) -> List[ArrayDataset]:
+        ds = dataset if isinstance(dataset, ArrayDataset) else dataset.to_arrays()  # type: ignore[attr-defined]
+        x = ds.data
+        d = x.shape[1]
+        return [
+            ArrayDataset(x[:, start : min(start + self.block_size, d)], ds.num_examples)
+            for start in range(0, d, self.block_size)
+        ]
+
+    def apply(self, datum):
+        vec = datum if isinstance(datum, torch.Tensor) else np.asarray(datum)
+        return [vec[s : s + self.block_size] for s in range(0, len(vec), self.block_size)]
+
+    def apply_batch(self, dataset: Dataset) -> ObjectDataset:
+        return ObjectDataset(self.split(dataset))
 
 
 class Densify(Transformer):
@@ -50,7 +82,10 @@ class Densify(Transformer):
         if items and hasattr(items[0], "toarray"):
             import scipy.sparse as sp
 
-            dense = sp.vstack(items).toarray().astype(np.float32)
+            # float32 before toarray(): the text featurizers' rows are
+            # float64 CSR, and densifying first would hold the matrix on
+            # the host twice over (values are counts, exact in float32).
+            dense = sp.vstack(items, format="csr").astype(np.float32).toarray()
         else:
             dense = np.stack([self.apply(i) for i in items])
         return ArrayDataset(torch.from_numpy(dense), device=resolve_device(self.device))

@@ -1,7 +1,9 @@
 """Port of ``keystone_tpu.pipelines``: end-to-end workloads.
 
-Each module exposes a config dataclass, ``build_pipeline`` builders and a
+Each module exposes a config dataclass, functions that build its pipelines, and a
 ``run(config, device=None)`` entry point returning a results dict:
-``mnist_random_fft`` (the README's example) and ``timit`` (random cosine
-features over TIMIT frames, block least squares).
+``mnist_random_fft`` (the README's example), ``timit`` (random cosine
+features over TIMIT frames, block least squares) and ``text``
+(``run_amazon``: n-gram logistic regression on Amazon reviews;
+``run_newsgroups``: n-gram naive Bayes on 20 Newsgroups).
 """

@@ -165,8 +165,8 @@ _current: Optional[FaultInjector] = None
 #: Every probe site the port exposes, by its exact label. Chaos specs
 #: target sites by these names; a site is registered next to the code
 #: that adds it. The JAX package registers more, and each arrives with
-#: the module that probes it: ``LeastSquaresEstimator.solve`` and
-#: ``KernelRidgeRegression.solve`` with the least-squares family,
+#: the module that probes it: ``KernelRidgeRegression.solve`` with the
+#: kernel solvers,
 #: ``sketch.finish`` with the sketch tier, the refit sites with refit, the
 #: ingest site with the archive loaders, the worker and shard-loss sites
 #: with the multi-worker and multi-device runtimes.
@@ -175,6 +175,7 @@ KNOWN_PROBE_SITES = frozenset(
         "serving.apply",  # serving/server.py: per-batch apply
         "streaming.chunk",  # workflow/streaming.py: per-chunk dispatch
         "BlockLeastSquaresEstimator.solve",  # ops/learning/block.py: each ladder rung
+        "LeastSquaresEstimator.solve",  # ops/learning/least_squares.py: each ladder rung
     }
 )
 

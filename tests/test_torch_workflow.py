@@ -28,7 +28,12 @@ from keystone_tpu_torch.workflow.operators import (
     ExpressionOperator,
     TransformerOperator,
 )
-from keystone_tpu_torch.workflow.optimize import DataStats, NodeOptimizationRule, Optimizable
+from keystone_tpu_torch.workflow.optimize import (
+    DataStats,
+    NodeOptimizationRule,
+    Optimizable,
+    UnportedRung,
+)
 from keystone_tpu_torch.workflow.pipeline import (
     BatchTransformer,
     Estimator,
@@ -362,6 +367,42 @@ def test_node_optimization_failure_keeps_default(caplog):
     got = _Broken().to_pipeline()(_cpu(np.ones((10, 2)))).get().data
     torch.testing.assert_close(got, torch.ones(10, 2))
     assert "node optimization skipped" in caplog.text
+
+
+class _NoTake(ObjectDataset):
+    """A dataset whose sampling is not implemented."""
+
+    def take(self, n):
+        raise NotImplementedError
+
+
+@pytest.mark.parametrize("where", ["optimize", "sample"])
+def test_node_optimization_bare_not_implemented_keeps_default(where, caplog):
+    """A bare NotImplementedError, from ``optimize`` or from the sample
+    pass, is logged and leaves the default operator, as in the JAX
+    package; only ``UnportedRung`` fails the plan."""
+
+    class _Abstract(_ChooseByN):
+        def optimize(self, samples, stats):
+            raise NotImplementedError
+
+    if where == "optimize":
+        got = _Abstract().to_pipeline()(_cpu(np.ones((10, 2)))).get().data
+        torch.testing.assert_close(got, torch.ones(10, 2))
+    else:
+        items = list(range(NodeOptimizationRule().sample_size + 50))
+        got = _ChooseByN().to_pipeline()(_NoTake(items)).get()
+        assert got.collect() == items
+    assert "node optimization skipped" in caplog.text
+
+
+def test_node_optimization_unported_rung_fails_the_plan():
+    class _Unported(_ChooseByN):
+        def optimize(self, samples, stats):
+            raise UnportedRung("rung not ported")
+
+    with pytest.raises(UnportedRung, match="not ported"):
+        _Unported().to_pipeline()(_cpu(np.ones((10, 2)))).get()
 
 
 # ------------------------------------------------------------------- datasets
