@@ -135,18 +135,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``blocksparse:threshold`` of 0.0 for phase 3's rows bucket turning
    its dispatch from ``sparse`` to ``densify`` (and back once marked
    stale);
-16. solver_ladder — the first four rows of the JAX sweep's ``FULL_GRID``
+16. solver_ladder — the six rows of the JAX sweep's ``FULL_GRID``
    (``scripts/solver_comparison.py``): (500,000, 1,024, 138),
    (500,000, 2,048, 138) and (1,000,000, 1,024, 138) dense, drawn on the
-   card, and (1,000,000, 1,024, 2) at density 0.005 as a host CSR matrix.
-   Each eligible rung of the sweep's ``solvers()`` (``exact``, ``block``
-   1,024 × 3 epochs, ``lbfgs`` 20 iterations; ``sparse_lbfgs`` on the
-   sparse row) is timed after one warm fit, with its train MSE; every
-   dense rung's predictions lie within 1e-4 of a float64 solve of its own
-   objective. Then ``LeastSquaresEstimator(reg=1e-3)`` in a ``Pipeline``
-   under node-level optimization: the rung it picked under
+   card, and (1,000,000, d, 2) at density 0.005 for d = 1,024, 4,096 and
+   16,384 as host CSR matrices. Each eligible rung of the sweep's
+   ``solvers()`` (``exact``, ``block`` 1,024 × 3 epochs, ``lbfgs`` 20
+   iterations; only ``sparse_lbfgs`` on the sparse rows) is timed after
+   one warm fit (the host ``sparse_lbfgs`` cold), with its train MSE;
+   every dense rung's predictions lie within 4e-6 of a float64 solve of
+   its own objective. Then ``LeastSquaresEstimator(reg=1e-3)`` in a
+   ``Pipeline`` under node-level optimization: the rung it picked under
    ``cuda_weights()``, every candidate's predicted cost, and whether the
-   pick was the fastest rung measured (printed, not a gate);
+   pick was the fastest rung measured (a gate on the rows at d = 4,096
+   and 16,384, where the sketched rung must also price infinite and
+   finite, below and above its 8,192 floor);
 17. least_squares_ladder — ``LeastSquaresEstimator.fit`` (no optimizer)
    on phase 3's hashing-TF rows under ``FaultSpec(match=
    "LeastSquaresEstimator.solve", kind="oom", first_n=1)``: the first rung
@@ -166,9 +169,41 @@ Phases, in order; any failure raises and the script exits non-zero:
    common features, 20 iterations, the reference's 65M rows cut to 32,768
    train / 8,192 test (a 13.1 GB dense train matrix): L-BFGS iterations,
    objective evaluations, the objective per iteration (non-increasing to
-   the line search's 1e-6·|f| allowance), ``fit_s`` and accuracy.
+   the line search's 1e-6·|f| allowance), ``fit_s`` and accuracy;
+20. sketched — ``bench.py::_bench_sketched`` at its full shape: 2,048 ×
+   8,192 rows of effective rank 128, ``LinearRectifier(0) →
+   LeastSquaresEstimator(reg=1e-3)`` through ``Pipeline.fit()`` with
+   256-row chunks and ``KEYSTONE_SKETCH_SIZE=512``: the optimizer picks the
+   sketched rung and the plan streams it (``SKETCH_FITS{countsketch}`` +1,
+   no new chunk shape on the timed refit), predictions within 0.05 of the
+   labels, the carry 16,828,448 B against a 268,697,600 B Gram (16.0×);
+   then the SRHT variant (at the bench's λ it must raise or stay finite;
+   it is compared at λ = 1, ``SK_SRHT_REG`` says why) and the in-core pick
+   (``streaming_disabled()``: sketch-and-precondition), each model's
+   predictions against the same fit on the CPU (``SK_CPU_TOL`` says why
+   2e-4);
+21. timit_sketched — TIMIT's featurizer at its published width (50 ×
+   4,096 cosine features) as one chunk member over the raw 440-wide rows,
+   fitted by ``LeastSquaresEstimator.fit_stream`` (which picks the
+   sketched rung, CountSketch, s = 4,096) on 131,072 synthetic rows in 32
+   chunks; the fit's wall split into fold, capture and finish (spans);
+   the captured carry exactly 3,358,687,820 B; W within 1e-5 of a float64
+   solve of the same carry with plain PyTorch on the card; K of that
+   carry as one fp32 product and as the finish computes it, each against
+   float64; the first chunk's buckets and signs equal the CPU's; test
+   error on 16,384 rows beside the block solver's ``timit`` error (4,096
+   rows, not gated); the peak under the card's memory;
+22. kernel_ridge — ``KernelRidgeRegression`` at RandomPatchCifarKernel's
+   configuration (γ = 2e-4, block 2,048, 1 epoch, permuter 12,334, λ =
+   1e-3) on 50,000 / 10,000 synthetic class-centred rows of d = 800, k =
+   10: fit and apply seconds, test error, scores against a float64 sweep
+   in plain PyTorch (``KRR_FP64_TOL``), the same fit on the CPU at 4,096
+   rows (``KRR_CPU_TOL``); the Nyström rung at 2,048 landmarks (its host
+   solve's seconds from a span); an injected OOM at
+   ``KernelRidgeRegression.solve`` that must land at block 1,024 with the
+   scores of a direct 1,024 fit.
 
-Phases 4–14, 16, 18 and 19 reach no ELL kernel: each sets its count to 0
+Phases 4–14, 16 and 18–22 reach no ELL kernel: each sets its count to 0
 and fails if it moved; phase 15 launches it only in
 ``oom_injected_sparse``, phase 17 exactly twice. Every phase
 starts from a reset ``PipelineEnv`` and reports its peak device memory
@@ -1941,6 +1976,7 @@ def phase_timit(device) -> int:
         "train_error": evaluator.evaluate(fitted.apply_batch(train.data).data, train.labels).total_error,
         "test_error": evaluator.evaluate(fitted.apply_batch(test.data).data, test.labels).total_error,
     }
+    TIMIT_BLOCK_ERRORS.update(errors)
     mapper = _mapper_of(fitted)
     feat = build_featurizer(cfg, device=device)
     x = feat(train.data).get().data
@@ -2400,7 +2436,13 @@ LADDER_GRID = (
     (500_000, 2048, 138, 1.0),
     (1_000_000, 1024, 138, 1.0),
     (1_000_000, 1024, 2, 0.005),
+    (1_000_000, 4096, 2, 0.005),
+    (1_000_000, 16384, 2, 0.005),
 )
+#: Sparse rows on which the sketched rung must price finite (d ≥ the
+#: 8,192 floor) or infinite (below it), and the pick must be the fastest
+#: measured rung.
+LADDER_SKETCH_ROWS = {4096: False, 16384: True}
 LADDER_REG, LADDER_ITERS, LADDER_BLOCK, LADDER_EPOCHS = 1e-3, 20, 1024, 3
 DENSE_ELEMS_LIMIT = 2e8
 # Every dense rung's predictions on the head rows against a float64 solve
@@ -2513,11 +2555,12 @@ def fp64_ridge_predictions(x, y, lam, head):
     return (x[:head].double() - mu_x) @ w + mu_y
 
 
-def _timed_fit(make, xd, yd):
-    """One warm fit, then one timed: (model, ms)."""
+def _timed_fit(make, xd, yd, warm=True):
+    """One warm fit (unless ``warm`` is false), then one timed: (model, ms)."""
     import torch
 
-    make().fit(xd, yd)
+    if warm:
+        make().fit(xd, yd)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model = make().fit(xd, yd)
@@ -2557,7 +2600,8 @@ def _ladder_row(n, d, k, density, device) -> dict:
 
     rungs, failed = {}, []
     for name, make in ladder_rungs(n, d, density, device).items():
-        model, ms = _timed_fit(make, xd, yd)
+        # The host rung (scipy on the CPU) compiles nothing: it is timed cold.
+        model, ms = _timed_fit(make, xd, yd, warm=name != "sparse_lbfgs")
         pred = model.apply_arrays(xh)
         entry = {"ms": ms, "train_mse": float(((pred - yh) ** 2).mean())}
         if not sparse:
@@ -2630,6 +2674,12 @@ def phase_solver_ladder(device) -> int:
     rows = []
     for n, d, k, density in LADDER_GRID:
         row = _ladder_row(n, d, k, density, device)
+        if d in LADDER_SKETCH_ROWS:
+            priced = [c["predicted_s"] is not None for c in row["predicted"] if c["rung"] == "sketched"]
+            if priced != [LADDER_SKETCH_ROWS[d]]:
+                row["failed"].append("sketched_pricing")
+            if not row["pick_is_fastest"]:
+                row["failed"].append("pick_is_not_the_fastest_rung")
         log("solver_ladder_row", **row)
         rows.append(row)
     end = _mnist_end("solver_ladder")
@@ -2984,6 +3034,507 @@ def phase_amazon_reviews(device) -> int:
     return 0
 
 
+# ------------------------------------------------------------ sketch tier
+
+# sketched: bench.py::_bench_sketched at its own full shape.
+SK_N, SK_D, SK_K, SK_S, SK_CHUNK, SK_LATENT, SK_SEED, SK_REG = 2048, 8192, 8, 512, 256, 128, 31, 1e-3
+SK_STATE_BYTES, SK_GRAM_BYTES = 16_828_448, 268_697_600
+SK_PARITY_TOL = 0.05
+# The card's model against the CPU's on the same rows: predictions. Some
+# of the 512 CountSketch buckets receive no row of 2,048, so K = SAc·SAcᵀ
+# is singular and K + λI (λ = 1e-3) is ill-conditioned: fp32 runs part in
+# their weights by ~5e-3 and in their predictions by 1e-5–3e-5 (an H100
+# against its host). ``countsketch_conditioning`` prints the empty
+# buckets, the condition and the model's distance from float64 (PERF.md).
+SK_CPU_TOL = 2e-4
+# SRHT at the bench's λ: rows index only 11 bits of the Hadamard (n =
+# 2,048), so the 512 sampled rows collide (≈ 64 duplicate pairs expected),
+# K = SAc·SAcᵀ is singular, and λ = 1e-3 ≪ ε·‖K‖ is lost in fp32: the
+# dual solve meets an exact zero pivot (the JAX package returns NaN
+# weights there). The SRHT model is compared at a ridge that survives
+# fp32 next to ‖K‖ ≈ 3e5.
+SK_SRHT_REG = 1.0
+# timit_sketched: TIMIT's featurizer at its published width, rows cut
+# from 2,200,000 to 131,072 train (32 chunks) and 16,384 test.
+TS_TRAIN, TS_TEST, TS_CHUNK = 131_072, 16_384, 4096
+TS_STATE_BYTES, TS_GRAM_BYTES, TS_FP64_TOL = 3_358_687_820, 167_892_582_400, 1e-5
+# kernel_ridge: RandomPatchCifarKernel's KRR (keystone_tpu/pipelines/cifar.py:
+# gamma, kernel_block_size, num_epochs, seed as block_permuter; d = 8 ·
+# num_filters) on CIFAR-10's split sizes. The config's reg is None (0.0);
+# the phase sets the JAX CLI's --reg default (keystone_tpu/cli.py:164).
+# The features are synthetic (class-centred Gaussian rows, standardized):
+# the generator and the Nyström landmark count are unsourced.
+KRR_N, KRR_TEST, KRR_D, KRR_K = 50_000, 10_000, 800, 10
+KRR_GAMMA, KRR_BLOCK, KRR_EPOCHS, KRR_PERMUTER, KRR_REG = 2e-4, 2048, 1, 12334, 1e-3
+KRR_SPREAD, KRR_SEED, KRR_CPU_ROWS, KRR_NYSTROM = 2.0, 7, 4096, 2048
+# fp32 sweeps against float64 and against each other: γ·‖a − b‖² ≈ 0.3
+# on these rows, a smooth kernel, so each block's K_bb + λI is
+# ill-conditioned (printed: ``first_block_k_plus_lambda_condition``) and
+# fp32 Cholesky solves part by 1e-5–1e-4 (an H100 read 1.48e-4 from
+# float64 and 5.1e-5 from the CPU at 4,096 rows): the bounds sit about 3×
+# above those readings.
+KRR_FP64_TOL, KRR_CPU_TOL, KRR_OOM_TOL = 5e-4, 2e-4, 1e-5
+KRR_SITE = "KernelRidgeRegression.solve"
+#: Filled by phase_timit: the block solver's errors at the published width.
+TIMIT_BLOCK_ERRORS: dict = {}
+
+
+def scoped_env(**values):
+    """Environment variables set for a block, restored after it."""
+    from unittest import mock
+
+    return mock.patch.dict(os.environ, {k: str(v) for k, v in values.items()})
+
+
+def sketched_problem():
+    """``_bench_sketched``'s rows: low effective rank (128), shifted +8σ so
+    the rectifier is the identity on them."""
+    rng = np.random.default_rng(SK_SEED)
+    z = rng.normal(size=(SK_N, SK_LATENT)).astype(np.float32)
+    basis = rng.normal(size=(SK_LATENT, SK_D)).astype(np.float32) / np.sqrt(SK_LATENT)
+    x = (z @ basis + 0.01 * rng.normal(size=(SK_N, SK_D)) + 8.0).astype(np.float32)
+    w_true = rng.normal(size=(SK_D, SK_K)).astype(np.float32) / np.sqrt(SK_D)
+    return x, (np.maximum(x, 0.0) @ w_true).astype(np.float32)
+
+
+def _sketched_conditioning(x, y, device, model) -> dict:
+    """The same streamed CountSketch fit driven directly, its captured
+    carry solved in float64 (``fp64_sketch_dual``): empty buckets, the
+    condition of K + λI, and the pipeline model's predictions and
+    weights against the float64 solve's."""
+    import torch
+
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.ops.stats.core import LinearRectifier
+    from keystone_tpu_torch.sketch.solvers import SketchedLeastSquaresEstimator
+    from keystone_tpu_torch.workflow.streaming import ChunkStream
+
+    est = SketchedLeastSquaresEstimator(reg=SK_REG, device=device)
+    est.fit_stream(ChunkStream(ArrayDataset(x, device=device), ArrayDataset(y, device=device),
+                               (LinearRectifier(0.0),), chunk_rows=SK_CHUNK, device=device))
+    state = est.export_stream_state()
+    w64, k64 = fp64_sketch_dual(state, SK_REG, device)
+    eig = torch.linalg.eigvalsh(k64)
+    head = torch.as_tensor(x[:256], device=device, dtype=torch.float64) - model.feature_mean.double()
+    return {"empty_buckets": int(np.all(state.carry[0] == 0, axis=1).sum()),
+            "k_plus_lambda_condition": float((eig[-1] + SK_REG) / (eig[0].clamp_min(0) + SK_REG)),
+            "predictions_vs_fp64": rel_err(head @ model.weights.double(), head @ w64),
+            "weights_vs_fp64": rel_err(model.weights, w64)}
+
+
+def _srht_outcome(x, y, device) -> dict:
+    """The SRHT variant at the bench's λ: it raises (an exact zero pivot
+    in the dual solve) or returns a model, finite or not."""
+    import torch
+
+    try:
+        model = _sketched_fit(x, y, device, "srht")[0]
+    except torch.linalg.LinAlgError as e:
+        return {"raised": True, "finite": False, "error": str(e)[:120]}
+    return {"raised": False, "finite": bool(torch.isfinite(model.weights).all())}
+
+
+def _sketched_pipeline(x, y, device, reg=SK_REG):
+    import torch
+
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.ops.learning.cost import cuda_weights
+    from keystone_tpu_torch.ops.learning.least_squares import LeastSquaresEstimator
+    from keystone_tpu_torch.ops.stats.core import LinearRectifier
+
+    # The card's weights on both devices, so that the CPU fit picks the
+    # card's rung.
+    est = LeastSquaresEstimator(reg=reg, weights=cuda_weights(torch.cuda.get_device_name(0)), device=device)
+    return LinearRectifier(0.0).to_pipeline().then_label_estimator(
+        est, ArrayDataset(x, device=device), ArrayDataset(y, device=device))
+
+
+def _sketched_fit(x, y, device, variant, streamed=True, reg=SK_REG):
+    """The bench leg's pipeline fitted on ``device``: (its LinearMapper,
+    fit seconds, plan labels)."""
+    import contextlib
+
+    import torch
+
+    from keystone_tpu_torch.ops.learning.linear import LinearMapper
+    from keystone_tpu_torch.workflow.executor import PipelineEnv
+    from keystone_tpu_torch.workflow.streaming import streaming_disabled
+
+    PipelineEnv.reset()
+    pipe = _sketched_pipeline(x, y, device, reg)
+    with scoped_env(KEYSTONE_SKETCH_VARIANT=variant), (
+            contextlib.nullcontext() if streamed else streaming_disabled()):
+        plan = plan_labels(PipelineEnv.get_or_create().optimizer.execute(pipe.graph)[0])
+        t0 = time.perf_counter()
+        fitted = pipe.fit()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    return _fitted_member(fitted, LinearMapper), fit_s, plan
+
+
+def _model_rel(a, b, x_head) -> dict:
+    import torch
+
+    xh = torch.as_tensor(x_head)
+    return {"weights": rel_err(a.weights.cpu(), b.weights.cpu()),
+            "predictions": rel_err(a.apply_arrays(xh.to(a.weights.device)).cpu(),
+                                   b.apply_arrays(xh.to(b.weights.device)).cpu())}
+
+
+def phase_sketched(device) -> int:
+    """Phase 20: ``bench.py::_bench_sketched`` at its full shape, then the
+    SRHT variant and the in-core pick, each against the same fit on the
+    CPU (module docstring)."""
+    import torch
+
+    from keystone_tpu_torch.obs import names
+    from keystone_tpu_torch.sketch.core import sketch_state_bytes
+    from keystone_tpu_torch.workflow.streaming import last_stream_report
+
+    cpu = torch.device("cpu")
+    _mnist_start()
+    t_phase = time.perf_counter()
+    x, y = sketched_problem()
+    fits = names.metric(names.SKETCH_FITS)
+    result, failed = {"n": SK_N, "d": SK_D, "k": SK_K, "s": SK_S, "chunk_rows": SK_CHUNK}, []
+    with scoped_env(KEYSTONE_STREAM_CHUNK_ROWS=SK_CHUNK, KEYSTONE_SKETCH_SIZE=SK_S):
+        _sketched_fit(x, y, device, "countsketch")  # warm
+        before = fits.value(variant="countsketch")
+        model, fit_s, plan = _sketched_fit(x, y, device, "countsketch")
+        report = last_stream_report()
+        delta = fits.value(variant="countsketch") - before
+        head = torch.as_tensor(x[:256], device=device)
+        parity = rel_err(model.apply_arrays(head).cpu(), torch.as_tensor(y[:256]))
+        state_bytes = int(names.metric(names.SKETCH_STATE_BYTES).value())
+        result.update({
+            "plan": plan, "sketched_fit_wall_s": fit_s, "sketch_fits_delta": delta,
+            "parity_rel_err": parity, "chunks": report.chunks,
+            "compiles_first_chunk": report.compiles_first_chunk,
+            "compiles_steady_state": report.compiles_steady_state,
+            "sketch_state_bytes": state_bytes, "gram_state_bytes": 4 * (SK_D * SK_D + SK_D * SK_K),
+        })
+        result["state_bytes_ratio"] = round(result["gram_state_bytes"] / state_bytes, 1)
+        cpu_model = _sketched_fit(x, y, cpu, "countsketch")[0]
+        result["countsketch_vs_cpu"] = _model_rel(model, cpu_model, x[:256])
+        result["vs_cpu_predictions_tol"] = SK_CPU_TOL
+        result["countsketch_conditioning"] = _sketched_conditioning(x, y, device, model)
+        result["srht_at_reg"] = {dev.type: _srht_outcome(x, y, dev) for dev in (device, cpu)}
+        for variant, streamed, label, reg in (("srht", True, "srht", SK_SRHT_REG),
+                                              ("countsketch", False, "in_core", SK_REG)):
+            card, secs, card_plan = _sketched_fit(x, y, device, variant, streamed, reg)
+            on_cpu = _sketched_fit(x, y, cpu, variant, streamed, reg)[0]
+            result[label] = {"reg": reg, "fit_s": secs, "plan": card_plan, "vs_cpu": _model_rel(card, on_cpu, x[:256]),
+                             "parity_rel_err": rel_err(card.apply_arrays(head).cpu(), torch.as_tensor(y[:256]))}
+    result["seconds"] = time.perf_counter() - t_phase
+    log("sketched", **result, **_mnist_end("sketched"))
+    checks = {
+        "rung_is_sketch": delta >= 1 and any("SketchedLeastSquaresEstimator" in p for p in plan),
+        "parity": parity < SK_PARITY_TOL,
+        "compiles_steady_state": report.compiles_steady_state == 0,
+        "state_bytes": state_bytes == SK_STATE_BYTES == sketch_state_bytes(SK_S, SK_D, SK_K)
+        and result["gram_state_bytes"] == SK_GRAM_BYTES and result["state_bytes_ratio"] == 16.0,
+        "countsketch_vs_cpu": result["countsketch_vs_cpu"]["predictions"] <= SK_CPU_TOL,
+        "srht_vs_cpu": result["srht"]["vs_cpu"]["predictions"] <= SK_CPU_TOL,
+        "srht_at_reg_never_quietly_non_finite": all(
+            o["raised"] or o["finite"] for o in result["srht_at_reg"].values()),
+        "in_core_vs_cpu": result["in_core"]["vs_cpu"]["predictions"] <= SK_CPU_TOL,
+        "in_core_is_not_streamed": not any(p.startswith("StreamFit") for p in result["in_core"]["plan"]),
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"sketched failed {failed}")
+    return 0
+
+
+def timit_features(cfg, device):
+    """TIMIT's featurizer (``pipelines/timit.py::build_featurizer``: the
+    same 50 seeded cosine branches, concatenated) as one transformer, so
+    that the chunk chain runs all of it on each chunk. The plan rule
+    takes only a linear chain of transformers into a stream; the gather
+    of 50 branches would stop it, and the stream would start from the
+    materialized (n, 204,800) matrix."""
+    import torch
+
+    from keystone_tpu_torch.ops.stats.core import CosineRandomFeatures
+    from keystone_tpu_torch.pipelines.timit import TIMIT_DIMENSION
+    from keystone_tpu_torch.workflow.pipeline import BatchTransformer
+
+    class TimitFeatures(BatchTransformer):
+        def __init__(self, branches):
+            self.branches = branches
+
+        def apply_arrays(self, x):
+            return torch.cat([b.apply_arrays(x) for b in self.branches], dim=1)
+
+    return TimitFeatures([
+        CosineRandomFeatures.create(TIMIT_DIMENSION, cfg.num_cosine_features, cfg.gamma,
+                                    dist=cfg.rf_type, seed=cfg.seed + i, device=device)
+        for i in range(cfg.num_cosines)
+    ])
+
+
+def fp64_sketch_dual(state, reg, device):
+    """(W, K) of the s×s dual solve of a captured sketch carry in float64
+    with plain PyTorch on the card (not the binding)."""
+    import torch
+
+    sa, sy, s1, sums_x, sums_y = (torch.from_numpy(a).to(device=device, dtype=torch.float64)
+                                  for a in state.carry)
+    n = state.num_examples
+    sa -= s1[:, None] * (sums_x / n)[None, :]
+    sy -= s1[:, None] * (sums_y / n)[None, :]
+    k = sa @ sa.T
+    s = k.shape[0]
+    lam = reg if reg and reg > 0 else max(1e-6 * float(torch.trace(k)) / s, 1e-6)
+    duals = torch.linalg.solve(k + lam * torch.eye(s, dtype=k.dtype, device=device), sy)
+    return sa.T @ duals, k
+
+
+def sketch_gram_errors(state, k64, device) -> dict:
+    """K = SAc·SAcᵀ of the captured carry at IEEE fp32 as one binding
+    product and as the finish computes it (``sketch_gram``: 4,096-column
+    partial sums), each against the float64 K."""
+    import torch
+
+    from keystone_tpu_torch.ops.cuda import gemm
+    from keystone_tpu_torch.sketch.core import sketch_gram, sketch_stream_finish
+
+    carry = [torch.from_numpy(a).to(device) for a in state.carry]
+    sa_c = sketch_stream_finish(carry, state.num_examples)[0]
+    del carry
+    eig = torch.linalg.eigvalsh(k64)
+    lam = max(1e-6 * float(eig.sum()) / k64.shape[0], 1e-6)
+    return {"k_one_product_vs_fp64": rel_err(gemm.gemm(sa_c, sa_c.T, "ieee_fp32"), k64),
+            "k_sketch_gram_vs_fp64": rel_err(sketch_gram(sa_c), k64),
+            "k_plus_lambda_condition": float((eig[-1] + lam) / (eig[0].clamp_min(0) + lam))}
+
+
+def _chunked_error(model, features, data, labels, rows) -> float:
+    import torch
+
+    wrong = 0
+    for start in range(0, rows, TS_CHUNK):
+        scores = model.apply_arrays(features.apply_arrays(data[start:start + TS_CHUNK]))
+        wrong += int((scores.argmax(dim=1) != labels[start:start + TS_CHUNK].long()).sum())
+    return wrong / rows
+
+
+def phase_timit_sketched(device) -> int:
+    """Phase 21: TIMIT at its published width fitted by the meta-solver's
+    streamed path on the sketched rung (module docstring)."""
+    import torch
+
+    from keystone_tpu_torch.obs import spans
+    from keystone_tpu_torch.ops.learning.least_squares import LeastSquaresEstimator, _stream_width
+    from keystone_tpu_torch.ops.util.labels import ClassLabelIndicators
+    from keystone_tpu_torch.pipelines.timit import NUM_CLASSES, TimitConfig, synthetic_timit
+    from keystone_tpu_torch.sketch.core import countsketch_hash, index_mask, sketch_state_bytes
+    from keystone_tpu_torch.workflow.streaming import ChunkStream, last_stream_report
+
+    cfg = TimitConfig()
+    _mnist_start()
+    t_phase = t0 = time.perf_counter()
+    train = synthetic_timit(TS_TRAIN, seed=cfg.seed, device=device)
+    test = synthetic_timit(TS_TEST, seed=cfg.seed + 1, device=device)
+    labels = ClassLabelIndicators(NUM_CLASSES).apply_batch(train.labels)
+    features = timit_features(cfg, device)
+    data_s = time.perf_counter() - t0
+    est = LeastSquaresEstimator(reg=cfg.reg, device=device)
+    stream = ChunkStream(train.data, labels, (features,), chunk_rows=TS_CHUNK, device=device)
+    width = _stream_width(stream, est.block_size)
+    rung = type(est._stream_solver(width)).__name__
+    route = ("LeastSquaresEstimator.fit_stream over ChunkStream(raw 440-wide rows, "
+             f"members=[TimitFeatures: {cfg.num_cosines} CosineRandomFeatures, concatenated])")
+    torch.cuda.synchronize()
+    with spans.tracing_session() as session:
+        t0 = time.perf_counter()
+        model = est.fit_stream(stream)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    capture = session.find("stream_state:capture")[-1]
+    fold = session.find("stream:fold")[-1]
+    split = {"fit_s": t_end - t0, "fold_s": fold.duration_s, "capture_s": capture.duration_s,
+             "finish_s": t_end - capture.end_s}
+    report = last_stream_report()
+    state = est.export_stream_state()
+    s = int(state.carry[0].shape[0])
+    w64, k64 = fp64_sketch_dual(state, cfg.reg, device)
+    w_rel = rel_err(model.weights, w64)
+    del w64
+    k_errors = sketch_gram_errors(state, k64, device)
+    del k64
+    bucket, sign = countsketch_hash(index_mask(0, TS_CHUNK, device), s, state.meta["sketch_seed"])
+    cpu_bucket, cpu_sign = countsketch_hash(index_mask(0, TS_CHUNK, torch.device("cpu")), s,
+                                            state.meta["sketch_seed"])
+    hash_equal = bool(torch.equal(bucket.cpu(), cpu_bucket) and torch.equal(sign.cpu(), cpu_sign))
+    errors = {
+        "train_error_first_16384": _chunked_error(model, features, train.data.data, train.labels.data, TS_TEST),
+        "test_error": _chunked_error(model, features, test.data.data, test.labels.data, TS_TEST),
+    }
+    peak, total = torch.cuda.max_memory_allocated(), torch.cuda.get_device_properties(0).total_memory
+    result = {
+        "route": route, "rung": rung, "state_estimator": state.estimator, "sketch_variant": state.meta["sketch_variant"],
+        "rows": [TS_TRAIN, TS_TEST], "chunk_rows": TS_CHUNK, "chunks": report.chunks, "features": width, "sketch_size": s,
+        "data_s": data_s, **split, "captured_state_bytes": state.nbytes(),
+        "gram_state_bytes": 4 * (width * width + width * NUM_CLASSES),
+        "weights_vs_fp64_same_carry_rel": w_rel, "fp64_tol": TS_FP64_TOL, **k_errors, "first_chunk_hash_equals_cpu": hash_equal, **errors,
+        "block_solver_timit_errors_4096_rows": TIMIT_BLOCK_ERRORS, "peak_device_bytes_fit_and_checks": peak,
+        "device_total_bytes": total, "seconds": time.perf_counter() - t_phase,
+    }
+    del model, state, train, test, labels, features, stream, est
+    torch.cuda.empty_cache()
+    log("timit_sketched", **result, **_mnist_end("timit_sketched"))
+    checks = {
+        "rung": rung == "SketchedLeastSquaresEstimator" and result["state_estimator"].endswith(rung)
+        and result["sketch_variant"] == "countsketch" and s == 4096,
+        "state_bytes": result["captured_state_bytes"] == TS_STATE_BYTES == sketch_state_bytes(s, width, NUM_CLASSES)
+        and result["gram_state_bytes"] == TS_GRAM_BYTES,
+        "fp64": w_rel <= TS_FP64_TOL,
+        "hash": hash_equal,
+        "peak": peak < total,
+        "chunks": report.chunks == TS_TRAIN // TS_CHUNK,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"timit_sketched failed {failed}")
+    return 0
+
+
+def krr_problem():
+    """Class-centred Gaussian rows (10 centres ~ N(0, 1), spread
+    ``KRR_SPREAD``), standardized by the training rows' column statistics
+    as the CIFAR pipeline's ``StandardScaler`` does; ±1 class indicators."""
+    rng = np.random.default_rng(KRR_SEED)
+    centres = rng.normal(size=(KRR_K, KRR_D)).astype(np.float32)
+    labels = rng.integers(0, KRR_K, KRR_N + KRR_TEST)
+    x = centres[labels] + KRR_SPREAD * rng.normal(size=(KRR_N + KRR_TEST, KRR_D)).astype(np.float32)
+    mu, sd = x[:KRR_N].mean(axis=0), x[:KRR_N].std(axis=0)
+    x = ((x - mu) / sd).astype(np.float32)
+    y = -np.ones((KRR_N + KRR_TEST, KRR_K), np.float32)
+    y[np.arange(KRR_N + KRR_TEST), labels] = 1.0
+    return x, y, labels
+
+
+def fp64_krr_scores(x, y, xt, n, bs):
+    """Test scores of the same Gauss-Seidel sweep (block order, padding,
+    λ) in float64 with plain PyTorch on the card."""
+    import torch
+
+    def kernel(a, b):
+        sq = (a * a).sum(1, keepdim=True) - 2.0 * (a @ b.T) + (b * b).sum(1)
+        return torch.exp(-KRR_GAMMA * sq.clamp_min(0.0))
+
+    n_pad = -(-n // bs) * bs
+    xp = torch.zeros(n_pad, x.shape[1], dtype=torch.float64, device=x.device)
+    yp = torch.zeros(n_pad, y.shape[1], dtype=torch.float64, device=x.device)
+    xp[:n], yp[:n] = x[:n].double(), y[:n].double()
+    valid = (torch.arange(n_pad, device=x.device) < n).double()
+    w = torch.zeros_like(yp)
+    eye = torch.eye(bs, dtype=torch.float64, device=x.device)
+    rng = np.random.default_rng(KRR_PERMUTER)
+    for _ in range(KRR_EPOCHS):
+        order = np.arange(n_pad // bs)
+        rng.shuffle(order)
+        for s in (order * bs).tolist():
+            cv = valid[s:s + bs]
+            panel = kernel(xp, xp[s:s + bs]) * valid[:, None] * cv[None, :]
+            kbb = kernel(xp[s:s + bs], xp[s:s + bs]) * cv[:, None] * cv[None, :]
+            rhs = yp[s:s + bs] - (panel.T @ w - kbb.T @ w[s:s + bs])
+            w[s:s + bs] = torch.cholesky_solve(rhs, torch.linalg.cholesky(kbb + KRR_REG * eye))
+    xt = xt.double()
+    scores = sum(kernel(xt, xp[s:s + bs]) @ w[s:s + bs] for s in range(0, n_pad, bs))
+    eig = torch.linalg.eigvalsh(kernel(xp[:bs], xp[:bs]) + KRR_REG * eye)
+    return scores, float(eig[-1] / eig[0])
+
+
+def _krr(block, device):
+    from keystone_tpu_torch.ops.learning.kernel import GaussianKernelGenerator, KernelRidgeRegression
+
+    return KernelRidgeRegression(GaussianKernelGenerator(KRR_GAMMA, device=device), KRR_REG, block,
+                                 KRR_EPOCHS, block_permuter=KRR_PERMUTER)
+
+
+def phase_kernel_ridge(device) -> int:
+    """Phase 22: ``KernelRidgeRegression`` at the CIFAR kernel variant's
+    configuration, its Nyström rung and its OOM ladder (module docstring)."""
+    import torch
+
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.obs import names, spans
+    from keystone_tpu_torch.reliability import FaultSpec, injected
+
+    cpu = torch.device("cpu")
+    _mnist_start()
+    t_phase = time.perf_counter()
+    xh, yh, labels = krr_problem()
+    x, y = torch.as_tensor(xh, device=device), torch.as_tensor(yh, device=device)
+    train, targets = ArrayDataset(x[:KRR_N]), ArrayDataset(y[:KRR_N])
+    xt, test_labels = x[KRR_N:], torch.as_tensor(labels[KRR_N:], device=device)
+
+    def timed(make):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = make()
+        torch.cuda.synchronize()
+        return model, time.perf_counter() - t0
+
+    model, fit_s = timed(lambda: _krr(KRR_BLOCK, device).fit(train, targets))
+    scores, apply_s = timed(lambda: model.apply_arrays(xt))
+    s64, block_condition = fp64_krr_scores(x, y, xt, KRR_N, KRR_BLOCK)
+    result = {
+        "n": KRR_N, "test": KRR_TEST, "d": KRR_D, "k": KRR_K, "gamma": KRR_GAMMA, "block": KRR_BLOCK,
+        "epochs": KRR_EPOCHS, "block_permuter": KRR_PERMUTER, "reg": KRR_REG, "fit_s": fit_s, "apply_s": apply_s,
+        "test_error": float((scores.argmax(1) != test_labels).float().mean()),
+        "scores_vs_fp64_rel": rel_err(scores, s64), "fp64_tol": KRR_FP64_TOL,
+        "fp64_test_error": float((s64.argmax(1) != test_labels).float().mean()),
+        "first_block_k_plus_lambda_condition": block_condition,
+    }
+    del s64
+    # The same fit on the CPU at 4,096 rows.
+    small = [ArrayDataset(t[:KRR_CPU_ROWS]) for t in (x, y)]
+    small_cpu = [ArrayDataset(t[:KRR_CPU_ROWS].cpu()) for t in (x, y)]
+    card = _krr(KRR_BLOCK, device).fit(*small).apply_arrays(xt[:1000]).cpu()
+    on_cpu = _krr(KRR_BLOCK, cpu).fit(*small_cpu).apply_arrays(xt[:1000].cpu())
+    result["cpu_4096_rows_scores_rel"], result["cpu_tol"] = rel_err(card, on_cpu), KRR_CPU_TOL
+    # The Nyström rung on the same rows.
+    fits = names.metric(names.SKETCH_FITS)
+    before = fits.value(variant="nystrom")
+    with scoped_env(KEYSTONE_KERNEL_NYSTROM=KRR_NYSTROM), spans.tracing_session() as session:
+        nystrom, nystrom_fit_s = timed(lambda: _krr(KRR_BLOCK, device).fit(train, targets))
+    n_scores = nystrom.apply_arrays(xt)
+    result["nystrom"] = {
+        "landmarks": KRR_NYSTROM, "fit_s": nystrom_fit_s,
+        "host_solve_s": session.find("sketch:nystrom_host_solve")[-1].duration_s,
+        "sketch_fits_delta": fits.value(variant="nystrom") - before,
+        "test_error": float((n_scores.argmax(1) != test_labels).float().mean()),
+        "scores_vs_full_krr_rel": rel_err(n_scores, scores),
+    }
+    del nystrom, n_scores
+    # An injected OOM at the solve: 2,048 → 1,024, against a direct 1,024 fit.
+    with injected(FaultSpec(match=KRR_SITE, kind="oom", first_n=1)):
+        degraded, oom_fit_s = timed(lambda: _krr(KRR_BLOCK, device).fit(train, targets))
+    direct = _krr(KRR_BLOCK // 2, device).fit(train, targets)
+    result["oom"] = {"fit_s": oom_fit_s, "degradation": dict(getattr(degraded, "degradation", {})),
+                     "vs_direct_1024_scores_rel": rel_err(degraded.apply_arrays(xt), direct.apply_arrays(xt))}
+    result["seconds"] = time.perf_counter() - t_phase
+    del degraded, direct, model, scores, x, y, train, targets, xt
+    torch.cuda.empty_cache()
+    log("kernel_ridge", **result, **_mnist_end("kernel_ridge"))
+    checks = {
+        "fp64": result["scores_vs_fp64_rel"] <= KRR_FP64_TOL,
+        "cpu": result["cpu_4096_rows_scores_rel"] <= KRR_CPU_TOL,
+        "nystrom": result["nystrom"]["sketch_fits_delta"] == 1,
+        "oom": result["oom"]["degradation"].get("rung") == KRR_BLOCK // 2
+        and result["oom"]["degradation"].get("first_rung") == KRR_BLOCK
+        and result["oom"]["vs_direct_1024_scores_rel"] <= KRR_OOM_TOL,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"kernel_ridge failed {failed}")
+    return 0
+
+
 def card_name_and_limit() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3041,6 +3592,9 @@ def main() -> int:
     del slice_fit
     launches_by_path["newsgroups"] = phase_newsgroups(device)
     launches_by_path["amazon_reviews"] = phase_amazon_reviews(device)
+    launches_by_path["sketched"] = phase_sketched(device)
+    launches_by_path["timit_sketched"] = phase_timit_sketched(device)
+    launches_by_path["kernel_ridge"] = phase_kernel_ridge(device)
     # The binding's calls on the paths (gram_modes times it and is left out).
     paths = {p: c for p, c in SOLVER_GEMM_CALLS.items() if p != "gram_modes"}
     binding["launches"] = {k: sum(c[k] for c in paths.values()) for k in next(iter(paths.values()))}

@@ -1,4 +1,5 @@
-"""Carry fitted parameters from the JAX package into the port.
+"""Carry fitted parameters and stream state from the JAX package into
+the port.
 
 The caller converts the JAX model's arrays to numpy (``np.asarray(m.weights)``
 and so on), so this module imports nothing of JAX.
@@ -6,16 +7,18 @@ and so on), so this module imports nothing of JAX.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device
 from .ops.learning.block import BlockLinearMapper
+from .ops.learning.kernel import KernelBlockLinearMapper
 from .ops.stats.core import LinearRectifier, PaddedFFT, RandomSignNode
 from .ops.util.labels import MaxClassifier
 from .ops.util.vectors import VectorCombiner
+from .refit.state import StreamState
 from .workflow.pipeline import FittedPipeline, Pipeline
 
 
@@ -61,3 +64,43 @@ def mnist_pipeline_from_numpy(
     ]
     mapper = mapper_from_numpy(weights, block_size, intercept, feature_mean, device=device)
     return (Pipeline.gather(branches) >> VectorCombiner() >> mapper >> MaxClassifier()).fit()
+
+
+def stream_state_from_numpy(
+    kind: str,
+    carry: Sequence[np.ndarray],
+    num_examples: int,
+    meta: Optional[Dict[str, Any]] = None,
+) -> StreamState:
+    """The port's :class:`~keystone_tpu_torch.refit.state.StreamState`
+    holding a JAX envelope's host arrays (``state.carry`` converted with
+    ``np.asarray``): a "gram" or "sketch" state captured by the JAX
+    package then finishes, merges or seeds a fold in the port. The sketch
+    map (variant, seed) rides ``meta``, and the row hash is the JAX
+    package's bit for bit, so the port extends a JAX-captured sketch
+    under the same map."""
+    return StreamState(
+        kind=kind,
+        estimator="converted",
+        num_examples=int(num_examples),
+        carry=tuple(np.asarray(a, dtype=np.float32) for a in carry),
+        meta=dict(meta or {}),
+    )
+
+
+def kernel_mapper_from_numpy(
+    train: np.ndarray,
+    duals: np.ndarray,
+    gamma: float,
+    num_train: int,
+    block_size: int,
+    device: DeviceLike = None,
+) -> KernelBlockLinearMapper:
+    """The port's :class:`KernelBlockLinearMapper` holding a JAX-fitted
+    one's training rows and duals (pad rows included; their duals are
+    zero), on ``device`` (default CUDA)."""
+    device = resolve_device(device)
+    return KernelBlockLinearMapper(
+        _tensor(train, device), _tensor(duals, device), float(gamma),
+        num_train=int(num_train), block_size=int(block_size),
+    )

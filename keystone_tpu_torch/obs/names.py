@@ -3,7 +3,8 @@
 A copy of the series of ``keystone_tpu/obs/names.py`` that the port's
 modules publish: the executor and optimizer (``keystone_executor_*``,
 ``keystone_optimizer_*``), fusion, streaming, the profile store, the
-block-sparse dispatch, the solvers, the recovery ledger and serving.
+block-sparse dispatch, the solvers, the sketch tier, the recovery
+ledger and serving.
 Names, kinds, help texts and labels are the JAX package's, so dashboards
 read both packages alike; the other families arrive with the modules
 that publish them. One help text says what its series counts in the
@@ -63,6 +64,12 @@ SOLVER_FIT_SECONDS = "keystone_solver_fit_seconds"
 SOLVER_RUNG_ATTEMPTS = "keystone_solver_rung_attempts_total"
 SOLVER_ITERATIONS = "keystone_solver_iterations_total"
 
+# ---------------------------------------------------------------- sketch tier
+SKETCH_FITS = "keystone_sketch_fits_total"
+SKETCH_SIZE = "keystone_sketch_size"
+SKETCH_STATE_BYTES = "keystone_sketch_state_bytes"
+SKETCH_FINISH_SECONDS = "keystone_sketch_finish_seconds"
+
 # ----------------------------------------------------------------- reliability
 RELIABILITY_EVENTS = "keystone_reliability_events_total"
 
@@ -112,6 +119,10 @@ SCHEMA: Dict[str, Tuple] = {
     SOLVER_FIT_SECONDS: ("histogram", "Solver fit wall time", ("solver",)),
     SOLVER_RUNG_ATTEMPTS: ("counter", "Degradation-ladder rung attempts inside solvers", ("solver",)),
     SOLVER_ITERATIONS: ("counter", "Host-level solver iterations (e.g. L-BFGS steps)", ("solver",)),
+    SKETCH_FITS: ("counter", "Sketched least-squares fits completed, by sketch variant (countsketch/srht)", ("variant",)),
+    SKETCH_SIZE: ("gauge", "Sketch rows s chosen for the last sketched fit (knob/tuned/width default)", ()),
+    SKETCH_STATE_BYTES: ("gauge", "Bytes of the last sketched fit's O(s·d) carry — the number KV308 compares to the device budget", ()),
+    SKETCH_FINISH_SECONDS: ("histogram", "Sketch finish solves (s×s dual ridge or lstsq fallback)", ()),
     RELIABILITY_EVENTS: ("counter", "Recovery-ledger events", ("kind",)),
     SERVING_REQUESTS: ("counter", "Requests served to completion", ("model",)),
     SERVING_BATCHES: ("counter", "Micro-batches dispatched", ("model",)),

@@ -42,8 +42,12 @@ Reliability and observability, as in the JAX package:
   profile store (``obs/store.py``), and the dispatch threshold read from
   it per rows bucket.
 
-Left out (later slices): 2-D meshes and the refit state mixin
-(``fit_stream`` takes no ``state``).
+The refit state contract (``refit/state.py``, ``GramStreamStateMixin``):
+``fit_stream(stream, state=None)`` seeds its carry from a captured
+``StreamState`` and captures the extended one, and ``finish_from_state``
+runs the same finish from statistics alone.
+
+Left out (later slices): 2-D meshes.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ from ...obs import names as _names
 from ...obs import solver as solver_obs
 from ...obs import store as obs_store
 from ...parallel import linalg
+from ...refit.state import GramStreamStateMixin
 from ...reliability import DegradationLadder, halving_rungs, probe
 from ...utils.sparse import BlockSparseMatrix, block_density_exceeds, is_sparse_rows
 from ...workflow.pipeline import BatchTransformer, LabelEstimator
@@ -101,7 +106,7 @@ def _as_array_dataset(data: Dataset, device: torch.device) -> ArrayDataset:
     return data.to_arrays(device=device)  # type: ignore[attr-defined]
 
 
-class BlockLeastSquaresEstimator(LabelEstimator):
+class BlockLeastSquaresEstimator(GramStreamStateMixin, LabelEstimator):
     """Feature-block coordinate-descent least squares: ``num_iter`` full
     epochs over the feature blocks, λ applied per block. Fits on
     ``device`` (default CUDA). ``host_streaming``: None decides by the
@@ -125,24 +130,29 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         self.device = device
         self.host_streaming = host_streaming
 
-    def fit_stream(self, stream) -> BlockLinearMapper:
+    def fit_stream(self, stream, state=None) -> BlockLinearMapper:
         """Row-chunked fit: accumulate (AᵀA, AᵀY, Σx, Σy) one chunk at a
         time on the stream's device, then run the SAME Gauss-Seidel block
         updates as the in-core solver from the centered statistics —
         O(d²) residency instead of O(n·d); the feature matrix never
-        exists."""
+        exists. ``state`` (a refit ``StreamState``) seeds the carry from
+        an earlier fit's statistics; the extended state is captured for
+        ``export_stream_state``."""
         probe("BlockLeastSquaresEstimator.solve")
 
         def init(feat_spec, y_spec):
             d, k = _stream_shapes(feat_spec, y_spec)
-            return linalg.gram_stream_init(d, k, stream.device)
+            return self._seed_carry(state, d, k, stream.device)
 
         t_fit = time.perf_counter()
         with solver_obs.fit_span(
             "block_ls_stream", epochs=self.num_iter, **solver_obs.predicted_attrs(self)
         ):
             carry, info = stream.fold(init, linalg.gram_stream_step)
-            n = info["num_examples"]
+            n = info["num_examples"] + (state.num_examples if state else 0)
+            self._capture_state(
+                carry, n, reg=self.reg, block_size=self.block_size, num_iter=self.num_iter,
+            )
             mapper = self._finish_from_stats(carry, n)
         _record_solver_observation(
             "block_ls_stream", rows=n, d=int(carry[0].shape[0]),
@@ -153,7 +163,8 @@ class BlockLeastSquaresEstimator(LabelEstimator):
 
     def _finish_from_stats(self, carry, n: int, block: Optional[int] = None) -> BlockLinearMapper:
         """Gauss-Seidel block solve from accumulated statistics alone —
-        shared by the streamed and the block-sparse fits (no data pass,
+        shared by the streamed and the block-sparse fits and
+        ``finish_from_state`` (no data pass,
         O(d²) inputs). ``block`` is the ladder's rung (default
         ``block_size``)."""
         gc, cc, mu_a, mu_b = linalg.gram_stream_finish(carry, n)

@@ -8,7 +8,7 @@ choice among the concrete least-squares solvers:
 - sparse L-BFGS         (sparse data, on the host)
 - block solve           (many features, dense)
 - exact normal equations (few features)
-- sketched              (very wide; ROADMAP item 11, not ported yet)
+- sketched              (very wide; ``sketch/solvers.py``)
 
 Statistics (n, d, k, sparsity) come from the node-level optimizer's
 sample pass. The cost formulas are the JAX package's, verbatim; the
@@ -16,13 +16,17 @@ weights are ``cost.default_cost_weights(device)``: the card's data-sheet
 peaks on CUDA, the reference's cluster constants on the CPU. The port
 runs on one device, so ``num_machines=None`` resolves to 1.
 
-The sketched rung is priced exactly as the JAX package prices it
-(``KEYSTONE_SKETCH_MIN_WIDTH``, default 8,192, and the sketch size of
-``KEYSTONE_SKETCH_SIZE`` or ``min(4096, max(128, d))``). Where the argmin,
-or the streamed fit's width dispatch, picks it, the port raises
-``UnportedRung`` (a ``NotImplementedError`` that fails the plan): the
-sketch tier is ROADMAP item 11. The refit state methods raise
-``NotImplementedError`` naming item 12.
+The sketched rung (``sketch/solvers.py``, imported lazily as in the JAX
+package) is priced at the sketch size the fit will run
+(``SketchedLeastSquaresEstimator._resolve_sketch_size``: env knob >
+constructor > measured winner > width default) and is eligible from
+``KEYSTONE_SKETCH_MIN_WIDTH`` (default 8,192) on; the streamed fit's
+width dispatch hands it every stream at least that wide.
+
+The refit state contract (``refit/state.py``) is the delegate's: the
+streamed fit exports the chosen rung's captured state, and
+``finish_from_state`` finishes a "sketch" state on the sketched rung and
+a "gram" state on the Gram rung its width picks.
 
 One departure in the sample statistics: a scipy item may hold several
 rows (a whole CSR matrix in one ``ObjectDataset`` item, as the JAX
@@ -48,41 +52,12 @@ import torch
 
 from ...data.dataset import ArrayDataset, Dataset
 from ...device import DeviceLike
-from ...envknobs import env_int
-from ...workflow.optimize import DataStats, Optimizable, UnportedRung
+from ...workflow.optimize import DataStats, Optimizable
 from ...workflow.pipeline import LabelEstimator, Transformer
 from .block import BlockLeastSquaresEstimator
 from .cost import DEFAULT_COST_WEIGHTS, CostModel, CostWeights, default_cost_weights
 from .lbfgs import DenseLBFGSEstimator, SparseLBFGSEstimator
 from .linear import LinearMapEstimator
-
-SKETCH_ITEM = (
-    "the sketched least-squares rung is not ported yet (ROADMAP item 11, "
-    "sketch/core.py and sketch/solvers.py)"
-)
-REFIT_ITEM = "refit stream state is not ported yet (ROADMAP item 12, refit/state.py)"
-
-
-def sketch_min_width() -> int:
-    """Ladder eligibility floor (``KEYSTONE_SKETCH_MIN_WIDTH``): below
-    this featurized width the exact/Gram rungs are both affordable and
-    more accurate, so the sketched rung prices itself out (inf)."""
-    return env_int("KEYSTONE_SKETCH_MIN_WIDTH", 8192)
-
-
-def _default_sketch_size(d: int) -> int:
-    """Sketch rows for a width-d fit when nothing pins one: ``min(4096,
-    max(128, d))``."""
-    return int(min(4096, max(128, int(d))))
-
-
-def _resolve_sketch_size(d: int) -> int:
-    """The sketch size the sketched rung would run: ``KEYSTONE_SKETCH_SIZE``
-    when set, else the width default (the JAX package's constructor size
-    and measured-knob winner have no counterpart in the port yet)."""
-    s = env_int("KEYSTONE_SKETCH_SIZE", 0)
-    return s if s > 0 else _default_sketch_size(d)
-
 
 class _DenseLBFGSCost(CostModel):
     def cost(self, n, d, k, sparsity, num_machines, w=DEFAULT_COST_WEIGHTS):
@@ -127,6 +102,8 @@ class _SketchCost(CostModel):
         self.sketch_size = sketch_size
 
     def cost(self, n, d, k, sparsity, num_machines, w=DEFAULT_COST_WEIGHTS):
+        from ...sketch.solvers import sketch_min_width
+
         if d < sketch_min_width():
             return np.inf
         s = self.sketch_size
@@ -134,11 +111,6 @@ class _SketchCost(CostModel):
         bytes_scanned = n * d / num_machines + s * (d + k)
         network = s * (d + k)
         return max(w.cpu * flops, w.mem * bytes_scanned) + w.network * network
-
-
-class _SketchedRung:
-    """Stands in the candidate list for the sketched rung, so that it is
-    priced and reported; choosing it raises (module docstring)."""
 
 
 class LeastSquaresEstimator(LabelEstimator, Optimizable):
@@ -151,6 +123,12 @@ class LeastSquaresEstimator(LabelEstimator, Optimizable):
     #: for wide ones (L-BFGS needs materialized data passes and is never
     #: the streaming pick).
     supports_fit_stream = True
+
+    #: Refit state contract: the meta-solver's state is whatever its
+    #: delegated rung accumulates — Gram for the exact/block rungs,
+    #: "sketch" past ``sketch_min_width()``. The class attribute is the
+    #: narrow default; ``stream_state_kind_for`` resolves it per stream.
+    stream_state_kind = "gram"
 
     def __init__(
         self,
@@ -173,19 +151,31 @@ class LeastSquaresEstimator(LabelEstimator, Optimizable):
         self.device = device
 
     # ------------------------------------------------------------ streaming
-    def fit_stream(self, stream):
-        return self._stream_solver(_stream_width(stream, self.block_size)).fit_stream(stream)
+    def fit_stream(self, stream, state=None):
+        inner = self._stream_solver(_stream_width(stream, self.block_size))
+        fitted = inner.fit_stream(stream, state=state)
+        # The delegate's captured statistics are the meta-solver's export:
+        # the caller never needs to know which rung the width picked.
+        self._stream_state = inner.export_stream_state()
+        return fitted
 
     def _stream_solver(self, width: int):
         """The concrete streaming rung for a featurized ``width``: exact
-        (narrow) → Gram-BCD (wide) → sketched (very wide, not ported:
-        raises)."""
+        (narrow) → Gram-BCD (wide) → sketched (very wide, where the O(d²)
+        Gram itself is the memory problem)."""
+        from ...sketch.solvers import SketchedLeastSquaresEstimator, sketch_min_width
+
         if width >= sketch_min_width():
-            raise UnportedRung(f"width {width} ≥ KEYSTONE_SKETCH_MIN_WIDTH: {SKETCH_ITEM}")
+            inner = SketchedLeastSquaresEstimator(reg=self.reg, device=self.device)
+            tuned = getattr(self, "_tuned_sketch_size", None)
+            if tuned:
+                inner._tuned_sketch_size = int(tuned)
+            return inner
         return self._gram_stream_solver(width)
 
     def _gram_stream_solver(self, width: int):
-        """The Gram-family rung for ``width``."""
+        """The Gram-family rung for ``width`` (also the finish path for
+        captured Gram carries of any width)."""
         if width > self.block_size:
             return BlockLeastSquaresEstimator(
                 self.block_size, num_iter=self.block_iters, reg=self.reg, device=self.device
@@ -194,15 +184,40 @@ class LeastSquaresEstimator(LabelEstimator, Optimizable):
         # a singular Gram rather than degrading to NaN predictions.
         return LinearMapEstimator(reg=self.reg or None, device=self.device)
 
+    def stream_state_kind_for(self, stream) -> str:
+        """The kind of state a streamed fit of ``stream`` captures: the
+        rung its width picks."""
+        return self._stream_solver(_stream_width(stream, self.block_size)).stream_state_kind
+
+    def stream_state_meta_for(self, stream) -> dict:
+        """The chosen rung's envelope meta (the sketched rung's variant
+        and seed; empty for the Gram family)."""
+        inner = self._stream_solver(_stream_width(stream, self.block_size))
+        return dict(getattr(inner, "stream_state_meta", {}) or {})
+
     # ------------------------------------------------ refit state contract
     def export_stream_state(self):
-        raise NotImplementedError(REFIT_ITEM)
+        return getattr(self, "_stream_state", None)
 
     def merge_stream_state(self, a, b):
-        raise NotImplementedError(REFIT_ITEM)
+        from ...refit.state import merge_stream_states
+
+        return merge_stream_states(a, b)
 
     def finish_from_state(self, state):
-        raise NotImplementedError(REFIT_ITEM)
+        """Finish from statistics alone. A "sketch" state finishes on the
+        sketched rung whatever its width, under the state's (variant,
+        seed); a "gram" state on the Gram rung its (d, d) carry's width
+        picks."""
+        if state.kind == "sketch":
+            from ...sketch.solvers import SketchedLeastSquaresEstimator
+
+            inner = SketchedLeastSquaresEstimator(reg=self.reg, device=self.device)
+            if state.meta.get("sketch_variant"):
+                inner.variant = state.meta["sketch_variant"]
+                inner.seed = int(state.meta.get("sketch_seed", inner.seed))
+            return inner.finish_from_state(state)
+        return self._gram_stream_solver(int(state.carry[0].shape[0])).finish_from_state(state)
 
     # --------------------------------------------------------------- fit
     def fit(self, data: Dataset, labels: Dataset) -> Transformer:
@@ -279,11 +294,20 @@ class LeastSquaresEstimator(LabelEstimator, Optimizable):
         """``(name, cost_ms, estimator, ineligible_reason)`` for every
         rung, in the JAX package's order. Ineligible rungs price at inf
         but stay in the list, so every rung the argmin saw is reported."""
+        from ...sketch.solvers import SketchedLeastSquaresEstimator, sketch_min_width
+
         machines = self.num_machines or 1
         weights = self.weights if self.weights is not None else default_cost_weights(self.device)
         sparse_ok = sparsity < self.sparse_threshold
         sketch_ok = d >= sketch_min_width()
-        sketch_s = _resolve_sketch_size(d)
+        # Price the sketch size that will actually run: pricing the width
+        # default when KEYSTONE_SKETCH_SIZE or a measured winner pins a
+        # smaller s would mischarge the rung ~s².
+        sketch_probe = SketchedLeastSquaresEstimator(reg=self.reg, device=self.device)
+        tuned_s = getattr(self, "_tuned_sketch_size", None)
+        if tuned_s:
+            sketch_probe._tuned_sketch_size = int(tuned_s)
+        sketch_s = sketch_probe._resolve_sketch_size(d)
         return [
             (
                 "sparse_lbfgs",
@@ -321,7 +345,7 @@ class LeastSquaresEstimator(LabelEstimator, Optimizable):
             (
                 "sketched",
                 _SketchCost(sketch_s).cost(n, d, k, 1.0, machines, weights),
-                _SketchedRung(),
+                sketch_probe,
                 ""
                 if sketch_ok
                 else f"width {d} < KEYSTONE_SKETCH_MIN_WIDTH "
@@ -334,10 +358,6 @@ class LeastSquaresEstimator(LabelEstimator, Optimizable):
         d, k, sparsity = _sample_shape_stats(samples[0], samples[1] if len(samples) > 1 else None)
         candidates = self.candidates(n, d, k, sparsity)
         cost_ms, chosen = min(((c, est) for _, c, est, _ in candidates), key=lambda c: c[0])
-        if isinstance(chosen, _SketchedRung):
-            raise UnportedRung(
-                f"the cost model picked the sketched rung at n={n}, d={d}, k={k}: {SKETCH_ITEM}"
-            )
         # Provenance: the chosen rung's predicted cost with every
         # candidate's and the rejected rungs' reasons. The constants are
         # relative (only the argmin matters), so the prediction is
@@ -416,4 +436,4 @@ def _host(a) -> np.ndarray:
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
-__all__ = ["LeastSquaresEstimator", "sketch_min_width"]
+__all__ = ["LeastSquaresEstimator"]

@@ -20,8 +20,9 @@ JAX package, whose model lands on the requested device.
 ``SparseLinearMapper`` applies a dense model to host CSR rows (densified
 on the weights' device) or to dense rows.
 
-Left out for now: the refit state mixin (``fit_stream`` takes no
-``state``).
+``LinearMapEstimator`` carries the refit state contract
+(``refit/state.py``, ``GramStreamStateMixin``): ``fit_stream(stream,
+state=None)`` and ``finish_from_state``.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import torch
 from ...data.dataset import ArrayDataset, Dataset
 from ...device import DeviceLike, resolve_device
 from ...parallel import linalg
+from ...refit.state import GramStreamStateMixin
 from ...workflow.pipeline import BatchTransformer, LabelEstimator
 from .block import _as_array_dataset, _stream_shapes
 
@@ -62,7 +64,7 @@ class LinearMapper(BatchTransformer):
         return out
 
 
-class LinearMapEstimator(LabelEstimator):
+class LinearMapEstimator(GramStreamStateMixin, LabelEstimator):
     """OLS/ridge via the normal equations on ``device`` (default CUDA).
 
     ``reg=None`` → plain least squares; otherwise ridge with strength λ
@@ -77,20 +79,24 @@ class LinearMapEstimator(LabelEstimator):
         self.reg = reg
         self.device = device
 
-    def fit_stream(self, stream) -> LinearMapper:
+    def fit_stream(self, stream, state=None) -> LinearMapper:
         """Row-chunked exact fit: the centering identity of the in-core
         solve (Σ(a−μ)(a−μ)ᵀ = AᵀA − n·μμᵀ) fed by per-chunk Gram
-        accumulation — O(d²) residency, the feature matrix never exists."""
+        accumulation — O(d²) residency, the feature matrix never exists.
+        ``state`` seeds the carry (refit/state.py)."""
 
         def init(feat_spec, y_spec):
             d, k = _stream_shapes(feat_spec, y_spec)
-            return linalg.gram_stream_init(d, k, stream.device)
+            return self._seed_carry(state, d, k, stream.device)
 
         carry, info = stream.fold(init, linalg.gram_stream_step)
-        return self._finish_from_stats(carry, info["num_examples"])
+        n = info["num_examples"] + (state.num_examples if state else 0)
+        self._capture_state(carry, n, reg=self.reg)
+        return self._finish_from_stats(carry, n)
 
     def _finish_from_stats(self, carry, n: int) -> LinearMapper:
-        """Exact solve from accumulated statistics alone."""
+        """Exact solve from accumulated statistics alone — shared by the
+        streamed fit and ``finish_from_state``."""
         gc, cc, mu_a, mu_b = linalg.gram_stream_finish(carry, n)
         w = linalg.solve_from_gram(gc, cc, reg=self.reg or 0.0)
         if not self.reg:  # singular-risk case only: fail loudly, not NaN

@@ -1,7 +1,8 @@
 """Dense linear algebra for the least-squares solvers, on one device.
 
 Port of the single-device part of ``keystone_tpu/parallel/linalg.py``:
-the solver products ``mm`` / ``mm_t`` / ``addmm_t_``, ``gram``,
+the solver products ``mm`` / ``mm_t`` / ``addmm_t_`` (and ``_mm_nt``, a·bᵀ
+in column chunks, for the sketched solvers), ``gram``,
 ``normal_equations_solve``, ``tsqr_r`` / ``tsqr_svd``, the streaming Gram
 statistics (``gram_stream_init`` / ``gram_stream_step`` /
 ``gram_stream_block_step`` / ``gram_stream_finish``), ``solve_spd``,
@@ -149,6 +150,22 @@ def _mm_t(a: torch.Tensor, b: torch.Tensor, kind: str) -> torch.Tensor:
         out = torch.zeros(a.shape[1], b.shape[1], dtype=a.dtype)
         return _addmm_t_(out, a, b, kind)
     return _gemm.gemm_tn_chunked(a, b, kind)
+
+
+def _mm_nt(a: torch.Tensor, b: torch.Tensor, kind: str) -> torch.Tensor:
+    """a·bᵀ contracting the COLUMN axis in ``ROW_CHUNK``-column partial
+    products summed into the output — :func:`mm_t`'s reason, for a long
+    feature axis: the sketched solvers' K = SAc·SAcᵀ over 204,800 columns
+    (chip_smoke.py ``timit_sketched`` reads both forms against float64)."""
+    out = torch.zeros(a.shape[0], b.shape[0], dtype=a.dtype, device=a.device)
+    on_cpu = a.device.type == "cpu" and b.device.type == "cpu"
+    for start in range(0, a.shape[1], ROW_CHUNK):
+        ab, bb = a[:, start : start + ROW_CHUNK], b[:, start : start + ROW_CHUNK]
+        if on_cpu:
+            out.addmm_(ab, bb.T)
+        else:
+            _gemm.gemm(ab, bb.T, kind, out=out, beta=1.0)
+    return out
 
 
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -464,7 +464,10 @@ class ChunkStream:
       :class:`StreamingFallback` there to reject the shape (nothing has
       been prefetched yet).
     - ``step_fn(carry, x_feat, y) -> carry`` runs after the featurize
-      chain on every chunk and accumulates into the carry in place.
+      chain on every chunk and accumulates into the carry in place. A
+      step with ``needs_mask = True`` is called as
+      ``step_fn(carry, x_feat, y, mask)``: ``mask`` is (rows, 1) float32
+      holding each row's absolute dataset index + 1, 0 for pad rows.
 
     Returns ``(carry, info)`` where info has ``num_examples``, ``chunks``
     and the :class:`StreamReport`.
@@ -527,6 +530,10 @@ class ChunkStream:
 
         record = _shared_step_record(self.members, step_fn)
         members = self.members
+        # Index-keyed folds (sketch/core.py) declare needs_mask: the step
+        # receives the chunk's pad mask — whose lane holds absolute row
+        # indices — as a fourth argument. Gram steps keep three.
+        needs_mask = bool(getattr(step_fn, "needs_mask", False))
         windows = [(s, min(s + chunk_rows, n)) for s in range(0, n, chunk_rows)]
         report = StreamReport(
             chunk_rows=chunk_rows,
@@ -626,7 +633,8 @@ class ChunkStream:
                 compute_start = torch.cuda.Event(enable_timing=True)
                 compute_start.record()
             record.note((x, y, mask))
-            carry = step_fn(carry, _apply_chain(members, x, mask), y)
+            feats = _apply_chain(members, x, mask)
+            carry = step_fn(carry, feats, y, mask) if needs_mask else step_fn(carry, feats, y)
             if cuda:
                 for t in moved:  # filled on the copy stream, read here
                     t.record_stream(compute_stream)

@@ -417,3 +417,60 @@ def test_injected_oom_degrades_the_sparse_fit_through_the_kernel(cuda, monkeypat
     direct = BlockLeastSquaresEstimator(32, reg=1e-3, device=cuda).fit(
         ArrayDataset(x, device="cpu"), ArrayDataset(y, device="cpu"))
     assert _rel(model.weights, direct.weights) <= 1e-5
+
+
+def test_sketch_hash_and_carry_on_the_card_match_the_cpu(cuda):
+    """CountSketch buckets and signs are equal on the card and the CPU;
+    the carries (atomic scatter order on the card) agree to 1e-6."""
+    from keystone_tpu_torch.sketch import core
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(300, 64)).astype(np.float32)
+    y = rng.normal(size=(300, 3)).astype(np.float32)
+    mask = core.index_mask(1000, 1300, torch.device("cpu"))
+    for variant in core.VARIANTS:
+        step = core.sketch_stream_step(variant, 3)
+        want = step(core.sketch_stream_init(128, 64, 3, torch.device("cpu")),
+                    torch.from_numpy(x), torch.from_numpy(y), mask)
+        got = step(core.sketch_stream_init(128, 64, 3, cuda), torch.from_numpy(x).to(cuda),
+                   torch.from_numpy(y).to(cuda), mask.to(cuda))
+        for g, w in zip(got, want):
+            assert float((g.cpu() - w).norm() / w.norm()) <= 1e-6
+    bucket, sign = core.countsketch_hash(mask.to(cuda), 4096, 5)
+    cpu_bucket, cpu_sign = core.countsketch_hash(mask, 4096, 5)
+    assert torch.equal(bucket.cpu(), cpu_bucket) and torch.equal(sign.cpu(), cpu_sign)
+
+
+def test_sketched_and_kernel_fits_on_the_card_match_the_cpu(cuda):
+    """A streamed sketched fit (primal and dual finish) and a kernel ridge
+    fit on the card against the same fits on the CPU: predictions ≤ 1e-5
+    on well-conditioned rows."""
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.ops.learning.kernel import GaussianKernelGenerator, KernelRidgeRegression
+    from keystone_tpu_torch.sketch.solvers import SketchedLeastSquaresEstimator
+    from keystone_tpu_torch.workflow.streaming import ChunkStream
+
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(1024, 96)).astype(np.float32)
+    y = (x @ rng.normal(size=(96, 4)) + 0.1 * rng.normal(size=(1024, 4))).astype(np.float32)
+    cpu = torch.device("cpu")
+
+    def rel(a, b):
+        return float((a.cpu() - b.cpu()).norm() / b.cpu().norm())
+
+    for s in (256, 64):
+        models = [
+            SketchedLeastSquaresEstimator(reg=1e-2, sketch_size=s, seed=2, device=dev).fit_stream(
+                ChunkStream(ArrayDataset(x, device=dev), ArrayDataset(y, device=dev), (),
+                            chunk_rows=128, device=dev))
+            for dev in (cuda, cpu)
+        ]
+        preds = [m.apply_arrays(torch.from_numpy(x).to(m.weights.device)) for m in models]
+        assert rel(preds[0], preds[1]) <= 1e-5
+    krr = [
+        KernelRidgeRegression(GaussianKernelGenerator(0.05, device=dev), 0.1, 128, 2, block_permuter=3).fit(
+            ArrayDataset(x[:512], device=dev), ArrayDataset(y[:512], device=dev))
+        for dev in (cuda, cpu)
+    ]
+    xt = torch.from_numpy(x[512:])
+    assert rel(krr[0].apply_arrays(xt.to(cuda)), krr[1].apply_arrays(xt)) <= 1e-5

@@ -103,6 +103,12 @@ print(json.dumps({"imported": names, "bad": bad}))
         "keystone_tpu_torch.data.loaders.text",
         "keystone_tpu_torch.evaluation.binary",
         "keystone_tpu_torch.pipelines.text",
+        "keystone_tpu_torch.refit",
+        "keystone_tpu_torch.refit.state",
+        "keystone_tpu_torch.sketch",
+        "keystone_tpu_torch.sketch.core",
+        "keystone_tpu_torch.sketch.solvers",
+        "keystone_tpu_torch.ops.learning.kernel",
     }
     assert expected <= set(result["imported"])
 
@@ -305,6 +311,30 @@ def test_least_squares_and_text_entry_points_without_device_raise_when_no_cuda(m
         lambda: NaiveBayesEstimator(2).fit(x, labels),
         lambda: text.run_amazon(text.AmazonReviewsConfig(
             train_location=str(reviews), test_location=str(reviews), common_features=4)),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry_point()
+
+
+def test_sketch_and_kernel_entry_points_without_device_raise_when_no_cuda(monkeypatch):
+    from keystone_tpu_torch.convert import kernel_mapper_from_numpy
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.ops.learning.kernel import GaussianKernelGenerator, KernelRidgeRegression
+    from keystone_tpu_torch.refit.state import StreamState
+    from keystone_tpu_torch.sketch.solvers import SketchedLeastSquaresEstimator
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = ArrayDataset(np.eye(4, dtype=np.float32), device="cpu")
+    y = ArrayDataset(np.ones((4, 2), np.float32), device="cpu")
+    state = StreamState(kind="sketch", estimator="x", num_examples=4,
+                        carry=(np.zeros((2, 4), np.float32), np.zeros((2, 2), np.float32),
+                               np.zeros(2, np.float32), np.zeros(4, np.float32), np.zeros(2, np.float32)))
+    for entry_point in (
+        lambda: SketchedLeastSquaresEstimator(sketch_size=2).fit(x, y),
+        lambda: SketchedLeastSquaresEstimator(sketch_size=2).finish_from_state(state),
+        lambda: KernelRidgeRegression(GaussianKernelGenerator(1.0), 0.1, 2, 1).fit(x, y),
+        lambda: GaussianKernelGenerator(1.0).fit(x),
+        lambda: kernel_mapper_from_numpy(np.eye(4), np.ones((4, 2)), 1.0, 4, 2),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry_point()
