@@ -201,9 +201,46 @@ Phases, in order; any failure raises and the script exits non-zero:
    rows (``KRR_CPU_TOL``); the Nyström rung at 2,048 landmarks (its host
    solve's seconds from a span); an injected OOM at
    ``KernelRidgeRegression.solve`` that must land at block 1,024 with the
-   scores of a direct 1,024 fit.
+   scores of a direct 1,024 fit;
+23. cifar_features — ``FusedConvFeaturizer`` at the reference CIFAR
+   configuration (10,000 filters of 6×6×3 from ``bench.py::
+   _bench_cifar_random_patch``'s seed, α = 0.25, pool 14 / stride 13,
+   filter block 512): images/s on 2,048 uniform images (host clock,
+   synchronised, median of 3 warm runs); on 256 of them the features
+   within ``CIFAR_FUSED_TOL`` of the unfused ``Convolver → SymmetricRectifier
+   → Pooler → ImageVectorizer`` chain (a 7.5 GB conv output), within
+   ``CIFAR_FP64_TOL`` of the same formula in float64 on the card, and
+   within ``CIFAR_TF32_TOL`` of themselves after
+   ``torch.backends.cudnn.allow_tf32`` and
+   ``torch.backends.cuda.matmul.allow_tf32`` are switched on;
+24. cifar_random_patch_fused — ``bench.py::_bench_cifar_random_patch`` at
+   full size: ``ConvBlockLeastSquaresEstimator(block_size=4,096,
+   num_iter=1, reg=3,000, image_chunk=2,048)`` on 50,000 uniform images
+   from seed 0 with random labels over 10 classes (20 blocks of 512
+   filters; the (50,000, 80,000) feature matrix never exists), under the
+   bench's halving ladder on n: ``end_to_end_fit_s`` (upload included),
+   the fit's peak, whether the ladder stepped, one block's featurization
+   over all rows; ``ConvBlockModel.apply`` on 2,048 images within
+   ``CONV_APPLY_TOL`` of the mapper applied to ``FusedConvFeaturizer``
+   output; a one-block fit (512 filters = 4,096 features, so one BCD
+   epoch is the exact standardized ridge solve) whose predictions on the
+   50,000 rows lie within ``CONV_ONE_BLOCK_FP64_TOL`` of a float64 ridge
+   solve of the same features on the card;
+25. cifar_workloads — the CLI's seven CIFAR workloads through
+   ``pipelines/cifar.py::run`` on synthetic learnable CIFAR (10 prototype
+   images N(128, 40²) plus N(0, 10²) noise, as
+   ``tests/pipelines/test_cifar.py`` makes them) written as CIFAR-10
+   binaries of 50,000 train and 10,000 test images and read back through
+   ``load_cifar``: ``random_patch`` and ``random_patch_fused`` at 1,000
+   filters, λ = 3,000, ε = 1e-5; ``random_patch_kernel`` at the config's
+   defaults and λ = 1e-3; ``linear_pixels``; ``random``; both augmented
+   variants on 5,000 training images × 10 crops. Each one's seconds,
+   errors and peak; every test error below 0.2 and the block and fused
+   variants' within 0.01 of each other; then ``python -m
+   keystone_tpu_torch cifar-linear-pixels`` in a subprocess with the same
+   test error.
 
-Phases 4–14, 16 and 18–22 reach no ELL kernel: each sets its count to 0
+Phases 4–14, 16 and 18–25 reach no ELL kernel: each sets its count to 0
 and fails if it moved; phase 15 launches it only in
 ``oom_injected_sparse``, phase 17 exactly twice. Every phase
 starts from a reset ``PipelineEnv`` and reports its peak device memory
@@ -3535,6 +3572,340 @@ def phase_kernel_ridge(device) -> int:
     return 0
 
 
+# CIFAR-10 phases. cifar_features and cifar_random_patch_fused: the
+# reference random-patch configuration (examples/images/cifar_random_patch.sh:
+# 10,000 filters of 6×6×3; RandomPatchCifar.scala: α = 0.25, pool 14 /
+# stride 13) as bench.py::_bench_cifar_random_patch draws it: filters
+# N(0, 0.1²) from seed 0, random labels over 10 classes, 50,000 uniform
+# [0, 1) images, filter block 512, ConvBlockLeastSquaresEstimator(block
+# 4,096 = 512 filters, 1 epoch, λ = 3,000, 2,048-image chunks): 20 blocks,
+# and the 80,000-wide feature matrix never exists.
+CIFAR_FILTERS, CIFAR_PATCH, CIFAR_ALPHA, CIFAR_POOL, CIFAR_STRIDE = 10_000, 6, 0.25, 14, 13
+CIFAR_FILTER_BLOCK, CIFAR_SOLVER_BLOCK, CIFAR_REG, CIFAR_CHUNK = 512, 4096, 3000.0, 2048
+CIFAR_TRAIN, CIFAR_TEST, CIFAR_CLASSES = 50_000, 10_000, 10
+CIFAR_RATE_IMAGES, CIFAR_GATE_IMAGES, CIFAR_BENCH_PROBE = 2048, 256, 256 + 32
+# Fused against the unfused Convolver → SymmetricRectifier → Pooler →
+# ImageVectorizer chain (the same products in another grouping), and the
+# features with PyTorch's TF32 flags on against off (the same calls: no
+# flag is read, so they should be bitwise equal).
+CIFAR_FUSED_TOL, CIFAR_TF32_TOL = 1e-5, 1e-6
+# The features against the same formula in float64 on the card: fp32
+# products 108 deep and the box statistics' (Σx² − d·m²) on uniform
+# pixels; an H100 read 1.08e-6.
+CIFAR_FP64_TOL = 1e-5
+CONV_APPLY_TOL = 1e-5
+# The one-block fit's predictions against the float64 ridge solve of the
+# same features: the Gram + λI (λ = 3,000 against a diagonal of ~50,000)
+# has condition ~27, so the fp32 solve sits near round-off; an H100 read
+# 3.0e-6.
+CONV_ONE_BLOCK_FP64_TOL = 2e-5
+# cifar_workloads: the CLI's seven CIFAR workloads on synthetic learnable
+# CIFAR (tests/pipelines/test_cifar.py:16-23: 10 prototype images
+# N(128, 40²) plus N(0, 10²) noise, clipped to 0–255, unsourced), 50,000
+# train and 10,000 test images written as CIFAR-10 binaries; the
+# augmented workloads' training set is cut to 5,000 images (× 10 crops).
+CIFAR_SYNTH_SEED, CIFAR_AUGMENT_TRAIN = 0, 5000
+CIFAR_ERROR_BOUND, CIFAR_FUSED_VS_BLOCK = 0.2, 0.01
+CIFAR_WORKLOADS = (  # (variant, flags, augmented training set)
+    ("random_patch", {"num_filters": 1000, "reg": 3000.0, "whitening_epsilon": 1e-5}, False),
+    ("random_patch_fused", {"num_filters": 1000, "reg": 3000.0, "whitening_epsilon": 1e-5}, False),
+    ("random_patch_kernel", {"reg": KRR_REG}, False),
+    ("linear_pixels", {}, False),
+    ("random", {}, False),
+    ("random_patch_augmented", {}, True),
+    ("random_patch_kernel_augmented", {"reg": KRR_REG}, True),
+)
+
+
+def cifar_reference_draws():
+    """``bench.py::_bench_cifar_random_patch``'s draws from seed 0, in its
+    order: the filters, the ±1 label rows, its probe batch (drawn and
+    dropped); the generator then yields its training images."""
+    rng = np.random.default_rng(0)
+    filters = rng.normal(size=(CIFAR_FILTERS, CIFAR_PATCH * CIFAR_PATCH * 3)).astype(np.float32) * 0.1
+    labels = -np.ones((CIFAR_TRAIN, CIFAR_CLASSES), np.float32)
+    labels[np.arange(CIFAR_TRAIN), rng.integers(0, CIFAR_CLASSES, CIFAR_TRAIN)] = 1.0
+    rng.random((CIFAR_BENCH_PROBE, 32, 32, 3), dtype=np.float32)
+    return filters, labels, rng
+
+
+def cifar_featurizer(filters, device):
+    from keystone_tpu_torch.ops.images import Convolver, FusedConvFeaturizer, Pooler, SymmetricRectifier
+
+    return FusedConvFeaturizer(
+        Convolver(filters, 3, normalize_patches=True, device=device),
+        SymmetricRectifier(alpha=CIFAR_ALPHA), Pooler(CIFAR_STRIDE, CIFAR_POOL, None, "sum"),
+        filter_block=min(CIFAR_FILTER_BLOCK, len(filters)),
+    )
+
+
+def fp64_cifar_features(fz, x):
+    """The featurizer's formula (box statistics, (raw − m·Σf)/sd, rectify,
+    sum-pool, [pos | neg] vectorized) in float64 with plain PyTorch on the
+    card, one filter block at a time."""
+    import torch
+
+    conv, s = fz.conv, fz.conv.conv_size
+    x = x.double()
+    n = x.shape[0]
+    p = x.unfold(1, s, 1).unfold(2, s, 1).permute(0, 1, 2, 5, 4, 3)
+    rx, ry = p.shape[1], p.shape[2]
+    p = p.reshape(n, rx, ry, -1)
+    d = float(p.shape[-1])
+    m = p.sum(-1, keepdim=True) / d
+    sd = torch.sqrt(torch.clamp_min(p.square().sum(-1, keepdim=True) - d * m * m, 0.0) / (d - 1.0)
+                    + conv.var_constant)
+    k, fs = conv.kernel.double(), conv.filter_sums.double()
+    pos, neg = [], []
+    for start in range(0, conv.num_filters, fz.filter_block):
+        stop = start + fz.filter_block
+        out = ((p.reshape(-1, p.shape[-1]) @ k[:, start:stop]).reshape(n, rx, ry, -1) - m * fs[start:stop]) / sd
+        pos.append(fz.pool.apply_arrays(torch.clamp_min(out - fz.rect.alpha, fz.rect.max_val)))
+        neg.append(fz.pool.apply_arrays(torch.clamp_min(-out - fz.rect.alpha, fz.rect.max_val)))
+    pooled = torch.cat(pos + neg, dim=-1)
+    return pooled.transpose(1, 2).reshape(n, -1)
+
+
+def synced_s(fn):
+    """(result, seconds) of ``fn()`` on the host clock, the card synchronised
+    before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_cifar_features(device) -> int:
+    """Phase 23: ``FusedConvFeaturizer`` at the reference configuration:
+    images/s, the fused and unfused chains, float64, the TF32 switch."""
+    import torch
+
+    from keystone_tpu_torch.ops.images import ImageVectorizer
+    from keystone_tpu_torch.parallel import linalg
+
+    _mnist_start()
+    filters, _labels, rng = cifar_reference_draws()
+    fz = cifar_featurizer(filters, device)
+    x = torch.as_tensor(rng.random((CIFAR_RATE_IMAGES, 32, 32, 3), dtype=np.float32), device=device)
+    feats, cold_s = synced_s(lambda: fz.apply_arrays(x))
+    runs = [synced_s(lambda: fz.apply_arrays(x))[1] for _ in range(3)]
+    warm_s = float(np.median(runs))
+    del feats
+    # One filter block of the 2,048-image chunk, by CUDA events: the patch
+    # rows, the box statistics, the product alone, and the whole block
+    # (product, normalize, rectify, pool).
+    p = fz.patch_matrix(x)
+    m, sd = fz.norm_stats(p)
+    kb, fsb, offb = fz.packed_filter_blocks()
+    block_split_ms = {
+        "patch_rows": cuda_ms(lambda: fz.patch_matrix(x), 3),
+        "box_stats": cuda_ms(lambda: fz.norm_stats(p), 3),
+        "product": cuda_ms(lambda: linalg.mm(p.reshape(-1, p.shape[-1]), kb[0]), 3),
+        "block_pooled": cuda_ms(lambda: fz.block_pooled(p, kb[0], fsb[0], offb[0], m, sd), 3),
+    }
+    del p, m, sd
+    xs = x[:CIFAR_GATE_IMAGES]
+    fused = fz.apply_arrays(xs)
+    chain = fz.conv.apply_arrays(xs)
+    unfused_conv_bytes = chain.numel() * chain.element_size()
+    chain = ImageVectorizer().apply_arrays(fz.pool.apply_arrays(fz.rect.apply_arrays(chain)))
+    result = {
+        "filters": CIFAR_FILTERS, "filter_block": CIFAR_FILTER_BLOCK, "images": CIFAR_RATE_IMAGES,
+        "feature_width": int(fused.shape[1]), "cold_s": cold_s, "warm_s_runs": runs, "warm_s": warm_s,
+        "images_per_s": CIFAR_RATE_IMAGES / warm_s, "block_split_ms": block_split_ms,
+        "gate_images": CIFAR_GATE_IMAGES, "unfused_conv_bytes": unfused_conv_bytes,
+        "fused_vs_unfused_rel": rel_err(fused, chain), "fused_tol": CIFAR_FUSED_TOL,
+    }
+    del chain
+    torch.cuda.empty_cache()
+    result["vs_fp64_rel"], result["fp64_tol"] = rel_err(fused, fp64_cifar_features(fz, xs)), CIFAR_FP64_TOL
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = False, False
+        off = fz.apply_arrays(xs)
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, True
+        on = fz.apply_arrays(xs)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    result["tf32_on_vs_off_rel"], result["tf32_tol"] = rel_err(on, off), CIFAR_TF32_TOL
+    result["tf32_bitwise_equal"] = bool(torch.equal(on, off))
+    del fused, on, off, x, xs, fz
+    torch.cuda.empty_cache()
+    log("cifar_features", **result, **_mnist_end("cifar_features"))
+    checks = {
+        "fused": result["fused_vs_unfused_rel"] <= CIFAR_FUSED_TOL,
+        "fp64": result["vs_fp64_rel"] <= CIFAR_FP64_TOL,
+        "tf32": result["tf32_on_vs_off_rel"] <= CIFAR_TF32_TOL,
+        "width": result["feature_width"] == 8 * CIFAR_FILTERS,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"cifar_features failed {failed}")
+    return 0
+
+
+def fp64_ridge_on_features(feats, y, reg):
+    """Predictions of the exact standardized ridge solve (the one-block BCD
+    epoch's problem) in float64 with plain PyTorch on the card, and the
+    condition of its Gram + λI."""
+    import torch
+
+    f = feats.double()
+    y64 = y.double()
+    mu, sd = f.mean(0), f.std(0)
+    a = (f - mu) * torch.where(sd < 1e-8, torch.ones_like(sd), 1.0 / sd)
+    del f
+    g = a.T @ a + reg * torch.eye(a.shape[1], dtype=torch.float64, device=a.device)
+    w = torch.cholesky_solve(a.T @ (y64 - y64.mean(0)), torch.linalg.cholesky(g))
+    eig = torch.linalg.eigvalsh(g)
+    return a @ w + y64.mean(0), float(eig[-1] / eig[0])
+
+
+def phase_cifar_random_patch_fused(device) -> int:
+    """Phase 24: ``bench.py::_bench_cifar_random_patch`` at full size
+    through ``ConvBlockLeastSquaresEstimator`` (halving ladder on n kept),
+    the chunked apply, and a one-block fit against float64."""
+    import torch
+
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.ops.learning.conv_block import ConvBlockLeastSquaresEstimator
+    from keystone_tpu_torch.reliability import DegradationLadder, halving_rungs
+
+    _mnist_start()
+    t_phase = time.perf_counter()
+    filters, labels, rng = cifar_reference_draws()
+    fz = cifar_featurizer(filters, device)
+
+    def estimator(featurizer):
+        return ConvBlockLeastSquaresEstimator(featurizer, block_size=CIFAR_SOLVER_BLOCK, num_iter=1,
+                                              reg=CIFAR_REG, image_chunk=CIFAR_CHUNK, device=device)
+
+    ladder = DegradationLadder(halving_rungs(CIFAR_TRAIN, CIFAR_TRAIN // 4), label="cifar_random_patch")
+
+    def attempt(n_do):
+        images = rng.random((n_do, 32, 32, 3), dtype=np.float32)
+        model, fit_s = synced_s(lambda: estimator(fz).fit(ArrayDataset(images, device=device),
+                                                           ArrayDataset(labels[:n_do], device=device)))
+        return n_do, images, model, fit_s
+
+    n_do, images, model, fit_s = ladder.run(attempt)
+    fit_peak = torch.cuda.max_memory_allocated()
+    x = torch.as_tensor(images, device=device)
+    kb, fsb, offb = fz.packed_filter_blocks(CIFAR_FILTER_BLOCK)
+    _, block_featurize_s = synced_s(lambda: estimator(fz)._featurize_block(
+        x, kb[0], fsb[0], offb[0], CIFAR_SOLVER_BLOCK))
+    head = x[:CIFAR_CHUNK]
+    apply_scores, apply_s = synced_s(lambda: model.apply_arrays(head))
+    direct = model.linear.apply_arrays(fz.apply_arrays(head))
+    result = {
+        "n": n_do, "filters": CIFAR_FILTERS, "feature_width": int(model.weights.shape[0]),
+        "block_size": CIFAR_SOLVER_BLOCK, "blocks": -(-CIFAR_FILTERS // CIFAR_FILTER_BLOCK), "reg": CIFAR_REG,
+        "end_to_end_fit_s": fit_s, "fit_peak_device_bytes": fit_peak,
+        "ladder_stepped": bool(ladder.reduced), "ladder_record": dict(ladder.record),
+        "one_block_featurize_s": block_featurize_s, "apply_s_2048_images": apply_s,
+        "apply_vs_featurizer_then_mapper_rel": rel_err(apply_scores, direct), "apply_tol": CONV_APPLY_TOL,
+    }
+    del model, apply_scores, direct, head
+    torch.cuda.empty_cache()
+    # One block (512 filters = 4,096 features): one BCD epoch is the exact
+    # standardized ridge solve.
+    fz1 = cifar_featurizer(filters[:CIFAR_FILTER_BLOCK], device)
+    y = torch.as_tensor(labels[:n_do], device=device)
+    one, one_fit_s = synced_s(lambda: estimator(fz1).fit(ArrayDataset(x), ArrayDataset(y)))
+    feats = fz1.apply_arrays(x)
+    p32 = one.linear.apply_arrays(feats)
+    p64, condition = fp64_ridge_on_features(feats, y, CIFAR_REG)
+    result["one_block"] = {"fit_s": one_fit_s, "vs_fp64_rel": rel_err(p32, p64),
+                           "fp64_tol": CONV_ONE_BLOCK_FP64_TOL, "gram_plus_reg_condition": condition}
+    result["seconds"] = time.perf_counter() - t_phase
+    del one, feats, p32, p64, x, y, fz, fz1
+    torch.cuda.empty_cache()
+    log("cifar_random_patch_fused", **result, **_mnist_end("cifar_random_patch_fused"))
+    checks = {
+        "apply": result["apply_vs_featurizer_then_mapper_rel"] <= CONV_APPLY_TOL,
+        "one_block_fp64": result["one_block"]["vs_fp64_rel"] <= CONV_ONE_BLOCK_FP64_TOL,
+        "width": result["feature_width"] == 8 * CIFAR_FILTERS,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"cifar_random_patch_fused failed {failed}")
+    return 0
+
+
+def write_synthetic_cifar(root):
+    """The synthetic learnable CIFAR as CIFAR-10 binaries under ``root``:
+    ``train.bin`` (50,000), ``test.bin`` (10,000), ``train_augment.bin``
+    (the first 5,000 training images). Train and test share the 10
+    prototypes (one draw of 60,000 images, split)."""
+    rng = np.random.default_rng(CIFAR_SYNTH_SEED)
+    n = CIFAR_TRAIN + CIFAR_TEST
+    labels = rng.integers(0, CIFAR_CLASSES, size=n).astype(np.uint8)
+    protos = rng.normal(size=(CIFAR_CLASSES, 32, 32, 3)) * 40 + 128
+    images = np.clip(protos[labels] + rng.normal(size=(n, 32, 32, 3)) * 10, 0, 255).astype(np.uint8)
+    records = np.concatenate([labels[:, None], images.transpose(0, 3, 1, 2).reshape(n, -1)], axis=1)
+    paths = {"train": os.path.join(root, "train.bin"), "test": os.path.join(root, "test.bin"),
+             "train_augment": os.path.join(root, "train_augment.bin")}
+    records[:CIFAR_TRAIN].tofile(paths["train"])
+    records[CIFAR_TRAIN:].tofile(paths["test"])
+    records[:CIFAR_AUGMENT_TRAIN].tofile(paths["train_augment"])
+    return paths
+
+
+def phase_cifar_workloads(device) -> int:
+    """Phase 25: the CLI's seven CIFAR workloads through ``run`` on
+    synthetic learnable CIFAR read back through ``load_cifar``, then one
+    through ``python -m keystone_tpu_torch``."""
+    import torch
+
+    from keystone_tpu_torch.pipelines.cifar import RandomCifarConfig, run
+    from keystone_tpu_torch.workflow.executor import PipelineEnv
+
+    _mnist_start()
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="keystone-cifar-")
+    t0 = time.perf_counter()
+    paths = write_synthetic_cifar(tmp.name)
+    write_s = time.perf_counter() - t0
+    results = {}
+    for variant, flags, augmented in CIFAR_WORKLOADS:
+        PipelineEnv.reset()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        config = RandomCifarConfig(train_location=paths["train_augment" if augmented else "train"],
+                                   test_location=paths["test"], **flags)
+        out, seconds = synced_s(lambda: run(config, variant=variant, device=device))
+        results[variant] = {"seconds": seconds, "flags": flags, "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                            **{k: v for k, v in out.items() if k in ("train_error", "test_error", "num_augmented_train")}}
+        del out
+    PipelineEnv.reset()
+    cli = subprocess.run(
+        [sys.executable, "-m", "keystone_tpu_torch", "cifar-linear-pixels",
+         "--train-location", paths["train"], "--test-location", paths["test"]],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+    )
+    tmp.cleanup()
+    if cli.returncode == 0:
+        cli_line = json.loads(cli.stdout.strip().splitlines()[-1])
+    else:
+        cli_line = {"rc": cli.returncode, "stderr": cli.stderr[-2000:]}
+    log("cifar_workloads", write_s=write_s, workloads=results, cli=cli_line,
+        seconds=time.perf_counter() - t_phase, **_mnist_end("cifar_workloads"))
+    checks = {f"{v}_error": r["test_error"] < CIFAR_ERROR_BOUND for v, r in results.items()}
+    checks["fused_vs_block"] = abs(results["random_patch_fused"]["test_error"]
+                                   - results["random_patch"]["test_error"]) <= CIFAR_FUSED_VS_BLOCK
+    checks["augmented_rows"] = all(results[v]["num_augmented_train"] == 10 * CIFAR_AUGMENT_TRAIN
+                                   for v in ("random_patch_augmented", "random_patch_kernel_augmented"))
+    checks["cli"] = cli.returncode == 0 and abs(cli_line.get("test_error", 1.0)
+                                                - results["linear_pixels"]["test_error"]) <= MNIST_ERROR_TOL
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"cifar_workloads failed {failed}")
+    return 0
+
+
 def card_name_and_limit() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3595,6 +3966,9 @@ def main() -> int:
     launches_by_path["sketched"] = phase_sketched(device)
     launches_by_path["timit_sketched"] = phase_timit_sketched(device)
     launches_by_path["kernel_ridge"] = phase_kernel_ridge(device)
+    launches_by_path["cifar_features"] = phase_cifar_features(device)
+    launches_by_path["cifar_random_patch_fused"] = phase_cifar_random_patch_fused(device)
+    launches_by_path["cifar_workloads"] = phase_cifar_workloads(device)
     # The binding's calls on the paths (gram_modes times it and is left out).
     paths = {p: c for p, c in SOLVER_GEMM_CALLS.items() if p != "gram_modes"}
     binding["launches"] = {k: sum(c[k] for c in paths.values()) for k in next(iter(paths.values()))}

@@ -59,35 +59,48 @@ def build_config(config_cls, args: argparse.Namespace):
     return config_cls(**{k: v for k, v in vars(args).items() if k in names})
 
 
-# name → (module, config class name, run callable name, description).
-# Static strings only: --list and help import no pipeline.
-WORKLOADS: Dict[str, Tuple[str, str, str, str]] = {
+# name → (module, config class name, run callable name, bound keyword
+# arguments, description). Static strings only: --list and help import no
+# pipeline.
+WORKLOADS: Dict[str, Tuple[str, str, str, Dict[str, Any], str]] = {
     "mnist-random-fft": (
-        "mnist_random_fft", "MnistRandomFFTConfig", "run",
+        "mnist_random_fft", "MnistRandomFFTConfig", "run", {},
         "MNIST random-FFT featurization + linear solve",
     ),
     "timit": (
-        "timit", "TimitConfig", "run",
+        "timit", "TimitConfig", "run", {},
         "TIMIT cosine random features + block least squares",
     ),
     "amazon-reviews": (
-        "text", "AmazonReviewsConfig", "run_amazon",
+        "text", "AmazonReviewsConfig", "run_amazon", {},
         "Amazon reviews n-gram logistic/LBFGS text pipeline",
     ),
     "newsgroups": (
-        "text", "NewsgroupsConfig", "run_newsgroups",
+        "text", "NewsgroupsConfig", "run_newsgroups", {},
         "20 Newsgroups n-gram naive-bayes/least-squares pipeline",
     ),
+    **{
+        "cifar-" + v.replace("_", "-"): (
+            "cifar", "RandomCifarConfig", "run", {"variant": v},
+            f"CIFAR-10 {v} workload",
+        )
+        for v in (
+            "linear_pixels", "random", "random_patch", "random_patch_fused",
+            "random_patch_kernel", "random_patch_augmented",
+            "random_patch_kernel_augmented",
+        )
+    },
 }
 
 
 def _resolve(name: str) -> Tuple[Any, Callable[..., dict]]:
     """Import one workload's module and bind (config_cls, run_fn)."""
+    import functools
     import importlib
 
-    module_name, config_name, run_name, _desc = WORKLOADS[name]
+    module_name, config_name, run_name, kwargs, _desc = WORKLOADS[name]
     module = importlib.import_module(f".pipelines.{module_name}", package="keystone_tpu_torch")
-    return getattr(module, config_name), getattr(module, run_name)
+    return getattr(module, config_name), functools.partial(getattr(module, run_name), **kwargs)
 
 
 def main(argv: Optional[list] = None) -> int:

@@ -13,8 +13,11 @@ import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device
+from .ops.images.core import Convolver, FusedConvFeaturizer, Pooler, SymmetricRectifier
 from .ops.learning.block import BlockLinearMapper
+from .ops.learning.conv_block import ConvBlockModel
 from .ops.learning.kernel import KernelBlockLinearMapper
+from .ops.learning.zca import ZCAWhitener
 from .ops.stats.core import LinearRectifier, PaddedFFT, RandomSignNode
 from .ops.util.labels import MaxClassifier
 from .ops.util.vectors import VectorCombiner
@@ -104,3 +107,52 @@ def kernel_mapper_from_numpy(
         _tensor(train, device), _tensor(duals, device), float(gamma),
         num_train=int(num_train), block_size=int(block_size),
     )
+
+
+def zca_whitener_from_numpy(
+    whitener: np.ndarray, means: np.ndarray, device: DeviceLike = None
+) -> ZCAWhitener:
+    """The port's :class:`ZCAWhitener` holding a JAX-fitted one's W (d, d)
+    and means (d,), on ``device`` (default CUDA)."""
+    device = resolve_device(device)
+    return ZCAWhitener(_tensor(whitener, device), _tensor(means, device))
+
+
+def conv_block_model_from_numpy(
+    filters: np.ndarray,
+    weights: np.ndarray,
+    feature_mean: np.ndarray,
+    intercept: np.ndarray,
+    whitener_means: Optional[np.ndarray] = None,
+    img_channels: int = 3,
+    normalize_patches: bool = True,
+    var_constant: float = 10.0,
+    alpha: float = 0.25,
+    max_val: float = 0.0,
+    pool_stride: int = 13,
+    pool_size: int = 14,
+    pool_function: str = "sum",
+    filter_block: int = 512,
+    block_size: int = 4096,
+    image_chunk: int = 2048,
+    device: DeviceLike = None,
+) -> ConvBlockModel:
+    """The port's :class:`ConvBlockModel` holding a JAX-fitted one: the
+    featurizer's packed (already whitened) filters (F, s·s·C), the
+    whitener means its convolver subtracts (None without a whitener), and
+    the standard-layout linear model's weights, feature mean and
+    intercept; the other arguments are the featurizer's and the
+    estimator's settings. Applying the model needs only the whitener's
+    means, so its convolver holds a whitener of means alone. On
+    ``device`` (default CUDA)."""
+    device = resolve_device(device)
+    whitener = None if whitener_means is None else ZCAWhitener(None, _tensor(whitener_means, device))
+    featurizer = FusedConvFeaturizer(
+        Convolver(filters, img_channels, whitener=whitener, normalize_patches=normalize_patches,
+                  var_constant=var_constant, device=device),
+        SymmetricRectifier(max_val=max_val, alpha=alpha),
+        Pooler(pool_stride, pool_size, None, pool_function),
+        filter_block=filter_block,
+    )
+    linear = mapper_from_numpy(weights, block_size, intercept, feature_mean, device=device)
+    return ConvBlockModel(featurizer, linear, image_chunk=image_chunk)

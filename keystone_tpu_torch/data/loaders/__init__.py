@@ -1,1 +1,1 @@
-"""Port of ``keystone_tpu.data.loaders`` (CSV only so far)."""
+"""Port of ``keystone_tpu.data.loaders`` (CSV, TIMIT, text, CIFAR-10)."""

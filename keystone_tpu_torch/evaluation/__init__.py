@@ -1,9 +1,11 @@
-"""Port of ``keystone_tpu.evaluation`` (binary and multiclass)."""
+"""Port of ``keystone_tpu.evaluation`` (binary, multiclass, augmented examples)."""
 
+from .augmented import AugmentedExamplesEvaluator
 from .binary import BinaryClassificationMetrics, BinaryClassifierEvaluator
 from .multiclass import MulticlassClassifierEvaluator, MulticlassMetrics
 
 __all__ = [
+    "AugmentedExamplesEvaluator",
     "BinaryClassificationMetrics",
     "BinaryClassifierEvaluator",
     "MulticlassClassifierEvaluator",

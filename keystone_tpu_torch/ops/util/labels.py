@@ -1,15 +1,22 @@
 """Label encoding and argmax classification.
 
 Port of ``keystone_tpu/ops/util/labels.py``: ``ClassLabelIndicators``
-(int label → ±1 one-hot) and ``MaxClassifier`` (argmax). Both run on the
-device their input tensor lives on.
+(int label → ±1 one-hot), ``MultiLabelIndicators`` (label lists → ±1
+multi-hot), ``MaxClassifier`` (argmax) and ``TopKClassifier`` (indices of
+the k largest scores, best first). The batched ones run on the device
+their input tensor lives on.
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
+import numpy as np
 import torch
 
-from ...workflow.pipeline import BatchTransformer
+from ...data.dataset import ArrayDataset, Dataset
+from ...device import DeviceLike
+from ...workflow.pipeline import BatchTransformer, Transformer
 
 
 class ClassLabelIndicators(BatchTransformer):
@@ -30,8 +37,37 @@ class ClassLabelIndicators(BatchTransformer):
         return onehot
 
 
+class MultiLabelIndicators(Transformer):
+    """list of int labels → ±1 multi-hot vector; a batch lands on
+    ``device`` (default CUDA)."""
+
+    def __init__(self, num_classes: int, device: DeviceLike = None):
+        if num_classes <= 1:
+            raise ValueError("num_classes must be > 1")
+        self.num_classes = num_classes
+        self.device = device
+
+    def apply(self, labels: Sequence[int]) -> np.ndarray:
+        vec = np.full(self.num_classes, -1.0, dtype=np.float32)
+        vec[np.asarray(list(labels), dtype=np.int64)] = 1.0
+        return vec
+
+    def apply_batch(self, dataset: Dataset) -> ArrayDataset:
+        return ArrayDataset(np.stack([self.apply(i) for i in dataset.collect()]), device=self.device)
+
+
 class MaxClassifier(BatchTransformer):
     """scores (n, k) → argmax int32 (n,); ties go to the first maximum."""
 
     def apply_arrays(self, scores: torch.Tensor) -> torch.Tensor:
         return torch.argmax(scores, dim=-1).to(torch.int32)
+
+
+class TopKClassifier(BatchTransformer):
+    """scores (n, c) → (n, k) int32 class indices, best first."""
+
+    def __init__(self, k: int):
+        self.k = k
+
+    def apply_arrays(self, scores: torch.Tensor) -> torch.Tensor:
+        return torch.topk(scores, self.k, dim=-1).indices.to(torch.int32)

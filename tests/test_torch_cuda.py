@@ -474,3 +474,57 @@ def test_sketched_and_kernel_fits_on_the_card_match_the_cpu(cuda):
     ]
     xt = torch.from_numpy(x[512:])
     assert rel(krr[0].apply_arrays(xt.to(cuda)), krr[1].apply_arrays(xt)) <= 1e-5
+
+
+def _cifar_featurizer(device, num_filters=40, filter_block=16, seed=0):
+    from keystone_tpu_torch.ops.images import Convolver, FusedConvFeaturizer, Pooler, SymmetricRectifier
+
+    filters = np.random.default_rng(seed).normal(size=(num_filters, 108)).astype(np.float32) * 0.1
+    return FusedConvFeaturizer(Convolver(filters, 3, device=device), SymmetricRectifier(alpha=0.25),
+                               Pooler(13, 14, None, "sum"), filter_block=filter_block)
+
+
+def test_conv_features_unchanged_under_a_global_tf32_switch(cuda):
+    """The conv featurizer's products go through the solver binding at the
+    mode's kind: switching ``cudnn.allow_tf32`` and
+    ``cuda.matmul.allow_tf32`` on changes no feature (≤ 1e-6; the same
+    calls are made, so they are expected bitwise equal)."""
+    from keystone_tpu_torch.ops.cuda import gemm as tgemm
+
+    fz = _cifar_featurizer(cuda)
+    x = torch.from_numpy(np.random.default_rng(1).random((100, 32, 32, 3), dtype=np.float32) * 255).to(cuda)
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = False, False
+        before = tgemm.launches["ieee_fp32"]
+        off = fz.apply_arrays(x)
+        assert tgemm.launches["ieee_fp32"] > before
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, True
+        on = fz.apply_arrays(x)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    assert _rel(on, off) <= 1e-6
+
+
+def test_conv_block_fit_on_the_card_matches_the_cpu(cuda):
+    """A small rematerializing conv-block fit (3 filter blocks, the last
+    padded) on the card against the same fit on the CPU: predictions
+    ≤ 1e-5; the featurizer's output ≤ 1e-5."""
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.ops.learning.conv_block import ConvBlockLeastSquaresEstimator
+
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(2)
+    images = rng.random((96, 32, 32, 3), dtype=np.float32)
+    y = rng.normal(size=(96, 4)).astype(np.float32)
+    preds, feats = [], []
+    for dev in (cuda, cpu):
+        fz = _cifar_featurizer(dev)
+        model = ConvBlockLeastSquaresEstimator(fz, block_size=8 * 16, num_iter=2, reg=1.0, image_chunk=40,
+                                               device=dev).fit(ArrayDataset(images, device=dev),
+                                                               ArrayDataset(y, device=dev))
+        x = torch.from_numpy(images).to(dev)
+        preds.append(model.apply_arrays(x).cpu())
+        feats.append(fz.apply_arrays(x).cpu())
+    assert _rel(feats[0], feats[1]) <= 1e-5
+    assert _rel(preds[0], preds[1]) <= 1e-5

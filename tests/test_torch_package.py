@@ -109,6 +109,14 @@ print(json.dumps({"imported": names, "bad": bad}))
         "keystone_tpu_torch.sketch.core",
         "keystone_tpu_torch.sketch.solvers",
         "keystone_tpu_torch.ops.learning.kernel",
+        "keystone_tpu_torch.utils.image",
+        "keystone_tpu_torch.ops.images",
+        "keystone_tpu_torch.ops.images.core",
+        "keystone_tpu_torch.ops.learning.zca",
+        "keystone_tpu_torch.ops.learning.conv_block",
+        "keystone_tpu_torch.data.loaders.cifar",
+        "keystone_tpu_torch.evaluation.augmented",
+        "keystone_tpu_torch.pipelines.cifar",
     }
     assert expected <= set(result["imported"])
 
@@ -146,6 +154,7 @@ import keystone_tpu_torch
 import keystone_tpu_torch.parallel.linalg
 import keystone_tpu_torch.ops.learning.linear
 import keystone_tpu_torch.pipelines.timit
+import keystone_tpu_torch.pipelines.cifar
 print(json.dumps([seen, flags()]))
 """
     out = subprocess.run(
@@ -335,6 +344,37 @@ def test_sketch_and_kernel_entry_points_without_device_raise_when_no_cuda(monkey
         lambda: KernelRidgeRegression(GaussianKernelGenerator(1.0), 0.1, 2, 1).fit(x, y),
         lambda: GaussianKernelGenerator(1.0).fit(x),
         lambda: kernel_mapper_from_numpy(np.eye(4), np.ones((4, 2)), 1.0, 4, 2),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry_point()
+
+
+def test_image_entry_points_without_device_raise_when_no_cuda(monkeypatch, tmp_path):
+    from keystone_tpu_torch.convert import conv_block_model_from_numpy, zca_whitener_from_numpy
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.data.loaders.cifar import decode_cifar_bytes, load_cifar
+    from keystone_tpu_torch.ops.images import Convolver, FusedConvFeaturizer, Pooler, SymmetricRectifier
+    from keystone_tpu_torch.ops.learning.conv_block import ConvBlockLeastSquaresEstimator
+    from keystone_tpu_torch.ops.learning.zca import ZCAWhitenerEstimator
+    from keystone_tpu_torch.pipelines import cifar
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    record = np.zeros(3073, np.uint8)
+    record.tofile(tmp_path / "c.bin")
+    filters = np.ones((2, 108), np.float32)
+    fz = FusedConvFeaturizer(Convolver(filters, 3, device="cpu"), SymmetricRectifier(),
+                             Pooler(13, 14))
+    images = ArrayDataset(np.zeros((2, 32, 32, 3), np.float32), device="cpu")
+    y = ArrayDataset(np.ones((2, 2), np.float32), device="cpu")
+    for entry_point in (
+        lambda: Convolver(filters, 3),
+        lambda: ZCAWhitenerEstimator().fit_single(np.eye(3, dtype=np.float32)),
+        lambda: ConvBlockLeastSquaresEstimator(fz, block_size=16).fit(images, y),
+        lambda: decode_cifar_bytes(record.tobytes()),
+        lambda: load_cifar(str(tmp_path / "c.bin")),
+        lambda: cifar.run(cifar.RandomCifarConfig(train_location=str(tmp_path / "c.bin"))),
+        lambda: zca_whitener_from_numpy(np.eye(2), np.zeros(2)),
+        lambda: conv_block_model_from_numpy(filters, np.zeros((16, 2)), np.zeros(16), np.zeros(2)),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry_point()
