@@ -238,9 +238,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    errors and peak; every test error below 0.2 and the block and fused
    variants' within 0.01 of each other; then ``python -m
    keystone_tpu_torch cifar-linear-pixels`` in a subprocess with the same
-   test error.
+   test error;
+26. voc — the VOC 2007 SIFT + Fisher-vector workload through
+   ``pipelines/voc.py::run`` at the JAX CLI's default configuration
+   (desc_dim 80, vocab 256, λ 0.5, 10⁶ PCA and GMM samples, 256×256,
+   block 4,096: 24,030 descriptors of 128 per image, 40,960 features) on
+   generated 500×375 JPEG tars of 2,048 train / 1,024 test images (20
+   classes of oriented gratings, 1–3 per image; ``VOC_*`` says why the
+   cut): its seconds split by node and span (ingest, SIFT, the sample
+   draws, the PCA pick and fit, the host k-means++ seeding, Lloyd, EM and
+   its iterations, Fisher encoding, the block solve, ``end_to_end_fit_s``,
+   apply), SIFT images/s on a warm 256-image chunk by CUDA events, the
+   peak (< 70 GB), MAP (≥ 0.5) and per-class APs; SIFT on the card
+   against the CPU on 8 images (≥ 99.5% within 1, none further);
+   descriptors and Fisher vectors bitwise equal under PyTorch's TF32
+   switches; Fisher vectors against float64 (``VOC_FISHER_FP64_TOL``);
+   the test scores against the same fit in float64
+   (``VOC_SCORES_FP64_TOL``) and re-scored to the same MAP;
+27. voc_cli — ``python -m keystone_tpu_torch voc-sift-fisher`` at the
+   example script's flags on a 64-image tar, in a subprocess beside
+   ``run()`` on the same tar: the same MAP.
 
-Phases 4–14, 16 and 18–25 reach no ELL kernel: each sets its count to 0
+Phases 4–14, 16 and 18–27 reach no ELL kernel: each sets its count to 0
 and fails if it moved; phase 15 launches it only in
 ``oom_injected_sparse``, phase 17 exactly twice. Every phase
 starts from a reset ``PipelineEnv`` and reports its peak device memory
@@ -3906,6 +3925,381 @@ def phase_cifar_workloads(device) -> int:
     return 0
 
 
+# VOC 2007 phases. voc: the JAX CLI's default SIFTFisherConfig, which is
+# examples/images/voc_sift_fisher.sh's configuration (desc_dim 80, vocab
+# 256, λ 0.5, 10⁶ PCA and 10⁶ GMM samples, scale_step 0, 256×256 resize,
+# block 4,096; keystone_tpu/pipelines/voc.py:45-64), through run() on
+# generated JPEGs: VOC 2007 is not in the repository. Images are 500×375
+# (VOC's usual size) under VOCdevkit/VOC2007/JPEGImages/, each the sum of
+# its 1–3 classes' oriented gratings (20 classes: 10 angles 18° apart × 2
+# periods, 14 and 30 pixels; amplitude 60 shared out) plus N(0, 12²)
+# noise, JPEG quality 85; unsourced, separable by design. Train and test
+# are cut from VOC 2007's 5,011 / 4,952 to 2,048 / 1,024: the executor
+# holds each node's output whole, and 2,048 images are 25.2 GB of
+# descriptors and 15.7 GB after PCA. voc_cli: the CLI at the example
+# script's flags on a 64-image tar (train = test), against run() on the
+# same tar.
+VOC_TRAIN, VOC_TEST, VOC_CLI_IMAGES = 2048, 1024, 64
+VOC_WIDTH, VOC_HEIGHT, VOC_CLASSES, VOC_SEED = 500, 375, 20, 7
+VOC_PERIODS, VOC_AMPLITUDE, VOC_NOISE, VOC_QUALITY = (14.0, 30.0), 60.0, 12.0, 85
+VOC_LABEL_COUNTS, VOC_LABEL_SHARES = (1, 2, 3), (0.5, 0.35, 0.15)
+# Flags beyond the data paths: none for the main run (the JAX CLI's
+# defaults), the example script's for the CLI run.
+VOC_FLAGS: dict = {}
+VOC_CLI_FLAGS = {"desc_dim": 80, "vocab_size": 256, "reg": 0.5}
+VOC_RATE_CHUNK, VOC_GATE_IMAGES, VOC_FP64_CHUNK = 256, 8, 32
+# The reference's widths at 256×256 with scale_step 0: descriptors per
+# image (6,241 + 6,084 + 5,929 + 5,776) and Fisher features (2 · 80 · 256).
+VOC_DESCRIPTORS_PER_IMAGE, VOC_FEATURE_WIDTH = 24_030, 40_960
+VOC_MAP_BOUND, VOC_PEAK_BOUND = 0.5, 70e9
+# SIFT on the card against the CPU: the reference's gate (VLFeatSuite.scala:47-52).
+VOC_WITHIN_ONE = 0.995
+# Fisher vectors against the same formula in float64 on the same PCA'd
+# descriptors and GMM (relative Frobenius per image, the largest). Not
+# 1e-5: fv2's numerator s2 − 2μ∘s1 + (μ∘μ − σ²)·s0 cancels by about
+# μ²/σ² (PCA'd descriptors reach ~430, variances go down to ~1), so the
+# fp32 formula — the JAX package's — loses digits: on the CPU, 4 images
+# under a 256-Gaussian model fitted at these widths read 1.9e-5–3.3e-4
+# for the port and 2.3e-5–1.8e-4 for the JAX package on the same inputs;
+# an H100 read 9.3e-4 over 8 images. TF32 statistics would sit thousands
+# of times above fp32's.
+VOC_FISHER_FP64_TOL = 5e-3
+# The fitted pipeline's test scores against the same fit in float64
+# (features from the same descriptors, and the block solve): the Fisher
+# vectors' error above, damped by the row normalizations and λ = 0.5; an
+# H100 read 6.3e-5 (a CPU run at 48 images and 64 Gaussians 6.8e-7).
+VOC_SCORES_FP64_TOL = 5e-4
+
+_VOC_GEN: dict = {}
+
+
+def _voc_gen_init(seed):
+    """Per generator process: the classes' gratings as cos/sin pairs (a
+    random phase is then two multiply-adds) and a bank of noise fields."""
+    rows = np.arange(VOC_HEIGHT, dtype=np.float32)[:, None]
+    cols = np.arange(VOC_WIDTH, dtype=np.float32)[None, :]
+    cos, sin = [], []
+    for c in range(VOC_CLASSES):
+        angle, period = np.pi * (c % 10) / 10, VOC_PERIODS[c // 10]
+        arg = (2 * np.pi / period) * (cols * np.cos(angle) + rows * np.sin(angle))
+        cos.append(np.cos(arg))
+        sin.append(np.sin(arg))
+    bank = np.random.default_rng(seed).standard_normal(
+        (8, VOC_HEIGHT + 32, VOC_WIDTH + 32, 3), dtype=np.float32) * VOC_NOISE
+    _VOC_GEN.update(cos=np.stack(cos).astype(np.float32), sin=np.stack(sin).astype(np.float32), bank=bank)
+
+
+def _voc_jpeg(args) -> bytes:
+    import io
+
+    from PIL import Image
+
+    index, labels, seed = args
+    rng = np.random.default_rng([seed, index])
+    img = np.full((VOC_HEIGHT, VOC_WIDTH), 128.0, np.float32)
+    for c in labels:
+        phase = rng.uniform(0.0, 2.0 * np.pi)
+        img += (VOC_AMPLITUDE / len(labels)) * (np.cos(phase) * _VOC_GEN["cos"][c]
+                                                 - np.sin(phase) * _VOC_GEN["sin"][c])
+    b, dr, dc = rng.integers(len(_VOC_GEN["bank"])), rng.integers(32), rng.integers(32)
+    noisy = img[..., None] + _VOC_GEN["bank"][b, dr : dr + VOC_HEIGHT, dc : dc + VOC_WIDTH]
+    buf = io.BytesIO()
+    Image.fromarray(np.clip(noisy, 0, 255).astype(np.uint8), "RGB").save(buf, format="JPEG",
+                                                                        quality=VOC_QUALITY)
+    return buf.getvalue()
+
+
+def write_voc_data(root):
+    """Generate every image (train, test, the CLI's), in processes, and
+    write ``voc_{train,test,cli}.tar`` and one label CSV in the loader's
+    format under ``root``. Returns (paths, JPEG blobs, label lists)."""
+    import io
+    import multiprocessing
+    import tarfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    from keystone_tpu_torch.data.loaders.voc import DEFAULT_NAME_PREFIX
+
+    total = VOC_TRAIN + VOC_TEST + VOC_CLI_IMAGES
+    rng = np.random.default_rng(VOC_SEED)
+    labels = [sorted(rng.choice(VOC_CLASSES, size=rng.choice(VOC_LABEL_COUNTS, p=VOC_LABEL_SHARES),
+                                replace=False).tolist()) for _ in range(total)]
+    with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                             mp_context=multiprocessing.get_context("spawn"),
+                             initializer=_voc_gen_init, initargs=(VOC_SEED,)) as pool:
+        blobs = list(pool.map(_voc_jpeg, [(i, ls, VOC_SEED) for i, ls in enumerate(labels)], chunksize=16))
+    names = [f"{i:06d}.jpg" for i in range(total)]
+    bounds = {"train": (0, VOC_TRAIN), "test": (VOC_TRAIN, VOC_TRAIN + VOC_TEST),
+              "cli": (VOC_TRAIN + VOC_TEST, total)}
+    paths = {}
+    for split, (lo, hi) in bounds.items():
+        paths[split] = os.path.join(root, f"voc_{split}.tar")
+        with tarfile.open(paths[split], "w") as tar:
+            for name, blob in zip(names[lo:hi], blobs[lo:hi]):
+                info = tarfile.TarInfo(DEFAULT_NAME_PREFIX + name)
+                info.size = len(blob)
+                tar.addfile(info, io.BytesIO(blob))
+    paths["labels"] = os.path.join(root, "voc_labels.csv")
+    with open(paths["labels"], "w") as f:
+        f.write("id,class,a,b,filename\n")
+        for i, (name, labs) in enumerate(zip(names, labels)):
+            f.writelines(f'{i},{c + 1},x,y,"{name}"\n' for c in labs)
+    return paths, blobs, labels
+
+
+def voc_images(blobs, size):
+    """(N, X, Y, 3) float32 host tensor of the blobs as the loader decodes
+    and resizes them (``load_image`` + ``_resize_image``, on threads)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from keystone_tpu_torch.data.loaders.archive import _resize_image
+    from keystone_tpu_torch.utils.image import load_image
+
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        images = list(pool.map(lambda b: _resize_image(load_image(b), tuple(size)).astype(np.float32), blobs))
+    return torch.from_numpy(np.stack(images))
+
+
+def fp64_fisher_vectors(x, gmm):
+    """The Fisher-vector formula (fisher.py's docstring) in float64 with
+    plain PyTorch: PCA'd descriptors (N, n, D), the GMM's parameters
+    upcast; posteriors thresholded at the model's threshold."""
+    import math
+
+    import torch
+
+    x = x.double()
+    means, variances, weights = (t.double() for t in (gmm.means, gmm.variances, gmm.weights))
+    n_img, n, d = x.shape
+    flat = x.reshape(-1, d)
+    inv = 1.0 / variances  # (D, K)
+    llh = (-0.5 * d * math.log(2 * math.pi) - 0.5 * torch.log(variances).sum(0) + torch.log(weights)
+           - ((flat * flat) @ (0.5 * inv) - flat @ (means * inv) + 0.5 * (means * means * inv).sum(0)))
+    q = torch.softmax(llh, dim=1)
+    del llh
+    q = torch.where(q > gmm.weight_threshold, q, torch.zeros((), dtype=q.dtype, device=q.device))
+    q = (q / q.sum(1, keepdim=True).clamp_min(1e-30)).reshape(n_img, n, -1)
+    s0 = q.mean(1)[:, None, :]
+    s1 = torch.einsum("bnd,bnk->bdk", x, q) / n
+    s2 = torch.einsum("bnd,bnk->bdk", x * x, q) / n
+    fv1 = (s1 - means * s0) / (torch.sqrt(variances) * torch.sqrt(weights))
+    fv2 = (s2 - 2.0 * means * s1 + (means * means - variances) * s0) / (variances * torch.sqrt(2.0 * weights))
+    return torch.cat([fv1, fv2], dim=2)
+
+
+def fp64_voc_features(gray, sift, components, gmm):
+    """The pipeline's features in float64 from the images' SIFT
+    descriptors (exact integers): PCA, Fisher vectors, vectorize, L2
+    rows, signed Hellinger, L2 rows."""
+    import torch
+
+    out = []
+    for start in range(0, gray.shape[0], VOC_FP64_CHUNK):
+        x = sift.apply_arrays(gray[start : start + VOC_FP64_CHUNK]).double() @ components.double()
+        f = fp64_fisher_vectors(x, gmm).reshape(x.shape[0], -1)
+        f = f / f.norm(dim=1, keepdim=True)
+        f = torch.sign(f) * torch.sqrt(f.abs())
+        out.append(f / f.norm(dim=1, keepdim=True))
+    return torch.cat(out)
+
+
+def fp64_voc_scores(train_feats, train_labels, test_feats, config):
+    """Test scores of the block fit (same centring, blocks, order and λ as
+    ``BlockLeastSquaresEstimator``'s in-core fit, one epoch) in float64."""
+    import torch
+
+    from keystone_tpu_torch.parallel import linalg
+
+    y = torch.full((train_feats.shape[0], VOC_CLASSES), -1.0, dtype=torch.float64, device=train_feats.device)
+    for i, labs in enumerate(train_labels):
+        y[i, labs] = 1.0
+    mu_a, mu_b = train_feats.mean(0), y.mean(0)
+    d = train_feats.shape[1]
+    block = min(config.solver_block_size, d)
+    pad = -d % block  # zero columns, inert, as the estimator pads
+    xc = torch.nn.functional.pad(train_feats - mu_a, (0, pad))
+    w = linalg.block_coordinate_descent(xc, y - mu_b, config.reg, 1, block)[:d]
+    return (test_feats - mu_a) @ w + mu_b
+
+
+def _trace_seconds(tr, label):
+    return [t.seconds for t in tr.timings if t.label == label]
+
+
+def _span_seconds(session, name):
+    return [s.duration_s for s in session.find(name) if s.name == name]
+
+
+def phase_voc(device, paths, blobs, labels) -> int:
+    """Phase 26: the VOC SIFT + Fisher-vector workload through ``run()`` at
+    the JAX CLI's default configuration; its split by node and span; the
+    gates on SIFT, the Fisher vectors, the scores, MAP and the peak."""
+    import torch
+
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.evaluation.mean_average_precision import MeanAveragePrecisionEvaluator
+    from keystone_tpu_torch.ops.images import FisherVector, GrayScaler, PixelScaler, SIFTExtractor
+    from keystone_tpu_torch.ops.learning.pca import BatchPCATransformer
+    from keystone_tpu_torch.pipelines.voc import SIFTFisherConfig, run
+    from keystone_tpu_torch.workflow.tracing import trace
+
+    _mnist_start()
+    t_phase = time.perf_counter()
+    config = SIFTFisherConfig(train_location=paths["train"], test_location=paths["test"],
+                              label_path=paths["labels"], **VOC_FLAGS)
+    with trace() as tr:
+        out, run_s = synced_s(lambda: run(config, device=device))
+    run_peak = torch.cuda.max_memory_allocated()
+    session = tr.session
+    fitted = out["pipeline"]
+    sift = _fitted_member(fitted, SIFTExtractor)
+    pca = _fitted_member(fitted, BatchPCATransformer)
+    fv = _fitted_member(fitted, FisherVector)
+    em = session.find("gmm:em")[0]
+    sift_label = "Fused[PixelScaler+GrayScaler+SIFTExtractor]"
+    pca_picked = [t.label for t in tr.timings if t.label.endswith("ColumnPCAEstimator")]
+    samplers = _trace_seconds(tr, "ColumnSampler")
+    fisher_s = _trace_seconds(tr, "FisherVector")[0]
+    result = {
+        "config": {k: getattr(config, k) for k in ("desc_dim", "vocab_size", "reg", "scale_step",
+                                                   "num_pca_samples", "num_gmm_samples", "image_size",
+                                                   "solver_block_size")},
+        "train_images": VOC_TRAIN, "test_images": VOC_TEST,
+        "descriptors_per_image": sum(sift.grid_counts(*config.image_size)),
+        "feature_width": int(fv.gmm.dim * 2 * fv.gmm.k),
+        "run_s": run_s, "ingest_s": sum(_span_seconds(session, "voc:load")),
+        "end_to_end_fit_s": _span_seconds(session, "voc:fit")[0],
+        "apply_s": _span_seconds(session, "voc:apply")[0],
+        "node_optimization_s": _span_seconds(session, "optimize:batch:node-level-optimization"),
+        "sift_train_s": _trace_seconds(tr, sift_label)[0],
+        "pca_sample_draw_s": samplers[0], "gmm_sample_draw_s": samplers[1],
+        "pca_estimator_picked": pca_picked, "pca_fit_s": _trace_seconds(tr, pca_picked[0])[0],
+        "pca_project_train_s": _trace_seconds(tr, "BatchPCATransformer")[0],
+        "gmm_fit_s": _trace_seconds(tr, "GMMFisherVectorEstimator")[0],
+        "kmeanspp_seed_host_s": _span_seconds(session, "kmeans:seed")[0],
+        "lloyd_s": _span_seconds(session, "kmeans:lloyd")[0],
+        "em_s": em.duration_s, "em_iterations": em.attributes["iterations"],
+        "em_updates": em.attributes["updates"],
+        "fisher_train_s": fisher_s, "fisher_images_per_s": VOC_TRAIN / fisher_s,
+        "block_solver_fit_s": [t.seconds for t in tr.timings if t.label.startswith("StreamFit[Block")
+                               or t.label == "BlockLeastSquaresEstimator"][0],
+        "run_peak_device_bytes": run_peak,
+        "test_map": out["test_map"], "per_class_ap": [float(a) for a in out["per_class_ap"]],
+    }
+    del tr, session
+
+    # SIFT alone on a warm 256-image chunk, by CUDA events.
+    t0 = time.perf_counter()
+    images = voc_images(blobs[: VOC_TRAIN + VOC_TEST], config.image_size)
+    train, test = images[:VOC_TRAIN], images[VOC_TRAIN:]
+    del images
+    result["gate_decode_s"] = time.perf_counter() - t0
+
+    def gray(x):
+        return GrayScaler().apply_arrays(PixelScaler().apply_arrays(x.to(device)))[..., 0]
+
+    chunk = gray(train[:VOC_RATE_CHUNK])
+    sift_ms = cuda_ms(lambda: sift.apply_arrays(chunk), 3)
+    result["sift_chunk_ms"] = sift_ms
+    result["sift_images_per_s"] = VOC_RATE_CHUNK / (sift_ms / 1e3)
+    result["sift_descriptors_per_s"] = result["sift_images_per_s"] * result["descriptors_per_image"]
+
+    # SIFT on the card against the CPU; descriptors and Fisher vectors
+    # under PyTorch's TF32 switches; Fisher vectors against float64.
+    g8 = chunk[:VOC_GATE_IMAGES]
+    del chunk
+    desc = sift.apply_arrays(g8)
+    diff = (desc.cpu() - sift.apply_arrays(g8.cpu())).abs()
+    result["sift_card_vs_cpu"] = {"within_one": float((diff <= 1).double().mean()),
+                                  "max_abs": float(diff.max()), "equal": float((diff == 0).double().mean())}
+    pcad = pca.apply_batch(ArrayDataset(desc)).data
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    switched = {}
+    try:
+        for flag in (False, True):
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = flag
+            d = sift.apply_arrays(g8)
+            switched[flag] = (d, fv.apply_arrays(pca.apply_batch(ArrayDataset(d)).data))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    result["tf32_descriptors_bitwise_equal"] = bool(torch.equal(switched[False][0], switched[True][0]))
+    result["tf32_fisher_bitwise_equal"] = bool(torch.equal(switched[False][1], switched[True][1]))
+    f32 = fv.apply_arrays(pcad)
+    f64 = fp64_fisher_vectors(pcad, fv.gmm)
+    per_image = ((f32.double() - f64).flatten(1).norm(dim=1) / f64.flatten(1).norm(dim=1)).cpu()
+    result["fisher_vs_fp64_rel_max"] = float(per_image.max())
+    del desc, pcad, switched, f32, f64
+
+    # The fitted pipeline's test scores against the same fit in float64.
+    scores = fitted.apply_batch(ArrayDataset(test, device=device)).data
+    actual = [labels[VOC_TRAIN + i] for i in range(VOC_TEST)]
+    result["rescored_map"] = float(np.mean(MeanAveragePrecisionEvaluator(VOC_CLASSES).evaluate(scores, actual)))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    feats_train = fp64_voc_features(gray(train), sift, pca.components, fv.gmm)
+    feats_test = fp64_voc_features(gray(test), sift, pca.components, fv.gmm)
+    s64 = fp64_voc_scores(feats_train, labels[:VOC_TRAIN], feats_test, config)
+    result["scores_vs_fp64_rel"] = rel_err(scores, s64)
+    result["fp64_reference_s"] = time.perf_counter() - t0
+    del scores, s64, feats_train, feats_test, train, test, fitted, out
+    torch.cuda.empty_cache()
+    result["seconds"] = time.perf_counter() - t_phase
+    log("voc", **result, **_mnist_end("voc"))
+    checks = {
+        "sift_card_vs_cpu": result["sift_card_vs_cpu"]["within_one"] >= VOC_WITHIN_ONE
+        and result["sift_card_vs_cpu"]["max_abs"] <= 1.0,
+        "tf32": result["tf32_descriptors_bitwise_equal"] and result["tf32_fisher_bitwise_equal"],
+        "fisher_fp64": result["fisher_vs_fp64_rel_max"] <= VOC_FISHER_FP64_TOL,
+        "scores_fp64": result["scores_vs_fp64_rel"] <= VOC_SCORES_FP64_TOL,
+        "map": result["test_map"] >= VOC_MAP_BOUND,
+        "rescored_map": result["rescored_map"] == result["test_map"],
+        "peak": result["run_peak_device_bytes"] < VOC_PEAK_BOUND,
+        "widths": result["descriptors_per_image"] == VOC_DESCRIPTORS_PER_IMAGE
+        and result["feature_width"] == VOC_FEATURE_WIDTH,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"voc failed {failed}")
+    return 0
+
+
+def phase_voc_cli(device, paths) -> int:
+    """Phase 27: ``python -m keystone_tpu_torch voc-sift-fisher`` at the
+    example script's flags on the 64-image tar, in a subprocess beside
+    ``run()`` on the same tar in this process: the same MAP."""
+    from keystone_tpu_torch.pipelines.voc import SIFTFisherConfig, run
+
+    _mnist_start()
+    t_phase = time.perf_counter()
+    cmd = [sys.executable, "-m", "keystone_tpu_torch", "voc-sift-fisher",
+           "--train-location", paths["cli"], "--test-location", paths["cli"],
+           "--label-path", paths["labels"]]
+    for name, value in VOC_CLI_FLAGS.items():
+        text = "x".join(map(str, value)) if isinstance(value, tuple) else str(value)
+        cmd += ["--" + name.replace("_", "-"), text]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+    try:
+        config = SIFTFisherConfig(train_location=paths["cli"], test_location=paths["cli"],
+                                  label_path=paths["labels"], **VOC_CLI_FLAGS)
+        out, run_s = synced_s(lambda: run(config, device=device))
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode == 0:
+        cli_line = json.loads(stdout.strip().splitlines()[-1])
+    else:
+        cli_line = {"rc": proc.returncode, "stderr": stderr[-2000:]}
+    log("voc_cli", images=VOC_CLI_IMAGES, flags=VOC_CLI_FLAGS, run_s=run_s, run_test_map=out["test_map"],
+        cli=cli_line, seconds=time.perf_counter() - t_phase, **_mnist_end("voc_cli"))
+    if proc.returncode != 0 or cli_line.get("test_map") != out["test_map"]:
+        raise AssertionError(f"voc_cli: the CLI's MAP {cli_line.get('test_map')} is not run()'s {out['test_map']}")
+    return 0
+
+
 def card_name_and_limit() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3969,6 +4363,15 @@ def main() -> int:
     launches_by_path["cifar_features"] = phase_cifar_features(device)
     launches_by_path["cifar_random_patch_fused"] = phase_cifar_random_patch_fused(device)
     launches_by_path["cifar_workloads"] = phase_cifar_workloads(device)
+    voc_dir = tempfile.TemporaryDirectory(prefix="keystone-voc-")
+    t_voc = time.perf_counter()
+    voc_paths, voc_blobs, voc_labels = write_voc_data(voc_dir.name)
+    log("voc_data", seconds=time.perf_counter() - t_voc,
+        tar_bytes={k: os.path.getsize(v) for k, v in voc_paths.items()})
+    launches_by_path["voc"] = phase_voc(device, voc_paths, voc_blobs, voc_labels)
+    del voc_blobs
+    launches_by_path["voc_cli"] = phase_voc_cli(device, voc_paths)
+    voc_dir.cleanup()
     # The binding's calls on the paths (gram_modes times it and is left out).
     paths = {p: c for p, c in SOLVER_GEMM_CALLS.items() if p != "gram_modes"}
     binding["launches"] = {k: sum(c[k] for c in paths.values()) for k in next(iter(paths.values()))}

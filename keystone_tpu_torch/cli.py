@@ -28,11 +28,21 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 
 def _field_parser(field_type: Any) -> Optional[Callable[[str], Any]]:
-    """Map a dataclass field annotation (``int``, ``float``, ``str`` or
-    ``Optional`` of one) to an argparse type callable."""
-    if typing.get_origin(field_type) is typing.Union:  # Optional[T]
+    """Map a dataclass field annotation (``int``, ``float``, ``str``, a
+    tuple of one of them, or ``Optional`` of one) to an argparse type
+    callable. A tuple reads as ``256x256`` or ``256,256``."""
+    origin = typing.get_origin(field_type)
+    if origin is typing.Union:  # Optional[T]
         args = [a for a in typing.get_args(field_type) if a is not type(None)]
         return _field_parser(args[0]) if len(args) == 1 else str
+    if origin is tuple:
+        inner = typing.get_args(field_type)
+        caster = inner[0] if inner else int
+
+        def parse_tuple(text: str):
+            return tuple(caster(p) for p in text.replace("x", ",").split(",") if p)
+
+        return parse_tuple
     if field_type in (int, float, str):
         return field_type
     return None
@@ -78,6 +88,10 @@ WORKLOADS: Dict[str, Tuple[str, str, str, Dict[str, Any], str]] = {
     "newsgroups": (
         "text", "NewsgroupsConfig", "run_newsgroups", {},
         "20 Newsgroups n-gram naive-bayes/least-squares pipeline",
+    ),
+    "voc-sift-fisher": (
+        "voc", "SIFTFisherConfig", "run", {},
+        "VOC 2007 SIFT + Fisher Vector + block least squares",
     ),
     **{
         "cifar-" + v.replace("_", "-"): (

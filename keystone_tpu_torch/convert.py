@@ -13,14 +13,31 @@ import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device
-from .ops.images.core import Convolver, FusedConvFeaturizer, Pooler, SymmetricRectifier
+from .ops.images.core import (
+    Convolver,
+    FusedConvFeaturizer,
+    GrayScaler,
+    PixelScaler,
+    Pooler,
+    SymmetricRectifier,
+)
+from .ops.images.fisher import FisherVector
+from .ops.images.sift import SIFTExtractor
 from .ops.learning.block import BlockLinearMapper
 from .ops.learning.conv_block import ConvBlockModel
+from .ops.learning.gmm import GaussianMixtureModel
 from .ops.learning.kernel import KernelBlockLinearMapper
+from .ops.learning.pca import BatchPCATransformer
 from .ops.learning.zca import ZCAWhitener
-from .ops.stats.core import LinearRectifier, PaddedFFT, RandomSignNode
+from .ops.stats.core import (
+    LinearRectifier,
+    NormalizeRows,
+    PaddedFFT,
+    RandomSignNode,
+    SignedHellingerMapper,
+)
 from .ops.util.labels import MaxClassifier
-from .ops.util.vectors import VectorCombiner
+from .ops.util.vectors import FloatToDouble, MatrixVectorizer, VectorCombiner
 from .refit.state import StreamState
 from .workflow.pipeline import FittedPipeline, Pipeline
 
@@ -156,3 +173,55 @@ def conv_block_model_from_numpy(
     )
     linear = mapper_from_numpy(weights, block_size, intercept, feature_mean, device=device)
     return ConvBlockModel(featurizer, linear, image_chunk=image_chunk)
+
+
+def pca_from_numpy(components: np.ndarray, device: DeviceLike = None) -> BatchPCATransformer:
+    """The port's :class:`BatchPCATransformer` holding a JAX-fitted PCA's
+    (d, k) components, on ``device`` (default CUDA)."""
+    return BatchPCATransformer(components, device=device)
+
+
+def gmm_from_numpy(
+    means: np.ndarray,
+    variances: np.ndarray,
+    weights: np.ndarray,
+    weight_threshold: float = 1e-4,
+    device: DeviceLike = None,
+) -> GaussianMixtureModel:
+    """The port's :class:`GaussianMixtureModel` holding a JAX-fitted one's
+    (d, k) means and variances and (k,) weights, on ``device`` (default
+    CUDA)."""
+    return GaussianMixtureModel(means, variances, weights, weight_threshold, device=device)
+
+
+def voc_pipeline_from_numpy(
+    pca_components: np.ndarray,
+    gmm_means: np.ndarray,
+    gmm_variances: np.ndarray,
+    gmm_weights: np.ndarray,
+    weights: np.ndarray,
+    block_size: int,
+    intercept: Optional[np.ndarray] = None,
+    feature_mean: Optional[np.ndarray] = None,
+    scale_step: int = 0,
+    device: DeviceLike = None,
+) -> FittedPipeline:
+    """The port's fitted VOC SIFT + Fisher-vector pipeline
+    (``pipelines/voc.py``) holding a JAX-fitted one's parameters: the
+    PCA's (d, k) components, the GMM's means, variances and weights, and
+    the ``BlockLinearMapper``'s weights, intercept and feature mean. On
+    ``device`` (default CUDA)."""
+    chain = (
+        PixelScaler().to_pipeline()
+        >> GrayScaler()
+        >> SIFTExtractor(scale_step=scale_step)
+        >> pca_from_numpy(pca_components, device=device)
+        >> FisherVector(gmm_from_numpy(gmm_means, gmm_variances, gmm_weights, device=device))
+        >> FloatToDouble()
+        >> MatrixVectorizer()
+        >> NormalizeRows()
+        >> SignedHellingerMapper()
+        >> NormalizeRows()
+        >> mapper_from_numpy(weights, block_size, intercept, feature_mean, device=device)
+    )
+    return chain.fit()

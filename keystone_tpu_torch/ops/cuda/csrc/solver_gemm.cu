@@ -147,6 +147,27 @@ int gemm_row_major(cublasHandle_t h, const KindTypes& t, int trans_a, int trans_
 
 bool fits_int(long long v) { return v >= 0 && v <= 0x7fffffffLL; }
 
+// gemm_row_major for `batch` independent products whose operands and
+// outputs sit `stride_*` elements apart (one cuBLAS call).
+int gemm_row_major_strided(cublasHandle_t h, const KindTypes& t, int trans_a, int trans_b,
+                           long long m, long long n, long long k, double alpha,
+                           const void* a, long long lda, long long stride_a,
+                           const void* b, long long ldb, long long stride_b, double beta,
+                           void* c, long long ldc, long long stride_c, long long batch) {
+  float alpha_f = static_cast<float>(alpha), beta_f = static_cast<float>(beta);
+  const void* pa = t.compute == CUBLAS_COMPUTE_64F ? static_cast<const void*>(&alpha)
+                                                   : static_cast<const void*>(&alpha_f);
+  const void* pb = t.compute == CUBLAS_COMPUTE_64F ? static_cast<const void*>(&beta)
+                                                   : static_cast<const void*>(&beta_f);
+  cublasStatus_t st = cublasGemmStridedBatchedEx(
+      h, trans_b ? CUBLAS_OP_T : CUBLAS_OP_N, trans_a ? CUBLAS_OP_T : CUBLAS_OP_N,
+      static_cast<int>(n), static_cast<int>(m), static_cast<int>(k), pa,
+      b, t.ab, static_cast<int>(ldb), stride_b, a, t.ab, static_cast<int>(lda), stride_a, pb,
+      c, t.c, static_cast<int>(ldc), stride_c, static_cast<int>(batch), t.compute,
+      CUBLAS_GEMM_DEFAULT);
+  return st == CUBLAS_STATUS_SUCCESS ? 0 : CUBLAS_ERR_BASE + static_cast<int>(st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -198,6 +219,29 @@ int keystone_gemm_tn_chunked(int kind, long long total, long long m, long long n
     if (rc != 0) return rc;
   }
   return 0;
+}
+
+// C[i] = alpha·op(A[i])·op(B[i]) + beta·C[i] for i < batch, each matrix
+// row-major as in keystone_gemm, matrix i of an operand `stride_*`
+// elements after matrix i − 1 (the Fisher-vector statistics: one product
+// per image).
+int keystone_gemm_strided_batched(int kind, int trans_a, int trans_b, long long m,
+                                  long long n, long long k, double alpha, const void* a,
+                                  long long lda, long long stride_a, const void* b,
+                                  long long ldb, long long stride_b, double beta, void* c,
+                                  long long ldc, long long stride_c, long long batch,
+                                  int device, void* stream) {
+  KindTypes t;
+  if (!kind_types(kind, &t)) return ERR_BAD_KIND;
+  if (!fits_int(m) || !fits_int(n) || !fits_int(k) || !fits_int(lda) || !fits_int(ldb) ||
+      !fits_int(ldc) || !fits_int(batch) || stride_a < 0 || stride_b < 0 || stride_c < 0)
+    return ERR_BAD_SHAPE;
+  if (m == 0 || n == 0 || batch == 0) return 0;
+  cublasHandle_t h;
+  int rc = prepare(device, stream, &h);
+  if (rc != 0) return rc;
+  return gemm_row_major_strided(h, t, trans_a, trans_b, m, n, k, alpha, a, lda, stride_a, b,
+                                ldb, stride_b, beta, c, ldc, stride_c, batch);
 }
 
 const char* keystone_gemm_error(int code) {

@@ -19,13 +19,16 @@ Product kinds (:data:`KINDS`):
 - ``fp64``: float64 tensors, whatever kind was asked for;
 - ``bf16_inputs``: bfloat16 tensors, fp32 output and accumulation.
 
-On CUDA tensors :func:`gemm` and :func:`gemm_tn_chunked` call the binding
-or raise; nothing falls back to ``torch.matmul``. A failed allocation in
-the binding (cuBLAS's own workspace or handle) raises
-``torch.cuda.OutOfMemoryError``, as PyTorch's allocator does, so an OOM
-degradation ladder steps down a rung; any other status raises
-``RuntimeError``. On CPU tensors they take
-:func:`gemm_reference`, the plain version: the inputs rounded as the kind
+:func:`gemm_batched` runs a batch of independent products as one strided
+batched call (``cublasGemmStridedBatchedEx``).
+
+On CUDA tensors :func:`gemm`, :func:`gemm_tn_chunked` and
+:func:`gemm_batched` call the binding or raise; nothing falls back to
+``torch.matmul``. A failed allocation in the binding (cuBLAS's own
+workspace or handle) raises ``torch.cuda.OutOfMemoryError``, as
+PyTorch's allocator does, so an OOM degradation ladder steps down a rung;
+any other status raises ``RuntimeError``. On CPU tensors they take their
+plain versions (:func:`gemm_reference` and its siblings): the inputs rounded as the kind
 rounds them (:func:`round_inputs`), then a ``torch.matmul`` in the
 inputs' own type (float32 for the fp32 and bf16 kinds). Each binding call
 adds one to ``launches[kind]``; a chunked call counts once.
@@ -55,6 +58,10 @@ def _lib():
         lib.keystone_gemm.restype = i
         lib.keystone_gemm_tn_chunked.argtypes = [i, ll, ll, ll, ll, vp, ll, vp, ll, d, vp, ll, i, vp]
         lib.keystone_gemm_tn_chunked.restype = i
+        lib.keystone_gemm_strided_batched.argtypes = [
+            i, i, i, ll, ll, ll, d, vp, ll, ll, vp, ll, ll, d, vp, ll, ll, ll, i, vp,
+        ]
+        lib.keystone_gemm_strided_batched.restype = i
         lib.keystone_gemm_error.argtypes = [i]
         lib.keystone_gemm_error.restype = ctypes.c_char_p
     return lib
@@ -113,6 +120,12 @@ def gemm_reference(
     if out is None:
         return prod
     return out.copy_(prod) if beta == 0.0 else out.mul_(beta).add_(prod)
+
+
+def gemm_batched_reference(a: torch.Tensor, b: torch.Tensor, kind: str) -> torch.Tensor:
+    """Plain version of :func:`gemm_batched`: ``round(a) @ round(b)``."""
+    kind = resolve_kind(kind, a.dtype)
+    return torch.matmul(round_inputs(a, kind), round_inputs(b, kind))
 
 
 def gemm_tn_chunked_reference(
@@ -286,6 +299,53 @@ def gemm_tn_chunked(
     return out
 
 
+def _batched_operand(t: torch.Tensor) -> Tuple[torch.Tensor, int, int, int]:
+    """``(storage tensor, trans, ld, batch stride)`` of a 3-D operand whose
+    matrices are row-major or transposed views of row-major ones; anything
+    else is copied contiguous."""
+    _, r, c = t.shape
+    if t.stride(2) == 1 and (r <= 1 or t.stride(1) >= max(c, 1)):
+        return t, 0, max(t.stride(1), c, 1) if r > 1 else max(c, 1), t.stride(0)
+    if t.stride(1) == 1 and (c <= 1 or t.stride(2) >= max(r, 1)):
+        return t, 1, max(t.stride(2), r, 1) if c > 1 else max(r, 1), t.stride(0)
+    t = t.contiguous()
+    return t, 0, max(c, 1), t.stride(0)
+
+
+def gemm_batched(a: torch.Tensor, b: torch.Tensor, kind: str = "ieee_fp32") -> torch.Tensor:
+    """``a[i] @ b[i]`` for every i at product ``kind``, as one strided
+    batched cuBLAS call: ``a`` (B, m, k) and ``b`` (B, k, n), each batch of
+    matrices row-major or a transposed view of row-major ones; returns a
+    new row-major (B, m, n) tensor. Counts one launch."""
+    kind, out_dtype = _dispatch_dtypes(a, b, kind, "gemm_batched")
+    if a.ndim != 3 or b.ndim != 3 or a.shape[0] != b.shape[0] or a.shape[2] != b.shape[1]:
+        raise ValueError(f"gemm_batched: shapes {tuple(a.shape)} @ {tuple(b.shape)} do not chain")
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return gemm_batched_reference(a, b, kind)
+    device = a.device
+    if device.type != "cuda" or b.device != device:
+        raise ValueError(f"gemm_batched needs both tensors on one CUDA device (or both on the CPU); "
+                         f"got {a.device}, {b.device}")
+    lib = _lib()
+    batch, m, k = a.shape
+    n = b.shape[2]
+    out = torch.empty(batch, m, n, dtype=out_dtype, device=device)
+    if k == 0:
+        return out.zero_()
+    if kind == "bf16":
+        a, b = _as_bf16(a, b)
+    sa, ta, lda, stride_a = _batched_operand(a)
+    sb, tb, ldb, stride_b = _batched_operand(b)
+    rc = lib.keystone_gemm_strided_batched(
+        KINDS[kind], ta, tb, m, n, k, 1.0, sa.data_ptr(), lda, stride_a, sb.data_ptr(), ldb,
+        stride_b, 0.0, out.data_ptr(), max(n, 1), m * n, batch,
+        device.index, torch.cuda.current_stream(device).cuda_stream,
+    )
+    _raise_on(rc, lib, "gemm_batched")
+    launches[kind] += 1
+    return out
+
+
 #: Binding calls per product kind since the process started (or the
 #: caller last reset them).
 launches = {kind: 0 for kind in KINDS}
@@ -300,6 +360,8 @@ __all__ = [
     "KINDS",
     "ROW_CHUNK",
     "gemm",
+    "gemm_batched",
+    "gemm_batched_reference",
     "gemm_reference",
     "gemm_tn_chunked",
     "gemm_tn_chunked_reference",

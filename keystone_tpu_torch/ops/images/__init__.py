@@ -1,9 +1,7 @@
 """Image featurization operators (port of ``keystone_tpu.ops.images``;
 reference: nodes/images/).
 
-Left out for now: ``DaisyExtractor``, ``FisherVector``,
-``GMMFisherVectorEstimator``, ``HogExtractor``, ``LCSExtractor`` and
-``SIFTExtractor`` (the ImageNet/VOC slice).
+Left out for now: ``LCSExtractor`` (ROADMAP item 10d).
 """
 
 from .core import (
@@ -25,8 +23,17 @@ from .core import (
     Windower,
     pack_filters,
 )
+from .daisy import DaisyExtractor
+from .fisher import FisherVector, GMMFisherVectorEstimator
+from .hog import HogExtractor
+from .sift import SIFTExtractor
 
 __all__ = [
+    "DaisyExtractor",
+    "FisherVector",
+    "GMMFisherVectorEstimator",
+    "HogExtractor",
+    "SIFTExtractor",
     "CenterCornerPatcher",
     "Convolver",
     "Cropper",

@@ -1,0 +1,236 @@
+"""Dense multi-scale SIFT.
+
+Port of ``keystone_tpu/ops/images/sift.py`` (reference: the native VLFeat
+kernel ``getMultiScaleDSIFTs_f``, src/main/cpp/VLFeat.cxx:37-292, and
+nodes/images/external/SIFTExtractor.scala:16-40). The algorithm and its
+knobs are the JAX package's:
+
+- per scale ``s``: bin size ``b = bin_size + 2s``, Gaussian smoothing with
+  σ = b / 6 (magnif = 6, VLFeat.cxx:45,88) over an edge-replicated
+  border, sampling step ``step + s·scale_step`` and bound offset
+  ``(1 + 2·num_scales) − 3s`` (VLFeat.cxx:78,95);
+- gradients by central differences, one-sided at the first and last
+  row and column; 8 orientation planes with linear interpolation between
+  the two nearest bins; bilinear spatial binning as a separable
+  triangular convolution over a zero border (the flat-window dense-SIFT
+  formulation);
+- descriptors L2-normalized, clamped at 0.2, renormalized; zeroed where
+  the first norm is below the contrast threshold 0.005; quantized
+  ``min(floor(512·v), 255)`` (VLFeat.cxx:146,258-260);
+- output (N, num_descriptors, 128) per image, scales concatenated along
+  the descriptor axis, orientation fastest, then x-bin, then y-bin.
+
+Each separable convolution is two products with banded matrices (one
+per image axis; the band holds the kernel) through the solver binding
+(``ops/cuda/gemm.py``) at an explicit kind: IEEE fp32 for the smoothing,
+and IEEE fp32 or one bf16 pass (``binning_dtype=torch.bfloat16``) for the
+binning. So neither pass reads PyTorch's process-wide TF32 switches: a
+cuDNN convolution would read ``torch.backends.cudnn.allow_tf32``, True by
+default, and TF32 smoothing would put the descriptors off by more than
+one step, as the JAX module measured for bf16 smoothing (97.5% of
+entries within 1 against the 99.5% gate). The binning products are taken
+only at the rows and columns the descriptor grid reads. Planes are held
+x-major, (X, N, ·, Y), so each product is one 2-D GEMM with no transpose
+of the planes.
+
+The extractor walks ``image_chunk`` images at a time: one chunk's planes
+at 256×256 (8 × 256 × 256 fp32 per image) and their products stay near
+3 GB on the card, where the whole batch would be 2.1 MB per image and
+scale.
+
+Left out for now: ``apply_arrays_masked`` (the native-resolution bucketed
+path, ROADMAP item 10d).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ...workflow.pipeline import BatchTransformer
+from ..cuda import gemm as _gemm
+
+NUM_ORIENTATIONS = 8
+NUM_SPATIAL_BINS = 4
+DESCRIPTOR_SIZE = NUM_ORIENTATIONS * NUM_SPATIAL_BINS * NUM_SPATIAL_BINS  # 128
+CONTRAST_THRESHOLD = 0.005
+MAGNIF = 6.0
+
+
+def _gaussian_kernel(sigma: float) -> np.ndarray:
+    radius = max(1, int(math.ceil(4.0 * sigma)))
+    xs = np.arange(-radius, radius + 1, dtype=np.float64)
+    k = np.exp(-0.5 * (xs / sigma) ** 2)
+    return (k / k.sum()).astype(np.float32)
+
+
+def _triangular_kernel(bin_size: int) -> np.ndarray:
+    """w(u) = 1 - |u|/b for |u| < b — bilinear spatial-bin interpolation as
+    a convolution (the flat-window dense-SIFT trick)."""
+    xs = np.arange(-(bin_size - 1), bin_size, dtype=np.float64)
+    return np.maximum(0.0, 1.0 - np.abs(xs) / bin_size).astype(np.float32)
+
+
+def band_matrix(kernel: np.ndarray, rows: np.ndarray, n_cols: int, shift: int) -> np.ndarray:
+    """(len(rows), n_cols) float32 matrix M with ``M[i, rows[i] + shift + t]
+    = kernel[t]``, entries past either edge left out: M @ v is the
+    correlation ``Σ_t kernel[t]·v[rows[i] + shift + t]`` over a zero
+    border."""
+    m = np.zeros((len(rows), n_cols), dtype=np.float32)
+    for t, w in enumerate(np.asarray(kernel, dtype=np.float32)):
+        cols = np.asarray(rows) + shift + t
+        ok = (cols >= 0) & (cols < n_cols)
+        m[np.nonzero(ok)[0], cols[ok]] = w
+    return m
+
+
+def _on(m: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    return torch.from_numpy(m).to(like.device)
+
+
+def _smooth(x: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Gaussian smoothing of an (N, X, Y) batch over an edge-replicated
+    border (vl_imsmooth's continuity padding), x axis first: returns the
+    smoothed batch x-major, (X, N, Y), IEEE fp32."""
+    kernel = _gaussian_kernel(sigma)
+    pad = (len(kernel) - 1) // 2
+    n, xd, yd = x.shape
+    ix = torch.arange(-pad, xd + pad, device=x.device).clamp(0, xd - 1)
+    iy = torch.arange(-pad, yd + pad, device=x.device).clamp(0, yd - 1)
+    padded = x[:, ix][:, :, iy].permute(1, 0, 2).reshape(xd + 2 * pad, -1)
+    mx = _on(band_matrix(kernel, np.arange(xd), xd + 2 * pad, 0), x)
+    my = _on(band_matrix(kernel, np.arange(yd), yd + 2 * pad, 0), x)
+    along_x = _gemm.gemm(mx, padded, "ieee_fp32").view(xd * n, yd + 2 * pad)
+    return _gemm.gemm(along_x, my.T, "ieee_fp32").view(xd, n, yd)
+
+
+def _gradients(sm: torch.Tensor):
+    """Central differences inside, one-sided at the borders (vl_dsift's
+    stencil), of an x-major (X, N, Y) batch: (gx, gy)."""
+    gx = torch.empty_like(sm)
+    gx[1:-1] = (sm[2:] - sm[:-2]) * 0.5
+    gx[0] = sm[1] - sm[0]
+    gx[-1] = sm[-1] - sm[-2]
+    gy = torch.empty_like(sm)
+    gy[:, :, 1:-1] = (sm[:, :, 2:] - sm[:, :, :-2]) * 0.5
+    gy[:, :, 0] = sm[:, :, 1] - sm[:, :, 0]
+    gy[:, :, -1] = sm[:, :, -1] - sm[:, :, -2]
+    return gx, gy
+
+
+def _orientation_planes(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
+    """Gradient magnitude split over the two nearest of 8 orientation
+    bins (a circular triangular weight): (X, N, Y) → (X, N, 8, Y)."""
+    mag = torch.sqrt(gx * gx + gy * gy)
+    theta = torch.remainder(torch.atan2(gy, gx), 2.0 * math.pi)
+    t = (theta * (NUM_ORIENTATIONS / (2.0 * math.pi)))[:, :, None, :]  # [0, 8)
+    orient = torch.arange(NUM_ORIENTATIONS, dtype=torch.float32, device=gx.device)[:, None]
+    dist = (t - orient).abs_()
+    dist = torch.minimum(dist, NUM_ORIENTATIONS - dist)
+    return (1.0 - dist).clamp_min_(0.0).mul_(mag[:, :, None, :])
+
+
+class SIFTExtractor(BatchTransformer):
+    """Dense SIFT at multiple scales
+    (reference: nodes/images/external/SIFTExtractor.scala:16-40).
+
+    Input: (N, X, Y) or (N, X, Y, 1) grayscale batch. Output:
+    (N, num_descriptors, 128) quantized descriptors, scales concatenated
+    along the descriptor axis as the reference concatenates per-scale
+    descriptor blocks.
+
+    ``binning_dtype``: ``None`` (IEEE fp32, the default) or
+    ``torch.bfloat16``, which runs the spatial-binning products as one
+    bf16 pass with fp32 accumulation. The smoothing is always IEEE fp32.
+    """
+
+    #: Images per pass through the scales (module docstring: memory).
+    image_chunk = 256
+
+    def __init__(self, step_size: int = 3, bin_size: int = 4, scales: int = 4,
+                 scale_step: int = 1, binning_dtype: Optional[torch.dtype] = None):
+        if binning_dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"binning_dtype must be None, float32 or bfloat16; got {binning_dtype}")
+        self.step_size = step_size
+        self.bin_size = bin_size
+        self.scales = scales
+        self.scale_step = scale_step
+        self.binning_dtype = binning_dtype
+
+    @property
+    def descriptor_size(self) -> int:
+        return DESCRIPTOR_SIZE
+
+    def _geometry(self, s: int, x_dim: int, y_dim: int):
+        b = self.bin_size + 2 * s
+        step = self.step_size + s * self.scale_step
+        off = max(0, (1 + 2 * self.scales) - 3 * s)
+        span = (NUM_SPATIAL_BINS - 1) * b
+        nx = (x_dim - 1 - off - span) // step + 1
+        ny = (y_dim - 1 - off - span) // step + 1
+        return b, step, off, nx, ny
+
+    def grid_counts(self, x_dim: int, y_dim: int) -> List[int]:
+        """Descriptors per scale for an x_dim × y_dim image."""
+        counts = []
+        for s in range(self.scales):
+            _, _, _, nx, ny = self._geometry(s, x_dim, y_dim)
+            counts.append(max(0, nx) * max(0, ny))
+        return counts
+
+    def apply_arrays(self, x):
+        if x.ndim == 4:
+            x = x[..., 0]
+        x = x.to(torch.float32)
+        n, xd, yd = x.shape
+        counts = self.grid_counts(xd, yd)
+        if not any(counts):
+            raise ValueError("image too small for any SIFT scale")
+        out = torch.empty((n, sum(counts), DESCRIPTOR_SIZE), dtype=torch.float32, device=x.device)
+        for start in range(0, n, self.image_chunk):
+            chunk = x[start : start + self.image_chunk]
+            offset = 0
+            for s, count in enumerate(counts):
+                if count:
+                    out[start : start + len(chunk), offset : offset + count] = self._one_scale(chunk, s)
+                    offset += count
+        return out
+
+    def _one_scale(self, x: torch.Tensor, s: int) -> torch.Tensor:
+        n, xd, yd = x.shape
+        b, step, off, nx, ny = self._geometry(s, xd, yd)
+        planes = _orientation_planes(*_gradients(_smooth(x, b / MAGNIF)))  # (X, N, 8, Y)
+
+        # Spatial binning, taken only where the 4×4 bin centres of the
+        # descriptor grid fall.
+        bx = (off + np.arange(nx) * step)[:, None] + np.arange(NUM_SPATIAL_BINS) * b  # (nx, 4)
+        by = (off + np.arange(ny) * step)[:, None] + np.arange(NUM_SPATIAL_BINS) * b  # (ny, 4)
+        rx, ry = np.unique(bx), np.unique(by)
+        kernel = _triangular_kernel(b)
+        pad = (len(kernel) - 1) // 2
+        kind = "bf16" if self.binning_dtype == torch.bfloat16 else "ieee_fp32"
+        mx = _on(band_matrix(kernel, rx, xd, -pad), x)
+        my = _on(band_matrix(kernel, ry, yd, -pad), x)
+        along_x = _gemm.gemm(mx, planes.view(xd, -1), kind).view(-1, yd)
+        del planes
+        binned = _gemm.gemm(along_x, my.T, kind).view(len(rx), n, NUM_ORIENTATIONS, len(ry))
+        del along_x
+
+        gx = torch.as_tensor(np.searchsorted(rx, bx).reshape(-1), device=x.device)
+        gy = torch.as_tensor(np.searchsorted(ry, by).reshape(-1), device=x.device)
+        g = binned[gx][:, :, :, gy].view(nx, NUM_SPATIAL_BINS, n, NUM_ORIENTATIONS, ny, NUM_SPATIAL_BINS)
+        # → (N, nx, ny, ybin, xbin, orientation): orientation fastest.
+        raw = g.permute(2, 0, 4, 5, 1, 3).reshape(n, nx * ny, DESCRIPTOR_SIZE)
+        del binned, g
+
+        # Normalize → clamp 0.2 → renormalize; zero low-contrast descriptors;
+        # quantize min(512·v, 255) (VLFeat.cxx:146,258-260).
+        eps = 1e-10
+        norm1 = torch.linalg.vector_norm(raw, dim=-1, keepdim=True)
+        d = (raw / norm1.clamp_min(eps)).clamp_max_(0.2)
+        d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True).clamp_min(eps)
+        d = torch.where(norm1 > CONTRAST_THRESHOLD, d, torch.zeros((), device=d.device))
+        return torch.floor(512.0 * d).clamp_max_(255.0)

@@ -10,12 +10,15 @@ tensor function over (n, d) tensors on the device the data lies on:
 - ``NormalizeRows``, ``SignedHellingerMapper``, ``Clipper``
 - ``StandardScaler``       (reference: nodes/stats/StandardScaler.scala:16-77)
 - ``Sampler``              (reference: nodes/stats/Sampler.scala)
+- ``ColumnSampler``        (descriptor rows sampled from per-item matrices)
 
 Random parameters are drawn on the host with ``np.random.default_rng(seed)``
 exactly as the JAX package draws them, then placed on ``device`` (default
-CUDA), so both packages hold the same signs and weights.
+CUDA), so both packages hold the same signs and weights, and sample the
+same rows.
 
-Left out for now: ``ColumnSampler`` (ROADMAP Queue A item 4).
+Left out for now: ``ColumnSampler``'s masked and bucketed descriptor
+paths (ROADMAP item 10d).
 """
 
 from __future__ import annotations
@@ -25,11 +28,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ...data.dataset import ArrayDataset, Dataset
+from ...data.dataset import ArrayDataset, BucketedDataset, Dataset
 from ...device import DeviceLike, resolve_device
 from ...parallel import linalg
 from ...utils.tree import tree_map
 from ...workflow.pipeline import BatchTransformer, Estimator, Transformer
+
+
+def _as_array_dataset(data: Dataset) -> ArrayDataset:
+    return data if isinstance(data, ArrayDataset) else data.to_arrays()
 
 
 def _param(a, device: DeviceLike) -> torch.Tensor:
@@ -205,3 +212,67 @@ class Sampler(Transformer):
             return ArrayDataset(data, num_examples=take)
         items = dataset.collect()
         return type(dataset)([items[i] for i in idx])
+
+
+class ColumnSampler(Transformer):
+    """Sample descriptor rows from per-item (n_i, d) descriptor matrices
+    into one flat (num_samples_total, d) dataset (reference:
+    nodes/stats/ColumnSampler, used by the ImageNet/VOC pipelines; the
+    reference's matrices are (d, nᵢ) column-major, this framework's
+    extractors emit descriptor rows).
+
+    A uniform (N, c, d) batch picks the JAX package's rows: per item the
+    first ``take`` positions of ``argsort`` of one ``rng.random((N, c))``
+    draw from ``np.random.default_rng(seed)``. The draw is made in
+    ``chunk_items``-row pieces in order, which yields the same numbers as
+    the one (N, c) draw, and each piece is argsorted on the data's device.
+    An ``ObjectDataset`` threads one generator through ``rng.choice`` per
+    item, as the JAX package does."""
+
+    #: Items per host draw and device argsort of the uniform path.
+    chunk_items = 256
+
+    def __init__(self, num_samples_per_item: int, seed: int = 42):
+        self.num_samples_per_item = num_samples_per_item
+        self.seed = seed
+
+    def _sample(self, datum, rng):
+        n_desc = datum.shape[0]
+        take = min(self.num_samples_per_item, n_desc)
+        idx = rng.choice(n_desc, size=take, replace=False)
+        if isinstance(datum, torch.Tensor):
+            return datum[torch.as_tensor(idx, device=datum.device)]
+        return np.asarray(datum)[idx]  # (take, d)
+
+    def apply(self, datum):
+        return self._sample(datum, np.random.default_rng(self.seed))
+
+    def apply_batch(self, dataset: Dataset) -> ArrayDataset:
+        if isinstance(dataset, BucketedDataset) or (
+            isinstance(dataset, ArrayDataset) and isinstance(dataset.data, dict)
+        ):
+            raise NotImplementedError(
+                "ColumnSampler over masked or bucketed descriptors comes with "
+                "ROADMAP item 10d (the native-resolution ImageNet path)"
+            )
+        if isinstance(dataset, ArrayDataset):
+            x = dataset.data[: dataset.num_examples]
+            n, c = x.shape[0], x.shape[1]
+            take = min(self.num_samples_per_item, c)
+            rng = np.random.default_rng(self.seed)
+            out = torch.empty((n * take,) + tuple(x.shape[2:]), dtype=x.dtype, device=x.device)
+            for start in range(0, n, self.chunk_items):
+                stop = min(start + self.chunk_items, n)
+                keys = torch.from_numpy(rng.random((stop - start, c))).to(x.device)
+                idx = torch.argsort(keys, dim=1, stable=True)[:, :take]
+                rows = torch.arange(start, stop, device=x.device)[:, None]
+                out[start * take : stop * take] = x[rows, idx].reshape((-1,) + tuple(x.shape[2:]))
+            return ArrayDataset(out)
+        # One rng threaded across items: re-seeding per item would sample
+        # identical descriptor positions from every matrix. Tensor items
+        # stay on their device; host arrays go where ArrayDataset puts them.
+        rng = np.random.default_rng(self.seed)
+        rows = [self._sample(item, rng) for item in dataset.collect()]
+        if rows and isinstance(rows[0], torch.Tensor):
+            return ArrayDataset(torch.cat(rows))
+        return ArrayDataset(np.concatenate(rows, axis=0))

@@ -64,10 +64,14 @@ class MaxClassifier(BatchTransformer):
 
 
 class TopKClassifier(BatchTransformer):
-    """scores (n, c) → (n, k) int32 class indices, best first."""
+    """scores (n, c) → (n, k) int32 class indices, best first; among equal
+    scores the lower index comes first, as ``lax.top_k`` orders them
+    (``torch.topk`` leaves that order unspecified, so a stable descending
+    sort takes its place)."""
 
     def __init__(self, k: int):
         self.k = k
 
     def apply_arrays(self, scores: torch.Tensor) -> torch.Tensor:
-        return torch.topk(scores, self.k, dim=-1).indices.to(torch.int32)
+        order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
+        return order[..., : self.k].to(torch.int32)

@@ -8,8 +8,11 @@ Port of ``keystone_tpu/ops/util/vectors.py``:
 - ``Densify`` — sparse host rows become one dense float32 tensor on an
   explicit device. The CSR rows are cast to float32 before they are
   densified, so the host holds the dense matrix once, in float32.
+- ``Cast`` — dtype conversion; ``FloatToDouble`` is the name-parity
+  alias, and casts to float32 as the JAX package's does.
+- ``MatrixVectorizer`` — flatten per-item matrices, (n, r, c) → (n, r·c).
 
-Left out for now: ``Cast``, ``MatrixVectorizer`` and ``Sparsify``.
+Left out for now: ``Sparsify``.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 
 from ...data.dataset import ArrayDataset, Dataset, ObjectDataset
 from ...device import DeviceLike, resolve_device
+from ...utils.tree import tree_map
 from ...workflow.pipeline import BatchTransformer, Transformer
 
 
@@ -62,6 +66,45 @@ class VectorSplitter(Transformer):
 
     def apply_batch(self, dataset: Dataset) -> ObjectDataset:
         return ObjectDataset(self.split(dataset))
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch dtype, its name, or a numpy dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    if isinstance(dtype, str) and isinstance(getattr(torch, dtype, None), torch.dtype):
+        return getattr(torch, dtype)
+    return torch.from_numpy(np.zeros(0, dtype=np.dtype(dtype))).dtype
+
+
+class Cast(BatchTransformer):
+    """Dtype conversion of every tensor of a batch."""
+
+    def __init__(self, dtype):
+        self.dtype = _torch_dtype(dtype)
+
+    @property
+    def label(self) -> str:
+        return f"Cast[{str(self.dtype).replace('torch.', '')}]"
+
+    def apply_arrays(self, data):
+        return tree_map(lambda a: a.to(self.dtype), data)
+
+
+class FloatToDouble(Cast):
+    """Name-parity alias (reference: nodes/util/FloatToDouble.scala). It
+    casts to float32, as the JAX package's does: the solvers run in
+    float32."""
+
+    def __init__(self):
+        super().__init__(torch.float32)
+
+
+class MatrixVectorizer(BatchTransformer):
+    """Flatten per-item matrices: (n, r, c) → (n, r·c)."""
+
+    def apply_arrays(self, x):
+        return x.reshape(x.shape[0], -1)
 
 
 class Densify(Transformer):

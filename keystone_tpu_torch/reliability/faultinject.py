@@ -165,9 +165,8 @@ _current: Optional[FaultInjector] = None
 #: Every probe site the port exposes, by its exact label. Chaos specs
 #: target sites by these names; a site is registered next to the code
 #: that adds it. The JAX package registers more, and each arrives with
-#: the module that probes it: the refit sites with refit, the
-#: ingest site with the archive loaders, the worker and shard-loss sites
-#: with the multi-worker and multi-device runtimes.
+#: the module that probes it: the refit sites with refit, the worker and
+#: shard-loss sites with the multi-worker and multi-device runtimes.
 KNOWN_PROBE_SITES = frozenset(
     {
         "serving.apply",  # serving/server.py: per-batch apply
@@ -176,6 +175,7 @@ KNOWN_PROBE_SITES = frozenset(
         "LeastSquaresEstimator.solve",  # ops/learning/least_squares.py: each ladder rung
         "KernelRidgeRegression.solve",  # ops/learning/kernel.py: each ladder rung
         "sketch.finish",  # sketch/solvers.py: each finish rung
+        "ingest.decode_batch",  # data/loaders/archive.py: each decode batch
     }
 )
 

@@ -10,16 +10,15 @@ functions there too). One convention:
   fastest, then x, then y; reference: utils/images/Image.scala:143-368).
 
 Helpers mirror utils/images/ImageUtils.scala:9-421 (grayscale luminance
-weights, separable conv2D, crop, flips).
-
-Left out for now: ``load_image`` (it comes with the ImageNet/VOC
-loaders).
+weights, separable conv2D, crop, flips), and ``load_image`` decodes with
+PIL as the JAX package does (BGR channel order).
 """
 
 from __future__ import annotations
 
+import io
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -105,3 +104,31 @@ def conv2d_separable(img: np.ndarray, x_filter: np.ndarray, y_filter: np.ndarray
     img = np.asarray(img, dtype=np.float64)
     out = convolve1d(img, np.asarray(x_filter, dtype=np.float64), axis=-3, mode="constant")
     return convolve1d(out, np.asarray(y_filter, dtype=np.float64), axis=-2, mode="constant")
+
+
+def load_image(source, expected_channels: int = 3) -> Optional[np.ndarray]:
+    """Decode an image file / byte stream into an (X, Y, C) float array.
+
+    Replaces the reference's ImageIO-based loader
+    (reference: utils/images/ImageUtils.scala loadImage +
+    utils/images/ImageConversions.scala:5-80). Like the reference, returns
+    channels in **BGR** order for color images so downstream grayscale /
+    LCS semantics line up, and None on undecodable input.
+    """
+    from PIL import Image as PILImage
+
+    try:
+        if isinstance(source, (bytes, bytearray)):
+            source = io.BytesIO(source)
+        pil = PILImage.open(source)
+        pil = pil.convert("RGB") if expected_channels == 3 else pil.convert("L")
+        arr = np.asarray(pil, dtype=np.float64)  # (rows=height, cols=width, C) RGB
+    except Exception:
+        return None
+    if arr.ndim == 2:
+        arr = arr[..., None]
+    if expected_channels == 3:
+        arr = arr[..., ::-1]  # RGB -> BGR, matching the reference's loader
+    # PIL gives (row, col); the framework's (x, y) spatial indexing matches
+    # the reference's (row-ish, col-ish) — keep axis order as-is.
+    return np.ascontiguousarray(arr)

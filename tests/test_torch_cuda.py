@@ -528,3 +528,94 @@ def test_conv_block_fit_on_the_card_matches_the_cpu(cuda):
         feats.append(fz.apply_arrays(x).cpu())
     assert _rel(feats[0], feats[1]) <= 1e-5
     assert _rel(preds[0], preds[1]) <= 1e-5
+
+
+# ------------------------------------------------------------- the VOC path
+
+
+@pytest.mark.parametrize(
+    "row,k",
+    [([0, 1, 1, 0, 1, 0, 0, 1], 3), ([0] * 10, 4), ([2.0, -1.0, 0.5, 0.5, 2.0, 7.0, 0.5, -1.0], 5)],
+)
+def test_top_k_orders_ties_lower_index_first_on_the_card(cuda, row, k):
+    """The JAX package's ``lax.top_k`` order (lower index first among
+    equal scores), on the card as on the CPU."""
+    from keystone_tpu_torch.ops.util.labels import TopKClassifier
+
+    scores = torch.tensor([row], dtype=torch.float32)
+    order = sorted(range(len(row)), key=lambda i: (-row[i], i))[:k]
+    got = TopKClassifier(k).apply_arrays(scores.to(cuda)).cpu()
+    assert got.tolist() == [order]
+    assert TopKClassifier(k).apply_arrays(scores).tolist() == [order]
+
+
+@pytest.mark.parametrize("kind", ["ieee_fp32", "bf16"])
+@pytest.mark.parametrize("transpose_a", [False, True])
+def test_batched_binding_matches_its_plain_version(cuda, kind, transpose_a):
+    """``gemm_batched`` (one strided batched cuBLAS call) against its plain
+    version, with A as stored and as a transposed view (the Fisher
+    statistics' [X | X∘X]ᵀ·q): ≤ 1e-5 relative, one launch counted."""
+    from keystone_tpu_torch.ops.cuda import gemm as tgemm
+
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.normal(size=(5, 3001, 24) if transpose_a else (5, 24, 3001)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(5, 3001, 17)).astype(np.float32))
+    a_op = a.transpose(1, 2) if transpose_a else a
+    before = tgemm.launches[kind]
+    out = tgemm.gemm_batched(a_op.to(cuda), b.to(cuda), kind)
+    torch.cuda.synchronize()
+    assert tgemm.launches[kind] == before + 1
+    assert out.shape == (5, 24, 17)
+    assert _rel(out.cpu(), tgemm.gemm_batched_reference(a_op, b, kind)) <= 1e-5
+
+
+def test_sift_and_fisher_vectors_unchanged_under_the_tf32_switches(cuda):
+    """SIFT descriptors and Fisher vectors are bitwise equal with
+    PyTorch's TF32 switches off and on (the convolutions and statistics go
+    through the binding at an explicit kind), and within one quantization
+    step of the CPU for ≥ 99.5% of entries, none further."""
+    from keystone_tpu_torch.ops.images.fisher import FisherVector
+    from keystone_tpu_torch.ops.images.sift import SIFTExtractor
+    from keystone_tpu_torch.ops.learning.gmm import GaussianMixtureModel
+
+    from scipy.ndimage import gaussian_filter
+
+    rng = np.random.default_rng(4)
+    x = np.stack([gaussian_filter(rng.random((96, 96)), 1.5) for _ in range(4)]).astype(np.float32)
+    ext = SIFTExtractor(scale_step=0)
+    gmm = GaussianMixtureModel(rng.normal(size=(128, 8)) * 20 + 40, rng.uniform(200, 400, size=(128, 8)),
+                               np.full(8, 1 / 8), device=cuda)
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    out = {}
+    try:
+        for flag in (False, True):
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = flag
+            desc = ext.apply_arrays(torch.from_numpy(x).to(cuda))
+            out[flag] = (desc, FisherVector(gmm).apply_arrays(desc))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    assert torch.equal(out[False][0], out[True][0]) and torch.equal(out[False][1], out[True][1])
+    diff = (out[False][0].cpu() - ext.apply_arrays(torch.from_numpy(x))).abs()
+    assert float((diff <= 1).double().mean()) >= 0.995 and float(diff.max()) <= 1
+
+
+def test_gmm_fit_on_the_card_matches_the_cpu(cuda):
+    """The GMM fit (k-means++ seeding on the host, Lloyd and EM on the
+    device) on the card against the CPU: the same EM iteration and update
+    counts, parameters ≤ 1e-4 relative."""
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.obs.spans import tracing_session
+    from keystone_tpu_torch.ops.learning.gmm import GaussianMixtureModelEstimator
+
+    rng = np.random.default_rng(5)
+    centres = rng.normal(size=(6, 8)) * 4.0
+    x = (centres[rng.integers(0, 6, 4000)] + 0.6 * rng.normal(size=(4000, 8))).astype(np.float32)
+    fits, counts = [], []
+    for dev in (cuda, torch.device("cpu")):
+        with tracing_session() as session:
+            fits.append(GaussianMixtureModelEstimator(6, seed=1).fit(ArrayDataset(x, device=dev)))
+        em = session.find("gmm:em")[0].attributes
+        counts.append((em["iterations"], em["updates"]))
+    assert counts[0] == counts[1]
+    for name in ("means", "variances", "weights"):
+        assert _rel(getattr(fits[0], name).cpu(), getattr(fits[1], name)) <= 1e-4

@@ -117,6 +117,17 @@ print(json.dumps({"imported": names, "bad": bad}))
         "keystone_tpu_torch.data.loaders.cifar",
         "keystone_tpu_torch.evaluation.augmented",
         "keystone_tpu_torch.pipelines.cifar",
+        "keystone_tpu_torch.ops.images.sift",
+        "keystone_tpu_torch.ops.images.fisher",
+        "keystone_tpu_torch.ops.images.daisy",
+        "keystone_tpu_torch.ops.images.hog",
+        "keystone_tpu_torch.ops.learning.kmeans",
+        "keystone_tpu_torch.ops.learning.gmm",
+        "keystone_tpu_torch.ops.learning.pca",
+        "keystone_tpu_torch.data.loaders.archive",
+        "keystone_tpu_torch.data.loaders.voc",
+        "keystone_tpu_torch.evaluation.mean_average_precision",
+        "keystone_tpu_torch.pipelines.voc",
     }
     assert expected <= set(result["imported"])
 
@@ -378,3 +389,23 @@ def test_image_entry_points_without_device_raise_when_no_cuda(monkeypatch, tmp_p
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry_point()
+
+
+def test_voc_entry_points_without_device_raise_when_no_cuda(monkeypatch):
+    """The VOC path's entry points that place host arrays (the image
+    stack, carried PCA and GMM parameters) resolve ``None`` to CUDA and
+    raise without a card."""
+    from keystone_tpu_torch.convert import gmm_from_numpy, pca_from_numpy
+    from keystone_tpu_torch.data.dataset import ObjectDataset
+    from keystone_tpu_torch.pipelines.voc import extract_images
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    records = ObjectDataset([{"image": np.zeros((4, 4, 3)), "labels": [0]}])
+    for entry_point in (
+        lambda: extract_images(records),
+        lambda: pca_from_numpy(np.eye(3)),
+        lambda: gmm_from_numpy(np.zeros((2, 3)), np.ones((2, 3)), np.full(3, 1 / 3)),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry_point()
+    assert extract_images(records, device="cpu").data.shape == (1, 4, 4, 3)
