@@ -257,9 +257,44 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``VOC_SCORES_FP64_TOL``) and re-scored to the same MAP;
 27. voc_cli — ``python -m keystone_tpu_torch voc-sift-fisher`` at the
    example script's flags on a 64-image tar, in a subprocess beside
-   ``run()`` on the same tar: the same MAP.
+   ``run()`` on the same tar: the same MAP;
+28. native_host — build the native host library (``g++``, into
+   ``keystone_tpu_torch/native/build/``) and hold each host kernel against
+   its counterpart in the port to the JAX tests' bounds: ``ks_dsift``
+   against the card SIFT at 256×256 (≥ 99.5% within 1),
+   ``ks_fisher_encode`` against ``FisherVector`` (rtol and atol 1e-3),
+   ``ks_gmm_fit`` on planted clusters (each within 0.5, weights summing to
+   1 ± 1e-4), and, where ``jpeglib.h`` exists, ``ks_decode_jpeg_batch``
+   against PIL (mean absolute difference < 1.5) with the time of the VOC
+   JPEGs' native decode; host ``ks_dsift`` images/s beside the card's;
+29. imagenet — the ImageNet SIFT + LCS + Fisher-vector flagship through
+   ``pipelines/imagenet.py::run`` at the reference configuration (13,165
+   SIFT and 3,136 LCS descriptors per image, 4,096 features, 1,000
+   classes) on generated 500×375 JPEG tars of 2,048 train / 1,000 test
+   images (``IMAGENET_*`` says why the cut): its seconds split by node and
+   span (ingest, both extractors, the four sample draws, the PCA picks,
+   each GMM's host seeding, Lloyd and EM with its iterations, Fisher
+   encoding, the weighted solve and its path), SIFT and LCS images/s by
+   CUDA events, the peak (< 70 GB), test and training top-5 error; the
+   test scores against a float64 weighted solve of the fit's own
+   features (``IMAGENET_SCORES_FP64_TOL``) and re-scored to the same
+   top 5; SIFT and LCS on the card against the CPU; descriptors bitwise
+   equal under PyTorch's TF32 switches;
+30. imagenet_cli — ``python -m keystone_tpu_torch imagenet-sift-lcs-fv``
+   at the defaults on a 64-image tar, in a subprocess beside ``run()`` on
+   the same tar: the same top-5 error;
+31. imagenet_native — ``run_native_resolution`` on 1,024 JPEGs at five
+   ImageNet sizes (granularity 32, 10⁶ PCA and GMM samples): buckets and
+   padding share, the split by span, the peak, training top-5 error; per
+   bucket, the masked extractors' valid descriptors against each image's
+   native-size run (equal counts, SIFT within one step, LCS to
+   ``IMAGENET_LCS_STD_ABS``).
 
-Phases 4–14, 16 and 18–27 reach no ELL kernel: each sets its count to 0
+Where the compiler finds no ``jpeglib.h`` the script prints
+``native_decode: unavailable (no jpeglib.h)`` and every VOC and ImageNet
+phase decodes with PIL (``use_native=False``, passed explicitly).
+
+Phases 4–14, 16 and 18–31 reach no ELL kernel: each sets its count to 0
 and fails if it moved; phase 15 launches it only in
 ``oom_injected_sparse``, phase 17 exactly twice. Every phase
 starts from a reset ``PipelineEnv`` and reports its peak device memory
@@ -3944,7 +3979,8 @@ VOC_WIDTH, VOC_HEIGHT, VOC_CLASSES, VOC_SEED = 500, 375, 20, 7
 VOC_PERIODS, VOC_AMPLITUDE, VOC_NOISE, VOC_QUALITY = (14.0, 30.0), 60.0, 12.0, 85
 VOC_LABEL_COUNTS, VOC_LABEL_SHARES = (1, 2, 3), (0.5, 0.35, 0.15)
 # Flags beyond the data paths: none for the main run (the JAX CLI's
-# defaults), the example script's for the CLI run.
+# defaults), the example script's for the CLI run; main() adds the decode
+# path (``use_native``) to both.
 VOC_FLAGS: dict = {}
 VOC_CLI_FLAGS = {"desc_dim": 80, "vocab_size": 256, "reg": 0.5}
 VOC_RATE_CHUNK, VOC_GATE_IMAGES, VOC_FP64_CHUNK = 256, 8, 32
@@ -4045,21 +4081,6 @@ def write_voc_data(root):
         for i, (name, labs) in enumerate(zip(names, labels)):
             f.writelines(f'{i},{c + 1},x,y,"{name}"\n' for c in labs)
     return paths, blobs, labels
-
-
-def voc_images(blobs, size):
-    """(N, X, Y, 3) float32 host tensor of the blobs as the loader decodes
-    and resizes them (``load_image`` + ``_resize_image``, on threads)."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    import torch
-
-    from keystone_tpu_torch.data.loaders.archive import _resize_image
-    from keystone_tpu_torch.utils.image import load_image
-
-    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
-        images = list(pool.map(lambda b: _resize_image(load_image(b), tuple(size)).astype(np.float32), blobs))
-    return torch.from_numpy(np.stack(images))
 
 
 def fp64_fisher_vectors(x, gmm):
@@ -4192,7 +4213,7 @@ def phase_voc(device, paths, blobs, labels) -> int:
 
     # SIFT alone on a warm 256-image chunk, by CUDA events.
     t0 = time.perf_counter()
-    images = voc_images(blobs[: VOC_TRAIN + VOC_TEST], config.image_size)
+    images = decoded_images(blobs[: VOC_TRAIN + VOC_TEST], config.image_size, config.use_native)
     train, test = images[:VOC_TRAIN], images[VOC_TRAIN:]
     del images
     result["gate_decode_s"] = time.perf_counter() - t0
@@ -4300,6 +4321,609 @@ def phase_voc_cli(device, paths) -> int:
     return 0
 
 
+# Native host kernels and the ImageNet flagship (phases 28–31).
+# Whether the native JPEG decode can be built here is probed once, at the
+# start of main(), by asking the compiler for libjpeg's header: where it
+# is missing the VOC and ImageNet phases pass use_native=False (PIL)
+# explicitly and the script prints "native_decode: unavailable (no
+# jpeglib.h)"; nothing falls back on its own.
+NATIVE_SIFT_IMAGES, NATIVE_SIFT_RATE_IMAGES, NATIVE_WITHIN_ONE = 8, 64, 0.995
+NATIVE_FISHER_IMAGES, NATIVE_FISHER_TOL = 8, 1e-3
+NATIVE_GMM_CENTRES, NATIVE_GMM_ROWS = 16, 40_000
+NATIVE_DECODE_MEAN_ABS = 1.5  # at the source size (tests/native/test_native_kernels.py)
+
+# imagenet: ImageNetSiftLcsFVConfig's defaults, which are the reference's
+# (ImageNetSiftLcsFV.scala:148-169; keystone_tpu/pipelines/imagenet.py:51-79):
+# λ 6e-5, mixture weight 0.25, desc_dim 64, vocab 16, SIFT scale_step 1,
+# LCS stride 4 / border 16 / patch 6, 10⁷ PCA and 10⁷ GMM samples, 256×256,
+# block 4,096, 1,000 classes, top-5. Every width is the reference's (13,165
+# SIFT descriptors of 128 and 3,136 LCS descriptors of 96 per image,
+# 2 · 2·64·16 = 4,096 features, 1,000 classes). ImageNet is not in the
+# repository: the images are generated JPEGs at ImageNet's usual 500×375
+# in its synset/image layout with a "synset label" map, each its class's
+# template — a grating at one of 20 angles (9° apart) and 5 periods, in
+# one of 10 tints — at a random phase plus N(0, 12²) noise, JPEG quality
+# 85; unsourced and separable by design. Train and test are cut from
+# 1.28 M / 50,000 to 2,048 / 1,000 because the executor holds each node's
+# output whole (PERF.md §4 lists the prediction of the peak).
+# imagenet_cli: the CLI at the defaults on a 64-image tar of 16 classes
+# (train = test) beside run() on it. imagenet_native: run_native_resolution
+# on 1,024 JPEGs at ImageNet's common sizes, granularity 32, with the PCA
+# and GMM samples cut to 10⁶ each (the time budget).
+IMAGENET_TRAIN, IMAGENET_TEST, IMAGENET_CLI_IMAGES, IMAGENET_NATIVE_IMAGES = 2048, 1000, 64, 1024
+IMAGENET_CLASSES, IMAGENET_CLI_CLASSES, IMAGENET_SEED = 1000, 16, 13
+IMAGENET_SIZE = (500, 375)  # (width, height), as ImageNet's sizes are quoted
+IMAGENET_NATIVE_SIZES = ((500, 375), (375, 500), (500, 333), (333, 500), (400, 300))
+IMAGENET_PERIODS, IMAGENET_AMPLITUDE, IMAGENET_NOISE, IMAGENET_QUALITY = (6.0, 9.0, 13.0, 19.0, 27.0), 60.0, 12.0, 85
+IMAGENET_TINTS = ((0, 0, 0), (40, -20, -20), (-20, 40, -20), (-20, -20, 40), (30, 30, -40),
+                  (-40, 30, 30), (30, -40, 30), (20, 20, 20), (-30, -30, -30), (45, 0, -45))
+IMAGENET_NATIVE_SAMPLES = 10**6
+IMAGENET_RATE_CHUNK, IMAGENET_GATE_IMAGES, IMAGENET_TRAIN_SCORED = 256, 8, 256
+IMAGENET_SIFT_PER_IMAGE, IMAGENET_LCS_PER_IMAGE, IMAGENET_LCS_WIDTH = 13_165, 3_136, 96
+IMAGENET_FEATURE_WIDTH, IMAGENET_PEAK_BOUND = 4_096, 70e9
+# The float64 gate: the weighted solve of the fit's own features and
+# labels (the dense per-class formula, float64 on the card) for the
+# classes of the first IMAGENET_FP64_CLASSES test images, their test
+# scores against the pipeline's (fp32 Woodbury with its correction step).
+# An H100 read 3.3e-6 (a CPU rehearsal at 48 images 7.7e-6); the bound
+# was 5e-4 before that first reading.
+IMAGENET_FP64_CLASSES = 48
+IMAGENET_SCORES_FP64_TOL = 1e-4
+# LCS on the card against the CPU: means relative to the largest, stds
+# absolute on the 0–255 scale (tests/test_torch_imagenet.py says why).
+IMAGENET_LCS_MEAN_TOL, IMAGENET_LCS_STD_ABS = 1e-5, 0.05
+
+_IMAGENET_GEN: dict = {}
+
+
+def _imagenet_gen_init(seed):
+    """Per generator process: a bank of noise fields."""
+    side = max(max(s) for s in IMAGENET_NATIVE_SIZES) + 32
+    _IMAGENET_GEN["bank"] = np.random.default_rng(seed).standard_normal(
+        (8, side, side, 3), dtype=np.float32) * IMAGENET_NOISE
+
+
+def _imagenet_jpeg(args) -> bytes:
+    """One image of class ``cls`` at ``width`` × ``height``: its template
+    grating at a random phase, tinted, plus noise."""
+    import io
+
+    from PIL import Image
+
+    index, cls, width, height, seed = args
+    rng = np.random.default_rng([seed, index])
+    angle = np.pi * (cls % 20) / 20
+    period = IMAGENET_PERIODS[(cls // 20) % 5]
+    rows = np.arange(height, dtype=np.float32)[:, None]
+    cols = np.arange(width, dtype=np.float32)[None, :]
+    arg = (2 * np.pi / period) * (cols * np.cos(angle) + rows * np.sin(angle)) + rng.uniform(0, 2 * np.pi)
+    img = 128.0 + IMAGENET_AMPLITUDE * np.cos(arg)
+    b, dr, dc = rng.integers(len(_IMAGENET_GEN["bank"])), rng.integers(32), rng.integers(32)
+    noisy = (img[..., None] + np.asarray(IMAGENET_TINTS[cls // 100], np.float32)
+             + _IMAGENET_GEN["bank"][b, dr : dr + height, dc : dc + width])
+    buf = io.BytesIO()
+    Image.fromarray(np.clip(noisy, 0, 255).astype(np.uint8), "RGB").save(
+        buf, format="JPEG", quality=IMAGENET_QUALITY)
+    return buf.getvalue()
+
+
+def write_imagenet_data(root):
+    """Generate every ImageNet-layout image (train, test, the CLI's, the
+    native-resolution set), in processes; write ``imagenet_{split}.tar``
+    and the ``synset label`` map under ``root``. Returns (paths, blobs by
+    split, labels by split)."""
+    import io
+    import multiprocessing
+    import tarfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    splits = {
+        "train": [(i % IMAGENET_CLASSES, IMAGENET_SIZE) for i in range(IMAGENET_TRAIN)],
+        "test": [(i % IMAGENET_CLASSES, IMAGENET_SIZE) for i in range(IMAGENET_TEST)],
+        "cli": [(i % IMAGENET_CLI_CLASSES, IMAGENET_SIZE) for i in range(IMAGENET_CLI_IMAGES)],
+        "native": [(i % IMAGENET_CLASSES, IMAGENET_NATIVE_SIZES[i % len(IMAGENET_NATIVE_SIZES)])
+                   for i in range(IMAGENET_NATIVE_IMAGES)],
+    }
+    jobs, index = [], 0
+    for split, items in splits.items():
+        for cls, (w, h) in items:
+            jobs.append((index, cls, w, h, IMAGENET_SEED))
+            index += 1
+    with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
+                             mp_context=multiprocessing.get_context("spawn"),
+                             initializer=_imagenet_gen_init, initargs=(IMAGENET_SEED,)) as pool:
+        all_blobs = list(pool.map(_imagenet_jpeg, jobs, chunksize=16))
+    paths, blobs, labels, start = {}, {}, {}, 0
+    for split, items in splits.items():
+        blobs[split] = all_blobs[start : start + len(items)]
+        labels[split] = [cls for cls, _ in items]
+        paths[split] = os.path.join(root, f"imagenet_{split}.tar")
+        with tarfile.open(paths[split], "w") as tar:
+            for i, (blob, cls) in enumerate(zip(blobs[split], labels[split])):
+                info = tarfile.TarInfo(f"n{cls:08d}/{split}_{i:06d}.JPEG")
+                info.size = len(blob)
+                tar.addfile(info, io.BytesIO(blob))
+        start += len(items)
+    paths["labels"] = os.path.join(root, "imagenet_labels.txt")
+    with open(paths["labels"], "w") as f:
+        f.writelines(f"n{c:08d} {c}\n" for c in range(IMAGENET_CLASSES))
+    return paths, blobs, labels
+
+
+def decoded_images(blobs, size, use_native):
+    """(N, X, Y, 3) float32 host tensor of the blobs as the loader decodes
+    and resizes them: the native libjpeg kernel unless ``use_native`` is
+    False, else PIL's ``load_image`` + ``_resize_image`` on threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from keystone_tpu_torch.data.loaders.archive import _resize_image, native_decode_batch
+    from keystone_tpu_torch.utils.image import load_image
+
+    if use_native is not False:
+        images, ok = native_decode_batch(list(blobs), tuple(size))
+        if not ok.all():
+            raise AssertionError(f"native decode failed on {int((~ok).sum())} generated JPEGs")
+        return torch.from_numpy(images)
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        images = list(pool.map(lambda b: _resize_image(load_image(b), tuple(size)).astype(np.float32), blobs))
+    return torch.from_numpy(np.stack(images))
+
+
+def host_cpu() -> str:
+    """The host CPU's model name (lscpu), and its core count."""
+    out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=60).stdout
+    model = next((ln.split(":", 1)[1].strip() for ln in out.splitlines() if ln.startswith("Model name")), "")
+    return f"{model or 'unknown'} ({os.cpu_count()} logical CPUs)"
+
+
+def phase_native_host(device, voc_blobs, decode_available: bool) -> int:
+    """Phase 28: build the native host library from the port's sources
+    and hold each host kernel against its counterpart in the port, to the
+    JAX tests' bounds (tests/native/test_native_kernels.py); time
+    ``ks_dsift`` on the host against the card SIFT, and the native decode
+    of the VOC tar's JPEGs against PIL's."""
+    import torch
+
+    from keystone_tpu_torch import native
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.ops.images.external import NativeFisherVector, NativeSIFTExtractor, native_gmm_fit
+    from keystone_tpu_torch.ops.images.fisher import FisherVector
+    from keystone_tpu_torch.ops.images.sift import SIFTExtractor
+    from keystone_tpu_torch.ops.learning.gmm import GaussianMixtureModel
+
+    _mnist_start()
+    t_phase = time.perf_counter()
+    result = {"host_cpu": host_cpu(), "jpeglib_h": decode_available, "openmp": native.openmp_requested()}
+    native.load("kernels")
+    result["build_kernels_s"] = native.build_seconds["kernels"]
+    result["library"] = os.path.relpath(native.loaded_path("kernels"), ROOT)
+
+    # ks_dsift against the card SIFT at 256×256, scale_step 1.
+    from scipy.ndimage import gaussian_filter
+
+    rng = np.random.default_rng(21)
+    imgs = np.stack([gaussian_filter(rng.random((256, 256)), 1.5)
+                     for _ in range(NATIVE_SIFT_RATE_IMAGES)]).astype(np.float32)
+    host_sift, card_sift = NativeSIFTExtractor(scale_step=1), SIFTExtractor(scale_step=1)
+    t0 = time.perf_counter()
+    host_desc = host_sift._extract(imgs)
+    result["dsift_host_s"] = time.perf_counter() - t0
+    result["dsift_host_images_per_s"] = NATIVE_SIFT_RATE_IMAGES / result["dsift_host_s"]
+    card_in = torch.from_numpy(imgs).to(device)
+    card_ms = cuda_ms(lambda: card_sift.apply_arrays(card_in), 3)
+    result["sift_card_images_per_s"] = NATIVE_SIFT_RATE_IMAGES / (card_ms / 1e3)
+    card_desc = card_sift.apply_arrays(card_in[:NATIVE_SIFT_IMAGES]).cpu().numpy()
+    diff = np.abs(host_desc[:NATIVE_SIFT_IMAGES] - card_desc)
+    result["dsift_vs_card"] = {"within_one": float((diff <= 1).mean()), "equal": float((diff == 0).mean()),
+                               "max_abs": float(diff.max())}
+    del card_in
+
+    # ks_fisher_encode against the port's FisherVector on the card.
+    d, k = 64, 16
+    gmm = GaussianMixtureModel(rng.normal(size=(d, k)) * 30, rng.uniform(200, 600, size=(d, k)),
+                               np.full(k, 1.0 / k), device=device)
+    x = (rng.normal(size=(NATIVE_FISHER_IMAGES, IMAGENET_SIFT_PER_IMAGE, d)) * 30).astype(np.float32)
+    t0 = time.perf_counter()
+    host_fv = NativeFisherVector(gmm).apply_batch(ArrayDataset(x, device="cpu")).data.numpy()
+    result["fisher_host_s"] = time.perf_counter() - t0
+    card_fv = FisherVector(gmm).apply_arrays(torch.from_numpy(x).to(device)).cpu().numpy()
+    excess = np.abs(host_fv - card_fv) - (NATIVE_FISHER_TOL + NATIVE_FISHER_TOL * np.abs(card_fv))
+    result["fisher_vs_card_max_abs"] = float(np.abs(host_fv - card_fv).max())
+    result["fisher_within_rtol_atol"] = bool((excess <= 0).all())
+
+    # ks_gmm_fit recovers planted clusters; its weights sum to 1.
+    centres = rng.normal(size=(NATIVE_GMM_CENTRES, 8)) * 10
+    pts = (centres[rng.integers(0, NATIVE_GMM_CENTRES, NATIVE_GMM_ROWS)]
+           + 0.3 * rng.normal(size=(NATIVE_GMM_ROWS, 8))).astype(np.float32)
+    t0 = time.perf_counter()
+    fit = native_gmm_fit(pts, NATIVE_GMM_CENTRES, seed=0, device="cpu")
+    result["gmm_host_s"] = time.perf_counter() - t0
+    means = fit.means.numpy().T
+    result["gmm_worst_centre_miss"] = float(max(np.linalg.norm(means - c, axis=1).min() for c in centres))
+    result["gmm_weight_sum"] = float(fit.weights.sum())
+
+    # The native decode against PIL, and its time over the VOC JPEGs.
+    if decode_available:
+        from keystone_tpu_torch.data.loaders.archive import native_decode_batch
+        from keystone_tpu_torch.utils.image import load_image
+
+        sample = [np.asarray(load_image(b), np.float32) for b in voc_blobs[:8]]
+        decoded, ok = native_decode_batch(voc_blobs[:8], (VOC_HEIGHT, VOC_WIDTH))
+        result["decode_vs_pil_mean_abs"] = float(max(np.abs(a - b).mean() for a, b in zip(decoded, sample)))
+        t0 = time.perf_counter()
+        _, ok = native_decode_batch(voc_blobs, (256, 256))
+        result["decode_voc_s"] = time.perf_counter() - t0
+        result["decode_voc_images"] = int(ok.sum())
+        result["decode_build_s"] = native.build_seconds.get("decode", 0.0)
+    else:
+        print("native_decode: unavailable (no jpeglib.h)", flush=True)
+        result["decode"] = "unavailable (no jpeglib.h)"
+    result["seconds"] = time.perf_counter() - t_phase
+    log("native_host", **result, **_mnist_end("native_host"))
+    checks = {
+        "dsift": result["dsift_vs_card"]["within_one"] >= NATIVE_WITHIN_ONE,
+        "fisher": result["fisher_within_rtol_atol"],
+        "gmm": result["gmm_worst_centre_miss"] < 0.5 and abs(result["gmm_weight_sum"] - 1.0) <= 1e-4,
+        "library_in_port": result["library"].startswith(os.path.join("keystone_tpu_torch", "native", "build")),
+    }
+    if decode_available:
+        checks["decode"] = (result["decode_vs_pil_mean_abs"] < NATIVE_DECODE_MEAN_ABS
+                            and result["decode_voc_images"] == len(voc_blobs))
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"native_host failed {failed}")
+    return 0
+
+
+def fp64_weighted_scores(x, y_labels, x_test, classes, config):
+    """Test scores of the mixture-weighted solve (one block, one pass:
+    ``BlockWeightedLeastSquaresEstimator`` at d = block) for ``classes``,
+    in float64 by the dense per-class formula with plain PyTorch."""
+    import torch
+
+    x = x.double()
+    n, d = x.shape
+    mw, reg = config.mixture_weight, config.reg
+    labels = torch.as_tensor(y_labels, device=x.device)
+    counts = torch.bincount(labels, minlength=config.num_classes).double()
+    jlm = torch.where(counts > 0, 2 * mw + 2 * (1 - mw) * counts / n - 1, torch.full_like(counts, -1.0))
+    y = torch.full((n, config.num_classes), -1.0, dtype=torch.float64, device=x.device)
+    y[torch.arange(n, device=x.device), labels] = 1.0
+    resid = y - jlm
+    pop_mean = x.mean(0)
+    pop_cov = x.T @ x / n - torch.outer(pop_mean, pop_mean)
+    pop_xtr = x.T @ resid / n
+    eye = torch.eye(d, dtype=torch.float64, device=x.device)
+    out = []
+    for c in classes:
+        rows = labels == c
+        win, r_c = x[rows], resid[rows, c]
+        n_c = win.shape[0]
+        class_mean = win.mean(0)
+        class_cov = win.T @ win / n_c - torch.outer(class_mean, class_mean)
+        delta = class_mean - pop_mean
+        joint_mean = mw * class_mean + (1 - mw) * pop_mean
+        mean_mix = (1 - mw) * resid[:, c].mean() + mw * r_c.mean()
+        rhs = (1 - mw) * pop_xtr[:, c] + mw * (win.T @ r_c) / n_c - joint_mean * mean_mix
+        lhs = (1 - mw) * pop_cov + mw * class_cov + mw * (1 - mw) * torch.outer(delta, delta) + reg * eye
+        w = torch.linalg.solve(lhs, rhs)
+        out.append(x_test.double() @ w + (jlm[c] - joint_mean @ w))
+    return torch.stack(out, dim=1)
+
+
+class _Capture:
+    """Keeps the weighted estimator's inputs and the fitted mapper's test
+    inputs and outputs of one ``run()`` (references only: the script's
+    float64 gate reads the features the pipeline itself computed)."""
+
+    def __init__(self, test_rows):
+        self.test_rows = test_rows
+        self.seen = {}
+
+    def __enter__(self):
+        from keystone_tpu_torch.ops.learning.block import BlockLinearMapper
+        from keystone_tpu_torch.ops.learning.weighted import BlockWeightedLeastSquaresEstimator
+
+        self._fit, self._apply = BlockWeightedLeastSquaresEstimator.fit, BlockLinearMapper.apply_arrays
+        seen, test_rows, fit, apply = self.seen, self.test_rows, self._fit, self._apply
+
+        def capture_fit(est, data, labels):
+            seen["train_x"], seen["train_y"] = data, labels
+            return fit(est, data, labels)
+
+        def capture_apply(mapper, x):
+            out = apply(mapper, x)
+            if x.shape[0] == test_rows:
+                seen["test_x"], seen["test_scores"] = x, out
+            return out
+
+        BlockWeightedLeastSquaresEstimator.fit, BlockLinearMapper.apply_arrays = capture_fit, capture_apply
+        return self
+
+    def __exit__(self, *exc):
+        from keystone_tpu_torch.ops.learning.block import BlockLinearMapper
+        from keystone_tpu_torch.ops.learning.weighted import BlockWeightedLeastSquaresEstimator
+
+        BlockWeightedLeastSquaresEstimator.fit, BlockLinearMapper.apply_arrays = self._fit, self._apply
+
+
+def _by_width(members, width):
+    found = [m for m in members if m.components.shape[0] == width]
+    if len(found) != 1:
+        raise AssertionError(f"expected one PCA of width {width}, found {len(found)}")
+    return found[0]
+
+
+def _all_members(fitted, cls):
+    return [m for op in fitted.graph.operators.values() for m in getattr(op, "members", (op,))
+            if isinstance(m, cls)]
+
+
+def phase_imagenet(device, paths, blobs, labels, use_native) -> int:
+    """Phase 29: the ImageNet SIFT + LCS + Fisher-vector flagship through
+    ``run()`` at the reference configuration; its split by node and span;
+    the gates on the scores (float64), LCS card vs CPU, the TF32 switches,
+    the widths and the peak."""
+    import torch
+
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.ops.images import GrayScaler, LCSExtractor, PixelScaler, SIFTExtractor
+    from keystone_tpu_torch.ops.images.fisher import FisherVector
+    from keystone_tpu_torch.ops.learning.block import BlockLinearMapper
+    from keystone_tpu_torch.ops.learning.pca import BatchPCATransformer
+    from keystone_tpu_torch.ops.stats.core import SignedHellingerMapper
+    from keystone_tpu_torch.ops.util.labels import TopKClassifier
+    from keystone_tpu_torch.pipelines.imagenet import ImageNetSiftLcsFVConfig, run, top_k_err_percent
+    from keystone_tpu_torch.workflow.tracing import trace
+
+    _mnist_start()
+    t_phase = time.perf_counter()
+    config = ImageNetSiftLcsFVConfig(train_location=paths["train"], test_location=paths["test"],
+                                     label_path=paths["labels"], use_native=use_native)
+    with trace() as tr, _Capture(IMAGENET_TEST) as cap:
+        out, run_s = synced_s(lambda: run(config, device=device))
+    run_peak = torch.cuda.max_memory_allocated()
+    session = tr.session
+    fitted = out["pipeline"]
+    sift, lcs = _fitted_member(fitted, SIFTExtractor), _fitted_member(fitted, LCSExtractor)
+    mapper = _fitted_member(fitted, BlockLinearMapper)
+    pcas = _all_members(fitted, BatchPCATransformer)
+    sift_pca, lcs_pca = _by_width(pcas, 128), _by_width(pcas, IMAGENET_LCS_WIDTH)
+    weighted_span = session.find("weighted:bcd")[0]
+    em = session.find("gmm:em")
+    lcs_keypoints = len(lcs._grid(*config.image_size)[0]) * len(lcs._grid(*config.image_size)[1])
+    sift_label = "Fused[PixelScaler+GrayScaler+SIFTExtractor+SignedHellingerMapper]"
+    result = {
+        "config": {k: getattr(config, k) for k in (
+            "reg", "mixture_weight", "desc_dim", "vocab_size", "sift_scale_step", "lcs_stride",
+            "lcs_border", "lcs_patch", "num_pca_samples", "num_gmm_samples", "image_size",
+            "solver_block_size", "num_classes", "use_native")},
+        "train_images": IMAGENET_TRAIN, "test_images": IMAGENET_TEST,
+        "sift_descriptors_per_image": sum(sift.grid_counts(*config.image_size)),
+        "lcs_descriptors_per_image": lcs_keypoints,
+        "feature_width": int(mapper.weights.shape[0]), "classes": int(mapper.weights.shape[1]),
+        "run_s": run_s, "ingest_s": sum(_span_seconds(session, "imagenet:load")),
+        "end_to_end_fit_s": _span_seconds(session, "imagenet:fit")[0],
+        "apply_s": _span_seconds(session, "imagenet:apply")[0],
+        "node_optimization_s": _span_seconds(session, "optimize:batch:node-level-optimization"),
+        "sift_train_s": _trace_seconds(tr, sift_label)[:1],
+        "lcs_train_s": _trace_seconds(tr, "LCSExtractor")[:1],
+        "sample_draws_s": _trace_seconds(tr, "ColumnSampler"),
+        "pca_picked": [t.label for t in tr.timings if t.label.endswith("ColumnPCAEstimator")],
+        "pca_fit_s": [t.seconds for t in tr.timings if t.label.endswith("ColumnPCAEstimator")],
+        "gmm_fit_s": _trace_seconds(tr, "GMMFisherVectorEstimator"),
+        "kmeanspp_seed_host_s": _span_seconds(session, "kmeans:seed"),
+        "kmeanspp_rows": [s.attributes["rows"] for s in session.find("kmeans:seed")],
+        "lloyd_s": _span_seconds(session, "kmeans:lloyd"),
+        "em_s": [s.duration_s for s in em], "em_iterations": [s.attributes["iterations"] for s in em],
+        "fisher_s": _trace_seconds(tr, "FisherVector")[:2],
+        "weighted_solve_s": weighted_span.duration_s, "weighted_path": weighted_span.attributes["path"],
+        "weighted_max_class_rows": weighted_span.attributes["max_class_rows"],
+        "weighted_fit_node_s": _trace_seconds(tr, "BlockWeightedLeastSquaresEstimator"),
+        "run_peak_device_bytes": run_peak,
+        "test_top5_error_percent": out["test_error_percent"],
+    }
+    del tr, session
+
+    # The float64 gate on the fit's own features.
+    train_x = cap.seen["train_x"].data[: IMAGENET_TRAIN].float()
+    train_labels = torch.argmax(cap.seen["train_y"].data[: IMAGENET_TRAIN], dim=1)
+    test_x, test_scores = cap.seen["test_x"], cap.seen["test_scores"]
+    rescored = TopKClassifier(5).apply_arrays(test_scores).cpu().numpy()
+    result["rescored_predictions_equal"] = bool(np.array_equal(rescored, out["test_predictions"]))
+    classes = sorted(set(labels["test"][:IMAGENET_FP64_CLASSES]))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    s64 = fp64_weighted_scores(train_x, train_labels, test_x, classes, config)
+    result["fp64_reference_s"] = time.perf_counter() - t0
+    result["scores_vs_fp64_rel"] = rel_err(test_scores[:, classes].double(), s64)
+    result["fp64_classes"] = len(classes)
+    del cap, train_x, test_x, test_scores, s64
+
+    # SIFT and LCS rates on a warm 256-image chunk; the gates on 8 images.
+    t0 = time.perf_counter()
+    train = decoded_images(blobs["train"][:IMAGENET_TRAIN_SCORED], config.image_size, use_native)
+    result["gate_decode_s"] = time.perf_counter() - t0
+    chunk = train[:IMAGENET_RATE_CHUNK].to(device)
+    gray = GrayScaler().apply_arrays(PixelScaler().apply_arrays(chunk))
+    hell = SignedHellingerMapper()
+    sift_ms = cuda_ms(lambda: hell.apply_arrays(sift.apply_arrays(gray)), 3)
+    lcs_ms = cuda_ms(lambda: lcs.apply_arrays(chunk), 3)
+    result["sift_chunk_ms"], result["lcs_chunk_ms"] = sift_ms, lcs_ms
+    result["sift_images_per_s"] = IMAGENET_RATE_CHUNK / (sift_ms / 1e3)
+    result["lcs_images_per_s"] = IMAGENET_RATE_CHUNK / (lcs_ms / 1e3)
+    g8, c8 = gray[:IMAGENET_GATE_IMAGES], chunk[:IMAGENET_GATE_IMAGES]
+    del gray
+    lcs_card = lcs.apply_arrays(c8).cpu()
+    lcs_cpu = lcs.apply_arrays(c8.cpu())
+    result["lcs_card_vs_cpu"] = {
+        "mean_rel_to_max": float((lcs_card[..., 0::2] - lcs_cpu[..., 0::2]).abs().max() / lcs_cpu.abs().max()),
+        "std_max_abs": float((lcs_card[..., 1::2] - lcs_cpu[..., 1::2]).abs().max())}
+    sdiff = (sift.apply_arrays(g8).cpu() - sift.apply_arrays(g8.cpu())).abs()
+    result["sift_card_vs_cpu"] = {"within_one": float((sdiff <= 1).double().mean()), "max_abs": float(sdiff.max())}
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    switched = {}
+    try:
+        for flag in (False, True):
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = flag
+            switched[flag] = (sift.apply_arrays(g8), lcs.apply_arrays(c8))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    result["tf32_sift_bitwise_equal"] = bool(torch.equal(switched[False][0], switched[True][0]))
+    result["tf32_lcs_bitwise_equal"] = bool(torch.equal(switched[False][1], switched[True][1]))
+    del chunk, g8, c8, switched
+
+    # Top-5 error on the first 256 training images.
+    pred = fitted.apply_batch(ArrayDataset(train, device=device)).data
+    result["train_top5_error_percent_256"] = top_k_err_percent(pred, labels["train"][:IMAGENET_TRAIN_SCORED])
+    del train, pred, fitted, out, sift_pca, lcs_pca, pcas
+    torch.cuda.empty_cache()
+    result["seconds"] = time.perf_counter() - t_phase
+    log("imagenet", **result, **_mnist_end("imagenet"))
+    checks = {
+        "scores_fp64": result["scores_vs_fp64_rel"] <= IMAGENET_SCORES_FP64_TOL,
+        "rescored": result["rescored_predictions_equal"],
+        "lcs_card_vs_cpu": result["lcs_card_vs_cpu"]["mean_rel_to_max"] <= IMAGENET_LCS_MEAN_TOL
+        and result["lcs_card_vs_cpu"]["std_max_abs"] <= IMAGENET_LCS_STD_ABS,
+        "sift_card_vs_cpu": result["sift_card_vs_cpu"]["within_one"] >= VOC_WITHIN_ONE
+        and result["sift_card_vs_cpu"]["max_abs"] <= 1.0,
+        "tf32": result["tf32_sift_bitwise_equal"] and result["tf32_lcs_bitwise_equal"],
+        "peak": result["run_peak_device_bytes"] < IMAGENET_PEAK_BOUND,
+        "widths": result["sift_descriptors_per_image"] == IMAGENET_SIFT_PER_IMAGE
+        and result["lcs_descriptors_per_image"] == IMAGENET_LCS_PER_IMAGE
+        and result["feature_width"] == IMAGENET_FEATURE_WIDTH and result["classes"] == IMAGENET_CLASSES,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"imagenet failed {failed}")
+    return 0
+
+
+def phase_imagenet_cli(device, paths, use_native) -> int:
+    """Phase 30: ``python -m keystone_tpu_torch imagenet-sift-lcs-fv`` at
+    the defaults on the 64-image tar (train = test), in a subprocess beside
+    ``run()`` on the same tar in this process: the same top-5 error."""
+    from keystone_tpu_torch.pipelines.imagenet import ImageNetSiftLcsFVConfig, run
+
+    _mnist_start()
+    t_phase = time.perf_counter()
+    cmd = [sys.executable, "-m", "keystone_tpu_torch", "imagenet-sift-lcs-fv",
+           "--train-location", paths["cli"], "--test-location", paths["cli"],
+           "--label-path", paths["labels"], "--use-native", str(use_native).lower()]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+    try:
+        config = ImageNetSiftLcsFVConfig(train_location=paths["cli"], test_location=paths["cli"],
+                                         label_path=paths["labels"], use_native=use_native)
+        out, run_s = synced_s(lambda: run(config, device=device))
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode == 0:
+        cli_line = json.loads(stdout.strip().splitlines()[-1])
+    else:
+        cli_line = {"rc": proc.returncode, "stderr": stderr[-2000:]}
+    log("imagenet_cli", images=IMAGENET_CLI_IMAGES, classes_present=IMAGENET_CLI_CLASSES, run_s=run_s,
+        run_test_top5_error_percent=out["test_error_percent"], cli=cli_line,
+        seconds=time.perf_counter() - t_phase, **_mnist_end("imagenet_cli"))
+    if proc.returncode != 0 or cli_line.get("test_error_percent") != out["test_error_percent"]:
+        raise AssertionError(f"imagenet_cli: the CLI's top-5 error {cli_line.get('test_error_percent')} "
+                             f"is not run()'s {out['test_error_percent']}")
+    return 0
+
+
+def phase_imagenet_native(device, paths) -> int:
+    """Phase 31: ``run_native_resolution`` on 1,024 JPEGs at ImageNet's
+    common sizes (granularity 32; PCA and GMM samples cut to 10⁶): the
+    buckets and their padding share, the split by span, the peak, the
+    training top-5 error; per bucket, the masked extractors' valid
+    descriptors against each image's native-size run."""
+    import torch
+
+    from keystone_tpu_torch.data.buckets import bucketize_dataset
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.data.loaders.imagenet import load_imagenet
+    from keystone_tpu_torch.ops.images import GrayScaler, LCSExtractor, MaskedExtractor, PixelScaler, SIFTExtractor
+    from keystone_tpu_torch.pipelines.imagenet import ImageNetSiftLcsFVConfig, run_native_resolution
+    from keystone_tpu_torch.workflow.tracing import trace
+
+    _mnist_start()
+    t_phase = time.perf_counter()
+    config = ImageNetSiftLcsFVConfig(train_location=paths["native"], label_path=paths["labels"],
+                                     num_pca_samples=IMAGENET_NATIVE_SAMPLES,
+                                     num_gmm_samples=IMAGENET_NATIVE_SAMPLES, image_size=None)
+    with trace() as tr:
+        out, run_s = synced_s(lambda: run_native_resolution(config, device=device))
+    peak = torch.cuda.max_memory_allocated()
+    session = tr.session
+    weighted_span = session.find("weighted:bcd")[0]
+    result = {
+        "images": IMAGENET_NATIVE_IMAGES, "sizes": IMAGENET_NATIVE_SIZES,
+        "num_samples": IMAGENET_NATIVE_SAMPLES, "run_s": run_s,
+        "load_and_bucket_s": _span_seconds(session, "imagenet_native:load")[0],
+        "fit_s": _span_seconds(session, "imagenet_native:fit")[0],
+        "apply_s": _span_seconds(session, "imagenet_native:apply")[0],
+        "masked_extractor_s": _trace_seconds(tr, "MaskedExtractor"),
+        "kmeanspp_seed_host_s": _span_seconds(session, "kmeans:seed"),
+        "em_iterations": [s.attributes["iterations"] for s in session.find("gmm:em")],
+        "weighted_solve_s": weighted_span.duration_s, "weighted_path": weighted_span.attributes["path"],
+        "num_buckets": out["num_buckets"], "num_train": out["num_train"],
+        "run_peak_device_bytes": peak, "train_top5_error_percent": out["train_error_percent"],
+    }
+    del tr, session, out
+    torch.cuda.empty_cache()
+
+    # Buckets and padding; the gate on each bucket's first two images.
+    t0 = time.perf_counter()
+    buckets = bucketize_dataset(load_imagenet(paths["native"], paths["labels"]), granularity=32)
+    result["gate_load_s"] = time.perf_counter() - t0
+    true_px = sum(int(np.prod(b.dims, axis=1).sum()) for b in buckets)
+    padded_px = sum(len(b) * b.bucket_shape[0] * b.bucket_shape[1] for b in buckets)
+    result["buckets"] = [{"shape": list(b.bucket_shape), "images": len(b)} for b in buckets]
+    result["padding_share"] = 1.0 - true_px / padded_px
+    pre = lambda x: GrayScaler().apply_arrays(PixelScaler().apply_arrays(x))  # noqa: E731
+    sift, lcs = SIFTExtractor(scale_step=config.sift_scale_step), LCSExtractor()
+    gate = {"sift_valid_counts_equal": True, "lcs_valid_counts_equal": True, "sift_within_one": 1.0,
+            "sift_max_abs": 0.0, "lcs_max_abs": 0.0}
+    for b in buckets:
+        images = torch.from_numpy(b.images[:2].astype(np.float32)).to(device)
+        dims = torch.from_numpy(b.dims[:2]).to(device)
+        s_out = MaskedExtractor(sift, pre=pre).apply_batch(ArrayDataset({"image": images, "dims": dims}))
+        l_desc, l_valid = lcs.apply_arrays_masked(images, dims)
+        for i, (xn, yn) in enumerate(b.dims[:2]):
+            own_s = sift.apply_arrays(pre(images[i : i + 1, :xn, :yn]))[0]
+            own_l = lcs.apply_arrays(images[i : i + 1, :xn, :yn])[0]
+            mine_s = s_out.data["desc"][i][s_out.data["valid"][i]]
+            mine_l = l_desc[i][l_valid[i]]
+            gate["sift_valid_counts_equal"] &= mine_s.shape == own_s.shape
+            gate["lcs_valid_counts_equal"] &= mine_l.shape == own_l.shape
+            if mine_s.shape == own_s.shape:
+                d = (mine_s - own_s).abs()
+                gate["sift_within_one"] = min(gate["sift_within_one"], float((d <= 1).double().mean()))
+                gate["sift_max_abs"] = max(gate["sift_max_abs"], float(d.max()))
+            if mine_l.shape == own_l.shape:
+                gate["lcs_max_abs"] = max(gate["lcs_max_abs"], float((mine_l - own_l).abs().max()))
+    result["native_size_gate"] = gate
+    del buckets
+    torch.cuda.empty_cache()
+    result["seconds"] = time.perf_counter() - t_phase
+    log("imagenet_native", **result, **_mnist_end("imagenet_native"))
+    checks = {
+        "valid_keypoints": gate["sift_valid_counts_equal"] and gate["lcs_valid_counts_equal"],
+        "sift_native_size": gate["sift_within_one"] >= VOC_WITHIN_ONE and gate["sift_max_abs"] <= 1.0,
+        "lcs_native_size": gate["lcs_max_abs"] <= IMAGENET_LCS_STD_ABS,
+        "count": result["num_train"] == IMAGENET_NATIVE_IMAGES,
+        "peak": peak < IMAGENET_PEAK_BOUND,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"imagenet_native failed {failed}")
+    return 0
+
+
 def card_name_and_limit() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4363,15 +4987,39 @@ def main() -> int:
     launches_by_path["cifar_features"] = phase_cifar_features(device)
     launches_by_path["cifar_random_patch_fused"] = phase_cifar_random_patch_fused(device)
     launches_by_path["cifar_workloads"] = phase_cifar_workloads(device)
+    from keystone_tpu_torch import native
+
+    decode_available = native.has_header("jpeglib.h")
+    print("native_decode: " + ("available (jpeglib.h)" if decode_available else "unavailable (no jpeglib.h)"),
+          flush=True)
+    if not native.has_openmp():
+        # The compiler has no OpenMP runtime: the native kernels build
+        # single-threaded, asked for explicitly (their results are equal).
+        os.environ["KEYSTONE_NATIVE_OPENMP"] = "off"
+        print("native_openmp: unavailable (no libgomp): KEYSTONE_NATIVE_OPENMP=off", flush=True)
+    use_native = None if decode_available else False
+    VOC_FLAGS["use_native"] = VOC_CLI_FLAGS["use_native"] = use_native
     voc_dir = tempfile.TemporaryDirectory(prefix="keystone-voc-")
     t_voc = time.perf_counter()
     voc_paths, voc_blobs, voc_labels = write_voc_data(voc_dir.name)
     log("voc_data", seconds=time.perf_counter() - t_voc,
         tar_bytes={k: os.path.getsize(v) for k, v in voc_paths.items()})
     launches_by_path["voc"] = phase_voc(device, voc_paths, voc_blobs, voc_labels)
-    del voc_blobs
     launches_by_path["voc_cli"] = phase_voc_cli(device, voc_paths)
+    launches_by_path["native_host"] = phase_native_host(device, voc_blobs, decode_available)
+    del voc_blobs
     voc_dir.cleanup()
+    imagenet_dir = tempfile.TemporaryDirectory(prefix="keystone-imagenet-")
+    t_gen = time.perf_counter()
+    imagenet_paths, imagenet_blobs, imagenet_labels = write_imagenet_data(imagenet_dir.name)
+    log("imagenet_data", seconds=time.perf_counter() - t_gen,
+        tar_bytes={k: os.path.getsize(v) for k, v in imagenet_paths.items()})
+    launches_by_path["imagenet"] = phase_imagenet(device, imagenet_paths, imagenet_blobs, imagenet_labels,
+                                                  use_native)
+    del imagenet_blobs
+    launches_by_path["imagenet_cli"] = phase_imagenet_cli(device, imagenet_paths, use_native)
+    launches_by_path["imagenet_native"] = phase_imagenet_native(device, imagenet_paths)
+    imagenet_dir.cleanup()
     # The binding's calls on the paths (gram_modes times it and is left out).
     paths = {p: c for p, c in SOLVER_GEMM_CALLS.items() if p != "gram_modes"}
     binding["launches"] = {k: sum(c[k] for c in paths.values()) for k in next(iter(paths.values()))}

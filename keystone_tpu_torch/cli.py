@@ -27,10 +27,24 @@ import typing
 from typing import Any, Callable, Dict, Optional, Tuple
 
 
+def _parse_bool(text: str) -> Optional[bool]:
+    """``true``/``false`` (or ``1``/``0``, ``yes``/``no``); ``none`` for
+    ``None``."""
+    value = text.strip().lower()
+    if value in ("none", ""):
+        return None
+    if value in ("true", "1", "yes"):
+        return True
+    if value in ("false", "0", "no"):
+        return False
+    raise argparse.ArgumentTypeError(f"expected true, false or none; got {text!r}")
+
+
 def _field_parser(field_type: Any) -> Optional[Callable[[str], Any]]:
-    """Map a dataclass field annotation (``int``, ``float``, ``str``, a
-    tuple of one of them, or ``Optional`` of one) to an argparse type
-    callable. A tuple reads as ``256x256`` or ``256,256``."""
+    """Map a dataclass field annotation (``int``, ``float``, ``str``,
+    ``bool``, a tuple of one of them, or ``Optional`` of one) to an
+    argparse type callable. A tuple reads as ``256x256`` or ``256,256``; a
+    bool as ``true``/``false`` (``none`` for an ``Optional`` one)."""
     origin = typing.get_origin(field_type)
     if origin is typing.Union:  # Optional[T]
         args = [a for a in typing.get_args(field_type) if a is not type(None)]
@@ -43,6 +57,8 @@ def _field_parser(field_type: Any) -> Optional[Callable[[str], Any]]:
             return tuple(caster(p) for p in text.replace("x", ",").split(",") if p)
 
         return parse_tuple
+    if field_type is bool:
+        return _parse_bool
     if field_type in (int, float, str):
         return field_type
     return None
@@ -92,6 +108,14 @@ WORKLOADS: Dict[str, Tuple[str, str, str, Dict[str, Any], str]] = {
     "voc-sift-fisher": (
         "voc", "SIFTFisherConfig", "run", {},
         "VOC 2007 SIFT + Fisher Vector + block least squares",
+    ),
+    "imagenet-sift-lcs-fv": (
+        "imagenet", "ImageNetSiftLcsFVConfig", "run", {},
+        "ImageNet dual-branch SIFT+LCS Fisher Vector pipeline",
+    ),
+    "imagenet-native": (
+        "imagenet", "ImageNetSiftLcsFVConfig", "run_native_resolution", {},
+        "ImageNet SIFT+LCS+FV with per-image native-resolution featurization",
     ),
     **{
         "cifar-" + v.replace("_", "-"): (

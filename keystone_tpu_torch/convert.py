@@ -22,6 +22,7 @@ from .ops.images.core import (
     SymmetricRectifier,
 )
 from .ops.images.fisher import FisherVector
+from .ops.images.lcs import LCSExtractor
 from .ops.images.sift import SIFTExtractor
 from .ops.learning.block import BlockLinearMapper
 from .ops.learning.conv_block import ConvBlockModel
@@ -36,7 +37,7 @@ from .ops.stats.core import (
     RandomSignNode,
     SignedHellingerMapper,
 )
-from .ops.util.labels import MaxClassifier
+from .ops.util.labels import MaxClassifier, TopKClassifier
 from .ops.util.vectors import FloatToDouble, MatrixVectorizer, VectorCombiner
 from .refit.state import StreamState
 from .workflow.pipeline import FittedPipeline, Pipeline
@@ -224,4 +225,59 @@ def voc_pipeline_from_numpy(
         >> NormalizeRows()
         >> mapper_from_numpy(weights, block_size, intercept, feature_mean, device=device)
     )
+    return chain.fit()
+
+
+def _fisher_branch(prefix: Pipeline, branch: Dict[str, np.ndarray], device: DeviceLike) -> Pipeline:
+    return (
+        prefix
+        >> pca_from_numpy(branch["pca_components"], device=device)
+        >> FisherVector(gmm_from_numpy(branch["gmm_means"], branch["gmm_variances"],
+                                       branch["gmm_weights"], device=device))
+        >> FloatToDouble()
+        >> MatrixVectorizer()
+        >> NormalizeRows()
+        >> SignedHellingerMapper()
+        >> NormalizeRows()
+    )
+
+
+def imagenet_pipeline_from_numpy(
+    sift_branch: Dict[str, np.ndarray],
+    lcs_branch: Dict[str, np.ndarray],
+    weights: np.ndarray,
+    block_size: int,
+    intercept: Optional[np.ndarray] = None,
+    feature_mean: Optional[np.ndarray] = None,
+    sift_scale_step: int = 1,
+    lcs_stride: int = 4,
+    lcs_border: int = 16,
+    lcs_patch: int = 6,
+    top_k: Optional[int] = 5,
+    device: DeviceLike = None,
+) -> FittedPipeline:
+    """The port's fitted ImageNet SIFT + LCS + Fisher-vector pipeline
+    (``pipelines/imagenet.py``, the fixed-size graph) holding a
+    JAX-fitted flagship's parameters. Each branch is a dict of numpy
+    arrays: ``pca_components`` (d, k), ``gmm_means`` / ``gmm_variances``
+    (k, K) and ``gmm_weights`` (K,); ``weights``, ``intercept`` and
+    ``feature_mean`` are the weighted solver's ``BlockLinearMapper``'s.
+    ``top_k=None`` leaves out the ``TopKClassifier`` (the pipeline then
+    returns the class scores). On ``device`` (default CUDA)."""
+    sift = _fisher_branch(
+        PixelScaler().to_pipeline() >> GrayScaler() >> SIFTExtractor(scale_step=sift_scale_step)
+        >> SignedHellingerMapper(),
+        sift_branch, device,
+    )
+    lcs = _fisher_branch(
+        LCSExtractor(stride=lcs_stride, stride_start=lcs_border, sub_patch_size=lcs_patch).to_pipeline(),
+        lcs_branch, device,
+    )
+    chain = (
+        Pipeline.gather([sift, lcs])
+        >> VectorCombiner()
+        >> mapper_from_numpy(weights, block_size, intercept, feature_mean, device=device)
+    )
+    if top_k is not None:
+        chain = chain >> TopKClassifier(top_k)
     return chain.fit()

@@ -1,18 +1,27 @@
-"""Host ingest: the bounded, ordered, multi-worker prefetch pipeline.
+"""Host ingest: the bounded, ordered, multi-worker prefetch pipeline, and
+the JPEG-tar fixture and ingest measurement of the image pipelines.
 
-Port of ``PrefetchQueue`` from ``keystone_tpu/data/ingest.py``, the host
-side of the streaming execution engine (``workflow/streaming.py``).
-``build_jpeg_tar_fixture`` and ``measure_ingest`` wait for the image
-ingest pipelines.
+Port of ``keystone_tpu/data/ingest.py``: ``PrefetchQueue`` is the host
+side of the streaming execution engine (``workflow/streaming.py``);
+``build_jpeg_tar_fixture`` writes a tar of synthetic JPEGs in ImageNet's
+``synset/image`` layout and ``measure_ingest`` streams a tar through the
+native libjpeg decode.
 """
 
 from __future__ import annotations
 
+import io
+import os
+import tarfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, Iterable, Optional
 
+import numpy as np
+
 from ..obs import names as _names
+from ..obs import spans as _spans
 
 
 class PrefetchQueue:
@@ -154,3 +163,141 @@ class PrefetchQueue:
 
 
 __all__ = ["PrefetchQueue"]
+
+
+def build_jpeg_tar_fixture(
+    path: str,
+    num_images: int,
+    size: int = 256,
+    quality: int = 87,
+    seed: int = 0,
+    deadline_left_fn: Optional[Callable[[], Optional[float]]] = None,
+    deadline_margin_s: float = 60.0,
+) -> str:
+    """Write a tar of ``num_images`` synthetic JPEGs (block-textured so
+    file sizes land near real photo entropy, ~20-40 KB at 256²), entries
+    ``synset{i % 16:04d}/img_{i:06d}.JPEG``. Cached: an existing file at
+    ``path`` with the right entry count is reused.
+
+    ``deadline_left_fn`` makes the build time-budgeted: when fewer than
+    ``deadline_margin_s`` seconds remain, the tar is finalized with the
+    images written so far.
+    """
+    from PIL import Image
+
+    if os.path.exists(path):
+        try:
+            with tarfile.open(path) as t:
+                if sum(1 for m in t if m.isfile()) == num_images:
+                    return path
+        except tarfile.ReadError:
+            pass
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    rng = np.random.default_rng(seed)
+    tmp = path + ".tmp"
+    with tarfile.open(tmp, "w") as tar:
+        for i in range(num_images):
+            if deadline_left_fn is not None and i and i % 128 == 0:
+                left = deadline_left_fn()
+                if left is not None and left <= deadline_margin_s:
+                    break  # finalize a partial (still valid) fixture
+            # Low-res random field upsampled ×8 + noise: JPEG-compressible
+            # structure, photo-like size on disk.
+            low = rng.integers(0, 256, (size // 8, size // 8, 3), dtype=np.uint8)
+            img = np.repeat(np.repeat(low, 8, axis=0), 8, axis=1)
+            img = np.clip(
+                img.astype(np.int16) + rng.integers(-12, 13, img.shape), 0, 255
+            ).astype(np.uint8)
+            buf = io.BytesIO()
+            Image.fromarray(img).save(buf, format="JPEG", quality=quality)
+            data = buf.getvalue()
+            info = tarfile.TarInfo(name=f"synset{i % 16:04d}/img_{i:06d}.JPEG")
+            info.size = len(data)
+            tar.addfile(info, io.BytesIO(data))
+    os.replace(tmp, path)
+    return path
+
+
+def measure_ingest(
+    tar_path: str,
+    resize: tuple = (256, 256),
+    batch: int = 256,
+    threads: Optional[int] = None,
+    featurize: Optional[Callable[[np.ndarray], object]] = None,
+    max_images: Optional[int] = None,
+) -> Dict[str, float]:
+    """Stream ``tar_path`` through the native decode kernel; returns
+    images/s plus byte counts. With ``featurize`` given, decode of batch
+    i+1 overlaps ``featurize(batch_i)`` (device work) through a one-slot
+    pipeline, and the overlapped rate is reported separately. Builds the
+    native decode library at first use; raises if it cannot."""
+    from .. import native
+    from .loaders.archive import iter_tar_entries, native_decode_batch
+
+    lib = native.load("decode")
+    if threads:
+        lib.ks_set_threads(int(threads))
+
+    t0 = time.perf_counter()
+    done = 0
+    corrupt = 0  # undecodable entries: quarantined, never abort the stream
+    raw_bytes = 0
+    pending = None  # in-flight featurize result to force
+    decode_s = 0.0
+    feat_wait_s = 0.0
+
+    with _spans.span("ingest:read", source=tar_path):
+        chunks: list = []
+        chunk: list = []
+        for _name, raw in iter_tar_entries(tar_path):
+            chunk.append(raw)
+            raw_bytes += len(raw)
+            if len(chunk) == batch:
+                chunks.append(chunk)
+                chunk = []
+                if max_images and len(chunks) * batch >= max_images:
+                    break
+        if chunk:
+            chunks.append(chunk)
+
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=1) as pool, _spans.span(
+        "ingest:decode", batches=len(chunks), overlapped=featurize is not None
+    ):
+        for c in chunks:
+            td = time.perf_counter()
+            images, ok = native_decode_batch(c, resize)
+            decode_s += time.perf_counter() - td
+            done += int(ok.sum())
+            corrupt += len(c) - int(ok.sum())
+            if featurize is not None:
+                tw = time.perf_counter()
+                if pending is not None:
+                    pending.result()  # force the previous device batch
+                feat_wait_s += time.perf_counter() - tw
+                pending = pool.submit(featurize, images)
+        if pending is not None:
+            pending.result()
+    total_s = time.perf_counter() - t0
+
+    _names.metric(_names.INGEST_IMAGES).inc(done)
+    _names.metric(_names.INGEST_BYTES).inc(raw_bytes)
+    _names.metric(_names.INGEST_DECODE_SECONDS).inc(decode_s)
+    if corrupt:
+        from ..reliability.recovery import get_recovery_log
+
+        _names.metric(_names.INGEST_CORRUPT).inc(corrupt)
+        get_recovery_log().record("quarantine", "measure_ingest", count=corrupt, source=tar_path)
+    out = {
+        "images": done,
+        "corrupt_skipped": corrupt,
+        "tar_read_s": read_s,
+        "decode_s": decode_s,
+        "images_per_sec_decode": done / max(decode_s, 1e-9),
+        "mb_per_sec_jpeg": raw_bytes / 1e6 / max(decode_s + read_s, 1e-9),
+    }
+    if featurize is not None:
+        out["images_per_sec_overlapped"] = done / max(total_s, 1e-9)
+        out["featurize_wait_s"] = feat_wait_s
+    return out

@@ -3,17 +3,17 @@
 Port of ``keystone_tpu/data/loaders/archive.py`` (reference:
 loaders/ImageLoaderUtils.scala:23-96 ``getFilePathsRDD`` / ``loadFiles``),
 a host-side copy: tar entries are read sequentially (tar has no index)
-while JPEG decode + resize fans out over a thread pool (PIL releases the
-interpreter lock while it decodes). ``_resize_image`` is the JAX
-package's PIL bilinear resize, so resized arrays are bit-equal to its
-loader's.
+while JPEG decode + resize fans out, either over a thread pool through
+PIL (which releases the interpreter lock while it decodes) or, with a
+resize target, through the native libjpeg kernel
+(``keystone_tpu_torch/native/src/decode.cpp``, OpenMP over images).
+``_resize_image`` is the JAX package's PIL bilinear resize and the
+native kernel is its copy, so each path's arrays are bit-equal to the
+JAX loader's on the same path.
 
 Loaders take an optional ``resize=(x, y)`` that produces uniform arrays
 ready for ``ArrayDataset`` stacking; without it they return per-image
 dict records in an ``ObjectDataset``.
-
-Left out for now: the native libjpeg decode (``use_native=True`` raises,
-naming ROADMAP item 10d, which ports the native host kernels).
 """
 
 from __future__ import annotations
@@ -83,6 +83,40 @@ def iter_tar_entries(
             yield entry.name, fobj.read()
 
 
+def native_decode_batch(
+    raw: List[bytes], resize: Tuple[int, int]
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Decode a batch of JPEGs through the native libjpeg kernel
+    (``ks_decode_jpeg_batch``) and resize each bilinearly to ``resize``:
+    ``(images (n, X, Y, 3) float32 BGR, ok (n,) bool)``. An entry libjpeg
+    cannot decode is left zero with ``ok`` False. Builds the decode
+    library at first use; raises if it cannot be built."""
+    import ctypes
+
+    from ... import native
+
+    lib = native.load("decode")
+    n = len(raw)
+    x_dim, y_dim = resize
+    bufs = (ctypes.POINTER(ctypes.c_ubyte) * max(n, 1))()
+    lens = (ctypes.c_longlong * max(n, 1))()
+    keepalive = []
+    for i, b in enumerate(raw):
+        arr = np.frombuffer(b, dtype=np.uint8)
+        keepalive.append(arr)
+        bufs[i] = arr.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte))
+        lens[i] = len(b)
+    out = np.zeros((n, x_dim, y_dim, 3), dtype=np.float32)
+    ok = np.zeros(n, dtype=np.uint8)
+    if n:
+        lib.ks_decode_jpeg_batch(
+            bufs, lens, n, x_dim, y_dim,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            ok.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)),
+        )
+    return out, ok.astype(bool)
+
+
 def load_image_archives(
     data_path: str,
     label_fn: Callable[[str], Any],
@@ -102,16 +136,22 @@ def load_image_archives(
     dataset carries a ``.quarantine`` dict and the totals land in the
     process recovery log.
 
-    ``use_native=None`` and ``False`` decode with PIL; ``True`` raises
-    until ROADMAP item 10d ports the native decode. ``num_workers=None``
+    ``use_native``: ``True`` decodes and resizes through the native
+    libjpeg kernel (it needs ``resize``), ``False`` through PIL on
+    threads, ``None`` (the default) natively when ``resize`` is set and
+    through PIL otherwise — the JAX package's choice with its native
+    library built. The native path builds its library at first use and
+    raises if it cannot (a machine without libjpeg's ``jpeglib.h``): pass
+    ``use_native=False`` there. Entries libjpeg cannot decode (PNG, BMP,
+    CMYK JPEG) go through the PIL path, as in the JAX package, so a
+    dataset's contents do not depend on the path. ``num_workers=None``
     resolves through :func:`~keystone_tpu_torch.data.dataset.default_ingest_workers`
     (``KEYSTONE_INGEST_WORKERS``).
     """
-    if use_native:
-        raise NotImplementedError(
-            "native JPEG decode is not ported yet (ROADMAP item 10d); "
-            "use_native=None or False decodes with PIL"
-        )
+    if use_native is None:
+        use_native = resize is not None
+    if use_native and resize is None:
+        raise ValueError("native decode requires a resize target")
     if num_workers is None:
         num_workers = default_ingest_workers()
     quarantine = QuarantineCounts()
@@ -137,6 +177,32 @@ def load_image_archives(
     # flight — draining the raw generator into queued futures would pull
     # the whole tar into memory before the first decode finishes.
     chunk = max(1, 2 * num_workers)
+    if use_native:
+        for archive in archives:
+            entries = iter_tar_entries(archive, name_prefix)
+            while True:
+                batch = list(itertools.islice(entries, chunk * 8))
+                if not batch:
+                    break
+                probe("ingest.decode_batch")
+                labeled = []
+                for name, raw in batch:
+                    try:
+                        labeled.append((name, raw, label_fn(name)))
+                    except KeyError:
+                        quarantine.add("label_missing", name)
+                if not labeled:
+                    continue
+                images, ok = native_decode_batch([r for _, r, _ in labeled], resize)
+                for i, (name, raw, label) in enumerate(labeled):
+                    if ok[i]:
+                        records.append({"image": images[i], label_key: label, "filename": name})
+                        continue
+                    rec = decode((name, raw))
+                    if rec is not None:
+                        rec["image"] = rec["image"].astype(np.float32)
+                        records.append(rec)
+        return _finish(records, quarantine)
     with ThreadPoolExecutor(max_workers=num_workers) as pool:
         for archive in archives:
             entries = iter_tar_entries(archive, name_prefix)

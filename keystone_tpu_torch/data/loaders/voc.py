@@ -41,10 +41,12 @@ def load_voc(
     name_prefix: str = DEFAULT_NAME_PREFIX,
     resize: Optional[Tuple[int, int]] = None,
     num_workers: Optional[int] = None,  # None → KEYSTONE_INGEST_WORKERS default
+    use_native: Optional[bool] = None,
 ) -> ObjectDataset:
     """Load the VOC tar(s); entries are matched to labels by basename so
     the label CSV's bare filenames line up with tar paths under
-    ``name_prefix`` (reference: VOCLoader.scala:30,50)."""
+    ``name_prefix`` (reference: VOCLoader.scala:30,50). ``use_native``:
+    see :func:`~keystone_tpu_torch.data.loaders.archive.load_image_archives`."""
     label_map = read_voc_labels(labels_path)
 
     def label_fn(entry_name: str) -> List[int]:
@@ -59,4 +61,5 @@ def load_voc(
         resize=resize,
         num_workers=num_workers,
         label_key="labels",
+        use_native=use_native,
     )

@@ -86,6 +86,12 @@ SERVING_LATENCY_SECONDS = "keystone_serving_latency_seconds"
 SERVING_QUEUE_WAIT_SECONDS = "keystone_serving_queue_wait_seconds"
 SERVING_BATCH_OCCUPANCY = "keystone_serving_batch_occupancy"
 
+# Image ingest (data/ingest.py::measure_ingest).
+INGEST_IMAGES = "keystone_ingest_images_total"
+INGEST_CORRUPT = "keystone_ingest_corrupt_total"
+INGEST_BYTES = "keystone_ingest_bytes_total"
+INGEST_DECODE_SECONDS = "keystone_ingest_decode_seconds_total"
+
 
 # name → (kind, help, label names). Histograms may carry a 4th element
 # naming a bucket preset ("ratio" → RATIO_BUCKETS).
@@ -135,6 +141,10 @@ SCHEMA: Dict[str, Tuple] = {
     SERVING_LATENCY_SECONDS: ("histogram", "End-to-end request latency", ("model",)),
     SERVING_QUEUE_WAIT_SECONDS: ("histogram", "Submit-to-apply queue wait", ("model",)),
     SERVING_BATCH_OCCUPANCY: ("histogram", "Batch size / max_batch", ("model",), "ratio"),
+    INGEST_IMAGES: ("counter", "Records successfully decoded by ingest", ()),
+    INGEST_CORRUPT: ("counter", "Records quarantined by ingest", ()),
+    INGEST_BYTES: ("counter", "Raw bytes read by ingest", ()),
+    INGEST_DECODE_SECONDS: ("counter", "Cumulative decode wall time", ()),
 }
 
 

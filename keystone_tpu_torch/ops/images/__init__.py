@@ -1,8 +1,5 @@
 """Image featurization operators (port of ``keystone_tpu.ops.images``;
-reference: nodes/images/).
-
-Left out for now: ``LCSExtractor`` (ROADMAP item 10d).
-"""
+reference: nodes/images/)."""
 
 from .core import (
     CenterCornerPatcher,
@@ -26,13 +23,18 @@ from .core import (
 from .daisy import DaisyExtractor
 from .fisher import FisherVector, GMMFisherVectorEstimator
 from .hog import HogExtractor
+from .lcs import LCSExtractor
+from .native import ConcatBuckets, MaskedExtractor
 from .sift import SIFTExtractor
 
 __all__ = [
+    "ConcatBuckets",
     "DaisyExtractor",
     "FisherVector",
     "GMMFisherVectorEstimator",
     "HogExtractor",
+    "LCSExtractor",
+    "MaskedExtractor",
     "SIFTExtractor",
     "CenterCornerPatcher",
     "Convolver",

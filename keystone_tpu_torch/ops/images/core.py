@@ -26,8 +26,8 @@ The host operators (``Windower``, ``RandomPatcher``,
 ``CenterCornerPatcher``, ``RandomImageTransformer``) are the JAX
 package's numpy code with its seeds, so they emit the same patches.
 
-The SIFT, Fisher-vector, DAISY and HOG operators live in their own
-modules; ``lcs`` and ``native`` come with ROADMAP item 10d.
+The SIFT, LCS, Fisher-vector, DAISY, HOG and masked (native-resolution)
+operators live in their own modules.
 """
 
 from __future__ import annotations

@@ -23,15 +23,18 @@ process-wide TF32 switch. The posteriors come from
 descriptors and 256 Gaussians one image's posteriors are 24.6 MB, and
 the whole batch's would not fit beside the descriptors.
 
-Left out for now: the masked / bucketed descriptor path
-(``apply_arrays_masked``, ROADMAP item 10d).
+Masked descriptor batches (``{"desc", "valid"}`` from the native-
+resolution extractors, ``ops/images/native.py``) encode through
+``apply_arrays_masked``: invalid rows contribute nothing and each image's
+statistics divide by its true descriptor count, and the output is dense
+(N, D, 2K) — the boundary where the raggedness ends.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ...data.dataset import ArrayDataset, Dataset
+from ...data.dataset import ArrayDataset, BucketedDataset, Dataset
 from ...workflow.optimize import DataStats, Optimizable
 from ...workflow.pipeline import BatchTransformer, Estimator
 from ..cuda import gemm as _gemm
@@ -49,7 +52,17 @@ class FisherVector(BatchTransformer):
         self.gmm = gmm
 
     def apply_arrays(self, x):
-        x = x.to(torch.float32)
+        return self._encode(x.to(torch.float32), None)
+
+    def apply_arrays_masked(self, x, valid):
+        """Fisher-encode ragged descriptor batches: ``x`` (N, n_pad, D)
+        with per-image validity ``valid`` (N, n_pad). Equal to
+        ``apply_arrays`` on each image's own valid descriptors (the
+        reference encodes per-image descriptor sets of varying size,
+        FisherVector.scala:33-53)."""
+        return self._encode(x.to(torch.float32), torch.as_tensor(valid, device=x.device))
+
+    def _encode(self, x: torch.Tensor, valid) -> torch.Tensor:
         n, n_desc, dim = x.shape
         k = self.gmm.k
         means = self.gmm.means                    # (D, K)
@@ -62,10 +75,17 @@ class FisherVector(BatchTransformer):
             xc = x[start : start + self.image_chunk]
             b = xc.shape[0]
             q = self.gmm.apply_arrays(xc.reshape(-1, dim)).reshape(b, n_desc, k)
-            s0 = torch.mean(q, dim=1)[:, None, :]                 # (B, 1, K)
+            if valid is None:
+                count = n_desc
+                s0 = torch.mean(q, dim=1)[:, None, :]                    # (B, 1, K)
+            else:
+                m = valid[start : start + b].to(torch.float32)          # (B, n)
+                count = torch.clamp_min(m.sum(dim=1), 1.0)[:, None, None]
+                q = q * m[..., None]                                     # zero invalid rows
+                s0 = torch.sum(q, dim=1)[:, None, :] / count
             stats = _gemm.gemm_batched(
                 torch.cat([xc, xc * xc], dim=2).transpose(1, 2), q, "ieee_fp32"
-            ) / n_desc                                            # (B, 2D, K)
+            ) / count                                                    # (B, 2D, K)
             del q
             s1, s2 = stats[:, :dim], stats[:, dim:]
             out[start : start + b, :, :k] = (s1 - means * s0) / scale1
@@ -73,6 +93,18 @@ class FisherVector(BatchTransformer):
                 s2 - 2.0 * means * s1 + (means * means - variances) * s0
             ) / scale2
         return out
+
+    def apply_batch(self, dataset):
+        """Masked-descriptor datasets (``{"desc", "valid"}``) encode
+        through ``apply_arrays_masked`` and come out dense."""
+        if isinstance(dataset, BucketedDataset):
+            return dataset.map_datasets(self.apply_batch)
+        if isinstance(dataset, ArrayDataset) and isinstance(dataset.data, dict) \
+                and "valid" in dataset.data:
+            n = dataset.num_examples
+            out = self.apply_arrays_masked(dataset.data["desc"][:n], dataset.data["valid"][:n])
+            return ArrayDataset(out, n)
+        return super().apply_batch(dataset)
 
 
 class GMMFisherVectorEstimator(Estimator, Optimizable):

@@ -38,8 +38,12 @@ at 256×256 (8 × 256 × 256 fp32 per image) and their products stay near
 3 GB on the card, where the whole batch would be 2.1 MB per image and
 scale.
 
-Left out for now: ``apply_arrays_masked`` (the native-resolution bucketed
-path, ROADMAP item 10d).
+``apply_arrays_masked`` is the native-resolution path over a size bucket
+(``data/buckets.py``): edge-replicate padding reproduces the smoother's
+border, the gradient stencil turns one-sided at each image's true
+border, and the orientation planes are zeroed outside it, so a valid
+descriptor is a native-size run's (to the banded products' summation
+order: ±1 quantization step at most, the reference's tolerance).
 """
 
 from __future__ import annotations
@@ -107,9 +111,10 @@ def _smooth(x: torch.Tensor, sigma: float) -> torch.Tensor:
     return _gemm.gemm(along_x, my.T, "ieee_fp32").view(xd, n, yd)
 
 
-def _gradients(sm: torch.Tensor):
+def _gradients(sm: torch.Tensor, dims: Optional[torch.Tensor] = None):
     """Central differences inside, one-sided at the borders (vl_dsift's
-    stencil), of an x-major (X, N, Y) batch: (gx, gy)."""
+    stencil), of an x-major (X, N, Y) batch: (gx, gy). With ``dims``
+    (N, 2), the last row and column are each image's true ones."""
     gx = torch.empty_like(sm)
     gx[1:-1] = (sm[2:] - sm[:-2]) * 0.5
     gx[0] = sm[1] - sm[0]
@@ -118,6 +123,18 @@ def _gradients(sm: torch.Tensor):
     gy[:, :, 1:-1] = (sm[:, :, 2:] - sm[:, :, :-2]) * 0.5
     gy[:, :, 0] = sm[:, :, 1] - sm[:, :, 0]
     gy[:, :, -1] = sm[:, :, -1] - sm[:, :, -2]
+    if dims is not None:
+        xd, _, yd = sm.shape
+        rows = torch.arange(xd, device=sm.device)[:, None, None]
+        cols = torch.arange(yd, device=sm.device)[None, None, :]
+        last_row = rows == (dims[:, 0] - 1)[None, :, None]
+        last_col = cols == (dims[:, 1] - 1)[None, :, None]
+        back_x = torch.zeros_like(sm)
+        back_x[1:] = sm[1:] - sm[:-1]
+        back_y = torch.zeros_like(sm)
+        back_y[:, :, 1:] = sm[:, :, 1:] - sm[:, :, :-1]
+        gx = torch.where(last_row, back_x, gx)
+        gy = torch.where(last_col, back_y, gy)
     return gx, gy
 
 
@@ -199,10 +216,57 @@ class SIFTExtractor(BatchTransformer):
                     offset += count
         return out
 
-    def _one_scale(self, x: torch.Tensor, s: int) -> torch.Tensor:
+    def apply_arrays_masked(self, x, dims):
+        """Native-resolution SIFT over a size-bucketed batch.
+
+        ``x`` is (N, Xb, Yb[, 1]) *edge-replicate padded* (see
+        ``data.buckets``), ``dims`` is (N, 2) true (x, y) sizes. Returns
+        ``(descriptors, valid)``: descriptors on the padded grid, zero
+        where invalid, and ``valid`` (N, n_desc) marking the grid
+        positions that exist at each image's native size (reference:
+        VLFeat.cxx:170-186 computes per image at its own size)."""
+        if x.ndim == 4:
+            x = x[..., 0]
+        x = x.to(torch.float32)
+        dims = torch.as_tensor(dims, device=x.device).to(torch.int64)
+        n, xd, yd = x.shape
+        counts = self.grid_counts(xd, yd)
+        if not any(counts):
+            raise ValueError("bucket too small for any SIFT scale")
+        out = torch.empty((n, sum(counts), DESCRIPTOR_SIZE), dtype=torch.float32, device=x.device)
+        for start in range(0, n, self.image_chunk):
+            chunk = x[start : start + self.image_chunk]
+            offset = 0
+            for s, count in enumerate(counts):
+                if count:
+                    out[start : start + len(chunk), offset : offset + count] = self._one_scale(
+                        chunk, s, dims[start : start + self.image_chunk])
+                    offset += count
+        valid = []
+        for s, count in enumerate(counts):
+            if count:
+                b, step, off, nx, ny = self._geometry(s, xd, yd)
+                span = (NUM_SPATIAL_BINS - 1) * b
+                nx_nat = torch.clamp_min((dims[:, 0] - 1 - off - span) // step + 1, 0)
+                ny_nat = torch.clamp_min((dims[:, 1] - 1 - off - span) // step + 1, 0)
+                valid.append(((torch.arange(nx, device=x.device)[None, :, None] < nx_nat[:, None, None])
+                              & (torch.arange(ny, device=x.device)[None, None, :] < ny_nat[:, None, None])
+                              ).reshape(n, nx * ny))
+        valid = torch.cat(valid, dim=1)
+        return out.mul_(valid[..., None]), valid
+
+    def _one_scale(self, x: torch.Tensor, s: int, dims: Optional[torch.Tensor] = None) -> torch.Tensor:
         n, xd, yd = x.shape
         b, step, off, nx, ny = self._geometry(s, xd, yd)
-        planes = _orientation_planes(*_gradients(_smooth(x, b / MAGNIF)))  # (X, N, 8, Y)
+        planes = _orientation_planes(*_gradients(_smooth(x, b / MAGNIF), dims))  # (X, N, 8, Y)
+        if dims is not None:
+            # Zero outside the native extent: the spatial binning then sees
+            # the zero border a native-size run sees.
+            rows = torch.arange(xd, device=x.device)[:, None, None, None]
+            cols = torch.arange(yd, device=x.device)[None, None, None, :]
+            inside = (rows < dims[:, 0, None, None]) & (cols < dims[:, 1, None, None])
+            planes.mul_(inside)
+            del inside
 
         # Spatial binning, taken only where the 4×4 bin centres of the
         # descriptor grid fall.

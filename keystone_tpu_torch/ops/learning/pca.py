@@ -84,10 +84,14 @@ class BatchPCATransformer(Transformer):
         if isinstance(dataset, BucketedDataset):
             return dataset.map_datasets(self.apply_batch)
         if isinstance(dataset, ArrayDataset):
-            if isinstance(dataset.data, dict):
-                raise NotImplementedError(
-                    "BatchPCATransformer over masked descriptors comes with ROADMAP item 10d"
-                )
+            if isinstance(dataset.data, dict) and "valid" in dataset.data:
+                # Masked descriptors: project, validity flows through
+                # (zero rows stay zero under a right-multiply).
+                desc = dataset.data["desc"]
+                n, c, d = desc.shape
+                out = linalg.mm(desc.reshape(n * c, d), self.components).reshape(n, c, -1)
+                return ArrayDataset({"desc": out, "valid": dataset.data["valid"]},
+                                    dataset.num_examples)
             x = dataset.data
             if x.ndim == 2:  # flat (n, d) descriptor rows
                 return ArrayDataset(linalg.mm(x, self.components), dataset.num_examples)
@@ -256,13 +260,17 @@ class ColumnPCAEstimator(Estimator, Optimizable, CostModel):
         items = samples[0].take(8)
         if not items:
             return self.distributed
-        first = np.asarray(items[0])
-        if first.ndim == 1:
+        if isinstance(items[0], dict) and "valid" in items[0]:
+            # Masked-descriptor items ({"desc": (n_pad, d), "valid": ...}):
+            # the true per-item descriptor count is the valid total.
+            cols = float(np.mean([np.asarray(m["valid"]).sum() for m in items]))
+            d = int(np.asarray(items[0]["desc"]).shape[-1])
+        elif np.asarray(items[0]).ndim == 1:
             # Plain feature vectors: one row per item.
-            cols, d = 1.0, int(first.shape[0])
+            cols, d = 1.0, int(np.asarray(items[0]).shape[0])
         else:
             cols = float(np.mean([np.asarray(m).shape[0] for m in items]))
-            d = int(first.shape[1])
+            d = int(np.asarray(items[0]).shape[1])
         n = int(cols * stats.n_total)
         machines = self.num_machines or 1
         lc = self.local.cost(n, d, self.dims, 1.0, machines, self.weights)

@@ -15,10 +15,9 @@ tensor function over (n, d) tensors on the device the data lies on:
 Random parameters are drawn on the host with ``np.random.default_rng(seed)``
 exactly as the JAX package draws them, then placed on ``device`` (default
 CUDA), so both packages hold the same signs and weights, and sample the
-same rows.
-
-Left out for now: ``ColumnSampler``'s masked and bucketed descriptor
-paths (ROADMAP item 10d).
+same rows. ``ColumnSampler``'s masked draw is the JAX package's
+``jax.random`` draw (threefry-2x32 under ``PRNGKey(seed)``) reproduced on
+the data's device by :func:`jax_uniform_mantissas`.
 """
 
 from __future__ import annotations
@@ -36,7 +35,48 @@ from ...workflow.pipeline import BatchTransformer, Estimator, Transformer
 
 
 def _as_array_dataset(data: Dataset) -> ArrayDataset:
-    return data if isinstance(data, ArrayDataset) else data.to_arrays()
+    if isinstance(data, ArrayDataset):
+        return data
+    if isinstance(data, BucketedDataset):
+        return data.concat()
+    return data.to_arrays()
+
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _MASK32
+
+
+def _threefry2x32(k1: int, k2: int, x0: torch.Tensor, x1: torch.Tensor):
+    """The threefry-2x32 hash (20 rounds) of counter pairs under key
+    (k1, k2), on int64 tensors holding uint32 values (``jax.random``'s
+    ``threefry2x32`` primitive)."""
+    ks = [k1, k2, k1 ^ k2 ^ 0x1BD11BDA]
+    rotations = [(13, 15, 26, 6), (17, 29, 16, 24)]
+    x0 = (x0 + ks[0]) & _MASK32
+    x1 = (x1 + ks[1]) & _MASK32
+    for i in range(5):
+        for r in rotations[i % 2]:
+            x0 = (x0 + x1) & _MASK32
+            x1 = _rotl32(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK32
+    return x0, x1
+
+
+def jax_uniform_mantissas(seed: int, size: int, device) -> torch.Tensor:
+    """The 23-bit mantissas of ``jax.random.uniform(PRNGKey(seed),
+    (size,))`` as int64: the threefry bits of counters 0..size−1 (the
+    partitionable layout, jax ≥ 0.5's default), folded to 32 bits and
+    shifted right by 9. The float32 uniform is mantissa·2⁻²³, so these
+    order the draws exactly."""
+    k1, k2 = (seed >> 32) & _MASK32, seed & _MASK32
+    lo = torch.arange(size, dtype=torch.int64, device=device)
+    hi = torch.zeros_like(lo)
+    b0, b1 = _threefry2x32(k1, k2, hi, lo)
+    return (b0 ^ b1) >> 9
 
 
 def _param(a, device: DeviceLike) -> torch.Tensor:
@@ -248,13 +288,14 @@ class ColumnSampler(Transformer):
         return self._sample(datum, np.random.default_rng(self.seed))
 
     def apply_batch(self, dataset: Dataset) -> ArrayDataset:
-        if isinstance(dataset, BucketedDataset) or (
-            isinstance(dataset, ArrayDataset) and isinstance(dataset.data, dict)
-        ):
-            raise NotImplementedError(
-                "ColumnSampler over masked or bucketed descriptors comes with "
-                "ROADMAP item 10d (the native-resolution ImageNet path)"
-            )
+        if isinstance(dataset, BucketedDataset):
+            # Masked descriptors per bucket, the small sample matrices
+            # concatenated.
+            return ArrayDataset(torch.cat([self._sample_bucket(b, i).data
+                                           for i, b in enumerate(dataset.buckets)]))
+        if isinstance(dataset, ArrayDataset) and isinstance(dataset.data, dict) \
+                and "valid" in dataset.data:
+            return self._sample_bucket(dataset, 0)
         if isinstance(dataset, ArrayDataset):
             x = dataset.data[: dataset.num_examples]
             n, c = x.shape[0], x.shape[1]
@@ -276,3 +317,23 @@ class ColumnSampler(Transformer):
         if rows and isinstance(rows[0], torch.Tensor):
             return ArrayDataset(torch.cat(rows))
         return ArrayDataset(np.concatenate(rows, axis=0))
+
+    def _sample_bucket(self, bucket: ArrayDataset, bucket_idx: int) -> ArrayDataset:
+        """Uniform sample without replacement of a bucket's valid
+        descriptors, the JAX package's draw: the valid slots with the
+        ``take`` largest Gumbel keys of ``PRNGKey(seed + 7919·bucket)``
+        (invalid slots −∞), in descending key order. The Gumbel transform
+        is strictly increasing in the uniform draw, so the order is that of
+        the draws' mantissas, ties to the lower slot (``lax.top_k``'s)."""
+        n = bucket.num_examples
+        desc = bucket.data["desc"][:n]
+        valid = bucket.data["valid"][:n].reshape(-1).to(torch.bool)
+        flat = desc.reshape(-1, desc.shape[-1])
+        num_valid = int(valid.sum())  # one scalar read per bucket
+        take = min(self.num_samples_per_item * n, num_valid)
+        if take == 0:
+            return ArrayDataset(torch.zeros((0, desc.shape[-1]), dtype=torch.float32, device=desc.device))
+        keys = jax_uniform_mantissas(self.seed + 7919 * bucket_idx, valid.numel(), desc.device)
+        keys = torch.where(valid, keys, torch.full_like(keys, -1))
+        order = torch.sort(keys, descending=True, stable=True).indices[:take]
+        return ArrayDataset(flat[order])

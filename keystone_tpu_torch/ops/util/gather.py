@@ -5,16 +5,15 @@ Port of ``keystone_tpu/ops/util/gather.py``
 workflow/Pipeline.scala:119-154). Per input item it emits the list of all
 branch outputs; when every branch produced tensors the gathered form is
 an ``ArrayDataset`` over a tuple of them, so ``VectorCombiner`` joins them
-in one concatenation on the device.
-
-Left out for now: the ``BucketedDataset`` case.
+in one concatenation on the device. Branches that are ``BucketedDataset``s
+with aligned buckets gather bucket by bucket.
 """
 
 from __future__ import annotations
 
 from typing import Any, List
 
-from ...data.dataset import ArrayDataset, Dataset, ObjectDataset
+from ...data.dataset import ArrayDataset, BucketedDataset, Dataset, ObjectDataset
 from ...utils.tree import tree_map
 from ...workflow.operators import TransformerOperator
 
@@ -28,6 +27,12 @@ class GatherTransformer(TransformerOperator):
         return list(datums)
 
     def batch_transform(self, datasets: List[Dataset]) -> Dataset:
+        if all(isinstance(d, BucketedDataset) for d in datasets):
+            counts = {tuple(len(b) for b in d.buckets) for d in datasets}
+            if len(counts) == 1:  # aligned buckets: gather bucket-wise
+                return BucketedDataset(
+                    [self.batch_transform(list(bs)) for bs in zip(*(d.buckets for d in datasets))]
+                )
         if all(isinstance(d, ArrayDataset) for d in datasets):
             n = min(d.num_examples for d in datasets)
             phys = min(d.physical_rows for d in datasets)

@@ -70,6 +70,9 @@ class SIFTFisherConfig:
     image_size: Tuple[int, int] = (256, 256)  # host-side resize for batching
     solver_block_size: int = 4096
     seed: int = 42
+    # Decode path: None → the native libjpeg decode (a resize is set),
+    # False → PIL (a machine without jpeglib.h), True → native.
+    use_native: Optional[bool] = None
 
 
 def extract_images(parsed: Dataset, device: DeviceLike = None) -> ArrayDataset:
@@ -156,7 +159,8 @@ def run(config: SIFTFisherConfig, device: DeviceLike = None) -> dict:
             "and --label-path (see examples/images/voc_sift_fisher.sh)"
         )
     with _spans.span("voc:load", split="train"):
-        parsed = load_voc(config.train_location, config.label_path, resize=config.image_size)
+        parsed = load_voc(config.train_location, config.label_path, resize=config.image_size,
+                          use_native=config.use_native)
         train_images = extract_images(parsed, device=device)
     train_labels = MultiLabelIndicators(NUM_CLASSES, device=device).apply_batch(
         extract_multi_labels(parsed)
@@ -170,7 +174,8 @@ def run(config: SIFTFisherConfig, device: DeviceLike = None) -> dict:
     results = {"pipeline": fitted}
     if config.test_location:
         with _spans.span("voc:load", split="test"):
-            test_parsed = load_voc(config.test_location, config.label_path, resize=config.image_size)
+            test_parsed = load_voc(config.test_location, config.label_path, resize=config.image_size,
+                                   use_native=config.use_native)
             test_images = extract_images(test_parsed, device=device)
         test_actuals = extract_multi_labels(test_parsed)
         with _spans.span("voc:apply"):

@@ -7,7 +7,8 @@ per-shape state is cuFFT's plan cache (``PaddedFFT`` builds one plan per
 new batch shape) and the caching allocator's blocks. Warming every
 bucket once builds them all before the first request. The port has no
 persistent compilation cache, so nothing here outlives the process.
-``warm_flagship`` waits for the ImageNet pipelines.
+``warm_flagship`` waits for the fused streaming flagship
+(``imagenet_streaming.py``, ROADMAP item 10d's remainder).
 """
 
 from __future__ import annotations

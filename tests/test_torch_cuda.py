@@ -619,3 +619,80 @@ def test_gmm_fit_on_the_card_matches_the_cpu(cuda):
     assert counts[0] == counts[1]
     for name in ("means", "variances", "weights"):
         assert _rel(getattr(fits[0], name).cpu(), getattr(fits[1], name)) <= 1e-4
+
+
+def test_lcs_on_the_card_matches_the_cpu_and_ignores_the_tf32_switches(cuda):
+    """LCS descriptors (box means by ``avg_pool2d``, no convolution) on the
+    card against the CPU: means ≤ 1e-5 relative to the largest, stds to an
+    absolute 0.05 on the 0–255 scale (the cancellation in E[x²] − m²,
+    ``tests/test_torch_imagenet.py``); bitwise equal with PyTorch's TF32
+    switches off and on; the masked path's validity equal."""
+    from keystone_tpu_torch.ops.images.lcs import LCSExtractor
+
+    rng = np.random.default_rng(7)
+    x = (rng.random((5, 96, 80, 3)) * 255).astype(np.float32)
+    x[0, :30, :30] = 255.0
+    ext = LCSExtractor()
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    out = {}
+    try:
+        for flag in (False, True):
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = flag
+            out[flag] = ext.apply_arrays(torch.from_numpy(x).to(cuda))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    assert torch.equal(out[False], out[True])
+    cpu = ext.apply_arrays(torch.from_numpy(x))
+    card = out[False].cpu()
+    assert float((card[..., 0::2] - cpu[..., 0::2]).abs().max()) <= 1e-5 * float(cpu.abs().max())
+    assert float((card[..., 1::2] - cpu[..., 1::2]).abs().max()) <= 0.05
+    dims = torch.tensor([[96, 80], [70, 64], [50, 51], [96, 40], [33, 80]])
+    d_card, v_card = ext.apply_arrays_masked(torch.from_numpy(x).to(cuda), dims.to(cuda))
+    d_cpu, v_cpu = ext.apply_arrays_masked(torch.from_numpy(x), dims)
+    assert torch.equal(v_card.cpu(), v_cpu)
+    assert float((d_card.cpu() - d_cpu).abs().max()) <= 0.05
+
+
+def test_masked_sift_on_the_card_matches_the_cpu(cuda):
+    """Masked SIFT over an edge-padded bucket on the card against the CPU:
+    the reference's gate (≥ 99.5% of entries within 1, none further) and
+    equal validity."""
+    from keystone_tpu_torch.ops.images.sift import SIFTExtractor
+
+    rng = np.random.default_rng(8)
+    sizes = [(96, 90), (80, 96), (70, 70)]
+    imgs = np.stack([np.pad(rng.random(s, dtype=np.float32), ((0, 96 - s[0]), (0, 96 - s[1])), mode="edge")
+                     for s in sizes])
+    dims = torch.tensor(sizes)
+    ext = SIFTExtractor(scale_step=1)
+    d_card, v_card = ext.apply_arrays_masked(torch.from_numpy(imgs).to(cuda), dims.to(cuda))
+    d_cpu, v_cpu = ext.apply_arrays_masked(torch.from_numpy(imgs), dims)
+    assert torch.equal(v_card.cpu(), v_cpu)
+    diff = (d_card.cpu() - d_cpu).abs()
+    assert float((diff <= 1).double().mean()) >= 0.995 and float(diff.max()) <= 1
+
+
+@pytest.mark.parametrize("path", ["woodbury", "dense"])
+def test_weighted_solve_on_the_card_matches_the_cpu(cuda, path, monkeypatch):
+    """The mixture-weighted block solve on the card against the CPU, on
+    each path, with the classes split over several groups: predictions
+    ≤ 1e-4 relative (fp32 products and cuSOLVER factorizations in other
+    orders on a system at λ = 1e-2), the absent class's intercept −1."""
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.ops.learning import weighted
+
+    rng = np.random.default_rng(9)
+    n, d, classes = 600, 256, 40
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    labels = rng.integers(0, classes - 1, size=n)
+    y = -np.ones((n, classes), np.float32)
+    y[np.arange(n), labels] = 1.0
+    monkeypatch.setattr(weighted, "CLASS_GROUP_BYTES", 8 << 20)
+    preds = []
+    for dev in (cuda, torch.device("cpu")):
+        est = weighted.BlockWeightedLeastSquaresEstimator(128, 2, 1e-2, 0.25, solve_path=path)
+        model = est.fit(ArrayDataset(x, device=dev), ArrayDataset(y, device=dev))
+        assert est.last_solve_path == path
+        assert float(model.intercept[classes - 1]) == -1.0
+        preds.append(model.apply_arrays(torch.from_numpy(x).to(dev)).cpu())
+    assert _rel(preds[0], preds[1]) <= 1e-4

@@ -128,6 +128,16 @@ print(json.dumps({"imported": names, "bad": bad}))
         "keystone_tpu_torch.data.loaders.voc",
         "keystone_tpu_torch.evaluation.mean_average_precision",
         "keystone_tpu_torch.pipelines.voc",
+        "keystone_tpu_torch.native",
+        "keystone_tpu_torch.ops.images.external",
+        "keystone_tpu_torch.ops.images.external.sift",
+        "keystone_tpu_torch.ops.images.external.fisher",
+        "keystone_tpu_torch.ops.images.lcs",
+        "keystone_tpu_torch.ops.images.native",
+        "keystone_tpu_torch.ops.learning.weighted",
+        "keystone_tpu_torch.data.buckets",
+        "keystone_tpu_torch.data.loaders.imagenet",
+        "keystone_tpu_torch.pipelines.imagenet",
     }
     assert expected <= set(result["imported"])
 

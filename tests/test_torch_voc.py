@@ -181,6 +181,9 @@ def test_vector_casts_and_vectorizer_equal_the_jax_packages():
 
 
 def test_loaders_equal_the_jax_packages_with_quarantine(tmp_path):
+    from keystone_tpu import native as jnative
+
+    assert jnative.load(auto_build=True) is not None  # its native decode, built where it is not
     tar_path, labels_path = _voc_fixture(tmp_path, extras=True)
     assert tvocload.read_voc_labels(labels_path) == jvocload.read_voc_labels(labels_path)
     label_map = jvocload.read_voc_labels(labels_path)
@@ -188,12 +191,14 @@ def test_loaders_equal_the_jax_packages_with_quarantine(tmp_path):
     def label_fn(name):
         return label_map[name.rsplit("/", 1)[-1]]
 
-    for resize in (None, (40, 48)):
-        # The JAX loader's PIL path (with a resize it would take its native
-        # libjpeg decode where that library is built).
+    for resize, use_native in ((None, False), ((40, 48), False), ((40, 48), None)):
+        # The JAX loader's PIL path, and with a resize its native libjpeg
+        # decode, which the port's loader takes by default then.
         want = jarchive.load_image_archives(tar_path, label_fn, name_prefix=PREFIX, resize=resize,
-                                            num_workers=2, label_key="labels", use_native=False)
-        got = tvocload.load_voc(tar_path, labels_path, resize=resize, num_workers=2)
+                                            num_workers=2, label_key="labels",
+                                            use_native=resize is not None and use_native is None)
+        got = tvocload.load_voc(tar_path, labels_path, resize=resize, num_workers=2,
+                                use_native=use_native)
         # Decode threads finish in any order: the examples as a set.
         assert sorted(got.quarantine.pop("examples")) == sorted(want.quarantine.pop("examples"))
         assert got.quarantine == want.quarantine
@@ -218,11 +223,24 @@ def test_load_image_equals_the_jax_packages():
     assert load_image(b"junk") is None
 
 
-def test_native_decode_raises_naming_its_item(tmp_path):
+def test_native_decode_raises_naming_its_item(tmp_path, monkeypatch):
+    """The native decode needs a resize target, and where its library
+    cannot be built (no ``jpeglib.h``) it raises naming the header; PIL
+    serves ``use_native=False``."""
+    from keystone_tpu_torch import native
+
     tar_path, labels_path = _voc_fixture(tmp_path)
-    with pytest.raises(NotImplementedError, match="10d"):
+    with pytest.raises(ValueError, match="resize target"):
+        tarchive.load_image_archives(tar_path, lambda name: 0, use_native=True)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_loaded", {})
+    monkeypatch.setattr(native, "has_header", lambda header: False)
+    with pytest.raises(RuntimeError, match="jpeglib.h"):
         tarchive.load_image_archives(tar_path, lambda name: 0, resize=(8, 8), use_native=True)
+    with pytest.raises(RuntimeError, match="jpeglib.h"):
+        tarchive.load_image_archives(tar_path, lambda name: 0, resize=(8, 8))
     assert len(tarchive.load_image_archives(tar_path, lambda name: 0, use_native=False)) == 6
+    assert len(tarchive.load_image_archives(tar_path, lambda name: 0, resize=(8, 8), use_native=False)) == 6
 
 
 def test_the_decode_probe_site_is_known_and_fires(tmp_path):
