@@ -13,7 +13,9 @@ Usage:
     python -m keystone_tpu_torch serve (--model PATH | --synthetic D) [--device cpu]
     python -m keystone_tpu_torch --list
 
-Left out for now: every other subcommand and workload of the JAX package.
+Every workload of the JAX package is here. Left out for now: its other
+subcommands (``profile``, ``trace``, ``bench-diff``, ``check``,
+``explain``, ``tune``, ``quality``, ``refit``, ``fit``; ROADMAP items 12–13).
 """
 
 from __future__ import annotations
@@ -116,6 +118,15 @@ WORKLOADS: Dict[str, Tuple[str, str, str, Dict[str, Any], str]] = {
     "imagenet-native": (
         "imagenet", "ImageNetSiftLcsFVConfig", "run_native_resolution", {},
         "ImageNet SIFT+LCS+FV with per-image native-resolution featurization",
+    ),
+    "imagenet-native-streaming": (
+        "imagenet_streaming", "ImageNetSiftLcsFVConfig",
+        "run_native_resolution_streaming", {},
+        "Native-resolution flagship via the fused streaming path (at-scale)",
+    ),
+    "stupid-backoff": (
+        "stupid_backoff", "StupidBackoffConfig", "run", {},
+        "Stupid Backoff n-gram language model",
     ),
     **{
         "cifar-" + v.replace("_", "-"): (

@@ -39,6 +39,7 @@ from .ops.stats.core import (
 )
 from .ops.util.labels import MaxClassifier, TopKClassifier
 from .ops.util.vectors import FloatToDouble, MatrixVectorizer, VectorCombiner
+from .pipelines.imagenet_streaming import FlagshipCodebooks
 from .refit.state import StreamState
 from .workflow.pipeline import FittedPipeline, Pipeline
 
@@ -281,3 +282,24 @@ def imagenet_pipeline_from_numpy(
     if top_k is not None:
         chain = chain >> TopKClassifier(top_k)
     return chain.fit()
+
+
+def flagship_codebooks_from_numpy(
+    sift_pca: np.ndarray,
+    lcs_pca: np.ndarray,
+    sift_gmm: Sequence[np.ndarray],
+    lcs_gmm: Sequence[np.ndarray],
+    device: DeviceLike = None,
+) -> FlagshipCodebooks:
+    """The streaming flagship's codebooks (``pipelines/imagenet_streaming.py``)
+    from a JAX-fitted ``StreamingFlagship``'s: each branch's PCA
+    components (desc_d, pca_d) and its GMM as ``_gmm_arrays`` lays it out,
+    (means (D, K), variances (D, K), weights (K,)). On ``device`` (default
+    CUDA); adopt them with ``StreamingFlagship.adopt_codebooks``."""
+    device = resolve_device(device)
+
+    def encoder(gmm) -> FisherVector:
+        return FisherVector(GaussianMixtureModel(*gmm, device=device))
+
+    return FlagshipCodebooks(sift_pca=_tensor(sift_pca, device), sift_fv=encoder(sift_gmm),
+                             lcs_pca=_tensor(lcs_pca, device), lcs_fv=encoder(lcs_gmm))

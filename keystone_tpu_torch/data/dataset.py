@@ -126,14 +126,22 @@ class ObjectDataset(Dataset):
         interpreter lock, as numpy does). ``fn`` must be safe to call
         concurrently; pass ``parallel=False`` for functions with shared
         mutable state, ``parallel=True`` to force the pool. Pool width is
-        :func:`default_ingest_workers`."""
+        :func:`default_ingest_workers`. Each task maps a contiguous slice
+        of items (four slices per worker): a task per item made the
+        100,000-line Stupid Backoff fit, whose string functions hold the
+        interpreter lock, take 13.4 s against 3.2 s with slices (an
+        8-CPU host, ``chip_smoke.py`` ``stupid_backoff``)."""
         if parallel is None:
             parallel = len(self._items) >= 64
         if parallel:
             from concurrent.futures import ThreadPoolExecutor
 
-            with ThreadPoolExecutor(max_workers=default_ingest_workers()) as pool:
-                return ObjectDataset(list(pool.map(fn, self._items)))
+            workers = default_ingest_workers()
+            step = -(-len(self._items) // (4 * workers)) or 1
+            slices = [self._items[i : i + step] for i in range(0, len(self._items), step)]
+            with ThreadPoolExecutor(max_workers=workers) as pool:
+                mapped = pool.map(lambda part: [fn(x) for x in part], slices)
+                return ObjectDataset([y for part in mapped for y in part])
         return ObjectDataset([fn(x) for x in self._items])
 
     def collect(self) -> List[Any]:

@@ -18,11 +18,24 @@ jlm_c = 2w + 2(1−w)·n_c/n − 1 (BlockWeightedLeastSquares.scala:149,318).
 Per block, as in the JAX package, the solve takes one of two paths:
 with m the largest class, a Woodbury solve around one factored
 S = (1−w)·popCov + λI when 2(m+3) < bs//3 (each class's system is S plus
-a rank-(m+2) update), else a Cholesky factorization per class; the
-Woodbury path adds one residual-correction step against the structured
-operator. The JAX package runs the classes in a ``lax.scan``; here they
-run in groups of bounded memory (``CLASS_GROUP_BYTES``), each group in
-one set of batched calls, with no host synchronisation inside the class
+a low-rank update), else a Cholesky factorization per class; the
+Woodbury path then takes one residual-correction step against the
+structured operator. The update differs from the JAX package's: there
+the class covariance is winᵀwin/n − μμᵀ, a rank-m term less a rank-1
+one (rank m+2 with δδᵀ), and the small system C⁻¹ + UᵀS⁻¹U is indefinite;
+when a class's rows share a large common component its cancellation
+leaves the solve far from the exact one, and one correction step does
+not recover it (the streaming flagship's 1,000 classes of near-collinear
+rows on an H100: 8.1e-4 from a float64 solve, ``chip_smoke.py``
+``imagenet_streaming_ondevice``). Here the window rows are centred
+first, so the update is U Uᵀ with U = [√(w/n)·(win − μ)ᵀ | √(w(1−w))·δ]
+(rank m+1, every term positive) and I + UᵀS⁻¹U is factored by Cholesky:
+the same system, solved to the dense path's accuracy (6.0e-6 there;
+``tests/test_torch_imagenet.py`` holds both paths to float64 on planted
+rows with a large shared component). The JAX package runs the classes
+in a ``lax.scan``; here they run in groups of bounded memory
+(``CLASS_GROUP_BYTES``), each group in one set of batched calls, with
+no host synchronisation inside the class
 loop: a class's row window is gathered from the class-sorted order on the
 device, S is factored once per block on cuSOLVER, one triangular solve
 pair serves every class of a group, and every product with a
@@ -51,6 +64,7 @@ from .block import BlockLinearMapper, _as_array_dataset, _round_up
 
 #: Bytes of per-class working set one class group may hold.
 CLASS_GROUP_BYTES = 1 << 30
+
 
 
 def joint_label_means(counts, n: int, mixture_weight: float) -> torch.Tensor:
@@ -194,8 +208,8 @@ def _weighted_bcd(x, y, order, offsets, counts, reg, mw, num_blocks, bs, m, num_
                          - joint_mean * mean_mix[:, None])
             rhs = joint_xtr - reg * w[cols, c].T                        # (G, bs)
             if use_woodbury:
-                dw = _woodbury_group(win, nc, class_mean, delta, rhs, pop_cov, factor_s,
-                                     reg, mw, m)
+                dw = _woodbury_group(win, valid, nc, class_mean, delta, rhs, pop_cov, factor_s,
+                                     reg, mw)
             else:
                 dw = _dense_group(win, nc, class_mean, delta, rhs, pop_cov, reg, mw, eye)
             dws[c] = dw * present[c][:, None]
@@ -219,21 +233,21 @@ def _dense_group(win, nc, class_mean, delta, rhs, pop_cov, reg, mw, eye):
     return torch.cholesky_solve(rhs[:, :, None], factor)[:, :, 0]
 
 
-def _woodbury_group(win, nc, class_mean, delta, rhs, pop_cov, factor_s, reg, mw, m):
+def _woodbury_group(win, valid, nc, class_mean, delta, rhs, pop_cov, factor_s, reg, mw):
     """ΔW of one class group by Woodbury around S = (1−mw)·popCov + λI:
-    jointXTX_c = S + U_c C U_cᵀ with U_c = [√(mw/n_c)·winᵀ | μ_c | δ_c]
-    and C = diag(1,…,1, −mw, mw(1−mw)), then one residual-correction step
+    jointXTX_c = S + U_c U_cᵀ with U_c = [√(mw/n_c)·(win − μ_c)ᵀ |
+    √(mw(1−mw))·δ_c] (the class covariance from centred window rows, so
+    every term of the update is positive and the small system I + UᵀS⁻¹U
+    is symmetric positive definite), then one residual-correction step
     against the structured operator (never materializing jointXTX)."""
     g, bs = rhs.shape
-    device = rhs.device
+    centred = (win - class_mean[:, None, :]) * valid[..., None]
     u = torch.cat([
-        win.transpose(1, 2) * torch.sqrt(mw / nc)[:, None, None],
-        class_mean[:, :, None],
-        delta[:, :, None],
-    ], dim=2)                                                           # (G, bs, m+2)
-    c_diag = torch.cat([torch.ones(m, device=device),
-                        torch.tensor([-mw, mw * (1 - mw)], dtype=torch.float32, device=device)])
-    k = m + 2
+        centred.transpose(1, 2) * torch.sqrt(mw / nc)[:, None, None],
+        delta[:, :, None] * (mw * (1 - mw)) ** 0.5,
+    ], dim=2)                                                           # (G, bs, m+1)
+    del centred
+    k = u.shape[2]
 
     def s_solve(cols_by_class: torch.Tensor) -> torch.Tensor:
         """S⁻¹ applied to every (G, bs, j) column set: one solve pair."""
@@ -243,19 +257,20 @@ def _woodbury_group(win, nc, class_mean, delta, rhs, pop_cov, factor_s, reg, mw,
 
     z = s_solve(torch.cat([u, rhs[:, :, None]], dim=2))                 # (G, bs, k+1)
     zu, zr = z[:, :, :k], z[:, :, k]
-    small = torch.diag_embed((1.0 / c_diag).expand(g, k)) + _batched_mm(u.transpose(1, 2), zu)
+    eye = torch.eye(k, dtype=torch.float32, device=rhs.device)
+    small = torch.linalg.cholesky(eye + _batched_mm(u.transpose(1, 2), zu))
 
     def ut(v: torch.Tensor) -> torch.Tensor:  # (G, bs) → Uᵀv (G, k)
         return _batched_mm(u.transpose(1, 2), v[:, :, None])[:, :, 0]
 
     def wood_apply(sr: torch.Tensor, su_t_r: torch.Tensor) -> torch.Tensor:
-        # (S + UCUᵀ)⁻¹ r given sr = S⁻¹r and Uᵀ·S⁻¹r.
-        t = torch.linalg.solve(small, su_t_r[:, :, None])
+        # (S + UUᵀ)⁻¹ r given sr = S⁻¹r and Uᵀ·S⁻¹r.
+        t = torch.cholesky_solve(su_t_r[:, :, None], small)
         return sr - _batched_mm(zu, t)[:, :, 0]
 
     dw = wood_apply(zr, ut(zr))
     s_dw = (1 - mw) * linalg.mm(pop_cov, dw.T).T + reg * dw
-    resid = rhs - s_dw - _batched_mm(u, (c_diag * ut(dw))[:, :, None])[:, :, 0]
+    resid = rhs - s_dw - _batched_mm(u, ut(dw)[:, :, None])[:, :, 0]
     s_res = s_solve(resid[:, :, None])[:, :, 0]
     return dw + wood_apply(s_res, ut(s_res))
 

@@ -6,6 +6,9 @@ Java-style string hash plus a Scala-compatible MurmurHash3 sequence mix,
 bit-identical to the JAX package, so ``NGramsHashingTF`` equals
 ``NGramsFeaturizer >> HashingTF`` and both packages hash every term to
 the same feature. Output rows are scipy CSR (1, num_features).
+``NGramsCounts`` and ``WordFrequencyEncoder`` count with ``Counter`` and
+sort with Python's stable sort on the negated count, so equal counts keep
+their first-seen order and both packages rank every term alike.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import numpy as np
 
 from ...data.dataset import Dataset
 from ...utils.sparse import BlockSparseMatrix, csr_row
-from ...workflow.pipeline import Transformer
+from ...workflow.pipeline import Estimator, Transformer
 
 _M32 = 0xFFFFFFFF
 
@@ -128,6 +131,33 @@ class NGramsFeaturizer(Transformer):
         return out
 
 
+class NGramsCounts:
+    """Count n-grams across the whole dataset, sorted by count descending
+    (reference: nodes/nlp/ngrams.scala:150-196 NGramsCounts).
+
+    Called on a dataset of per-line n-gram lists (or a pipeline's result,
+    or a plain iterable), it returns a list of (ngram, count) pairs;
+    ``mode="no_add"`` skips the global sort (the reference's
+    per-partition NoAdd mode), leaving first-seen order."""
+
+    def __init__(self, mode: str = "default"):
+        if mode not in ("default", "no_add"):
+            raise ValueError("mode must be 'default' or 'no_add'")
+        self.mode = mode
+
+    def __call__(self, data) -> List[Tuple[Tuple[Any, ...], int]]:
+        counts: Counter = Counter()
+        items = data.collect() if isinstance(data, Dataset) else (
+            data.get().collect() if hasattr(data, "get") else data
+        )
+        for line in items:
+            counts.update(line)
+        pairs = list(counts.items())
+        if self.mode == "default":
+            pairs.sort(key=lambda kv: -kv[1])
+        return pairs
+
+
 class TermFrequency(Transformer):
     """Seq[T] → Seq[(T, weight(count))]."""
 
@@ -200,3 +230,33 @@ class NGramsHashingTF(Transformer):
                 h = _mix(h, hashes[i + order - 1])
                 tf[_non_negative_mod(_finalize(h, order), self.num_features)] += 1.0
         return csr_row(tf, self.num_features)
+
+
+class WordFrequencyTransformer(Transformer):
+    """Token → frequency-rank index; out-of-vocabulary → −1
+    (reference: WordFrequencyEncoder.scala:33-60)."""
+
+    OOV_INDEX = -1
+
+    def __init__(self, word_index: dict, unigram_counts: dict):
+        self.word_index = word_index
+        self.unigram_counts = unigram_counts  # {rank index: count}
+
+    def apply(self, words: Sequence[str]) -> List[int]:
+        idx = self.word_index
+        return [idx.get(w, self.OOV_INDEX) for w in words]
+
+
+class WordFrequencyEncoder(Estimator):
+    """Fit a frequency-ranked vocabulary: rank 0 is the most frequent word,
+    equal counts in first-seen order (reference:
+    WordFrequencyEncoder.scala:7-31)."""
+
+    def fit(self, data: Dataset) -> WordFrequencyTransformer:
+        counts: Counter = Counter()
+        for tokens in data.collect():
+            counts.update(tokens)
+        ranked = sorted(counts.items(), key=lambda kv: -kv[1])
+        word_index = {w: i for i, (w, _) in enumerate(ranked)}
+        unigram_counts = {word_index[w]: c for w, c in counts.items()}
+        return WordFrequencyTransformer(word_index, unigram_counts)

@@ -17,7 +17,7 @@ exactly as the JAX package draws them, then placed on ``device`` (default
 CUDA), so both packages hold the same signs and weights, and sample the
 same rows. ``ColumnSampler``'s masked draw is the JAX package's
 ``jax.random`` draw (threefry-2x32 under ``PRNGKey(seed)``) reproduced on
-the data's device by :func:`jax_uniform_mantissas`.
+the data's device by :func:`~.jax_random.jax_uniform_mantissas`.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from ...device import DeviceLike, resolve_device
 from ...parallel import linalg
 from ...utils.tree import tree_map
 from ...workflow.pipeline import BatchTransformer, Estimator, Transformer
+from .jax_random import jax_uniform_mantissas
 
 
 def _as_array_dataset(data: Dataset) -> ArrayDataset:
@@ -40,43 +41,6 @@ def _as_array_dataset(data: Dataset) -> ArrayDataset:
     if isinstance(data, BucketedDataset):
         return data.concat()
     return data.to_arrays()
-
-
-_MASK32 = 0xFFFFFFFF
-
-
-def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) | (x >> (32 - r))) & _MASK32
-
-
-def _threefry2x32(k1: int, k2: int, x0: torch.Tensor, x1: torch.Tensor):
-    """The threefry-2x32 hash (20 rounds) of counter pairs under key
-    (k1, k2), on int64 tensors holding uint32 values (``jax.random``'s
-    ``threefry2x32`` primitive)."""
-    ks = [k1, k2, k1 ^ k2 ^ 0x1BD11BDA]
-    rotations = [(13, 15, 26, 6), (17, 29, 16, 24)]
-    x0 = (x0 + ks[0]) & _MASK32
-    x1 = (x1 + ks[1]) & _MASK32
-    for i in range(5):
-        for r in rotations[i % 2]:
-            x0 = (x0 + x1) & _MASK32
-            x1 = _rotl32(x1, r) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & _MASK32
-        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK32
-    return x0, x1
-
-
-def jax_uniform_mantissas(seed: int, size: int, device) -> torch.Tensor:
-    """The 23-bit mantissas of ``jax.random.uniform(PRNGKey(seed),
-    (size,))`` as int64: the threefry bits of counters 0..size−1 (the
-    partitionable layout, jax ≥ 0.5's default), folded to 32 bits and
-    shifted right by 9. The float32 uniform is mantissa·2⁻²³, so these
-    order the draws exactly."""
-    k1, k2 = (seed >> 32) & _MASK32, seed & _MASK32
-    lo = torch.arange(size, dtype=torch.int64, device=device)
-    hi = torch.zeros_like(lo)
-    b0, b1 = _threefry2x32(k1, k2, hi, lo)
-    return (b0 ^ b1) >> 9
 
 
 def _param(a, device: DeviceLike) -> torch.Tensor:

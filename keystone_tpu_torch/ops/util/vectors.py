@@ -11,8 +11,8 @@ Port of ``keystone_tpu/ops/util/vectors.py``:
 - ``Cast`` — dtype conversion; ``FloatToDouble`` is the name-parity
   alias, and casts to float32 as the JAX package's does.
 - ``MatrixVectorizer`` — flatten per-item matrices, (n, r, c) → (n, r·c).
-
-Left out for now: ``Sparsify``.
+- ``Sparsify`` — dense rows become host scipy CSR rows (1, d), the sparse
+  solver path's input.
 """
 
 from __future__ import annotations
@@ -132,3 +132,22 @@ class Densify(Transformer):
         else:
             dense = np.stack([self.apply(i) for i in items])
         return ArrayDataset(torch.from_numpy(dense), device=resolve_device(self.device))
+
+
+class Sparsify(Transformer):
+    """Dense dataset → host CSR rows (for the sparse solver path)."""
+
+    def apply(self, datum):
+        import scipy.sparse as sp
+
+        if isinstance(datum, torch.Tensor):
+            datum = datum.cpu().numpy()
+        return sp.csr_matrix(np.asarray(datum).reshape(1, -1))
+
+    def apply_batch(self, dataset: Dataset) -> ObjectDataset:
+        import scipy.sparse as sp
+
+        if isinstance(dataset, ArrayDataset):
+            mat = sp.csr_matrix(dataset.data[: dataset.num_examples].cpu().numpy())
+            return ObjectDataset([mat[i] for i in range(mat.shape[0])])
+        return ObjectDataset([self.apply(i) for i in dataset.collect()])

@@ -696,3 +696,50 @@ def test_weighted_solve_on_the_card_matches_the_cpu(cuda, path, monkeypatch):
         assert float(model.intercept[classes - 1]) == -1.0
         preds.append(model.apply_arrays(torch.from_numpy(x).to(dev)).cpu())
     assert _rel(preds[0], preds[1]) <= 1e-4
+
+
+def _flagship_buckets():
+    from keystone_tpu_torch.data.buckets import bucketize_images
+
+    rng = np.random.default_rng(10)
+    records = [{"image": rng.integers(0, 256, (s, s, 3), dtype=np.uint8)} for s in (48, 64, 64, 80)]
+    return bucketize_images(records, granularity=16, max_rows=4)
+
+
+def test_streaming_encode_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The streaming flagship's fused encode on the card against the CPU,
+    with the same codebooks (fitted on the CPU, carried by save → load):
+    rows ≤ 1e-3 relative (the card's SIFT entries may sit one quantization
+    step from the CPU's, which the signed Hellinger map amplifies), and
+    the card's rows within 1e-5 of the op-by-op composition on the card
+    is ``chip_smoke.py``'s gate."""
+    from keystone_tpu_torch.pipelines.imagenet import ImageNetSiftLcsFVConfig
+    from keystone_tpu_torch.pipelines.imagenet_streaming import StreamingFlagship
+
+    buckets = _flagship_buckets()
+    dicts = [{"image": b.images, "dims": b.dims} for b in buckets]
+    fs_cpu = StreamingFlagship(ImageNetSiftLcsFVConfig(desc_dim=16, vocab_size=4), device="cpu")
+    fs_cpu.fit_codebooks(dicts, per_image=16)
+    path = str(tmp_path / "flagship.pkl")
+    fs_cpu.save(path)
+    fs_card, _ = StreamingFlagship.load(path, device=cuda)
+    assert fs_card.codebooks.sift_pca.device.type == "cuda"
+    on_card = fs_card.encode_buckets(dicts)
+    assert _rel(torch.from_numpy(on_card), torch.from_numpy(fs_cpu.encode_buckets(dicts))) <= 1e-3
+
+
+def test_synthetic_flagship_generator_on_the_card(cuda):
+    """The on-device generator's templates on the card: the 8×8 fields
+    bit for bit the CPU's (the threefry draw is integer arithmetic), the
+    upsampled ones ≤ 2e-4 absolute from the CPU's; and the on-device run
+    at the JAX test's small configuration learns its planted classes."""
+    from keystone_tpu_torch.pipelines import imagenet_streaming as streaming
+
+    labels = torch.tensor([0, 3, 17, 999])
+    assert torch.equal(streaming.synth_templates(labels.to(cuda), 8).cpu(),
+                       streaming.synth_templates(labels, 8))
+    up = (streaming.synth_templates(labels.to(cuda), 256).cpu() - streaming.synth_templates(labels, 256))
+    assert float(up.abs().max()) <= 2e-4
+    out = streaming.run_flagship_ondevice(num_train=64, num_test=16, num_classes=4, image_size=48,
+                                          batch=16, device=cuda)
+    assert out["top5_err_percent"] <= 25.0 and out["fv_dim_combined"] == 4096

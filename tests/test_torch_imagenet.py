@@ -586,3 +586,59 @@ def test_cli_runs_both_imagenet_workloads(tmp_path):
                          cwd=REPO, capture_output=True, text=True, timeout=300, check=True)
     line = json.loads(out.stdout.strip().splitlines()[-1])
     assert line["workload"] == "imagenet-native" and line["num_train"] == 8
+
+
+def _fp64_weighted_scores(x, labels, x_test, num_classes, mw, reg):
+    """Test scores of the mixture-weighted solve (one block, one pass) by
+    the dense per-class formula in float64 numpy."""
+    x, x_test = x.astype(np.float64), x_test.astype(np.float64)
+    n, d = x.shape
+    counts = np.bincount(labels, minlength=num_classes).astype(np.float64)
+    jlm = np.where(counts > 0, 2 * mw + 2 * (1 - mw) * counts / n - 1, -1.0)
+    resid = -np.ones((n, num_classes)) - jlm
+    resid[np.arange(n), labels] += 2.0
+    pop_mean = x.mean(0)
+    pop_cov = x.T @ x / n - np.outer(pop_mean, pop_mean)
+    pop_xtr = x.T @ resid / n
+    out = []
+    for c in range(num_classes):
+        win, r_c = x[labels == c], resid[labels == c, c]
+        class_mean = win.mean(0)
+        class_cov = win.T @ win / len(win) - np.outer(class_mean, class_mean)
+        delta = class_mean - pop_mean
+        joint_mean = mw * class_mean + (1 - mw) * pop_mean
+        mean_mix = (1 - mw) * resid[:, c].mean() + mw * r_c.mean()
+        rhs = (1 - mw) * pop_xtr[:, c] + mw * win.T @ r_c / len(win) - joint_mean * mean_mix
+        lhs = (1 - mw) * pop_cov + mw * class_cov + mw * (1 - mw) * np.outer(delta, delta) + reg * np.eye(d)
+        w = np.linalg.solve(lhs, rhs)
+        out.append(x_test @ w + (jlm[c] - joint_mean @ w))
+    return np.stack(out, axis=1)
+
+
+@pytest.mark.parametrize("shared", [0.0, 3.0, 10.0])
+def test_woodbury_path_stays_solver_grade_when_class_rows_share_a_large_component(shared):
+    """Unit rows = shared·μ + class centre + 0.1·noise, 20 classes of 60
+    rows, λ = 6e-5, mixture weight 0.25, d = block = 512: the Woodbury
+    path's held-out scores ≤ 2e-5 from a float64 solve, as the dense
+    path's (read ≤ 3.0e-6 for both). The rank-(m+2) form with a negative
+    μμᵀ term (the JAX package's) loses this accuracy as the shared
+    component grows: the centred update is this port's repair (ROADMAP
+    Queue C)."""
+    rng = np.random.default_rng(0)
+    d, classes, per = 512, 20, 60
+    mu, centres = rng.normal(size=d), rng.normal(size=(classes, d))
+
+    def rows(lab):
+        x = shared * mu + centres[lab] + 0.1 * rng.normal(size=(len(lab), d))
+        return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+    labels = np.repeat(np.arange(classes), per)
+    x, x_test = rows(labels), rows(np.repeat(np.arange(classes), 5))
+    y = -np.ones((len(labels), classes), np.float32)
+    y[np.arange(len(labels)), labels] = 1.0
+    want = _fp64_weighted_scores(x, labels, x_test, classes, 0.25, 6e-5)
+    for path in ("woodbury", "dense"):
+        est = weighted.BlockWeightedLeastSquaresEstimator(d, 1, 6e-5, 0.25, solve_path=path)
+        model = est.fit(ArrayDataset(x, device=CPU), ArrayDataset(y, device=CPU))
+        assert est.last_solve_path == path
+        assert _rel(model.apply_arrays(torch.from_numpy(x_test)).numpy(), want) <= 2e-5, path

@@ -138,6 +138,14 @@ print(json.dumps({"imported": names, "bad": bad}))
         "keystone_tpu_torch.data.buckets",
         "keystone_tpu_torch.data.loaders.imagenet",
         "keystone_tpu_torch.pipelines.imagenet",
+        "keystone_tpu_torch.ops.stats.jax_random",
+        "keystone_tpu_torch.pipelines.imagenet_streaming",
+        "keystone_tpu_torch.ops.nlp",
+        "keystone_tpu_torch.ops.nlp.indexers",
+        "keystone_tpu_torch.ops.nlp.stupid_backoff",
+        "keystone_tpu_torch.ops.nlp.corenlp",
+        "keystone_tpu_torch.ops.learning.lda",
+        "keystone_tpu_torch.pipelines.stupid_backoff",
     }
     assert expected <= set(result["imported"])
 
@@ -419,3 +427,34 @@ def test_voc_entry_points_without_device_raise_when_no_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry_point()
     assert extract_images(records, device="cpu").data.shape == (1, 4, 4, 3)
+
+
+def test_streaming_flagship_and_nlp_entry_points_without_device_raise_when_no_cuda(monkeypatch, tmp_path):
+    """The streaming flagship's entry points, ``warm_flagship``, the carried
+    codebooks, LDA's model and the Stupid Backoff workload resolve ``None``
+    to CUDA and raise without a card."""
+    from keystone_tpu_torch.convert import flagship_codebooks_from_numpy
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.ops.learning.lda import LinearDiscriminantAnalysis
+    from keystone_tpu_torch.pipelines import imagenet_streaming, stupid_backoff
+    from keystone_tpu_torch.pipelines.imagenet import ImageNetSiftLcsFVConfig
+    from keystone_tpu_torch.utils.aot import warm_flagship
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = ArrayDataset(np.random.default_rng(0).normal(size=(8, 3)).astype(np.float32), device="cpu")
+    y = ArrayDataset(np.array([0, 1] * 4, np.int32), device="cpu")
+    gmm = (np.zeros((2, 2)), np.ones((2, 2)), np.full(2, 0.5))
+    config = ImageNetSiftLcsFVConfig(train_location=str(tmp_path / "t.tar"),
+                                     label_path=str(tmp_path / "labels.txt"))
+    for entry_point in (
+        lambda: imagenet_streaming.StreamingFlagship(),
+        lambda: imagenet_streaming.StreamingFlagship.load(str(tmp_path / "missing.pkl")),
+        lambda: imagenet_streaming.run_flagship_ondevice(num_train=4, num_test=4),
+        lambda: imagenet_streaming.run_native_resolution_streaming(config),
+        lambda: warm_flagship(),
+        lambda: flagship_codebooks_from_numpy(np.eye(2), np.eye(2), gmm, gmm),
+        lambda: LinearDiscriminantAnalysis(1).fit(x, y),
+        lambda: stupid_backoff.run(stupid_backoff.StupidBackoffConfig()),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry_point()
