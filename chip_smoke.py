@@ -256,7 +256,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    the test scores against the same fit in float64
    (``VOC_SCORES_FP64_TOL``) and re-scored to the same MAP;
 27. voc_cli — ``python -m keystone_tpu_torch voc-sift-fisher`` at the
-   example script's flags on a 64-image tar, in a subprocess beside
+   example script's flags on a 64-image tar, 10⁵ PCA and GMM samples (cut
+   from 10⁶, ``VOC_CLI_FLAGS`` says why), in a subprocess beside
    ``run()`` on the same tar: the same MAP;
 28. native_host — build the native host library (``g++``, into
    ``keystone_tpu_torch/native/build/``) and hold each host kernel against
@@ -318,16 +319,58 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``tests/fixtures/corenlp_lemma_gold.json`` with the CPU test's agreement
    (337 of 337); one ``LinearDiscriminantAnalysis`` fit whose mapper
    applies on the card, its projection against float64 (``LDA_TOL``).
+37. durable_fit — ``python -m keystone_tpu_torch fit`` at a TIMIT shape
+   (1,048,576 host rows × 440, 147 targets, 16,384-row chunks: 64 chunks,
+   checkpoints auto-armed every 32) in subprocesses, side by side where
+   nothing orders them: an uninterrupted reference and two runs SIGKILLed
+   at ``streaming.chunk`` call 48 (exit −9, one committed cursor at chunk
+   32); then, on one killed run's store, the resume (``--expect-resume``:
+   resumed from chunk 32, 32 chunks re-ingested, probe predictions ≤
+   ``DURABLE_TOL`` from the reference, no resume entry left) and, on the
+   other's, the training matrix drifted by 0.5 under
+   ``KEYSTONE_VERIFY=strict`` (non-zero exit naming KV306; the entry
+   survives: strict refuses the fit, not the entry). The same
+   kill-and-resume with ``--solver sketch --ckpt-chunks 2`` at the CLI's
+   default size (parity ≤ ``DURABLE_TOL``). Each commit's seconds and
+   bytes and every process's wall are printed;
+38. serve_checkpoint — ``python -m keystone_tpu_torch serve
+   --checkpoint-dir D --digest P`` (P: the 12-hex prefix of phase 37's
+   fitted entry, a ``LinearMapper`` over the chain's output) answers the
+   64 probe rows through ``FitDemoScaler`` (2x + 0.5) within
+   ``SERVE_CKPT_TOL`` of phase 37's predictions; a missing digest and an
+   ambiguous one each exit non-zero; beside them phase 37's fit runs once
+   more on the resumed store and is restored from it (``checkpoint_hit``,
+   nothing streamed, equal predictions);
+39. refit_cli — ``python -m keystone_tpu_torch refit`` at the JAX CLI's
+   defaults (6 rounds, d = 16, 4 classes) against
+   ``scripts/refit_smoke.sh``'s invariants: ≥ 2 publishes, exactly one
+   rollback (at round 4), ≥ 1 skip, no dropped request, no new cuFFT
+   plan after settling, the ledger's refit kinds, live accuracy above the
+   stale model's + 0.15, the incremental fold faster than the scratch
+   fit;
+40. refit_full — ``run_refit_demo`` in this process at the README main
+   path's width (MNIST random-FFT's linear head: d = 2,048, 10 classes),
+   65,536 labeled rows per round, 1,024-row chunks, the CLI's defaults
+   otherwise: the same invariants, the round-1 candidate's weights ≤
+   ``REFIT_FP64_TOL`` from a float64 solve of the same statistics, and
+   per round ``fold_s``, the state save's seconds and bytes, the round's
+   wall and the serving p50/p99 of that round's traffic, and scratch
+   against incremental wall.
 
 Where the compiler finds no ``jpeglib.h`` the script prints
 ``native_decode: unavailable (no jpeglib.h)`` and every VOC and ImageNet
 phase decodes with PIL (``use_native=False``, passed explicitly).
 
-Phases 4–14, 16 and 18–36 reach no ELL kernel: each sets its count to 0
+Phases 4–14, 16 and 18–40 reach no ELL kernel: each sets its count to 0
 and fails if it moved; phase 15 launches it only in
 ``oom_injected_sparse``, phase 17 exactly twice. Every phase
 starts from a reset ``PipelineEnv`` and reports its peak device memory
 and the solver binding's calls per product kind (``ops/cuda/gemm.py``).
+Phases 37–39 run their work in ``python -m keystone_tpu_torch``
+subprocesses: their counts and peaks are the children's own, from the
+``device_counts`` of each ``FIT_STATS:`` / ``SERVE_STATS:`` /
+``REFIT_STATS:`` line; the SIGKILLed and the refused runs print none and
+are listed as not measured.
 
 It prints a ``{"library_bindings": [...]}`` line (the cuBLAS binding, not
 a TPU kernel), a ``{"kernels": [...]}`` line, the card's name and power
@@ -431,6 +474,22 @@ TIMIT_FP64_TRAIN_TOL, TIMIT_FP64_TEST_TOL = 1e-5, 0.15
 # fp32 FLOP/s outside the tensor cores (the kernel runs fp32 FFMA).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+
+
+# Durable fits: a TIMIT-shaped stream (440 raw features, 147 targets) of
+# 2^20 host rows in 64 chunks, so checkpoints auto-arm (≥ 10^6 rows) every
+# 32 chunks; the kill lands at chunk 48, between the commit at 32 and the
+# end. Resumed and uninterrupted fits fold the same chunks in the same
+# order: 1e-5 relative covers the solve's fp32 reorderings.
+DURABLE_ROWS, DURABLE_DIM, DURABLE_CLASSES, DURABLE_CHUNK = 1_048_576, 440, 147, 16_384
+DURABLE_KILL_CALL, DURABLE_CURSOR, DURABLE_TOL = 48, 32, 1e-5
+# Served answers against the fit's own probe predictions: the same mapper
+# applied at another batch size (bucket 16 against 64 rows).
+SERVE_CKPT_TOL = 1e-6
+# Refit at the README main path's width; candidate weights against a
+# float64 solve of the same statistics.
+REFIT_FULL = {"d": 2048, "classes": 10, "rows_per_round": 65_536, "chunk_rows": 1024}
+REFIT_FP64_TOL = 1e-5
 
 
 def topic_corpus(topics, docs_per_topic, seed, vocab_per_topic=VOCAB_PER_TOPIC):
@@ -1015,6 +1074,32 @@ def _mnist_end(phase: str) -> dict:
 SOLVER_GEMM_CALLS: dict = {}
 
 
+def _child_end(phase: str, reports: dict, unmeasured: list) -> dict:
+    """``_mnist_end`` for a phase whose work runs in ``python -m
+    keystone_tpu_torch`` subprocesses: this process must have launched no
+    ELL kernel, and the phase's counts are the children's own, from the
+    ``device_counts`` of their stats lines (``reports``, by run), summed
+    with this process's binding calls. Raises if a child printed no counts
+    or launched the ELL kernel. ``unmeasured`` names the runs that print no
+    stats line (SIGKILLed or refused processes): their counts are not
+    measured."""
+    parent = _mnist_end(phase)
+    counts = {}
+    for name, stats in reports.items():
+        if not isinstance(stats.get("device_counts"), dict):
+            raise AssertionError(f"{phase}: run {name!r} printed no device_counts")
+        counts[name] = stats["device_counts"]
+    ell = sum(c["ell_launches"] for c in counts.values())
+    if ell != 0:
+        raise AssertionError(f"{phase} launched the ELL kernel {ell} times in its subprocesses")
+    calls = {k: n + sum(c["solver_gemm_launches"][k] for c in counts.values())
+             for k, n in parent["solver_gemm_launches"].items()}
+    SOLVER_GEMM_CALLS[phase] = calls
+    return {"ell_launches": ell, "solver_gemm_launches": calls,
+            "peak_device_bytes": {name: c["peak_device_bytes"] for name, c in counts.items()},
+            "this_process_peak_device_bytes": parent["peak_device_bytes"], "runs_not_measured": unmeasured}
+
+
 def _check_errors(phase: str, got: dict, want: dict) -> None:
     for name, ref in want.items():
         if not abs(got[name] - ref) <= MNIST_ERROR_TOL:
@@ -1494,9 +1579,12 @@ def phase_serve_mnist(device, fitted, test) -> int:
     _check_labels("serve_mnist CLI", cli_labels, want[:SERVE_CLI_REQUESTS], scores)
     if stats["sheds"] != 0 or stats["served"] != SERVE_CLI_REQUESTS or stats.get("cufft_plans_since_warmup") != 0:
         raise AssertionError(f"serve CLI stats: {stats}")
+    if stats["device_counts"]["ell_launches"] != 0:
+        raise AssertionError(f"the serve CLI launched the ELL kernel: {stats['device_counts']}")
     result["cli"] = {"seconds": time.perf_counter() - t0, "requests": SERVE_CLI_REQUESTS,
                      "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
-                     "sheds": stats["sheds"], "cufft_plans_since_warmup": stats["cufft_plans_since_warmup"]}
+                     "sheds": stats["sheds"], "cufft_plans_since_warmup": stats["cufft_plans_since_warmup"],
+                     "device_counts": stats["device_counts"]}
     log("serve_mnist", **result, **_mnist_end("serve_mnist"))
     return 0
 
@@ -2547,7 +2635,7 @@ def phase_reliability(device, host_problem, slice_fit) -> int:
 #
 # The least-squares meta-solver and the text pipelines (ROADMAP item 9).
 
-# solver_ladder: the first four rows of the JAX sweep's FULL_GRID
+# solver_ladder: the six rows of the JAX sweep's FULL_GRID
 # (scripts/solver_comparison.py:44-54), (n, d, k, density), with the
 # sweep's rungs (``solvers()``: reg 1e-3, block 1,024 × 3 epochs, 20
 # L-BFGS iterations) and its ceiling on densified sparse problems.
@@ -4011,7 +4099,12 @@ VOC_LABEL_COUNTS, VOC_LABEL_SHARES = (1, 2, 3), (0.5, 0.35, 0.15)
 # defaults), the example script's for the CLI run; main() adds the decode
 # path (``use_native``) to both.
 VOC_FLAGS: dict = {}
-VOC_CLI_FLAGS = {"desc_dim": 80, "vocab_size": 256, "reg": 0.5}
+# voc_cli's PCA and GMM samples are cut from the defaults' 10⁶ to 10⁵
+# each (the script's 660 s cap, ROADMAP "Tests": the second cut in its
+# order): both runs of the phase take the same flags, so their MAPs still
+# agree.
+VOC_CLI_FLAGS = {"desc_dim": 80, "vocab_size": 256, "reg": 0.5,
+                 "num_pca_samples": 100_000, "num_gmm_samples": 100_000}
 VOC_RATE_CHUNK, VOC_GATE_IMAGES, VOC_FP64_CHUNK = 256, 8, 32
 # The reference's widths at 256×256 with scale_step 0: descriptors per
 # image (6,241 + 6,084 + 5,929 + 5,776) and Fisher features (2 · 80 · 256).
@@ -5323,6 +5416,279 @@ def phase_stupid_backoff(device) -> int:
     return 0
 
 
+def _port_cli(command: str, args: list, env: dict = None, stdin: str = None, timeout: float = 600) -> dict:
+    """One ``python -m keystone_tpu_torch <command>`` subprocess: exit code,
+    output and wall seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "keystone_tpu_torch", command, *args], cwd=ROOT, input=stdin,
+        capture_output=True, text=True, timeout=timeout, env={**os.environ, **(env or {})},
+    )
+    return {"rc": proc.returncode, "stdout": proc.stdout, "stderr": proc.stderr,
+            "wall_s": time.perf_counter() - t0}
+
+
+def _port_clis(runs: dict) -> dict:
+    """Several independent ``_port_cli`` runs at once (one thread each),
+    by name."""
+    import threading
+
+    out: dict = {}
+    threads = [threading.Thread(target=lambda k=k, v=v: out.__setitem__(k, _port_cli(*v))) for k, v in runs.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def _tagged_json(run: dict, tag: str) -> dict:
+    lines = [line for line in run["stdout"].splitlines() if line.startswith(tag)]
+    if run["rc"] not in (0, 2) or len(lines) != 1:
+        raise AssertionError(f"no {tag} line (rc {run['rc']}): {run['stderr'][-3000:]}")
+    return json.loads(lines[0][len(tag):])
+
+
+def _durable_entries(store_dir: str, device):
+    """(entry files, the committed resume cursor or None) of a fit store."""
+    from keystone_tpu_torch.ops.learning.linear import LinearMapEstimator
+    from keystone_tpu_torch.reliability.checkpoint import CheckpointStore
+    from keystone_tpu_torch.reliability.durable import load_resume_entry, resume_key
+    from keystone_tpu_torch.workflow.fitcmd import FitDemoScaler
+
+    key = resume_key(LinearMapEstimator(), (FitDemoScaler(2.0, 0.5),), DURABLE_ROWS)
+    entry = load_resume_entry(CheckpointStore(store_dir, device=device), key)
+    return sorted(os.listdir(store_dir)), (entry.cursor if entry is not None else None)
+
+
+def phase_durable_fit(device, work: str) -> dict:
+    """Phase 37: durable fits across real processes through the ``fit``
+    CLI: the kill, the KV306 refusal, the resume, and the sketch solver's
+    kill-and-resume (the prefix restore runs beside phase 38). Returns
+    what phase 38 needs: the resumed store, its fitted entry's digest,
+    the probe predictions and the fit command."""
+    _mnist_start()
+    t_phase = time.perf_counter()
+    big = ["--rows", str(DURABLE_ROWS), "--dim", str(DURABLE_DIM), "--classes", str(DURABLE_CLASSES),
+           "--chunk-rows", str(DURABLE_CHUNK), "--device", device.type]
+    sketch = ["--solver", "sketch", "--ckpt-chunks", "2", "--device", device.type]
+    path = {name: os.path.join(work, name) for name in ("ref", "dur", "kv", "sk_ref", "sk_dur")}
+    npz = {name: os.path.join(work, name + ".npz") for name in ("ref", "res", "sk_ref", "sk_res")}
+
+    def kill_at(call):
+        return {"KEYSTONE_FAULT_SPECS": json.dumps([{"match": "streaming.chunk", "kind": "kill", "calls": [call]}])}
+
+    # Side by side where nothing orders them: each store is its own.
+    stage_a = _port_clis({
+        "ref": ("fit", big + ["--store-dir", path["ref"], "--out", npz["ref"]]),
+        "kill": ("fit", big + ["--store-dir", path["dur"]], kill_at(DURABLE_KILL_CALL)),
+        "kill_kv": ("fit", big + ["--store-dir", path["kv"]], kill_at(DURABLE_KILL_CALL)),
+        "sk_ref": ("fit", sketch + ["--store-dir", path["sk_ref"], "--out", npz["sk_ref"]]),
+        "sk_kill": ("fit", sketch + ["--store-dir", path["sk_dur"]], kill_at(5)),
+    })
+    ref = _tagged_json(stage_a["ref"], "FIT_STATS:")
+    sk_ref = _tagged_json(stage_a["sk_ref"], "FIT_STATS:")
+    killed_files, killed_cursor = _durable_entries(path["dur"], device)
+    stage_b = _port_clis({
+        "strict": ("fit", big + ["--store-dir", path["kv"], "--drift-data", "0.5"], {"KEYSTONE_VERIFY": "strict"}),
+        "res": ("fit", big + ["--store-dir", path["dur"], "--out", npz["res"], "--expect-resume"]),
+        "sk_res": ("fit", sketch + ["--store-dir", path["sk_dur"], "--out", npz["sk_res"], "--expect-resume"]),
+    })
+    _, strict_cursor = _durable_entries(path["kv"], device)
+    res = _tagged_json(stage_b["res"], "FIT_STATS:")
+    res_files, res_cursor = _durable_entries(path["dur"], device)
+    sk_res = _tagged_json(stage_b["sk_res"], "FIT_STATS:")
+    preds = {k: np.load(v)["preds"] for k, v in npz.items()}
+
+    def rel(a, b):
+        return float(np.linalg.norm(preds[a] - preds[b]) / np.linalg.norm(preds[b]))
+
+    result = {
+        "rows": DURABLE_ROWS, "dim": DURABLE_DIM, "classes": DURABLE_CLASSES, "chunk_rows": DURABLE_CHUNK,
+        "walls_s": {k: r["wall_s"] for k, r in {**stage_a, **stage_b}.items()},
+        "ref": {k: ref.get(k) for k in ("fit_s", "chunks", "checkpoints", "checkpoint_s", "checkpoint_bytes")},
+        "kill_rc": stage_a["kill"]["rc"], "killed_cursor": getattr(killed_cursor, "chunk_index", None),
+        "killed_entries": len(killed_files),
+        "strict_rc": stage_b["strict"]["rc"], "strict_kv306": "KV306" in stage_b["strict"]["stderr"],
+        "strict_kept_cursor": getattr(strict_cursor, "chunk_index", None),
+        "resume": {k: res.get(k) for k in ("fit_s", "chunks", "checkpoints", "checkpoint_s", "checkpoint_bytes",
+                                            "resumed_from_chunk", "reingested_chunks", "ledger_kinds")},
+        "resume_vs_ref": rel("res", "ref"), "entries_after_resume": res_files,
+        "cursor_after_resume": getattr(res_cursor, "chunk_index", None),
+        "sketch_kill_rc": stage_a["sk_kill"]["rc"],
+        "sketch_resume": {k: sk_res.get(k) for k in ("chunks", "checkpoints", "resumed_from_chunk",
+                                                     "reingested_chunks")},
+        "sketch_resume_vs_ref": rel("sk_res", "sk_ref"),
+        "seconds": time.perf_counter() - t_phase,
+    }
+    counts = _child_end("durable_fit", {"ref": ref, "res": res, "sk_ref": sk_ref, "sk_res": sk_res},
+                        ["kill", "kill_kv", "sk_kill", "strict"])
+    log("durable_fit", **result, **counts)
+    checks = {
+        "ref_streamed": ref.get("streamed") and ref.get("chunks") == 64 and ref.get("checkpoints") == 1,
+        "killed": stage_a["kill"]["rc"] == -9 and killed_cursor is not None
+        and killed_cursor.chunk_index == DURABLE_CURSOR and len(killed_files) == 1,
+        "strict_kv306": stage_a["kill_kv"]["rc"] == -9 and stage_b["strict"]["rc"] not in (0, -9)
+        and result["strict_kv306"] and strict_cursor is not None and strict_cursor.chunk_index == DURABLE_CURSOR,
+        "resumed": stage_b["res"]["rc"] == 0 and res.get("resumed_from_chunk") == DURABLE_CURSOR
+        and res.get("reingested_chunks") == 64 - DURABLE_CURSOR == res.get("chunks"),
+        "resume_parity": result["resume_vs_ref"] <= DURABLE_TOL,
+        "no_resume_entry_left": res_cursor is None and len(res_files) == 1,
+        "sketch_resume": stage_a["sk_kill"]["rc"] == -9 and stage_b["sk_res"]["rc"] == 0
+        and sk_res.get("resumed_from_chunk") == 4 and result["sketch_resume_vs_ref"] <= DURABLE_TOL,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"durable_fit failed {failed}")
+    digests = res.get("checkpoint_digests") or []
+    if len(digests) != 1:
+        raise AssertionError(f"durable_fit: expected one fitted entry, got {digests}")
+    return {"store": path["dur"], "digest": digests[0], "preds": preds["res"], "fit_args": big,
+            "ell_launches": counts["ell_launches"]}
+
+
+def phase_serve_checkpoint(device, durable: dict, work: str) -> int:
+    """Phase 38: serve phase 37's fitted store entry by digest prefix;
+    beside it, phase 37's fit once more on the same store (both only
+    read it), which must restore from the prefix store."""
+    import shutil
+
+    _mnist_start()
+    t_phase = time.perf_counter()
+    probe = np.random.default_rng(12345).normal(size=(64, DURABLE_DIM)).astype(np.float32)
+    features = probe * np.float32(2.0) + np.float32(0.5)  # FitDemoScaler's affine map
+    lines = "".join(json.dumps({"id": i, "x": row.tolist()}) + "\n" for i, row in enumerate(features))
+    (entry,) = [f for f in os.listdir(durable["store"]) if f.startswith(durable["digest"])]
+    ambiguous = os.path.join(work, "ambiguous")
+    os.makedirs(ambiguous)
+    shutil.copy(os.path.join(durable["store"], entry), os.path.join(ambiguous, entry))
+    shutil.copy(os.path.join(durable["store"], entry), os.path.join(ambiguous, durable["digest"] + "0.pkl"))
+    common = ["--device", device.type, "--max-batch", "16", "--queue-depth", "256"]
+    again_npz = os.path.join(work, "again.npz")
+    runs = _port_clis({
+        "serve": ("serve", common + ["--checkpoint-dir", durable["store"], "--digest", durable["digest"]], None, lines),
+        "missing": ("serve", common + ["--checkpoint-dir", durable["store"], "--digest", "f" * 12 + "0"], None, lines),
+        "ambiguous": ("serve", common + ["--checkpoint-dir", ambiguous, "--digest", durable["digest"]], None, lines),
+        "again": ("fit", durable["fit_args"] + ["--store-dir", durable["store"], "--out", again_npz]),
+    })
+    serve = runs["serve"]
+    stats = _tagged_json(serve, "SERVE_STATS:")
+    again = _tagged_json(runs["again"], "FIT_STATS:")
+    answers = {}
+    for line in serve["stdout"].splitlines():
+        if line.startswith("{"):
+            obj = json.loads(line)
+            answers[obj["id"]] = obj.get("y")
+    got = np.asarray([answers.get(i) for i in range(len(features))], np.float64)
+    want = durable["preds"].astype(np.float64)
+    err = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    again_err = float(np.linalg.norm(np.load(again_npz)["preds"] - want) / np.linalg.norm(want))
+    result = {
+        "digest": durable["digest"], "served": stats.get("served"), "failures": stats.get("failures"),
+        "p50_ms": stats.get("p50_ms"), "p99_ms": stats.get("p99_ms"), "source": stats["models"]["default"]["source"],
+        "vs_fit_rel": err, "missing_rc": runs["missing"]["rc"], "ambiguous_rc": runs["ambiguous"]["rc"],
+        "missing_error": "FileNotFoundError" in runs["missing"]["stderr"],
+        "ambiguous_error": "ambiguous" in runs["ambiguous"]["stderr"],
+        "again": {k: again.get(k) for k in ("fit_s", "streamed", "ledger_kinds")}, "again_vs_res": again_err,
+        "walls_s": {k: r["wall_s"] for k, r in runs.items()}, "seconds": time.perf_counter() - t_phase,
+    }
+    counts = _child_end("serve_checkpoint", {"serve": stats, "again": again}, ["missing", "ambiguous"])
+    log("serve_checkpoint", **result, **counts)
+    checks = {
+        "served": serve["rc"] == 0 and stats.get("served") == 64 and stats.get("failures") == 0,
+        "answers": err <= SERVE_CKPT_TOL,
+        "missing_refused": runs["missing"]["rc"] != 0 and result["missing_error"],
+        "ambiguous_refused": runs["ambiguous"]["rc"] != 0 and result["ambiguous_error"],
+        "prefix_restore": runs["again"]["rc"] == 0 and not again.get("streamed")
+        and "checkpoint_hit" in again.get("ledger_kinds", []) and again_err <= 1e-6,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"serve_checkpoint failed {failed}")
+    return counts["ell_launches"]
+
+
+def _refit_invariants(stats: dict) -> dict:
+    """``scripts/refit_smoke.sh``'s invariants on a refit demo's results."""
+    outcomes = {r["round"]: r["outcome"] for r in stats["rounds"]}
+    return {
+        "publishes": stats["publishes"] >= 2,
+        "one_rollback_at_the_bad_round": stats["rollbacks"] == 1 and outcomes.get(4) == "rolled_back",
+        "skip": stats["skips"] >= 1,
+        "dropped": stats["dropped"] == 0,
+        "steady_plans": stats["cufft_plans_since_warmup_post_settle"] == 0,
+        "ledger": {"refit_publish", "refit_rollback", "refit_skip"} <= set(stats["ledger_kinds"]),
+        "live_beats_stale": stats["live_accuracy_final"] > stats["stale_v1_accuracy_final"] + 0.15,
+        "incremental_faster": stats["speedup_ok"] and stats["refit_speedup"] > 1.0,
+        "recovers": outcomes.get(6) == "published",
+    }
+
+
+def phase_refit_cli(device, work: str) -> int:
+    """Phase 39: the ``refit`` CLI at the JAX CLI's defaults."""
+    _mnist_start()
+    t_phase = time.perf_counter()
+    run = _port_cli("refit", ["--device", device.type, "--store-dir", os.path.join(work, "refit_cli")],
+                    {"KEYSTONE_FLIGHT_DIR": os.path.join(work, "flight")})
+    stats = _tagged_json(run, "REFIT_STATS:")
+    checks = _refit_invariants(stats)
+    counts = _child_end("refit_cli", {"refit": stats}, [])
+    log("refit_cli", rounds=[{k: r[k] for k in ("round", "outcome", "live_accuracy", "fold_s")}
+                             for r in stats["rounds"]],
+        **{k: stats[k] for k in ("publishes", "rollbacks", "skips", "dropped", "cufft_plans_since_warmup_post_settle",
+                                 "live_accuracy_final", "stale_v1_accuracy_final", "incremental_refit_wall_s",
+                                 "scratch_fit_wall_s", "refit_speedup", "ledger_kinds")},
+        wall_s=run["wall_s"], seconds=time.perf_counter() - t_phase, **counts)
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"refit_cli failed {failed}")
+    return counts["ell_launches"]
+
+
+def phase_refit_full(device, work: str) -> int:
+    """Phase 40: ``run_refit_demo`` at d = 2,048 with 65,536 rows a round."""
+    import torch
+
+    from keystone_tpu_torch.refit.daemon import RefitDemoConfig, run_refit_demo
+
+    _mnist_start()
+    t_phase = time.perf_counter()
+    captured = {}
+
+    def on_round(r, daemon):
+        if r == 1:
+            captured["state"] = daemon.state
+            captured["weights"] = daemon.last_candidate.weights.double().cpu()
+            captured["reg"] = daemon.estimator.reg
+
+    os.environ["KEYSTONE_FLIGHT_DIR"] = os.path.join(work, "flight")
+    out = run_refit_demo(RefitDemoConfig(store_dir=os.path.join(work, "refit"), **REFIT_FULL),
+                         device=device, on_round=on_round)
+    # Float64 solve of the round-1 statistics, in plain PyTorch on the card.
+    state = captured["state"]
+    g, c, sa, sb = (torch.from_numpy(np.asarray(a, np.float64)).to(device) for a in state.carry)
+    n = float(state.num_examples)
+    mu_a, mu_b = sa / n, sb / n
+    gc = g - n * torch.outer(mu_a, mu_a)
+    cc = c - n * torch.outer(mu_a, mu_b)
+    w64 = torch.linalg.solve(gc + captured["reg"] * torch.eye(gc.shape[0], dtype=torch.float64, device=device), cc)
+    fp64_rel = rel_err(captured["weights"].to(device), w64)
+    checks = _refit_invariants(out)
+    checks["candidate_fp64"] = fp64_rel <= REFIT_FP64_TOL
+    rounds = [{k: r[k] for k in ("round", "outcome", "rows", "live_accuracy", "fold_s", "state_save_s",
+                                 "state_bytes", "round_wall_s", "serve_p50_ms", "serve_p99_ms")}
+              for r in out["rounds"]]
+    log("refit_full", **REFIT_FULL, rounds=rounds, candidate_vs_fp64_rel=fp64_rel,
+        **{k: out[k] for k in ("publishes", "rollbacks", "skips", "dropped", "cufft_plans_since_warmup_post_settle",
+                               "state_rows", "live_accuracy_final", "stale_v1_accuracy_final",
+                               "incremental_refit_wall_s", "scratch_fit_wall_s", "refit_speedup", "ledger_kinds")},
+        seconds=time.perf_counter() - t_phase, **_mnist_end("refit_full"))
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"refit_full failed {failed}")
+    return 0
+
+
 def card_name_and_limit() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5425,6 +5791,13 @@ def main() -> int:
     launches_by_path["warm_flagship"] = phase_warm_flagship(device)
     launches_by_path["stupid_backoff"] = phase_stupid_backoff(device)
     imagenet_dir.cleanup()
+    durable_dir = tempfile.TemporaryDirectory(prefix="keystone-durable-")
+    durable = phase_durable_fit(device, durable_dir.name)
+    launches_by_path["durable_fit"] = durable["ell_launches"]
+    launches_by_path["serve_checkpoint"] = phase_serve_checkpoint(device, durable, durable_dir.name)
+    launches_by_path["refit_cli"] = phase_refit_cli(device, durable_dir.name)
+    launches_by_path["refit_full"] = phase_refit_full(device, durable_dir.name)
+    durable_dir.cleanup()
     # The binding's calls on the paths (gram_modes times it and is left out).
     paths = {p: c for p, c in SOLVER_GEMM_CALLS.items() if p != "gram_modes"}
     binding["launches"] = {k: sum(c[k] for c in paths.values()) for k in next(iter(paths.values()))}

@@ -6,16 +6,21 @@ subcommand per workload, generated from the workload's config dataclass
 plus ``--device`` (default: the CUDA device; ``--device cpu`` runs on the
 CPU). It prints one JSON line ``{"workload": ..., <scalar results>}``.
 The ``serve`` subcommand answers JSON request lines on stdin with a fitted
-pipeline (``serving/server.py``).
+pipeline (``serving/server.py``); ``fit`` runs one durable streamed fit
+(``workflow/fitcmd.py``, a ``FIT_STATS:`` line); ``refit`` runs the
+drifting-workload continuous-refit loop (``refit/daemon.py``, a
+``REFIT_STATS:`` line).
 
 Usage:
     python -m keystone_tpu_torch <workload> [--flag value ...] [--device cpu]
-    python -m keystone_tpu_torch serve (--model PATH | --synthetic D) [--device cpu]
+    python -m keystone_tpu_torch serve (--model PATH | --checkpoint-dir D --digest P | --synthetic D) [--device cpu]
+    python -m keystone_tpu_torch fit --store-dir D [--rows N ...] [--device cpu]
+    python -m keystone_tpu_torch refit [--rounds N ...] [--device cpu]
     python -m keystone_tpu_torch --list
 
 Every workload of the JAX package is here. Left out for now: its other
 subcommands (``profile``, ``trace``, ``bench-diff``, ``check``,
-``explain``, ``tune``, ``quality``, ``refit``, ``fit``; ROADMAP items 12–13).
+``explain``, ``tune``, ``quality``; ROADMAP item 13).
 """
 
 from __future__ import annotations
@@ -173,10 +178,21 @@ def main(argv: Optional[list] = None) -> int:
             resolved[name] = _resolve(name)
             add_config_arguments(sp, resolved[name][0])
     serve = sub.add_parser("serve", help="serve a fitted pipeline over stdin/JSON lines")
-    if selected is None and "serve" in argv:
+    fit = sub.add_parser("fit", help="one durable streamed fit (checkpoints, kill-and-resume)")
+    refit = sub.add_parser("refit", help="continuous refit over a drifting synthetic workload")
+    command = next((a for a in argv if a in ("serve", "fit", "refit")), None) if selected is None else None
+    if command == "serve":
         from .serving.server import add_serve_arguments
 
         add_serve_arguments(serve)
+    elif command == "fit":
+        from .workflow.fitcmd import add_fit_arguments
+
+        add_fit_arguments(fit)
+    elif command == "refit":
+        from .refit.daemon import add_refit_arguments
+
+        add_refit_arguments(refit)
 
     args = parser.parse_args(argv)
     logging.basicConfig(
@@ -190,6 +206,14 @@ def main(argv: Optional[list] = None) -> int:
         from .serving.server import serve_from_args
 
         return serve_from_args(args)
+    if args.workload == "fit":
+        from .workflow.fitcmd import fit_from_args
+
+        return fit_from_args(args)
+    if args.workload == "refit":
+        from .refit.daemon import refit_from_args
+
+        return refit_from_args(args)
 
     config_cls, run_fn = resolved[args.workload]
     results = run_fn(build_config(config_cls, args), device=args.device)

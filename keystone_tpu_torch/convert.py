@@ -93,17 +93,19 @@ def stream_state_from_numpy(
     carry: Sequence[np.ndarray],
     num_examples: int,
     meta: Optional[Dict[str, Any]] = None,
+    estimator: str = "converted",
 ) -> StreamState:
     """The port's :class:`~keystone_tpu_torch.refit.state.StreamState`
-    holding a JAX envelope's host arrays (``state.carry`` converted with
-    ``np.asarray``): a "gram" or "sketch" state captured by the JAX
-    package then finishes, merges or seeds a fold in the port. The sketch
-    map (variant, seed) rides ``meta``, and the row hash is the JAX
-    package's bit for bit, so the port extends a JAX-captured sketch
+    holding a JAX envelope's fields as numpy (``state.carry`` converted
+    with ``np.asarray``; ``estimator`` its ``estimator`` string): a
+    "gram" or "sketch" state captured by the JAX package then finishes,
+    merges, seeds a fold or seeds the refit daemon in the port. The
+    sketch map (variant, seed) rides ``meta``, and the row hash is the
+    JAX package's bit for bit, so the port extends a JAX-captured sketch
     under the same map."""
     return StreamState(
         kind=kind,
-        estimator="converted",
+        estimator=estimator,
         num_examples=int(num_examples),
         carry=tuple(np.asarray(a, dtype=np.float32) for a in carry),
         meta=dict(meta or {}),

@@ -10,12 +10,16 @@
   around the solvers and their degradation ladders.
 - :mod:`.store`   — the persistent profile store (``ProfileStore``,
   ``get_store``), fingerprinted by torch version, backend and card.
+- :mod:`.flight`  — the flight recorder: rings of recent ledger events,
+  metric snapshots and marks, dumped on crash-class events.
+- :mod:`.quality` — the quality plane: score streams, sketches, the
+  sequential gate and the drift detector the refit daemon reads.
 
 The serving layer, the recovery ledger, the executor (node counters,
 ``optimize`` span, ``node:<label>`` spans and the node-seconds histogram
-under ``trace()``), the optimizer's rule counters and spans, and the
-block solver publish into them. Device memory sampling, the exporters,
-the flight recorder and the cost observatory are not ported yet.
+under ``trace()``), the optimizer's rule counters and spans, the block
+solver and the refit daemon publish into them. Device memory sampling,
+the exporters and the cost observatory are not ported yet.
 """
 
 from .metrics import (

@@ -4,7 +4,9 @@ A copy of the series of ``keystone_tpu/obs/names.py`` that the port's
 modules publish: the executor and optimizer (``keystone_executor_*``,
 ``keystone_optimizer_*``), fusion, streaming, the profile store, the
 block-sparse dispatch, the solvers, the sketch tier, the recovery
-ledger and serving.
+ledger, the checkpoint store and durable fits, the resume and publish
+verifiers, continuous refit, the flight recorder, the quality plane
+and serving.
 Names, kinds, help texts and labels are the JAX package's, so dashboards
 read both packages alike; the other families arrive with the modules
 that publish them. One help text says what its series counts in the
@@ -72,6 +74,51 @@ SKETCH_FINISH_SECONDS = "keystone_sketch_finish_seconds"
 
 # ----------------------------------------------------------------- reliability
 RELIABILITY_EVENTS = "keystone_reliability_events_total"
+CHECKPOINT_HITS = "keystone_checkpoint_hits_total"
+CHECKPOINT_MISSES = "keystone_checkpoint_misses_total"
+CHECKPOINT_WRITES = "keystone_checkpoint_writes_total"
+
+# ---------------------------------------------------------------- durable fits
+DURABLE_CHECKPOINTS = "keystone_durable_fit_checkpoints_total"
+DURABLE_RESUMES = "keystone_durable_fit_resumes_total"
+DURABLE_RESUME_REFUSED = "keystone_durable_fit_resume_refused_total"
+DURABLE_REINGESTED_CHUNKS = "keystone_durable_fit_reingested_chunks_total"
+
+# ---------------------------------------------------------------- verification
+VERIFY_RUNS = "keystone_verify_runs_total"
+VERIFY_DIAGNOSTICS = "keystone_verify_diagnostics_total"
+VERIFY_NODES = "keystone_verify_nodes_annotated_total"
+VERIFY_SECONDS = "keystone_verify_seconds"
+
+# ------------------------------------------------------------ continuous refit
+REFIT_ROUNDS = "keystone_refit_rounds_total"
+REFIT_PUBLISHES = "keystone_refit_publishes_total"
+REFIT_ROLLBACKS = "keystone_refit_rollbacks_total"
+REFIT_TAP_ROWS = "keystone_refit_tap_rows_total"
+REFIT_STATE_ROWS = "keystone_refit_state_rows"
+REFIT_FOLD_SECONDS = "keystone_refit_fold_seconds"
+REFIT_SCORE = "keystone_refit_score"
+
+# ------------------------------------------------------------- flight recorder
+FLIGHT_RECORDS = "keystone_flight_records_total"
+FLIGHT_DUMPS = "keystone_flight_dumps_total"
+FLIGHT_DUMP_BYTES = "keystone_flight_dump_bytes"
+
+# --------------------------------------------------------------- quality plane
+QUALITY_SCORES = "keystone_quality_scores_total"
+QUALITY_SCORE_MEAN = "keystone_quality_score_mean"
+QUALITY_SCORE_QUANTILE = "keystone_quality_score_quantile"
+QUALITY_LABEL_JOINS = "keystone_quality_label_joins_total"
+QUALITY_JOIN_LAG_ROWS = "keystone_quality_join_lag_rows"
+QUALITY_SKETCH_ROWS = "keystone_quality_sketch_rows"
+QUALITY_SKETCH_BYTES = "keystone_quality_sketch_bytes"
+QUALITY_SKETCH_MERGES = "keystone_quality_sketch_merges_total"
+QUALITY_DRIFT_EVENTS = "keystone_quality_drift_events_total"
+QUALITY_DRIFT_SCORE = "keystone_quality_drift_score"
+QUALITY_STATE_DECAY = "keystone_quality_state_decay"
+QUALITY_GATE_DECISIONS = "keystone_quality_gate_decisions_total"
+QUALITY_GATE_OPEN = "keystone_quality_gate_open"
+QUALITY_GATE_SAMPLES = "keystone_quality_gate_samples"
 
 # --------------------------------------------------------------------- serving
 SERVING_REQUESTS = "keystone_serving_requests_total"
@@ -130,6 +177,41 @@ SCHEMA: Dict[str, Tuple] = {
     SKETCH_STATE_BYTES: ("gauge", "Bytes of the last sketched fit's O(s·d) carry — the number KV308 compares to the device budget", ()),
     SKETCH_FINISH_SECONDS: ("histogram", "Sketch finish solves (s×s dual ridge or lstsq fallback)", ()),
     RELIABILITY_EVENTS: ("counter", "Recovery-ledger events", ("kind",)),
+    CHECKPOINT_HITS: ("counter", "CheckpointStore lookups that restored a fit", ()),
+    CHECKPOINT_MISSES: ("counter", "CheckpointStore lookups that missed", ()),
+    CHECKPOINT_WRITES: ("counter", "CheckpointStore entries written", ()),
+    DURABLE_CHECKPOINTS: ("counter", "Mid-stream fit checkpoints committed (StreamState + ingest cursor)", ()),
+    DURABLE_RESUMES: ("counter", "Streamed fits resumed from a persisted cursor, by recovery kind (crash/shard/refit_journal)", ("kind",)),
+    DURABLE_RESUME_REFUSED: ("counter", "Resume entries refused or discarded before seeding a fold, by reason (KV306 fingerprint mismatch / geometry drift)", ("reason",)),
+    DURABLE_REINGESTED_CHUNKS: ("counter", "Chunks re-ingested by resumed or shard-loss-recovered folds", ()),
+    VERIFY_RUNS: ("counter", "Plan-time verification runs", ("context",)),
+    VERIFY_DIAGNOSTICS: ("counter", "Plan-time verification diagnostics emitted", ("code", "severity")),
+    VERIFY_NODES: ("counter", "Graph nodes annotated with propagated specs by the verifier", ()),
+    VERIFY_SECONDS: ("histogram", "Whole-graph verification passes", ()),
+    REFIT_ROUNDS: ("counter", "Refit daemon rounds, by outcome (published/skipped_nodata/skipped_eval/rolled_back/error)", ("outcome",)),
+    REFIT_PUBLISHES: ("counter", "Candidate models published by the refit controller", ()),
+    REFIT_ROLLBACKS: ("counter", "Automatic rollbacks triggered by the post-publish watch window", ()),
+    REFIT_TAP_ROWS: ("counter", "Traffic-tap rows, by status (labeled/mirrored/dropped)", ("status",)),
+    REFIT_STATE_ROWS: ("gauge", "Examples absorbed into the persisted refit sufficient statistics", ()),
+    REFIT_FOLD_SECONDS: ("histogram", "Incremental refit folds (drain + fold + finish wall time)", ()),
+    REFIT_SCORE: ("gauge", "Latest shadow-evaluation score, per role (candidate/incumbent/live)", ("role",)),
+    FLIGHT_RECORDS: ("counter", "Entries appended to the flight-recorder ring buffers, by kind (ledger/metrics/mark/quality)", ("kind",)),
+    FLIGHT_DUMPS: ("counter", "Flight-recorder dump artifacts written, by trigger", ("trigger",)),
+    FLIGHT_DUMP_BYTES: ("gauge", "Size of the last flight-recorder dump artifact written by this process", ()),
+    QUALITY_SCORES: ("counter", "Prediction scores observed by the quality plane, per model and stream role (live/labeled/candidate/incumbent)", ("model", "role")),
+    QUALITY_SCORE_MEAN: ("gauge", "Running mean of a model's score stream, per role", ("model", "role")),
+    QUALITY_SCORE_QUANTILE: ("gauge", "P² quantile markers of a model's score stream (p10/p50/p90), per role", ("model", "role", "q")),
+    QUALITY_LABEL_JOINS: ("counter", "Delayed labels joined against served predictions into the labeled score stream (exactly-once via the refit journal)", ("model",)),
+    QUALITY_JOIN_LAG_ROWS: ("gauge", "Labeled rows buffered in the tap awaiting the next refit round's label join", ("model",)),
+    QUALITY_SKETCH_ROWS: ("gauge", "Payload rows folded into the fleet-merged input-distribution sketch", ("model",)),
+    QUALITY_SKETCH_BYTES: ("gauge", "Serialized size of the fleet-merged quality sketch (the bounded-memory contract)", ("model",)),
+    QUALITY_SKETCH_MERGES: ("counter", "Worker heartbeat sketch deltas merged fleet-wide, per shipping role", ("role",)),
+    QUALITY_DRIFT_EVENTS: ("counter", "Drift events fired by the quality drift detector (edge-triggered threshold crossings)", ("model",)),
+    QUALITY_DRIFT_SCORE: ("gauge", "Latest standardized score-shift vs the frozen baseline window, in baseline standard deviations", ("model",)),
+    QUALITY_STATE_DECAY: ("gauge", "Effective refit state_decay chosen adaptively from the drift score", ("model",)),
+    QUALITY_GATE_DECISIONS: ("counter", "Sequential-gate decisions emitted, by model and decision (promote/rollback)", ("model", "decision")),
+    QUALITY_GATE_OPEN: ("gauge", "Sequential tests currently open (still sampling)", ()),
+    QUALITY_GATE_SAMPLES: ("gauge", "Samples consumed so far by a model's open sequential gate", ("model",)),
     SERVING_REQUESTS: ("counter", "Requests served to completion", ("model",)),
     SERVING_BATCHES: ("counter", "Micro-batches dispatched", ("model",)),
     SERVING_SHEDS: ("counter", "Requests shed by admission control", ("model",)),

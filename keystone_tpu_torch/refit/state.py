@@ -26,14 +26,21 @@ meta-solver):
 - ``finish_from_state(state)`` — a fitted transformer from statistics
   alone, on the estimator's ``device``.
 
-Not ported yet: ``save_stream_state`` / ``load_stream_state`` and
-``stream_state_key`` (they need ``reliability/checkpoint.py``), and the
-scheduler lease the JAX package's ``finish_from_state`` takes (the
-scheduler is not ported; on one device the finish runs without one).
+Persistence: ``save_stream_state`` / ``load_stream_state`` keep an
+envelope in a reliability ``CheckpointStore`` under
+``stream_state_key(name)`` — a sha1 of a namespaced string, byte-equal
+to the JAX package's key for the same name. The envelope is written
+with ``torch.save`` (host numpy carries), so a file written by one
+package is never loaded by the other: their classes differ.
+
+Not ported: the scheduler lease the JAX package's ``finish_from_state``
+takes (the scheduler is ROADMAP item 13; on one device the finish runs
+without one).
 """
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
@@ -154,6 +161,36 @@ def merge_stream_states(a: StreamState, b: StreamState) -> StreamState:
         meta=dict(a.meta),
         format_version=a.format_version,
     )
+
+
+# --------------------------------------------------------------- persistence
+
+
+def stream_state_key(name: str) -> str:
+    """Stable checkpoint-store digest for a named refit state. Namespaced
+    so refit states can never collide with prefix-digest fit entries in
+    a shared store directory."""
+    return hashlib.sha1(f"keystone-refit-state:{name}".encode()).hexdigest()
+
+
+def save_stream_state(store: Any, name: str, state: StreamState) -> bool:
+    """Persist ``state`` under ``name`` in a reliability
+    :class:`~keystone_tpu_torch.reliability.checkpoint.CheckpointStore`
+    (atomic tmp+rename write). Returns False when the store refused."""
+    return store.save(None, state, digest=stream_state_key(name))
+
+
+def load_stream_state(store: Any, name: str) -> Optional[StreamState]:
+    """The persisted state for ``name``, or None (missing/torn entries
+    and unknown format versions are misses)."""
+    from ..reliability.checkpoint import _MISS
+
+    value = store.lookup(None, digest=stream_state_key(name))
+    if value is _MISS or not isinstance(value, StreamState):
+        return None
+    if value.format_version != FORMAT_VERSION:
+        return None  # refuse to extend a layout this build doesn't speak
+    return value
 
 
 def _device_carry(state: StreamState, device: torch.device) -> Tuple[torch.Tensor, ...]:
@@ -287,5 +324,8 @@ __all__ = [
     "SketchStreamStateMixin",
     "StateMismatch",
     "StreamState",
+    "load_stream_state",
     "merge_stream_states",
+    "save_stream_state",
+    "stream_state_key",
 ]

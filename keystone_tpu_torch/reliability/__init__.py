@@ -6,19 +6,26 @@
                        `wait_until` watchdogs.
 - :mod:`degrade`     — `DegradationLadder`: shrink a configuration on
                        OOM and say what was given up.
-- :mod:`faultinject` — deterministic fault injection for tests.
+- :mod:`faultinject` — deterministic fault injection for tests, and the
+                       ``kill`` kind carried to child processes through
+                       ``KEYSTONE_FAULT_SPECS``.
 - :mod:`recovery`    — the process-wide ledger of how a run survived,
                        and the loaders' `QuarantineCounts`.
+- :mod:`checkpoint`  — `CheckpointStore`: fitted prefixes persisted under
+                       stable digests (`enable_checkpointing`).
+- :mod:`durable`     — mid-stream resume: cursors, resume entries and
+                       the `DurableFold` the streaming engine commits.
 
 The serving layer uses them (its retry policy, admission ladder and
 ``serving.apply`` probe), the streaming engine its ``streaming.chunk``
 probe, the executor its per-node retry, deadline and fault injection
 (``PipelineEnv.retry_policy``), the block solver its OOM ladder and
 ``BlockLeastSquaresEstimator.solve`` probe, and ``load_csv`` its
-quarantine publishing. The executor's checkpoint hook,
-``checkpoint.py`` and ``durable.py`` are not ported yet.
+quarantine publishing, and the executor its checkpoint hook
+(``PipelineEnv.checkpoint``).
 """
 
+from .checkpoint import CheckpointStore, enable_checkpointing, prefix_digest
 from .degrade import DegradationLadder, LadderExhausted, halving_rungs
 from .errors import (
     CLASSIFICATION_TABLE,
@@ -35,13 +42,17 @@ from .faultinject import (
     InjectedOOM,
     InjectedTransient,
     injected,
+    install_from_env,
     probe,
+    specs_from_env,
+    specs_to_env,
 )
 from .recovery import RecoveryLog, get_recovery_log, reset_recovery_log
 from .retry import Deadline, RetryPolicy, run_with_deadline, wait_until
 
 __all__ = [
     "CLASSIFICATION_TABLE",
+    "CheckpointStore",
     "CorruptRecordError",
     "Deadline",
     "DeadlineExceeded",
@@ -56,12 +67,17 @@ __all__ = [
     "RecoveryLog",
     "RetryPolicy",
     "classify_error",
+    "enable_checkpointing",
     "get_recovery_log",
     "halving_rungs",
     "injected",
+    "install_from_env",
     "is_oom",
+    "prefix_digest",
     "probe",
     "reset_recovery_log",
     "run_with_deadline",
+    "specs_from_env",
+    "specs_to_env",
     "wait_until",
 ]

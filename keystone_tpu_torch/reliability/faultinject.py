@@ -3,10 +3,16 @@ past a deadline, raise a transient error, or return corrupt data on
 chosen calls — so recovery paths are exercised by ordinary tests instead
 of waiting for a real failure.
 
-A copy of ``keystone_tpu/reliability/faultinject.py`` without its
-process-level parts (the ``kill`` kind and the environment carry of
-specs to worker processes), which belong to the multi-worker runtime the
-port does not have yet.
+A copy of ``keystone_tpu/reliability/faultinject.py``.
+
+Process-level chaos: the ``kill`` kind SIGKILLs the *current process* at
+a probed call — a real ``kill -9`` mid-fit, the crash durable fits must
+survive. The injector is per-process, so specs cross a process boundary
+through the environment: :func:`specs_to_env` serializes a spec list to
+JSON and :func:`install_from_env` (called by the ``fit`` entry point at
+startup) installs a process-lifetime injector from
+``KEYSTONE_FAULT_SPECS``. Env-carried specs can't ship a ``corrupt``
+callable; they use the default corruption.
 
 Library code calls ``probe("site-name")`` at its retryable boundaries. A
 no-op (one global ``is None`` check) unless an injector is active, so
@@ -21,17 +27,24 @@ first two attempts, succeed on the third".
 
 from __future__ import annotations
 
+import json
+import os
+import signal
+import sys
 import threading
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..envknobs import env_raw
 from ..utils.tree import tree_map
 from .recovery import get_recovery_log
+
+FAULT_SPECS_ENV = "KEYSTONE_FAULT_SPECS"
 
 
 class InjectedOOM(RuntimeError):
@@ -55,7 +68,7 @@ class FaultSpec:
     """What to inject, where, and on which calls.
 
     ``match``   — substring of the probe site ("*" = every site).
-    ``kind``    — "oom" | "transient" | "hang" | "corrupt".
+    ``kind``    — "oom" | "transient" | "hang" | "corrupt" | "kill".
     ``calls``   — exact 1-based call numbers to fault at.
     ``first_n`` — alternative to ``calls``: fault calls 1..first_n.
     ``hang_s``  — sleep length for kind="hang" (pair with a policy whose
@@ -64,6 +77,8 @@ class FaultSpec:
                   floating tensors and arrays, the shape-preserving
                   corruption a consumer actually notices; strings garble
                   into non-JSON bytes).
+    ``kind="kill"`` SIGKILLs the current process — un-catchable, exactly
+    a ``kill -9`` mid-run.
     """
 
     match: str
@@ -142,6 +157,15 @@ class FaultInjector:
             if spec.kind == "hang":
                 self._sleep(spec.hang_s)
                 return
+            if spec.kind == "kill":
+                # Flush what this process has said so far: a reader must
+                # see everything emitted BEFORE the kill.
+                for stream in (sys.stdout, sys.stderr):
+                    try:
+                        stream.flush()
+                    except Exception:
+                        pass
+                os.kill(os.getpid(), signal.SIGKILL)
             raise ValueError(f"unknown fault kind {spec.kind!r}")
 
     def wrap(self, label: str, thunk: Callable[[], Any]) -> Callable[[], Any]:
@@ -165,12 +189,15 @@ _current: Optional[FaultInjector] = None
 #: Every probe site the port exposes, by its exact label. Chaos specs
 #: target sites by these names; a site is registered next to the code
 #: that adds it. The JAX package registers more, and each arrives with
-#: the module that probes it: the refit sites with refit, the worker and
-#: shard-loss sites with the multi-worker and multi-device runtimes.
+#: the module that probes it: the worker and shard-loss sites with the
+#: multi-worker and multi-device runtimes.
 KNOWN_PROBE_SITES = frozenset(
     {
         "serving.apply",  # serving/server.py: per-batch apply
         "streaming.chunk",  # workflow/streaming.py: per-chunk dispatch
+        "refit.fold",  # refit/daemon.py: incremental fold
+        "refit.candidate",  # refit/daemon.py: candidate, post-eval
+        "refit.publish",  # refit/publish.py: registry swap
         "BlockLeastSquaresEstimator.solve",  # ops/learning/block.py: each ladder rung
         "LeastSquaresEstimator.solve",  # ops/learning/least_squares.py: each ladder rung
         "KernelRidgeRegression.solve",  # ops/learning/kernel.py: each ladder rung
@@ -205,3 +232,39 @@ def injected(*specs: FaultSpec, sleep: Callable[[float], None] = time.sleep):
         yield injector
     finally:
         _current = None
+
+
+# ------------------------------------------------------- cross-process specs
+
+_ENV_FIELDS = ("match", "kind", "calls", "first_n", "hang_s")
+
+
+def specs_to_env(specs: Tuple[FaultSpec, ...]) -> str:
+    """Serialize specs for a child process's ``KEYSTONE_FAULT_SPECS``.
+    ``corrupt`` callables don't cross the boundary — env-carried corrupt
+    specs use the default corruption."""
+    return json.dumps(
+        [{k: getattr(s, k) for k in _ENV_FIELDS if getattr(s, k) is not None} for s in specs]
+    )
+
+
+def specs_from_env(value: str) -> List[FaultSpec]:
+    out = []
+    for obj in json.loads(value):
+        if "calls" in obj:
+            obj["calls"] = tuple(int(c) for c in obj["calls"])
+        out.append(FaultSpec(**obj))
+    return out
+
+
+def install_from_env(env_var: str = FAULT_SPECS_ENV) -> Optional[FaultInjector]:
+    """Install a process-LIFETIME injector from the environment (no
+    context manager — the process is the scope). A no-op when the
+    variable is unset/empty or an injector is already active."""
+    global _current
+    raw = (env_raw(env_var) or "").strip()
+    if not raw or _current is not None:
+        return None
+    injector = FaultInjector(*specs_from_env(raw))
+    _current = injector
+    return injector

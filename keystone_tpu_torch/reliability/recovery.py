@@ -2,9 +2,10 @@
 fault lands here so a run can report HOW it survived, not just that it
 did.
 
-A copy of ``keystone_tpu/reliability/recovery.py`` without the
-flight-recorder hook (``obs/flight.py``, fleet-plane machinery the port
-does not have yet). ``QuarantineCounts`` is the loaders' skip-and-
+A copy of ``keystone_tpu/reliability/recovery.py``: every ``record()``
+also feeds the flight recorder (``obs/flight.py``), which keeps a ring of
+recent events and dumps a post-mortem on crash-class kinds.
+``QuarantineCounts`` is the loaders' skip-and-
 quarantine tally, which ``publish``es its total into the ledger.
 
 The log is module-global (like ``PipelineEnv``) and reset alongside it —
@@ -23,6 +24,7 @@ import threading
 from dataclasses import dataclass, field
 from typing import Any, Dict, List
 
+from ..obs import flight as _flight
 from ..obs import names as _names
 from ..obs import spans as _spans
 
@@ -51,6 +53,10 @@ class RecoveryLog:
             k: v for k, v in detail.items()
             if isinstance(v, (bool, int, float, str))
         })
+        # Flight recorder: ring-append, and crash-class kinds (fault,
+        # refit_rollback) dump the post-mortem artifact. A single global
+        # read when uninstalled.
+        _flight.observe_ledger(kind, label, detail)
 
     def events(self, kind: str = None) -> List[RecoveryEvent]:
         with self._lock:
@@ -64,9 +70,7 @@ class RecoveryLog:
         """The shape run results embed: counts per kind plus compact events.
 
         ``quarantined_records`` sums record counts (one quarantine event may
-        cover a whole batch of skipped records). ``checkpoint_hits`` keeps
-        the JAX package's shape; the port has no checkpoint store yet, so
-        no event of that kind is recorded.
+        cover a whole batch of skipped records).
         """
         with self._lock:
             events = list(self._events)

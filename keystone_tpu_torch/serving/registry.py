@@ -1,15 +1,17 @@
 """Model registry: versioned fitted pipelines with atomic hot-swap.
 
-Port of ``keystone_tpu/serving/registry.py``. Models come in through two
-doors —
+Port of ``keystone_tpu/serving/registry.py``. Models come in through
+three doors —
 
 - :meth:`ModelRegistry.publish` — an in-process fitted pipeline object;
 - :meth:`ModelRegistry.load_fitted` — a ``FittedPipeline.save`` artifact,
-  with every tensor placed on the serving device.
+  with every tensor placed on the serving device;
+- :meth:`ModelRegistry.load_checkpoint` — a fitted value out of a
+  reliability ``CheckpointStore`` directory, by digest prefix, onto the
+  serving device.
 
-Left out for now: ``load_checkpoint`` (the JAX package's
-``CheckpointStore`` entries; the port has no checkpoint store yet), the
-plan-time verifier ``load_fitted`` runs in the JAX package
+Left out for now: the plan-time verifier ``load_fitted`` runs in the JAX
+package
 (``verify_and_enforce``), and the serving partition it attaches for
 multi-device serving (``attach_serving_partition``).
 
@@ -22,12 +24,13 @@ resolved, later batches resolve the new current version.
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
-from ..device import DeviceLike
+from ..device import DeviceLike, resolve_device
 from .config import UnknownModel
 
 
@@ -130,6 +133,34 @@ class ModelRegistry:
 
         fitted = FittedPipeline.load(path, device=device).fused()
         return self.publish(name, fitted, source=f"fitted:{path}")
+
+    def load_checkpoint(
+        self, name: str, store_path: str, digest: str, device: DeviceLike = None
+    ) -> ModelEntry:
+        """Publish a fitted value out of a reliability checkpoint store,
+        with every tensor on ``device`` (default CUDA).
+
+        ``digest`` may be a unique prefix of the full structural digest
+        (the recovery log prints 12-hex prefixes); no match raises
+        ``FileNotFoundError``, several raise ``ValueError``."""
+        import torch
+
+        matches = [
+            f for f in sorted(os.listdir(store_path))
+            if f.endswith(".pkl") and f.startswith(digest)
+        ]
+        if not matches:
+            raise FileNotFoundError(f"no checkpoint entry matching digest {digest!r} in {store_path}")
+        if len(matches) > 1:
+            raise ValueError(f"digest prefix {digest!r} is ambiguous in {store_path}: {matches}")
+        model = torch.load(
+            os.path.join(store_path, matches[0]), map_location=resolve_device(device), weights_only=False
+        )
+        fused = getattr(model, "fused", None)
+        if callable(fused):
+            # Same re-fusion as load_fitted for a checkpointed pipeline.
+            model = fused()
+        return self.publish(name, model, source=f"checkpoint:{store_path}/{matches[0]}")
 
     # ---------------------------------------------------------------- resolve
     def resolve(self, name: str, version: Optional[int] = None) -> ModelEntry:

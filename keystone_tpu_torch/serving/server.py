@@ -22,8 +22,13 @@ Where the JAX server reports ``xla_compiles_since_warmup``, this one
 reports ``cufft_plans_since_warmup`` on the card: the growth of cuFFT's
 plan cache since ``warmup()``, which must stay 0 in steady state.
 
-Left out for now: the refit traffic tap, the serving partition, the
-persistent compilation cache, and the multi-worker CLI paths.
+Refit traffic tap: ``PipelineServer(..., tap=...)`` offers each batch's
+payloads to a :class:`~keystone_tpu_torch.refit.tap.TrafficTap` after
+every future of the batch has settled; a failure in the tap is logged
+and never fails a request.
+
+Left out for now: the serving partition, the persistent compilation
+cache, and the multi-worker CLI paths.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ import torch
 from ..data.dataset import ArrayDataset, _stack
 from ..device import DeviceLike, resolve_device
 from ..obs import spans as _spans
+from ..ops.cuda import device_counts
 from ..reliability.faultinject import probe
 from ..reliability.retry import Deadline, RetryPolicy
 from ..utils.aot import warm_buckets
@@ -78,6 +84,7 @@ class PipelineServer:
         name: str = "default",
         telemetry: Optional[ServingTelemetry] = None,
         device: DeviceLike = None,
+        tap: Any = None,
     ):
         self.device = resolve_device(device)
         self.config = config or ServingConfig()
@@ -85,6 +92,11 @@ class PipelineServer:
         if model is not None:
             self.registry.publish(name, model)
         self.default_model = name
+        #: Opt-in refit traffic tap (refit/tap.py): settled request
+        #: payloads are sampled into its bounded mirror buffer after each
+        #: batch — off the submit path, and a full or slow tap only ever
+        #: drops tap rows, never requests.
+        self.tap = tap
         self.telemetry = telemetry or ServingTelemetry(
             window=self.config.telemetry_window, default_model=self.default_model
         )
@@ -353,6 +365,13 @@ class PipelineServer:
                 queue_wait_s=t_apply - req.enqueued_at,
                 model=model_name,
             )
+        if self.tap is not None:
+            # AFTER every future settled: tap work never delays a
+            # response, and a tap bug never fails a served request.
+            try:
+                self.tap.observe_batch([req.payload for req in group])
+            except Exception:
+                logger.debug("traffic tap observe failed", exc_info=True)
 
     def _apply_padded(
         self, entry: ModelEntry, payloads: List[Any], deadline: Any = None
@@ -419,6 +438,8 @@ _FLEET_FLAGS = ("--workers > 1", "--listen", "--slo-p99-ms", "--boot-image", "--
 def add_serve_arguments(parser) -> None:
     """Flags for the ``serve`` subcommand (plain argparse)."""
     parser.add_argument("--model", help="FittedPipeline.save artifact to serve")
+    parser.add_argument("--checkpoint-dir", help="CheckpointStore directory to serve an entry of")
+    parser.add_argument("--digest", help="digest (or unique prefix) of the entry in --checkpoint-dir")
     parser.add_argument(
         "--synthetic", type=int, default=None, metavar="D",
         help="serve a synthetic D-dim dense pipeline (smoke tests, no artifact)",
@@ -436,8 +457,6 @@ def add_serve_arguments(parser) -> None:
         help="torch device to serve on (default: the CUDA device; 'cpu' to serve on the CPU)",
     )
     # Accepted so that they are refused by name (serve_from_args).
-    parser.add_argument("--checkpoint-dir", help=argparse.SUPPRESS)
-    parser.add_argument("--digest", help=argparse.SUPPRESS)
     parser.add_argument("--workers", type=int, default=1, help=argparse.SUPPRESS)
     parser.add_argument("--listen", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--slo-p99-ms", type=float, default=None, help=argparse.SUPPRESS)
@@ -448,7 +467,8 @@ def add_serve_arguments(parser) -> None:
 def serve_from_args(args) -> int:
     """Run the stdin/JSON front-end: one request per line
     (``{"id": ..., "x": [...]}`` or a bare array), one response line per
-    request as it completes, then a final ``SERVE_STATS:{...}`` line.
+    request as it completes, then a final ``SERVE_STATS:{...}`` line (the
+    server's stats and this process's ``device_counts``).
     Exits 2 on the JAX package's options this port does not have yet."""
     if args.workers > 1 or args.listen or args.slo_p99_ms or args.boot_image or args.autoscale:
         print(
@@ -457,14 +477,6 @@ def serve_from_args(args) -> int:
             file=sys.stderr,
         )
         return 2
-    if args.checkpoint_dir or args.digest:
-        print(
-            "serve: --checkpoint-dir/--digest need the checkpoint store, "
-            "which is not ported yet (ROADMAP Queue A item 12)",
-            file=sys.stderr,
-        )
-        return 2
-
     device = resolve_device(args.device)
     config = ServingConfig(
         max_batch=args.max_batch,
@@ -486,8 +498,11 @@ def serve_from_args(args) -> int:
     elif args.model:
         registry.load_fitted(args.model_name, args.model, device=device)
         example = None
+    elif args.checkpoint_dir and args.digest:
+        registry.load_checkpoint(args.model_name, args.checkpoint_dir, args.digest, device=device)
+        example = None
     else:
-        print("serve: need --model or --synthetic D", file=sys.stderr)
+        print("serve: need --model, --checkpoint-dir + --digest, or --synthetic D", file=sys.stderr)
         return 2
 
     server = PipelineServer(
@@ -564,5 +579,5 @@ def serve_from_args(args) -> int:
         except Exception:
             pass
     with out_lock:
-        print("SERVE_STATS:" + json.dumps(server.stats()), flush=True)
+        print("SERVE_STATS:" + json.dumps({**server.stats(), "device_counts": device_counts(device)}), flush=True)
     return 0

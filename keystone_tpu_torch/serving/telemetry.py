@@ -144,6 +144,12 @@ class ServingTelemetry:
         with self._lock:
             self._warm_buckets.add(bucket)
 
+    def warmed_buckets(self) -> list:
+        """The buckets currently known warm — the warm set the refit
+        publish verifier (KV305) checks candidate bucket plans against."""
+        with self._lock:
+            return sorted(self._warm_buckets)
+
     def record_shed(self, model: Optional[str] = None) -> None:
         model = self._model(model)
         with self._lock:

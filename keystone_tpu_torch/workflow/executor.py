@@ -9,16 +9,17 @@ forcing one is what launches the device work.
 
 ``PipelineEnv`` holds the prefix-state table used for cross-pipeline reuse
 of fit estimators and cached datasets, the active optimizer stack, and the
-reliability hook the executor consults per node: ``retry_policy`` (a
+reliability hooks the executor consults per node: ``retry_policy`` (a
 ``reliability.RetryPolicy`` — transient faults retried, per-node deadline
-enforced). Its ``nodes_executed`` counts the operators the executors have
+enforced) and ``checkpoint`` (a ``reliability.CheckpointStore`` —
+estimator fits write through, and a fit whose prefix digest is already
+on disk restores instead of refitting). Its ``nodes_executed`` counts the operators the executors have
 run since the last :meth:`PipelineEnv.reset`; the
 ``keystone_executor_nodes_executed_total`` and ``_memo_hits_total``
 counters count the same across resets, and optimizing opens an
 ``optimize`` span.
 
-Left out for now: the ``checkpoint`` hook (``reliability/checkpoint.py``),
-the auto-cache counters and ``partition_decisions``.
+Left out for now: the auto-cache counters and ``partition_decisions``.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from ..obs import spans as _spans
 from ..reliability import faultinject
 from ..reliability.recovery import reset_recovery_log
 from .graph import Graph, GraphId, NodeId, SinkId, SourceId
-from .operators import Expression
+from .operators import EstimatorOperator, Expression
 from .prefix import Prefix
 from .tracing import timed_execute
 
@@ -46,9 +47,12 @@ class PipelineEnv:
         self.state: Dict[Prefix, Expression] = {}
         self.nodes_executed = 0
         self._optimizer = None
-        # Reliability hook, default OFF (zero per-node overhead): a
-        # reliability.RetryPolicy applied to every node forcing.
+        # Reliability hooks, default OFF (zero per-node overhead):
+        # retry_policy, a reliability.RetryPolicy applied to every node
+        # forcing; checkpoint, a reliability.CheckpointStore that
+        # estimator fits write through and restore from.
         self.retry_policy = None
+        self.checkpoint = None
 
     @classmethod
     def get_or_create(cls) -> "PipelineEnv":
@@ -125,11 +129,11 @@ class GraphExecutor:
         env = PipelineEnv.get_or_create()
         env.nodes_executed += 1
         _names.metric(_names.NODES_EXECUTED).inc()
-        expression = _wrap_reliability(op, deps, timed_execute(op, deps))
+        prefix = self._prefixes.get(graph_id)
+        expression = _wrap_reliability(op, deps, timed_execute(op, deps), prefix)
 
         # Prefix write-back: make this node's result reusable by later
         # pipelines (reference: GraphExecutor.scala:65-71).
-        prefix = self._prefixes.get(graph_id)
         if prefix is not None:
             env.state[prefix] = expression
 
@@ -137,7 +141,7 @@ class GraphExecutor:
         return expression
 
 
-def _wrap_reliability(op, deps, expression: Expression) -> Expression:
+def _wrap_reliability(op, deps, expression: Expression, prefix: Optional[Prefix] = None) -> Expression:
     """Layer the reliability hooks around a node's lazy result.
 
     Expressions are call-by-name memoized and a failing thunk leaves the
@@ -147,10 +151,11 @@ def _wrap_reliability(op, deps, expression: Expression) -> Expression:
 
     Wrapping order, innermost out:
       1. fault injection — stands in for the op itself failing;
-      2. (checkpoint — a digest hit skips the op; not ported yet);
+      2. checkpoint — a digest hit skips the op (and any injected faults:
+         restored work is not re-executed, same as lineage recovery);
       3. retry + per-node deadline — sees injected and real faults alike.
-    Both default off; with neither active the original expression is
-    returned untouched.
+    All three default off; with none active the original expression is
+    returned untouched. Only estimator nodes with a prefix checkpoint.
 
     Each retry executes the op FRESH (``timed_execute(op, deps)`` only
     builds lazy thunks; deps stay memoized) rather than re-entering the
@@ -160,9 +165,12 @@ def _wrap_reliability(op, deps, expression: Expression) -> Expression:
     wrapper expression memoizes the one successful result for all
     downstream readers.
     """
+    env = PipelineEnv.get_or_create()
     injector = faultinject.current()
-    policy = PipelineEnv.get_or_create().retry_policy
-    if injector is None and policy is None:
+    policy = env.retry_policy
+    store = env.checkpoint
+    checkpointable = store is not None and prefix is not None and isinstance(op, EstimatorOperator)
+    if injector is None and policy is None and not checkpointable:
         return expression
 
     label = str(getattr(op, "label", type(op).__name__))
@@ -175,6 +183,9 @@ def _wrap_reliability(op, deps, expression: Expression) -> Expression:
 
     if injector is not None:
         thunk = injector.wrap(label, thunk)
+    if checkpointable:
+        inner_thunk = thunk
+        thunk = lambda: store.get_or_compute(prefix, inner_thunk, label=label)  # noqa: E731
     if policy is not None:
         attempt = thunk
         thunk = lambda: policy.call(attempt, label=label)  # noqa: E731

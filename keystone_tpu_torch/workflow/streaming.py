@@ -41,10 +41,21 @@ card before the previous chunk's compute ended there. On the CPU the
 loop stages one chunk ahead, as the JAX package does, and the hand-off
 to the device is a zero-copy ``torch.from_numpy``.
 
-Left out (later slices, ROADMAP Queue A items 12–14): the partitioned
-(sharded, 2-D) chunk plans and shard-loss recovery, the durable cursor
-checkpoints and resume, the scheduler lease (preemption at a chunk
-boundary), and the cost-observatory and profile-store observations.
+Durable fits (``reliability/durable.py``). With a checkpoint store on
+``PipelineEnv``, :class:`StreamingFitOperator` arms a
+:class:`~keystone_tpu_torch.reliability.durable.DurableFold` on the
+stream: every ``ckpt_every`` dispatched chunks the fold copies its carry
+to the host — a synchronisation point, timed into
+``StreamReport.checkpoint_s`` — and commits it with a cursor before the
+next chunk may update it in place. A fresh process that finds a valid
+resume entry seeds the fold from its state and skips the chunks before
+its cursor (``resumed_from_chunk``, ``reingested_chunks``); a completed
+fold retires the entry.
+
+Left out (later slices, ROADMAP Queue A items 13–14): the partitioned
+(sharded, 2-D) chunk plans and shard-loss recovery, the scheduler lease
+(preemption at a chunk boundary), and the cost-observatory and
+profile-store observations.
 """
 
 from __future__ import annotations
@@ -138,6 +149,17 @@ def stream_prefetch_depth() -> int:
     return max(1, env_int("KEYSTONE_STREAM_PREFETCH", 1))
 
 
+def chain_class(members: Sequence[Any]) -> str:
+    """Process-stable identity of a featurize chain: the member type
+    sequence, hashed. Deliberately coarser than a content digest — the
+    resume key names the logical fit with it, and KV306 then rules on
+    the contents."""
+    import hashlib
+
+    token = "|".join(f"{type(m).__module__}.{type(m).__qualname__}" for m in members)
+    return hashlib.sha1(token.encode()).hexdigest()[:16]
+
+
 class StreamingFallback(Exception):
     """Raised (internally, before any chunk is consumed) when a planned
     streaming fit turns out ineligible at run time — an unchunkable
@@ -211,11 +233,12 @@ def stream_pipelined(
 @dataclass
 class StreamReport:
     """What the last streaming fit actually did — the evidence the smoke
-    script and tests assert on (overlap, first applications, memory).
+    script and tests assert on (overlap, first applications, memory,
+    durable commits).
 
-    The partition, durability and preemption fields keep the JAX
-    package's names and single-device values until those paths are
-    ported (ROADMAP Queue A items 12–14)."""
+    The partition and preemption fields keep the JAX package's names and
+    single-device values until those paths are ported (ROADMAP Queue A
+    items 13–14)."""
 
     chunks: int = 0
     chunk_rows: int = 0
@@ -241,6 +264,10 @@ class StreamReport:
     reingested_chunks: int = 0
     shard_losses: int = 0
     preempted_at_chunk: Optional[int] = None
+    #: Per durable commit: seconds from the carry's device→host copy to
+    #: the store's rename (the fold waits for it), and bytes written.
+    checkpoint_s: List[float] = field(default_factory=list)
+    checkpoint_bytes: List[int] = field(default_factory=list)
     #: perf_counter at fold start — the event lists below are offsets
     #: from this.
     t0_s: float = 0.0
@@ -492,6 +519,10 @@ class ChunkStream:
         self.device = resolve_device(device)
         self.num_examples = len(data)
         self._feat_aval = None
+        #: Durability plan (reliability/durable.py DurableFold), armed by
+        #: the streaming operator when a checkpoint store is attached.
+        #: None = the fold without checkpoints.
+        self.durable = None
 
     def feature_aval(self):
         """Specs of one FEATURIZED chunk: the chain run on a zero batch of
@@ -535,12 +566,24 @@ class ChunkStream:
         # indices — as a fourth argument. Gram steps keep three.
         needs_mask = bool(getattr(step_fn, "needs_mask", False))
         windows = [(s, min(s + chunk_rows, n)) for s in range(0, n, chunk_rows)]
+        durable = self.durable
+        start_chunk = min(durable.start_chunk, len(windows)) if durable is not None else 0
         report = StreamReport(
             chunk_rows=chunk_rows,
             num_examples=n,
             prefetch_depth=self.prefetch,
             state_bytes_per_device=_tree_nbytes(carry),
         )
+        if start_chunk:
+            # Crash-resume: chunks before the cursor live in the seeded
+            # carry already — only the suffix is re-ingested.
+            report.resumed_from_chunk = start_chunk
+            report.reingested_chunks = len(windows) - start_chunk
+            _names.metric(_names.DURABLE_REINGESTED_CHUNKS).inc(report.reingested_chunks)
+        # Chunks dispatched in this fold, and ABSOLUTE logical rows
+        # dispatched (a resumed fold starts at the cursor's count): what a
+        # committed cursor records.
+        progress = {"dispatched": 0, "rows": durable.resume_rows if durable is not None else 0}
         cuda = device.type == "cuda"
         copy_stream = torch.cuda.Stream(device) if cuda else None
         compute_stream = torch.cuda.current_stream(device) if cuda else None
@@ -622,9 +665,35 @@ class ChunkStream:
             bytes_c.inc(nbytes)
             return x, y, mask, moved, copy_start, uploaded
 
-        def compute(staged, _chunk):
+        def commit_checkpoint():
+            # Commit-before-continue barrier: the carry's device→host copy
+            # waits for every chunk dispatched so far, and the atomic
+            # store write completes BEFORE the next chunk updates the
+            # carry in place — a persisted carry is never stale.
+            t_commit = time.perf_counter()
+            host = tuple(a.detach().to("cpu", copy=True).numpy() for a in tree_leaves(carry))
+            ok = durable.commit(
+                host,
+                chunk_index=start_chunk + progress["dispatched"],
+                rows_consumed=progress["rows"],
+                chunk_rows=chunk_rows,
+            )
+            if ok:
+                report.checkpoints += 1
+                report.checkpoint_s.append(time.perf_counter() - t_commit)
+                report.checkpoint_bytes.append(durable.store.last_write_bytes)
+
+        def compute(staged, chunk):
             nonlocal carry
             x, y, mask, moved, copy_start, uploaded = staged
+            done_chunks = progress["dispatched"]
+            if (
+                durable is not None
+                and durable.ckpt_every > 0
+                and done_chunks > 0
+                and done_chunks % durable.ckpt_every == 0
+            ):
+                commit_checkpoint()
             probe("streaming.chunk")
             report.dispatch_t.append(time.perf_counter() - t0)
             compute_start = done = None
@@ -643,6 +712,9 @@ class ChunkStream:
                 events.append((copy_start, uploaded, compute_start, done))
             chunks_c.inc()
             report.chunks += 1
+            progress["dispatched"] += 1
+            start, stop = chunk[3]
+            progress["rows"] += stop - start
             if report.chunks == 1:
                 report.compiles_first_chunk = len(record.traces)
             return done
@@ -655,14 +727,16 @@ class ChunkStream:
             report.compute_done_t.append(time.perf_counter() - t0)
 
         queue = PrefetchQueue(
-            iter(windows),
+            iter(windows[start_chunk:]),
             prepare,
             depth=self.prefetch,
             workers=min(self.workers, self.prefetch),
             size_of=lambda chunk: _host_nbytes(chunk[:3]),
         )
         try:
-            with _spans.span("stream:fold", chunks=len(windows), chunk_rows=chunk_rows):
+            with _spans.span(
+                "stream:fold", chunks=len(windows), chunk_rows=chunk_rows, start_chunk=start_chunk
+            ):
                 stream_pipelined(queue, stage, compute, consume, prefetch=2 if cuda else 1)
             if cuda and report.bytes_transferred:
                 report.device_copy_ms = [s.elapsed_time(u) for s, u, _, _ in events]
@@ -677,7 +751,16 @@ class ChunkStream:
             report.host_buffer_peak_bytes = queue.peak_live_bytes + in_hand_peak
             report.compiles_steady_state = len(record.traces) - report.compiles_first_chunk
             _publish_report(report)
-        info = {"num_examples": n, "chunks": report.chunks, "report": report}
+        resume_rows = 0
+        if durable is not None:
+            # The fit completed: a resume entry pointing into its middle
+            # must not outlive it.
+            durable.complete()
+            resume_rows = durable.resume_rows
+        # Rows THIS fold absorbed: a resumed fold re-ingests only the
+        # suffix past the cursor — the cursor's rows live in the seeding
+        # state, and estimators add state.num_examples.
+        info = {"num_examples": n - resume_rows, "chunks": report.chunks, "report": report}
         return carry, info
 
 
@@ -747,6 +830,22 @@ class StreamingFitOperator(EstimatorOperator):
                         prefetch=self.prefetch,
                         device=getattr(self.estimator, "device", None),
                     )
+                    # Durable fits: with a checkpoint store attached, arm
+                    # mid-fit cursor checkpoints and look for a resume
+                    # entry a killed predecessor left behind. A valid
+                    # entry seeds the fold and only chunks past its cursor
+                    # are re-ingested; a stale one is refused (KV306 —
+                    # VerificationError in strict mode, which propagates).
+                    from .executor import PipelineEnv
+
+                    store = PipelineEnv.get_or_create().checkpoint
+                    if store is not None:
+                        from ..reliability.durable import arm_durable_fold
+
+                        stream.durable, resume_state = arm_durable_fold(stream, self.estimator, store)
+                        if resume_state is not None:
+                            span.set_attribute("resumed_from_chunk", stream.durable.start_chunk)
+                            return self.estimator.fit_stream(stream, state=resume_state)
                     return self.estimator.fit_stream(stream)
                 except StreamingFallback as e:
                     logger.info(
@@ -866,6 +965,7 @@ __all__ = [
     "StreamingFallback",
     "StreamingFitOperator",
     "StreamingPlanRule",
+    "chain_class",
     "last_stream_report",
     "set_streaming_enabled",
     "stream_chunk_rows",

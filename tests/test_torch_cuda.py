@@ -743,3 +743,58 @@ def test_synthetic_flagship_generator_on_the_card(cuda):
     out = streaming.run_flagship_ondevice(num_train=64, num_test=16, num_classes=4, image_size=48,
                                           batch=16, device=cuda)
     assert out["top5_err_percent"] <= 25.0 and out["fv_dim_combined"] == 4096
+
+
+def test_checkpoint_written_from_cuda_tensors_loads_onto_the_card(cuda, tmp_path):
+    from keystone_tpu_torch.ops.learning.linear import LinearMapper
+    from keystone_tpu_torch.reliability.checkpoint import _MISS, CheckpointStore
+
+    model = LinearMapper(torch.randn(64, 8, device=cuda), intercept=torch.randn(8, device=cuda))
+    store = CheckpointStore(str(tmp_path), device=cuda)
+    assert store.save(None, model, digest="abc")
+    back = store.lookup(None, digest="abc")
+    assert back is not _MISS and back.weights.is_cuda and back.intercept.is_cuda
+    assert torch.equal(back.weights, model.weights)
+    cpu_back = CheckpointStore(str(tmp_path), device="cpu").lookup(None, digest="abc")
+    assert cpu_back.weights.device.type == "cpu" and torch.equal(cpu_back.weights, model.weights.cpu())
+
+
+def test_dataset_fingerprint_of_a_card_dataset_copies_only_the_sampled_rows(cuda, monkeypatch):
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.reliability import checkpoint, durable
+
+    rows, width = 25_600, 1024  # 100 MiB of float32 on the card
+    ds = ArrayDataset(torch.randn(rows, width, device=cuda))
+    copied = []
+    real = checkpoint._host_array
+
+    def recording(value):
+        if isinstance(value, torch.Tensor):
+            copied.append(value.numel() * value.element_size())
+        return real(value)
+
+    monkeypatch.setattr(checkpoint, "_host_array", recording)
+    fingerprint = durable.dataset_fingerprint(ds)
+    assert sum(copied) <= durable.FINGERPRINT_SAMPLE_ROWS * width * 4
+    host = ArrayDataset(ds.data.cpu())
+    assert durable.dataset_fingerprint(host) == fingerprint
+
+
+def test_kv305_resolves_on_a_binding_backed_linear_mapper(cuda):
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.ops.cuda import gemm
+    from keystone_tpu_torch.ops.learning.linear import LinearMapEstimator, LinearMapper
+    from keystone_tpu_torch.workflow.verify import UNKNOWN, _apply_out_spec, verify_refit_publish
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(512, 16)).astype(np.float32)
+    y = rng.normal(size=(512, 4)).astype(np.float32)
+    incumbent = LinearMapEstimator(reg=1e-2, device=cuda).fit(ArrayDataset(x, device=cuda), ArrayDataset(y, device=cuda))
+    example = np.zeros((16,), np.float32)
+    gemm.reset_launches()
+    spec = _apply_out_spec(incumbent, example)
+    assert spec is not UNKNOWN and spec[0] == "arrays" and "(4,)" in spec[1]
+    assert sum(gemm.launches.values()) >= 1  # the apply went through the binding
+    drifted = LinearMapper(torch.randn(16, 5, device=cuda))
+    (diag,) = verify_refit_publish(drifted, incumbent, example=example).errors()
+    assert diag.code == "KV305"

@@ -105,6 +105,16 @@ print(json.dumps({"imported": names, "bad": bad}))
         "keystone_tpu_torch.pipelines.text",
         "keystone_tpu_torch.refit",
         "keystone_tpu_torch.refit.state",
+        "keystone_tpu_torch.refit.tap",
+        "keystone_tpu_torch.refit.shadow",
+        "keystone_tpu_torch.refit.publish",
+        "keystone_tpu_torch.refit.daemon",
+        "keystone_tpu_torch.reliability.checkpoint",
+        "keystone_tpu_torch.reliability.durable",
+        "keystone_tpu_torch.workflow.verify",
+        "keystone_tpu_torch.workflow.fitcmd",
+        "keystone_tpu_torch.obs.flight",
+        "keystone_tpu_torch.obs.quality",
         "keystone_tpu_torch.sketch",
         "keystone_tpu_torch.sketch.core",
         "keystone_tpu_torch.sketch.solvers",

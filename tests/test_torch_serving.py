@@ -698,6 +698,7 @@ def test_serve_cli_synthetic_roundtrip():
     assert stats["served"] == 20 and stats["sheds"] == 0 and stats["failures"] == 0
     assert stats["models"]["default"]["source"] == "synthetic:d=16"
     assert "cufft_plans_since_warmup" not in stats
+    assert stats["device_counts"]["ell_launches"] == 0 and stats["device_counts"]["peak_device_bytes"] is None
 
 
 @pytest.mark.parametrize(
@@ -705,7 +706,7 @@ def test_serve_cli_synthetic_roundtrip():
     [
         (["--synthetic", "4", "--device", "cpu", "--workers", "2"], 2, "item 13"),
         (["--synthetic", "4", "--device", "cpu", "--listen", "localhost:0"], 2, "item 13"),
-        (["--checkpoint-dir", "x", "--digest", "y", "--device", "cpu"], 2, "item 12"),
+        (["--checkpoint-dir", "x", "--digest", "y", "--device", "cpu"], 1, "FileNotFoundError"),
         (["--synthetic", "4"], 1, "device='cpu'"),
     ],
 )
