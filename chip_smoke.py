@@ -138,8 +138,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 16. solver_ladder — the six rows of the JAX sweep's ``FULL_GRID``
    (``scripts/solver_comparison.py``): (500,000, 1,024, 138),
    (500,000, 2,048, 138) and (1,000,000, 1,024, 138) dense, drawn on the
-   card, and (1,000,000, d, 2) at density 0.005 for d = 1,024, 4,096 and
-   16,384 as host CSR matrices. Each eligible rung of the sweep's
+   card, and (1,000,000, 1,024, 2), (250,000, 4,096, 2) and (250,000,
+   16,384, 2) at density 0.005 (the sweep's 10^6 rows cut for the 660 s
+   cap at the two widest: cuts 3 and 4) as host CSR matrices. Each eligible rung of the sweep's
    ``solvers()`` (``exact``, ``block`` 1,024 × 3 epochs, ``lbfgs`` 20
    iterations; only ``sparse_lbfgs`` on the sparse rows) is timed after
    one warm fit (the host ``sparse_lbfgs`` cold), with its train MSE;
@@ -355,22 +356,57 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``REFIT_FP64_TOL`` from a float64 solve of the same statistics, and
    per round ``fold_s``, the state save's seconds and bytes, the round's
    wall and the serving p50/p99 of that round's traffic, and scratch
-   against incremental wall.
+   against incremental wall;
+41. fleet_serve — phase 6's saved artifact behind ``python -m
+   keystone_tpu_torch serve --model PATH --workers 2 --listen
+   127.0.0.1:0 --max-batch 64``, worker 0 SIGKILLed at its 12th request
+   (``KEYSTONE_FAULT_SPECS_WORKER_0``): 2,048 test rows over stdin and
+   HTTP at once once both workers are ready, then a second wave after the
+   restart. Every answer equals ``apply_batch``'s label, none dropped,
+   requeued ≥ 1, ``worker_crash`` and ``worker_restart`` in the
+   ``SERVE_STATS`` ledger, the restart inside its backoff budget,
+   ``/healthz`` 200, the ``/metrics`` fleet counters monotonic across the
+   restart, ``cufft_plans_since_warmup`` 0 on both workers, and the
+   card's free memory (``mem_get_info``) given back by the kill. Then the
+   JAX bench's multi-worker sweep in this process: fresh
+   ``WorkerSupervisor`` fleets of 1 and 2 workers, 2,048 rows with 32 in
+   flight, requests/s, client and worst-worker p99, each worker's
+   ``init_s``;
+42. fleet_elastic — a boot image of the artifact (buckets 1–64); one
+   worker from it, one classic and one on a tampered manifest, each with
+   an empty kernel build directory: the image worker places the bundled
+   library and builds nothing, the classic one builds it with nvcc, the
+   tampered one is refused by KV307 and serves through the classic path;
+   seconds to ready and the first answer's ms of each. Then ``serve
+   --workers 1 --autoscale --min-workers 1 --max-workers 3 --boot-image
+   DIR --slo-p99-ms`` (2× phase 41's 1-worker p99; one row a batch,
+   ``FLEET_REPLAY_MAX_BATCH`` says why) under a seeded
+   ``bursty_offsets`` replay through ``run_load`` (bursts at 2× its
+   1-worker requests/s, base 0.2×), then no traffic until it drains back
+   to one worker: ≥ 1 ``scale_up`` and ``scale_down``, nothing dropped,
+   ``slo`` transitions in the ledger, every answer's label equal;
+43. fleet_publish — two card workers serving ``refit_full``'s incumbent
+   head from a ``CheckpointStore``; ``SupervisorPublisher`` publishes the
+   round-1 candidate and rolls it back while 8 clients send 2,048-wide
+   rows: every worker acks each swap with its ``warmup_s``, nothing
+   dropped, every answer within ``PUBLISH_TOL`` of the version that
+   served it.
 
 Where the compiler finds no ``jpeglib.h`` the script prints
 ``native_decode: unavailable (no jpeglib.h)`` and every VOC and ImageNet
 phase decodes with PIL (``use_native=False``, passed explicitly).
 
-Phases 4–14, 16 and 18–40 reach no ELL kernel: each sets its count to 0
+Phases 4–14, 16 and 18–43 reach no ELL kernel: each sets its count to 0
 and fails if it moved; phase 15 launches it only in
 ``oom_injected_sparse``, phase 17 exactly twice. Every phase
 starts from a reset ``PipelineEnv`` and reports its peak device memory
 and the solver binding's calls per product kind (``ops/cuda/gemm.py``).
-Phases 37–39 run their work in ``python -m keystone_tpu_torch``
-subprocesses: their counts and peaks are the children's own, from the
-``device_counts`` of each ``FIT_STATS:`` / ``SERVE_STATS:`` /
-``REFIT_STATS:`` line; the SIGKILLed and the refused runs print none and
-are listed as not measured.
+Phases 37–39 and 41–43 run their work in other processes (``python -m
+keystone_tpu_torch`` subprocesses, serving workers): their counts and
+peaks are the children's own, from the ``device_counts`` of each
+``FIT_STATS:`` / ``SERVE_STATS:`` / ``REFIT_STATS:`` line or each
+worker's final stats; the SIGKILLed, the refused and the retired runs
+print none and are listed as not measured.
 
 It prints a ``{"library_bindings": [...]}`` line (the cuBLAS binding, not
 a TPU kernel), a ``{"kernels": [...]}`` line, the card's name and power
@@ -490,6 +526,37 @@ SERVE_CKPT_TOL = 1e-6
 # float64 solve of the same statistics.
 REFIT_FULL = {"d": 2048, "classes": 10, "rows_per_round": 65_536, "chunk_rows": 1024}
 REFIT_FP64_TOL = 1e-5
+
+# The serving fleet (phases 41–43): worker processes on this one card,
+# each with its own CUDA context. 2,048 MNIST test rows; worker 0
+# SIGKILLed at its 12th request (scripts/serve_chaos_smoke.sh's chaos);
+# clients hold a window of requests in flight, as a pool of callers
+# does, so the supervisor's admission bound (1,024 outstanding, the SLO
+# rungs' 0.3–0.6 of it) never sheds: the sweep 64, the fleet phases 256.
+# Each worker's own queue (--queue-depth) holds whatever the supervisor
+# dispatches to it.
+FLEET_ROWS, FLEET_KILL_AT, FLEET_SWEEP_WINDOW, FLEET_WINDOW = 2048, 12, 64, 256
+# The autoscaling replay's fleet serves one row a batch. The serve
+# process's ingress (parsing each line and re-encoding its 784 floats for
+# the worker, ~1.7 ms a request on the card machine's host) caps what
+# reaches a worker below what a worker serves at 64 rows a batch, so no
+# worker queues and neither the SLO controller (which reads the workers'
+# p99) nor the autoscaler has anything to react to (PERF.md §6: at 64 a
+# batch no burst's p99 reached the 126 ms target). One row a batch (the
+# apply's ~1.1 ms per batch on every row) makes the worker the bottleneck
+# of a burst, as a model without batching gains would be.
+FLEET_REPLAY_MAX_BATCH = 1
+FLEET_WORKER_QUEUE, FLEET_BUCKETS = 4096, (1, 2, 4, 8, 16, 32, 64)
+# The autoscaling replay: bursts at 2× the 1-worker requests/s, a base
+# of 0.2×, bursts of 2 s and quiet stretches of 4 s
+# on average over 10 s, seeded; then up to 60 s of no traffic for the
+# scale-down (the autoscaler's 4 s idle and 8 s cooldown, a worker's
+# drain).
+FLEET_TRACE_S, FLEET_BURST_S, FLEET_QUIET_S, FLEET_TRACE_SEED = 10.0, 2.0, 4.0, 7
+# Publish across the fleet: each answer against the version that served
+# it, applied in this process to all probe rows at once (another batch
+# shape than the worker's bucket: fp32 products round in another order).
+PUBLISH_ROWS, PUBLISH_CLIENTS, PUBLISH_TOL = 512, 8, 1e-6
 
 
 def topic_corpus(topics, docs_per_topic, seed, vocab_per_topic=VOCAB_PER_TOPIC):
@@ -1445,11 +1512,14 @@ def _batch_breakdown(entry, rows, device, reps=20):
     return {name: statistics.median(v) for name, v in steps.items()}
 
 
-def phase_serve_mnist(device, fitted, test) -> int:
+def phase_serve_mnist(device, fitted, test, path: str):
     """``mnist_full``'s fitted pipeline behind ``PipelineServer``: warm
     every bucket, the single-request floor, offered load from 8 clients
     with a hot swap in the middle, label parity with ``apply_batch``,
-    then the ``serve`` CLI over stdin/JSON."""
+    then the ``serve`` CLI over stdin/JSON. The artifact is saved at
+    ``path``, which the fleet phases serve again. Returns the launches,
+    and the first ``FLEET_ROWS`` test rows with their ``apply_batch``
+    labels."""
 
     import torch
 
@@ -1470,102 +1540,100 @@ def phase_serve_mnist(device, fitted, test) -> int:
     config = ServingConfig(max_batch=64, max_wait_ms=2.0, queue_depth=1024)
     result = {"max_batch": config.max_batch, "max_wait_ms": config.max_wait_ms,
               "queue_depth": config.queue_depth}
-    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
-        path = os.path.join(tmp, "mnist_fitted.pt")
-        fitted.save(path)
-        registry = ModelRegistry()
-        registry.load_fitted("mnist", path, device=device)
-        server = PipelineServer(config=config, registry=registry, name="mnist", device=device)
-        server.start()
-        try:
-            t0 = time.perf_counter()
-            result["warmup_bucket_s"] = server.warmup(rows[0])["mnist"]
-            result["warmup_s"] = time.perf_counter() - t0
-
-            floor_latency, floor_futures = [], []
-            for i in range(SERVE_FLOOR_REQUESTS):
-                t_sub = time.monotonic()
-                floor_futures.append(server.submit(rows[i]))
-                floor_futures[-1].result(timeout=30)
-                floor_latency.append(time.monotonic() - t_sub)
-            _check_labels("serve_mnist floor", _served_labels(floor_futures),
-                          want[:SERVE_FLOOR_REQUESTS], scores)
-            result["floor"] = {
-                "requests": SERVE_FLOOR_REQUESTS,
-                "p50_ms": percentile(floor_latency, 50) * 1e3,
-                "p99_ms": percentile(floor_latency, 99) * 1e3,
-            }
-
-            def swap():
-                t_swap = time.perf_counter()
-                registry.load_fitted("mnist", path, device=device)
-                result["hot_swap_publish_s"] = time.perf_counter() - t_swap
-
-            # Steady offered load, then the same load with a hot swap of
-            # version 2 once half of it is answered.
-            # The server's own cost at the same load: a one-node model
-            # (MaxClassifier over the raw rows) behind the same server.
-            null = MaxClassifier().to_pipeline()
-            registry.publish("null", FittedPipeline(null.graph, null.source, null.sink))
-            server.warmup(rows[0], models=["null"])
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            for run, on_half, model, run_want in (
-                ("load", None, None, want),
-                ("load_hot_swap", swap, None, want),
-                ("load_null_model", None, "null", rows.argmax(axis=1)),
-            ):
-                before = server.stats()
-                labels, latency, wall, gc_stats = _offered_load(server, rows, on_half=on_half, model=model)
-                after = server.stats()  # before any work at a new shape
-                _check_labels(f"serve_mnist {run}", labels, run_want[:n_load], scores)
-                delta = {k: after[k] - before[k] for k in
-                         ("served", "batches", "sheds", "timeouts", "failures", "retries")}
-                result[run] = {
-                    "clients": SERVE_CLIENTS, "requests": n_load, "window_per_client": SERVE_WINDOW,
-                    "wall_s": wall, "requests_per_s": n_load / wall,
-                    "p50_ms": percentile(latency, 50) * 1e3,
-                    "p95_ms": percentile(latency, 95) * 1e3,
-                    "p99_ms": percentile(latency, 99) * 1e3,
-                    "max_ms": max(latency) * 1e3,
-                    "mean_batch_occupancy": delta["served"] / delta["batches"] / config.max_batch,
-                    **delta,
-                    "cufft_plans_since_warmup": after["cufft_plans_since_warmup"],
-                    "label_mismatches": 0,
-                    "gc": gc_stats,
-                }
-                if delta["served"] != n_load or any(delta[k] for k in ("sheds", "timeouts", "failures", "retries")):
-                    raise AssertionError(f"serve_mnist {run} dropped or failed requests: {delta}")
-                if after["cufft_plans_since_warmup"] != 0:
-                    raise AssertionError(f"serving built {after['cufft_plans_since_warmup']} cuFFT plans after warmup")
-            torch.cuda.synchronize()
-            result["load_peak_device_bytes"] = torch.cuda.max_memory_allocated()
-            result["models"] = after["models"]
-            if after["models"]["mnist"]["current"] != 2 or registry.swaps != 1:
-                raise AssertionError(f"the hot swap did not land: {after['models']}")
-            result["batch_breakdown_64"] = _batch_breakdown(registry.resolve("mnist"), rows, device)
-            # The registry serves the fused plan; count the batch
-            # applications (fused chains and unfused nodes) of one 64-row batch.
-            entry = registry.resolve("mnist")
-            result["served_plan"] = plan_labels(entry.model.graph)
-            if result["served_plan"] != jax_fitted_plan(4):
-                raise AssertionError(f"serve_mnist: the served plan is not fused: {result['served_plan']}")
-            fused0, unfused0 = fusion_dispatches()
-            entry.batch_apply(ArrayDataset(np.ascontiguousarray(rows[:64]), device=device))
-            fused1, unfused1 = fusion_dispatches()
-            result["batch_applications_per_64_rows"] = {
-                "fused": fused1 - fused0, "unfused": unfused1 - unfused0,
-            }
-        finally:
-            server.stop()
-
-        lines = "".join(
-            json.dumps({"id": i, "x": rows[i].tolist()}) + "\n" for i in range(SERVE_CLI_REQUESTS)
-        )
-        cmd = [sys.executable, "-m", "keystone_tpu_torch", "serve", "--model", path,
-               "--max-batch", "16", "--queue-depth", str(SERVE_CLI_REQUESTS)]
+    fitted.save(path)
+    registry = ModelRegistry()
+    registry.load_fitted("mnist", path, device=device)
+    server = PipelineServer(config=config, registry=registry, name="mnist", device=device)
+    server.start()
+    try:
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, input=lines, capture_output=True, text=True, timeout=600)
+        result["warmup_bucket_s"] = server.warmup(rows[0])["mnist"]
+        result["warmup_s"] = time.perf_counter() - t0
+
+        floor_latency, floor_futures = [], []
+        for i in range(SERVE_FLOOR_REQUESTS):
+            t_sub = time.monotonic()
+            floor_futures.append(server.submit(rows[i]))
+            floor_futures[-1].result(timeout=30)
+            floor_latency.append(time.monotonic() - t_sub)
+        _check_labels("serve_mnist floor", _served_labels(floor_futures),
+                      want[:SERVE_FLOOR_REQUESTS], scores)
+        result["floor"] = {
+            "requests": SERVE_FLOOR_REQUESTS,
+            "p50_ms": percentile(floor_latency, 50) * 1e3,
+            "p99_ms": percentile(floor_latency, 99) * 1e3,
+        }
+
+        def swap():
+            t_swap = time.perf_counter()
+            registry.load_fitted("mnist", path, device=device)
+            result["hot_swap_publish_s"] = time.perf_counter() - t_swap
+
+        # Steady offered load, then the same load with a hot swap of
+        # version 2 once half of it is answered.
+        # The server's own cost at the same load: a one-node model
+        # (MaxClassifier over the raw rows) behind the same server.
+        null = MaxClassifier().to_pipeline()
+        registry.publish("null", FittedPipeline(null.graph, null.source, null.sink))
+        server.warmup(rows[0], models=["null"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for run, on_half, model, run_want in (
+            ("load", None, None, want),
+            ("load_hot_swap", swap, None, want),
+            ("load_null_model", None, "null", rows.argmax(axis=1)),
+        ):
+            before = server.stats()
+            labels, latency, wall, gc_stats = _offered_load(server, rows, on_half=on_half, model=model)
+            after = server.stats()  # before any work at a new shape
+            _check_labels(f"serve_mnist {run}", labels, run_want[:n_load], scores)
+            delta = {k: after[k] - before[k] for k in
+                     ("served", "batches", "sheds", "timeouts", "failures", "retries")}
+            result[run] = {
+                "clients": SERVE_CLIENTS, "requests": n_load, "window_per_client": SERVE_WINDOW,
+                "wall_s": wall, "requests_per_s": n_load / wall,
+                "p50_ms": percentile(latency, 50) * 1e3,
+                "p95_ms": percentile(latency, 95) * 1e3,
+                "p99_ms": percentile(latency, 99) * 1e3,
+                "max_ms": max(latency) * 1e3,
+                "mean_batch_occupancy": delta["served"] / delta["batches"] / config.max_batch,
+                **delta,
+                "cufft_plans_since_warmup": after["cufft_plans_since_warmup"],
+                "label_mismatches": 0,
+                "gc": gc_stats,
+            }
+            if delta["served"] != n_load or any(delta[k] for k in ("sheds", "timeouts", "failures", "retries")):
+                raise AssertionError(f"serve_mnist {run} dropped or failed requests: {delta}")
+            if after["cufft_plans_since_warmup"] != 0:
+                raise AssertionError(f"serving built {after['cufft_plans_since_warmup']} cuFFT plans after warmup")
+        torch.cuda.synchronize()
+        result["load_peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        result["models"] = after["models"]
+        if after["models"]["mnist"]["current"] != 2 or registry.swaps != 1:
+            raise AssertionError(f"the hot swap did not land: {after['models']}")
+        result["batch_breakdown_64"] = _batch_breakdown(registry.resolve("mnist"), rows, device)
+        # The registry serves the fused plan; count the batch
+        # applications (fused chains and unfused nodes) of one 64-row batch.
+        entry = registry.resolve("mnist")
+        result["served_plan"] = plan_labels(entry.model.graph)
+        if result["served_plan"] != jax_fitted_plan(4):
+            raise AssertionError(f"serve_mnist: the served plan is not fused: {result['served_plan']}")
+        fused0, unfused0 = fusion_dispatches()
+        entry.batch_apply(ArrayDataset(np.ascontiguousarray(rows[:64]), device=device))
+        fused1, unfused1 = fusion_dispatches()
+        result["batch_applications_per_64_rows"] = {
+            "fused": fused1 - fused0, "unfused": unfused1 - unfused0,
+        }
+    finally:
+        server.stop()
+
+    lines = "".join(
+        json.dumps({"id": i, "x": rows[i].tolist()}) + "\n" for i in range(SERVE_CLI_REQUESTS)
+    )
+    cmd = [sys.executable, "-m", "keystone_tpu_torch", "serve", "--model", path,
+           "--max-batch", "16", "--queue-depth", str(SERVE_CLI_REQUESTS)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, input=lines, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         raise AssertionError(f"serve CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
     out = proc.stdout.strip().splitlines()
@@ -1586,7 +1654,7 @@ def phase_serve_mnist(device, fitted, test) -> int:
                      "sheds": stats["sheds"], "cufft_plans_since_warmup": stats["cufft_plans_since_warmup"],
                      "device_counts": stats["device_counts"]}
     log("serve_mnist", **result, **_mnist_end("serve_mnist"))
-    return 0
+    return 0, rows[:FLEET_ROWS].copy(), want[:FLEET_ROWS].copy()
 
 
 def phase_mnist_small_cpu(device) -> int:
@@ -2644,8 +2712,14 @@ LADDER_GRID = (
     (500_000, 2048, 138, 1.0),
     (1_000_000, 1024, 138, 1.0),
     (1_000_000, 1024, 2, 0.005),
-    (1_000_000, 4096, 2, 0.005),
-    (1_000_000, 16384, 2, 0.005),
+    # Cuts 3 and 4 for the 660 s cap (ROADMAP "Tests"): the sweep's 10^6
+    # rows at d = 16,384 spent 34.7 s in one host scipy L-BFGS fit, run
+    # twice (timed, and as the pipeline's pick), and the d = 4,096 row
+    # ~10 s. Width and density stay; the gates hold at 250,000 rows (the
+    # sketched rung priced infinite below its 8,192 floor and finite above
+    # it, the pick the fastest rung; the cost model reads n).
+    (250_000, 4096, 2, 0.005),
+    (250_000, 16384, 2, 0.005),
 )
 #: Sparse rows on which the sketched rung must price finite (d ≥ the
 #: 8,192 floor) or infinite (below it), and the pick must be the fastest
@@ -5645,8 +5719,10 @@ def phase_refit_cli(device, work: str) -> int:
     return counts["ell_launches"]
 
 
-def phase_refit_full(device, work: str) -> int:
-    """Phase 40: ``run_refit_demo`` at d = 2,048 with 65,536 rows a round."""
+def phase_refit_full(device, work: str) -> dict:
+    """Phase 40: ``run_refit_demo`` at d = 2,048 with 65,536 rows a round.
+    Returns the incumbent (version 1) and the round-1 candidate, which
+    ``fleet_publish`` serves."""
     import torch
 
     from keystone_tpu_torch.refit.daemon import RefitDemoConfig, run_refit_demo
@@ -5657,6 +5733,8 @@ def phase_refit_full(device, work: str) -> int:
 
     def on_round(r, daemon):
         if r == 1:
+            captured["heads"] = {"incumbent": daemon.publisher.server.registry.resolve("demo", version=1).model,
+                                 "candidate": daemon.last_candidate}
             captured["state"] = daemon.state
             captured["weights"] = daemon.last_candidate.weights.double().cpu()
             captured["reg"] = daemon.estimator.reg
@@ -5686,7 +5764,606 @@ def phase_refit_full(device, work: str) -> int:
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"refit_full failed {failed}")
-    return 0
+    return captured["heads"]
+
+
+class _LineClient:
+    """A ``python -m keystone_tpu_torch serve`` process as a client: request
+    lines to its stdin with at most ``window`` unanswered, each response
+    line settling its future by id; its ``SERVE_STATS:`` line, its
+    ``SERVE_LISTEN:`` address and its stderr are kept."""
+
+    def __init__(self, args: list, env: dict, window: int):
+        import itertools
+        import threading
+
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "keystone_tpu_torch", "serve", *args], cwd=ROOT,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, bufsize=1,
+            env={**os.environ, **env},
+        )
+        self.t0 = time.perf_counter()
+        self.stats = None
+        self.listen = None
+        self.stderr_tail: list = []
+        self._window = threading.Semaphore(window)
+        self._futures: dict = {}
+        self._lock = threading.Lock()
+        self._write_lock = threading.Lock()
+        self._ids = itertools.count()
+        self._listening = threading.Event()
+        self._readers = [threading.Thread(target=self._read_stdout, daemon=True),
+                         threading.Thread(target=self._read_stderr, daemon=True)]
+        for t in self._readers:
+            t.start()
+
+    def submit(self, payload, deadline_s=None):
+        from concurrent.futures import Future
+
+        self._window.acquire()
+        request_id, future = next(self._ids), Future()
+        with self._lock:
+            self._futures[request_id] = future
+        line = {"id": request_id, "x": payload}
+        if deadline_s is not None:
+            line["deadline_ms"] = deadline_s * 1e3
+        with self._write_lock:
+            self.proc.stdin.write(json.dumps(line) + "\n")
+            self.proc.stdin.flush()
+        return future
+
+    def _read_stdout(self):
+        for line in self.proc.stdout:
+            if line.startswith("SERVE_STATS:"):
+                self.stats = json.loads(line[len("SERVE_STATS:"):])
+                continue
+            obj = json.loads(line)
+            with self._lock:
+                future = self._futures.pop(obj.get("id"), None)
+            if future is None:
+                continue
+            self._window.release()
+            if "error" in obj:
+                future.set_exception(RuntimeError(obj["error"]))
+            else:
+                future.set_result(obj["y"])
+
+    def _read_stderr(self):
+        for line in self.proc.stderr:
+            self.stderr_tail = (self.stderr_tail + [line.rstrip()])[-40:]
+            if line.startswith("SERVE_LISTEN:"):
+                self.listen = line.strip()[len("SERVE_LISTEN:"):]
+                self._listening.set()
+
+    def url(self, path: str, timeout: float = 600) -> str:
+        if not self._listening.wait(timeout):
+            raise AssertionError(f"serve printed no SERVE_LISTEN: {self.stderr_tail[-10:]}")
+        return f"http://{self.listen}{path}"
+
+    def close(self, timeout: float = 300) -> int:
+        self.proc.stdin.close()
+        rc = self.proc.wait(timeout)
+        for t in self._readers:
+            t.join(30)
+        return rc
+
+
+def _http(url: str, obj=None, timeout: float = 120):
+    """(status, body text) of one GET (or a JSON POST when ``obj`` is given)."""
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(obj).encode() if obj is not None else None
+    request = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(request, timeout=timeout) as response:
+            return response.status, response.read().decode()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read().decode()
+
+
+def _wait_health(client: _LineClient, predicate, timeout: float, what: str) -> dict:
+    deadline = time.monotonic() + timeout
+    while True:
+        code, body = _http(client.url("/healthz"), timeout=30)
+        health = json.loads(body)
+        if predicate(health):
+            return health
+        if time.monotonic() > deadline:
+            raise AssertionError(f"fleet never reached {what}: {health} {client.stderr_tail[-10:]}")
+        time.sleep(0.05)
+
+
+def _fleet_counters(text: str) -> dict:
+    """``keystone_fleet_*`` counter samples of a /metrics body, by series."""
+    return {line.rsplit(" ", 1)[0]: float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+            if line.startswith(("keystone_fleet_requests_total{", "keystone_fleet_failures_total{"))}
+
+
+def _windowed(submit, window: int):
+    """``submit`` with at most ``window`` requests in flight."""
+    import threading
+
+    slots = threading.Semaphore(window)
+
+    def call(payload, deadline_s=None):
+        slots.acquire()
+        future = submit(payload, deadline_s=deadline_s)
+        future.add_done_callback(lambda _: slots.release())
+        return future
+
+    return call
+
+
+def _labels_of(futures) -> np.ndarray:
+    return np.array([int(np.asarray(f.result(timeout=300)).reshape(-1)[0]) for f in futures])
+
+
+def _start_fleet(device, artifact, workers: int):
+    """A fresh in-process ``WorkerSupervisor`` of ``workers`` card workers
+    serving the MNIST artifact, started (not yet ready), and its start."""
+    from keystone_tpu_torch.serving.supervisor import SupervisorConfig, WorkerSupervisor
+
+    t0 = time.perf_counter()
+    return WorkerSupervisor({"model": artifact}, SupervisorConfig(
+        workers=workers, max_batch=64, worker_queue_depth=FLEET_WORKER_QUEUE, device=device.type)).start(), t0
+
+
+def _fleet_sweep(fleet, rows, want) -> dict:
+    """``bench.py::_bench_serving_multiworker``'s sweep at this width on a
+    fleet from ``_start_fleet``: once ready, requests until every worker
+    has warmed its buckets, then the 2,048 rows through ``run_load`` with
+    ``FLEET_SWEEP_WINDOW`` in flight."""
+    from keystone_tpu_torch.serving.loadgen import run_load
+
+    sup, t0 = fleet
+    workers = sup.config.workers
+    try:
+        sup.wait_ready(timeout_s=600)
+        ready_s = time.perf_counter() - t0
+        # The ring spreads request ids over the workers: each one meets
+        # its first request (and warms every bucket) before the timing.
+        _labels_of([sup.submit(rows[i].tolist()) for i in range(16 * workers)])
+        futures = []
+        submit = _windowed(sup.submit, FLEET_SWEEP_WINDOW)
+
+        def recorded(payload, deadline_s=None):
+            futures.append(submit(payload, deadline_s=deadline_s))
+            return futures[-1]
+
+        report = run_load(recorded, [0.0] * len(rows), payload=lambda i: rows[i].tolist(),
+                          deadline_s=120.0, settle_timeout_s=300.0)
+        labels = _labels_of(futures)
+        time.sleep(0.6)  # two beats: the workers' final windows reach the supervisor
+        stats = sup.stats()
+    finally:
+        sup.stop()
+    final = sup.stats()
+    _check_labels(f"fleet_serve sweep {workers}", labels, want, np.zeros((len(want), 2)))
+    worker_p99 = [w["stats"].get("p99_ms") for w in stats["workers"].values()]
+    return {
+        "workers": workers, "requests": len(rows), "window": FLEET_SWEEP_WINDOW,
+        "requests_per_s": report.rps, "client_p50_ms": report.p(50), "client_p99_ms": report.p(99),
+        "worst_worker_p99_ms": max(worker_p99), "worker_p99_ms": worker_p99, "dropped": report.dropped,
+        "init_s": [w["ready"].get("init_s") for w in stats["workers"].values()],
+        "spawn_to_ready_s": [w["ready"].get("spawn_to_ready_s") for w in stats["workers"].values()],
+        "fleet_ready_s": ready_s,
+        "cufft_plans_since_warmup": [w["stats"].get("cufft_plans_since_warmup") for w in stats["workers"].values()],
+        "reports": {f"sweep{workers}_worker{w}": row["stats"] for w, row in final["workers"].items()},
+    }
+
+
+def phase_fleet_serve(device, artifact: str, rows: np.ndarray, want: np.ndarray) -> dict:
+    """Phase 41: the MNIST artifact behind ``serve --workers 2 --listen``,
+    worker 0 SIGKILLed at its 12th request, 2,048 rows over stdin and HTTP
+    at once; then the 1- and 2-worker sweep in this process."""
+    import threading
+
+    import torch
+
+    from keystone_tpu_torch.serving.supervisor import HashRing
+
+    _mnist_start()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    free_before = torch.cuda.mem_get_info()[0]
+    kill = json.dumps([{"match": "serving.worker.request", "kind": "kill", "calls": [FLEET_KILL_AT]}])
+    client = _LineClient(
+        ["--model", artifact, "--workers", "2", "--listen", "127.0.0.1:0", "--max-batch", "64",
+         "--queue-depth", str(FLEET_WORKER_QUEUE), "--device", device.type],
+        {"KEYSTONE_FAULT_SPECS_WORKER_0": kill}, FLEET_WINDOW,
+    )
+    health_samples, stop, sweep_one = [], threading.Event(), None
+    try:
+        _wait_health(client, lambda h: h["alive"] == 2, 600, "two ready workers")
+        fleet_ready_s = time.perf_counter() - client.t0
+        free_up = torch.cuda.mem_get_info()[0]
+        # One request per worker (affinity keys the ring places on each)
+        # warms both before the traffic: the memory baseline is the warm
+        # fleet's. Worker 0's count starts here: the kill is its 12th.
+        ring = HashRing(["0", "1"])
+        for worker in ("0", "1"):
+            key = next(f"warm-{i}" for i in range(10_000) if next(ring.walk(f"default:warm-{i}")) == worker)
+            code, body = _http(client.url("/v1/apply"), {"x": rows[0].tolist(), "key": key})
+            if code != 200 or int(json.loads(body)["y"][0]) != int(want[0]):
+                raise AssertionError(f"fleet_serve: warm request to worker {worker}: {code} {body[:200]}")
+        free_warm = torch.cuda.mem_get_info()[0]
+
+        def monitor():  # worker 0's state and the card's free memory, every 50 ms
+            while not stop.is_set():
+                try:
+                    code, body = _http(client.url("/healthz"), timeout=30)
+                except OSError:  # the front-end closed under us: the phase is ending
+                    return
+                health_samples.append((time.perf_counter(), json.loads(body)["workers"].get("0"),
+                                       torch.cuda.mem_get_info()[0]))
+                stop.wait(0.05)
+
+        watcher = threading.Thread(target=monitor, daemon=True)
+        watcher.start()
+        half = len(rows) // 2
+        http_answers, http_errors, scrapes = {}, [], []
+
+        def http_client(k, indices):
+            for i in indices[k::8]:
+                code, body = _http(client.url("/v1/apply"), {"x": rows[i].tolist()})
+                if code != 200:
+                    http_errors.append((i, code, body[:200]))
+                else:
+                    http_answers[i] = int(json.loads(body)["y"][0])
+
+        def wave(stdin_idx, http_idx):
+            threads = [threading.Thread(target=http_client, args=(k, http_idx)) for k in range(8)]
+            for t in threads:
+                t.start()
+            futures = [(i, client.submit(rows[i].tolist())) for i in stdin_idx]
+            scrapes.append(_http(client.url("/metrics"))[1])
+            for t in threads:
+                t.join(600)
+            return futures
+
+        t_traffic = time.perf_counter()
+        stdin_futures = wave(range(half), list(range(half, len(rows))))
+        stdin_labels = {i: int(np.asarray(f.result(timeout=300))[0]) for i, f in stdin_futures}
+        traffic_s = time.perf_counter() - t_traffic
+        # The sweep's 1-worker fleet starts while this one waits for its
+        # restart (only the restart's seconds share the host with it).
+        sweep_one = _start_fleet(device, artifact, 1)
+        # Worker 0 died at its 12th request: wait for its restart, then a
+        # second wave so the restarted incarnation serves and warms too.
+        _wait_health(client, lambda h: h["alive"] == 2 and any(s[1] != "ready" for s in health_samples),
+                     600, "worker 0's restart")
+        scrapes.append(_http(client.url("/metrics"))[1])
+        second = list(range(256))
+        stdin_futures = wave(second[:128], second[128:])
+        stdin_labels.update({("again", i): int(np.asarray(f.result(timeout=300))[0]) for i, f in stdin_futures})
+        health_code = _http(client.url("/healthz"))[0]
+        scrapes.append(_http(client.url("/metrics"))[1])
+    except BaseException:
+        if sweep_one is not None:
+            sweep_one[0].stop(drain=False)
+        raise
+    finally:
+        stop.set()
+        rc = client.close()
+    stats = client.stats or {}
+    # The kill: the first sample with worker 0 not ready, its restart the
+    # next sample with it ready again. What the kill gave back is the most
+    # free memory while it was down against the warm fleet's, beside one
+    # warm worker's share.
+    down = [k for k, s in enumerate(health_samples) if s[1] != "ready"]
+    restart_s = (health_samples[down[-1] + 1][0] - health_samples[down[0]][0]
+                 if down and down[-1] + 1 < len(health_samples) else None)
+    free_after_kill = max(health_samples[k][2] for k in down) if down else None
+    freed = free_after_kill - free_warm if down else None
+    share = (free_before - free_warm) / 2
+    labels = np.array([stdin_labels[i] if i < half else http_answers.get(i, -1) for i in range(len(rows))])
+    again = np.array([stdin_labels[("again", i)] if i < 128 else http_answers.get(i, -1) for i in second])
+    _check_labels("fleet_serve", labels, want, np.zeros((len(want), 2)))
+    _check_labels("fleet_serve second wave", again, want[:256], np.zeros((256, 2)))
+    counters = [_fleet_counters(t) for t in scrapes]
+    monotonic = all(later.get(k, -1) >= v for a, later in zip(counters, counters[1:]) for k, v in a.items())
+    workers = stats.get("workers", {})
+    kinds = [e["kind"] for e in stats.get("recovery", {}).get("events", [])]
+    sweeps = {1: _fleet_sweep(sweep_one, rows, want)}
+    sweeps[2] = _fleet_sweep(_start_fleet(device, artifact, 2), rows, want)
+    reports = {f"serve_worker{w}": row["stats"] for w, row in workers.items()}
+    for sweep in sweeps.values():
+        reports.update(sweep.pop("reports"))
+    result = {
+        "rc": rc, "rows": len(rows), "kill_at_request": FLEET_KILL_AT, "fleet_ready_s": fleet_ready_s,
+        "traffic_s": traffic_s, "served": stats.get("served"), "p50_ms": stats.get("p50_ms"),
+        "p99_ms": stats.get("p99_ms"), "requeued": stats.get("supervisor", {}).get("requeued"),
+        "restarts": stats.get("supervisor", {}).get("restarts"), "restart_s": restart_s,
+        "http_errors": len(http_errors), "healthz_after": health_code, "metrics_monotonic": monotonic,
+        "fleet_requests_total": [sum(v for k, v in c.items() if "requests" in k) for c in counters],
+        "ledger_kinds": sorted(set(kinds)),
+        "workers": {w: {k: row[k] for k in ("incarnation", "restarts", "state", "ready")}
+                    | {"cufft_plans_since_warmup": row["stats"].get("cufft_plans_since_warmup")}
+                    for w, row in workers.items()},
+        "free_bytes": {"before_spawn": free_before, "fleet_up": free_up, "fleet_warm": free_warm,
+                       "after_kill": free_after_kill,
+                       "after_restart": health_samples[-1][2] if health_samples else None},
+        "worker_share_bytes": share, "freed_by_kill_bytes": freed,
+        "sweep": sweeps, "two_vs_one_worker_rps": sweeps[2]["requests_per_s"] / sweeps[1]["requests_per_s"],
+        "seconds": time.perf_counter() - t_phase,
+    }
+    counts = _child_end("fleet_serve", reports, ["worker0 incarnation 0 (SIGKILLed)"])
+    log("fleet_serve", **result, **counts)
+    policy_first_delay = 0.2  # SupervisorConfig's restart policy: the first backoff
+    checks = {
+        "exit_0": rc == 0 and bool(stats),
+        "nothing_dropped": not http_errors and stats.get("served") is not None,
+        "requeued": (result["requeued"] or 0) >= 1,
+        "crash_and_restart_in_ledger": {"worker_crash", "worker_restart"} <= set(kinds),
+        "restart_in_budget": workers.get("0", {}).get("restarts") == 1 and restart_s is not None
+        and restart_s <= policy_first_delay + 120.0 and all(r["state"] != "failed" for r in workers.values()),
+        "healthz": health_code == 200,
+        "metrics_monotonic": monotonic and len(counters) == 4,
+        # cuFFT's plan count is the card's (absent on the CPU).
+        "steady_plans": len(workers) == 2 and all(
+            w["cufft_plans_since_warmup"] == (0 if device.type == "cuda" else None)
+            for w in result["workers"].values()),
+        "kill_returns_memory": freed is not None and freed >= 0.5 * share,
+        "sweeps_drop_nothing": all(s["dropped"] == 0 for s in sweeps.values()),
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"fleet_serve failed {failed}: {client.stderr_tail[-10:]}")
+    return {"one_worker_rps": sweeps[1]["requests_per_s"], "one_worker_p99_ms": sweeps[1]["worst_worker_p99_ms"],
+            "ell_launches": counts["ell_launches"]}
+
+
+def _single_worker(device, artifact, rows, want, boot_image, build_dir) -> dict:
+    """One card worker from ``boot_image`` (None: the classic path) with
+    its kernel libraries looked for in ``build_dir``: seconds to ready,
+    the first answer's milliseconds, 64 labels against ``apply_batch``."""
+    from keystone_tpu_torch.serving.supervisor import SupervisorConfig, WorkerSupervisor
+
+    t0 = time.perf_counter()
+    sup = WorkerSupervisor({"model": artifact}, SupervisorConfig(
+        workers=1, max_batch=64, worker_queue_depth=FLEET_WORKER_QUEUE, boot_image=boot_image,
+        device=device.type),
+        env={"KEYSTONE_CUDA_BUILD_DIR": build_dir}).start()
+    try:
+        sup.wait_ready(timeout_s=600)
+        ready_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        first = _labels_of([sup.submit(rows[0].tolist())])
+        first_ms = (time.perf_counter() - t1) * 1e3
+        labels = _labels_of(sup.submit_many([r.tolist() for r in rows[:64]]))
+    finally:
+        sup.stop()
+    _check_labels("fleet_elastic single worker", np.concatenate([first, labels]),
+                  np.concatenate([want[:1], want[:64]]), np.zeros((65, 2)))
+    (row,) = sup.stats()["workers"].values()
+    return {"seconds_to_ready": ready_s, **row["ready"], "first_answer_ms": first_ms,
+            "nvcc_builds": row["stats"].get("nvcc_builds"),
+            "cufft_plans_since_warmup": row["stats"].get("cufft_plans_since_warmup"),
+            "libraries_in_build_dir": sorted(os.listdir(build_dir)) if os.path.isdir(build_dir) else [],
+            "report": row["stats"]}
+
+
+def phase_fleet_elastic(device, artifact: str, rows: np.ndarray, want: np.ndarray, serve: dict, work: str) -> int:
+    """Phase 42: a boot image of the MNIST artifact; one worker from it,
+    one classic and one from a tampered manifest (KV307), each with its
+    own empty kernel build directory; then ``serve --autoscale`` from the
+    image under a seeded bursty replay."""
+    import shutil
+    import threading
+
+    from keystone_tpu_torch.serving.bootimage import MANIFEST, build_boot_image
+    from keystone_tpu_torch.serving.loadgen import bursty_offsets, run_load
+
+    _mnist_start()
+    t_phase = time.perf_counter()
+    image = os.path.join(work, "image")
+    t0 = time.perf_counter()
+    manifest = build_boot_image({"model": artifact}, image, buckets=FLEET_BUCKETS, max_batch=64,
+                                example=rows[0], device=device)
+    build_s = time.perf_counter() - t0
+    tampered = os.path.join(work, "tampered")
+    shutil.copytree(image, tampered)
+    with open(os.path.join(tampered, MANIFEST)) as f:
+        stale = json.load(f)
+    stale["torch_version"] = "0.0.0+stale"
+    with open(os.path.join(tampered, MANIFEST), "w") as f:
+        json.dump(stale, f)
+    singles = {"image": _single_worker(device, artifact, rows, want, image, os.path.join(work, "build-image"))}
+    side = {}  # the classic worker and the refused one, side by side
+
+    def run(tag, boot_image):
+        side[tag] = _single_worker(device, artifact, rows, want, boot_image, os.path.join(work, f"build-{tag}"))
+
+    threads = [threading.Thread(target=run, args=a) for a in (("classic", None), ("refused", tampered))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    singles.update(side)
+
+    # The autoscaler under a bursty replay, from the image.
+    target_ms = 2 * serve["one_worker_p99_ms"]
+    rps = serve["one_worker_rps"]
+    offsets = bursty_offsets(FLEET_TRACE_S, base_rps=0.2 * rps, burst_rps=2 * rps, burst_len_s=FLEET_BURST_S,
+                             quiet_len_s=FLEET_QUIET_S, seed=FLEET_TRACE_SEED)
+    client = _LineClient(
+        ["--model", artifact, "--workers", "1", "--autoscale", "--min-workers", "1", "--max-workers", "3",
+         "--boot-image", image, "--slo-p99-ms", repr(target_ms), "--listen", "127.0.0.1:0",
+         "--max-batch", str(FLEET_REPLAY_MAX_BATCH), "--queue-depth", str(FLEET_WORKER_QUEUE),
+         "--device", device.type], {},
+        FLEET_WINDOW,
+    )
+    futures, sizes, sizes_stop = [], [], threading.Event()
+    try:
+        _wait_health(client, lambda h: h["alive"] >= 1, 600, "a ready worker")
+
+        def fleet_sizes():
+            while not sizes_stop.is_set():
+                try:
+                    body = _http(client.url("/healthz"))[1]
+                except OSError:  # the front-end closed under us: the phase is ending
+                    return
+                sizes.append((time.perf_counter(), len(json.loads(body)["workers"])))
+                sizes_stop.wait(0.25)
+
+        sizer = threading.Thread(target=fleet_sizes, daemon=True)
+        sizer.start()
+
+        def recorded(payload, deadline_s=None):
+            futures.append((len(futures), client.submit(payload, deadline_s=deadline_s)))
+            return futures[-1][1]
+
+        report = run_load(recorded, offsets, payload=lambda i: rows[i % len(rows)].tolist(),
+                          settle_timeout_s=300.0)
+        # No traffic now: the fleet must drain back to one worker.
+        _wait_health(client, lambda h: len(h["workers"]) == 1 and h["draining"] == 0
+                     and max((n for _, n in sizes), default=0) > 1, 60, "a scale-down to one worker")
+    finally:
+        sizes_stop.set()
+        rc = client.close()
+    stats = client.stats or {}
+    labels = _labels_of([f for _, f in futures])
+    _check_labels("fleet_elastic replay", labels, want[[i % len(rows) for i, _ in futures]],
+                  np.zeros((len(futures), 2)))
+    events = stats.get("recovery", {}).get("events", [])
+    kinds = [e["kind"] for e in events]
+    autoscaler = stats.get("autoscaler", {})
+    reports = {f"{tag}_worker": single.pop("report") for tag, single in singles.items()}
+    reports.update({f"autoscale_worker{w}": row["stats"] for w, row in stats.get("workers", {}).items()})
+    result = {
+        "build_s": build_s, "buckets": manifest["buckets"], "libraries": manifest["libraries"],
+        "image_bytes": sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(image) for f in fs),
+        "singles": singles, "target_p99_ms": target_ms, "burst_rps": 2 * rps, "base_rps": 0.2 * rps,
+        "replay": report.summary(),
+        "fleet_size_changes": [[round(t - sizes[0][0], 2), n] for k, (t, n) in enumerate(sizes)
+                               if k == 0 or n != sizes[k - 1][1]],
+        "autoscaler": autoscaler, "slo_transitions": [e for e in events if e["kind"] == "slo"],
+        "slo": stats.get("supervisor", {}).get("slo"), "worker_p99_ms": stats.get("p99_ms"),
+        "ledger_kinds": sorted(set(kinds)), "rc": rc, "seconds": time.perf_counter() - t_phase,
+    }
+    counts = _child_end("fleet_elastic", reports, ["the autoscaler's retired workers (not in SERVE_STATS)"])
+    log("fleet_elastic", **result, **counts)
+    card = device.type == "cuda"  # kernel libraries and cuFFT plans are the card's
+    checks = {
+        "image_loaded": singles["image"]["boot_image"] == "loaded" and singles["image"]["nvcc_builds"] == 0
+        and singles["image"]["cufft_plans_since_warmup"] == (0 if card else None),
+        "image_placed_libraries": not card or (manifest["libraries"] != []
+                                               and set(manifest["libraries"]) <= set(singles["image"]["libraries_in_build_dir"])),
+        "classic_built": singles["classic"]["boot_image"] is None
+        and (not card or singles["classic"]["nvcc_builds"] >= 1),
+        "kv307_refused": singles["refused"]["boot_image"] == "refused"
+        and "bootimage_refused" in (singles["refused"]["ledger_kinds"] or []),
+        "exit_0": rc == 0 and bool(stats),
+        "scaled_up_and_down": autoscaler.get("scale_ups", 0) >= 1 and autoscaler.get("scale_downs", 0) >= 1,
+        "nothing_dropped": report.dropped == 0,
+        "slo_transitions": "slo" in kinds,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"fleet_elastic failed {failed}: {client.stderr_tail[-10:]}")
+    return counts["ell_launches"]
+
+
+def phase_fleet_publish(device, heads: dict, work: str) -> int:
+    """Phase 43: two card workers serving ``refit_full``'s incumbent head
+    from a ``CheckpointStore``; ``SupervisorPublisher`` publishes the
+    round-1 candidate and rolls it back while 8 clients send load."""
+    import threading
+
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.refit.publish import SupervisorPublisher
+    from keystone_tpu_torch.reliability.checkpoint import CheckpointStore
+    from keystone_tpu_torch.serving.supervisor import SupervisorConfig, WorkerSupervisor
+
+    _mnist_start()
+    t_phase = time.perf_counter()
+    store_dir = os.path.join(work, "publish-store")
+    digest = "incumbent" + "0" * 31
+    if not CheckpointStore(store_dir, device=device).save(None, heads["incumbent"], digest=digest):
+        raise AssertionError("fleet_publish: the store refused the incumbent")
+    x = np.random.default_rng(43).normal(size=(PUBLISH_ROWS, REFIT_FULL["d"])).astype(np.float32)
+    refs = {tag: np.asarray(heads[tag].apply_batch(ArrayDataset(x, device=device)).data.cpu(), np.float64)
+            for tag in ("incumbent", "candidate")}
+    sup = WorkerSupervisor({"checkpoint_dir": store_dir, "digest": digest}, SupervisorConfig(
+        workers=2, max_batch=64, worker_queue_depth=FLEET_WORKER_QUEUE, device=device.type)).start()
+    acks, answers, errors, stop = [], [], [], threading.Event()
+    swap = sup.swap
+    sup.swap = lambda *a, **k: acks.append(swap(*a, **k)) or acks[-1]
+    try:
+        sup.wait_ready(timeout_s=600)
+        ready_s = time.perf_counter() - t_phase
+        _labels_of([sup.submit(x[i].tolist()) for i in range(16)])  # both workers warm their buckets
+
+        def client(k):
+            i = k
+            while not stop.is_set():
+                t_sub = time.perf_counter()
+                try:
+                    y = sup.submit(x[i].tolist()).result(timeout=120)
+                    answers.append((i, t_sub, time.perf_counter(), np.asarray(y, np.float64)))
+                except Exception as exc:  # surfaced by the gate
+                    errors.append(f"{type(exc).__name__}: {exc}")
+                i = (i + PUBLISH_CLIENTS) % PUBLISH_ROWS
+
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(PUBLISH_CLIENTS)]
+        for t in threads:
+            t.start()
+        time.sleep(1.0)
+        publisher = SupervisorPublisher(sup, store_dir, incumbent=heads["incumbent"], incumbent_digest=digest,
+                                        device=device)
+        t_pub = (time.perf_counter(), None)
+        ticket = publisher.publish(heads["candidate"], round_index=1)
+        t_pub = (t_pub[0], time.perf_counter())
+        time.sleep(1.0)
+        t_back = (time.perf_counter(), None)
+        publisher.rollback(ticket, reason="fleet_publish")
+        t_back = (t_back[0], time.perf_counter())
+        time.sleep(1.0)
+        stop.set()
+        for t in threads:
+            t.join(300)
+    finally:
+        stop.set()
+        sup.stop()
+    stats = sup.stats()
+
+    def rel(y, ref):
+        return float(np.linalg.norm(y - ref) / np.linalg.norm(ref))
+
+    served, worst, wrong = {"incumbent": 0, "candidate": 0}, {"incumbent": 0.0, "candidate": 0.0}, []
+    for i, t_sub, t_done, y in answers:
+        errs = {tag: rel(y, refs[tag][i]) for tag in refs}
+        version = next((tag for tag in refs if errs[tag] <= PUBLISH_TOL), None)
+        expected = ("incumbent" if t_done < t_pub[0] or t_sub > t_back[1]
+                    else "candidate" if t_sub > t_pub[1] and t_done < t_back[0] else None)
+        if version is None or (expected is not None and version != expected):
+            wrong.append({"row": i, "errs": errs, "expected": expected})
+            continue
+        served[version] += 1
+        worst[version] = max(worst[version], errs[version])
+    result = {
+        "rows": PUBLISH_ROWS, "clients": PUBLISH_CLIENTS, "fleet_ready_s": ready_s, "answers": len(answers),
+        "served_by": served, "worst_rel": worst, "mismatched": wrong[:5], "errors": errors[:5],
+        "publish_s": t_pub[1] - t_pub[0], "rollback_s": t_back[1] - t_back[0],
+        "acks": [{w: {k: a.get(k) for k in ("kind", "version", "warmup_s")} for w, a in ack.items()} for ack in acks],
+        "candidate_vs_incumbent_rel": rel(refs["candidate"], refs["incumbent"]),
+        "seconds": time.perf_counter() - t_phase,
+    }
+    counts = _child_end("fleet_publish", {f"worker{w}": row["stats"] for w, row in stats["workers"].items()}, [])
+    log("fleet_publish", **result, **counts)
+    checks = {
+        "every_worker_acks": len(acks) == 2 and all(
+            set(ack) == {"0", "1"} and all(a.get("kind") == "swapped" and a.get("warmup_s") is not None
+                                           for a in ack.values()) for ack in acks),
+        "nothing_dropped": not errors,
+        "answers_from_the_version_served": not wrong and served["incumbent"] > 0 and served["candidate"] > 0,
+        "versions_distinct": result["candidate_vs_incumbent_rel"] > 100 * PUBLISH_TOL,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"fleet_publish failed {failed}")
+    return counts["ell_launches"]
 
 
 def card_name_and_limit() -> str:
@@ -5727,7 +6404,10 @@ def main() -> int:
     launches_by_path = {"hashing_tf": kernel["launches"], "mnist_default": phase_mnist_default(device)}
     fitted, test = phase_mnist_full(device)
     launches_by_path["mnist_full"] = 0  # phase_mnist_full raises otherwise
-    launches_by_path["serve_mnist"] = phase_serve_mnist(device, fitted, test)
+    # The saved artifact lives until the fleet phases serve it again.
+    artifact_dir = tempfile.TemporaryDirectory(prefix="keystone-fleet-")
+    artifact = os.path.join(artifact_dir.name, "mnist_fitted.pt")
+    launches_by_path["serve_mnist"], fleet_rows, fleet_want = phase_serve_mnist(device, fitted, test, artifact)
     del fitted, test
     launches_by_path["mnist_small_cpu"] = phase_mnist_small_cpu(device)
     launches_by_path["stream_fit"] = phase_stream_fit(device)
@@ -5796,8 +6476,18 @@ def main() -> int:
     launches_by_path["durable_fit"] = durable["ell_launches"]
     launches_by_path["serve_checkpoint"] = phase_serve_checkpoint(device, durable, durable_dir.name)
     launches_by_path["refit_cli"] = phase_refit_cli(device, durable_dir.name)
-    launches_by_path["refit_full"] = phase_refit_full(device, durable_dir.name)
+    heads = phase_refit_full(device, durable_dir.name)
+    launches_by_path["refit_full"] = 0  # phase_refit_full raises otherwise
     durable_dir.cleanup()
+    fleet_dir = tempfile.TemporaryDirectory(prefix="keystone-fleet-work-")
+    serve = phase_fleet_serve(device, artifact, fleet_rows, fleet_want)
+    launches_by_path["fleet_serve"] = serve["ell_launches"]
+    launches_by_path["fleet_elastic"] = phase_fleet_elastic(device, artifact, fleet_rows, fleet_want, serve,
+                                                            fleet_dir.name)
+    launches_by_path["fleet_publish"] = phase_fleet_publish(device, heads, fleet_dir.name)
+    del heads
+    fleet_dir.cleanup()
+    artifact_dir.cleanup()
     # The binding's calls on the paths (gram_modes times it and is left out).
     paths = {p: c for p, c in SOLVER_GEMM_CALLS.items() if p != "gram_modes"}
     binding["launches"] = {k: sum(c[k] for c in paths.values()) for k in next(iter(paths.values()))}

@@ -20,7 +20,7 @@ Usage:
 
 Every workload of the JAX package is here. Left out for now: its other
 subcommands (``profile``, ``trace``, ``bench-diff``, ``check``,
-``explain``, ``tune``, ``quality``; ROADMAP item 13).
+``explain``, ``tune``, ``quality``; ROADMAP item 13b).
 """
 
 from __future__ import annotations

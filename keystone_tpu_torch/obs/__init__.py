@@ -14,12 +14,16 @@
   metric snapshots and marks, dumped on crash-class events.
 - :mod:`.quality` — the quality plane: score streams, sketches, the
   sequential gate and the drift detector the refit daemon reads.
+- :mod:`.export`  — the Prometheus text exposition.
+- :mod:`.fleet`   — the fleet plane: worker span fragments, clock
+  anchors and metric deltas merged into one trace and one scrape.
 
-The serving layer, the recovery ledger, the executor (node counters,
-``optimize`` span, ``node:<label>`` spans and the node-seconds histogram
-under ``trace()``), the optimizer's rule counters and spans, the block
-solver and the refit daemon publish into them. Device memory sampling,
-the exporters and the cost observatory are not ported yet.
+The serving layer and its fleet, the recovery ledger, the executor (node
+counters, ``optimize`` span, ``node:<label>`` spans and the node-seconds
+histogram under ``trace()`` or a span session), the optimizer's rule
+counters and spans, the block solver and the refit daemon publish into
+them. Device memory sampling, the Chrome-trace export of one session and
+the cost observatory are not ported yet (ROADMAP item 13b).
 """
 
 from .metrics import (

@@ -7,7 +7,7 @@ A copy of the ``Prediction`` dataclass of ``keystone_tpu/obs/cost.py``.
 
 Only the dataclass is ported. The rest of the cost observatory (the
 roofline, the plan-scoped prediction book, the ledger join and the drift
-sentinel) comes with the observability tier (ROADMAP item 13).
+sentinel) comes with the observability tier (ROADMAP item 13b).
 """
 
 from __future__ import annotations

@@ -1,11 +1,10 @@
 """Always-on flight recorder: a bounded per-process ring of recent
 telemetry, dumped to a post-mortem artifact when something goes wrong.
 
-A copy of ``keystone_tpu/obs/flight.py``. In the port the refit daemon
-installs it; the supervisor and worker roles arrive with the
-multi-worker runtime (ROADMAP item 13), and until the cost observatory
-does too, a dump's ``perf_ledger`` is empty. Span fragments are built
-here (the JAX package builds them in ``obs/fleet.py``, item 13).
+A copy of ``keystone_tpu/obs/flight.py``. In the port the refit daemon,
+the serving supervisor, its workers and the fleet's front-end install
+it; until the cost observatory arrives (ROADMAP item 13b), a dump's
+``perf_ledger`` is empty.
 
 "Worker died, requeued" is a healthy-system log line and a terrible
 post-mortem: by the time a human looks, the spans, ledger events, and
@@ -84,30 +83,6 @@ def _json_safe_detail(detail: Dict[str, Any]) -> Dict[str, Any]:
         k: (v if isinstance(v, (bool, int, float, str)) or v is None else str(v))
         for k, v in detail.items()
     }
-
-
-def _span_fragment(span: Any, session: Any) -> Dict[str, Any]:
-    """One span as a compact fragment with ABSOLUTE unix times: ``a``/``b``
-    are start/end seconds since the epoch (the JAX package's
-    ``obs/fleet.py::span_fragment`` wire format)."""
-    origin = session.started_unix - session.started_s
-    end = span.end_s if span.end_s is not None else span.start_s
-    fragment: Dict[str, Any] = {
-        "n": span.name,
-        "t": span.trace_id,
-        "s": span.span_id,
-        "a": round(origin + span.start_s, 6),
-        "b": round(origin + end, 6),
-        "tid": span.thread_id or 0,
-        "tn": span.thread_name,
-    }
-    if span.parent_id:
-        fragment["p"] = span.parent_id
-    if span.status != "ok":
-        fragment["st"] = span.status
-    if span.attributes:
-        fragment["at"] = _json_safe_detail(span.attributes)
-    return fragment
 
 
 class FlightRecorder:
@@ -242,12 +217,14 @@ class FlightRecorder:
         span_tail: List[Dict[str, Any]] = []
         dropped = 0
         if session is not None:
+            from .fleet import span_fragment  # lazy: fleet imports spans too
+
             span_tail = [
-                _span_fragment(s, session)
+                span_fragment(s, session)
                 for s in session.spans()[-self.capacity:]
             ]
             dropped = session.dropped
-        # The cost observatory's per-node entries arrive with it (item 13).
+        # The cost observatory's per-node entries arrive with it (item 13b).
         perf_ledger: List[Dict[str, Any]] = []
         payload = {
             "flightrec": 1,

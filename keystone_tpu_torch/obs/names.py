@@ -5,8 +5,9 @@ modules publish: the executor and optimizer (``keystone_executor_*``,
 ``keystone_optimizer_*``), fusion, streaming, the profile store, the
 block-sparse dispatch, the solvers, the sketch tier, the recovery
 ledger, the checkpoint store and durable fits, the resume and publish
-verifiers, continuous refit, the flight recorder, the quality plane
-and serving.
+verifiers, continuous refit, the flight recorder, the quality plane,
+serving and the multi-worker fleet (supervisor, SLO control,
+autoscaling, boot images, fleet tracing).
 Names, kinds, help texts and labels are the JAX package's, so dashboards
 read both packages alike; the other families arrive with the modules
 that publish them. One help text says what its series counts in the
@@ -133,6 +134,36 @@ SERVING_LATENCY_SECONDS = "keystone_serving_latency_seconds"
 SERVING_QUEUE_WAIT_SECONDS = "keystone_serving_queue_wait_seconds"
 SERVING_BATCH_OCCUPANCY = "keystone_serving_batch_occupancy"
 
+# ------------------------------------------------- multi-worker serving / SLO
+SERVING_WORKER_RESTARTS = "keystone_serving_worker_restarts_total"
+SERVING_WORKER_REQUEUED = "keystone_serving_requeued_requests_total"
+SERVING_WORKERS_ALIVE = "keystone_serving_workers_alive"
+SERVING_WORKER_HEARTBEATS = "keystone_serving_worker_heartbeats_total"
+SERVING_SLO_P99_MS = "keystone_serving_slo_p99_ms"
+SERVING_SLO_TARGET_MS = "keystone_serving_slo_target_ms"
+SERVING_SLO_RUNG = "keystone_serving_slo_rung"
+SERVING_SLO_TRANSITIONS = "keystone_serving_slo_transitions_total"
+
+# --------------------------------------------------- elastic fleet / autoscale
+SERVING_SCALE_EVENTS = "keystone_serving_scale_events_total"
+SERVING_SCALE_TARGET_WORKERS = "keystone_serving_scale_target_workers"
+SERVING_SCALE_WORKERS_DRAINING = "keystone_serving_scale_workers_draining"
+SERVING_SCALE_DRAIN_SECONDS = "keystone_serving_scale_drain_seconds"
+
+# ------------------------------------------------------------------ boot image
+BOOTIMAGE_BUILDS = "keystone_bootimage_builds_total"
+BOOTIMAGE_LOADS = "keystone_bootimage_loads_total"
+BOOTIMAGE_BUILD_SECONDS = "keystone_bootimage_build_seconds"
+BOOTIMAGE_LOAD_SECONDS = "keystone_bootimage_load_seconds"
+
+# --------------------------------------------------------------- fleet tracing
+FLEET_SPAN_FRAGMENTS = "keystone_fleet_span_fragments_total"
+FLEET_TRACE_BYTES = "keystone_fleet_trace_bytes_total"
+FLEET_CLOCK_SKEW = "keystone_fleet_clock_skew_seconds"
+FLEET_REQUESTS = "keystone_fleet_requests_total"
+FLEET_FAILURES = "keystone_fleet_failures_total"
+FLEET_WORKER_SERIES = "keystone_fleet_worker_series"
+
 # Image ingest (data/ingest.py::measure_ingest).
 INGEST_IMAGES = "keystone_ingest_images_total"
 INGEST_CORRUPT = "keystone_ingest_corrupt_total"
@@ -223,6 +254,28 @@ SCHEMA: Dict[str, Tuple] = {
     SERVING_LATENCY_SECONDS: ("histogram", "End-to-end request latency", ("model",)),
     SERVING_QUEUE_WAIT_SECONDS: ("histogram", "Submit-to-apply queue wait", ("model",)),
     SERVING_BATCH_OCCUPANCY: ("histogram", "Batch size / max_batch", ("model",), "ratio"),
+    SERVING_WORKER_RESTARTS: ("counter", "Worker processes restarted by the supervisor", ("reason",)),
+    SERVING_WORKER_REQUEUED: ("counter", "In-flight requests requeued off a dead worker", ()),
+    SERVING_WORKERS_ALIVE: ("gauge", "Worker processes currently serving", ()),
+    SERVING_WORKER_HEARTBEATS: ("counter", "Worker heartbeats received by the supervisor", ("status",)),
+    SERVING_SLO_P99_MS: ("gauge", "Observed serving p99 latency, per worker and aggregate", ("worker",)),
+    SERVING_SLO_TARGET_MS: ("gauge", "SLO controller p99 target", ()),
+    SERVING_SLO_RUNG: ("gauge", "Admission ladder rung index pinned by the SLO controller", ()),
+    SERVING_SLO_TRANSITIONS: ("counter", "SLO-driven admission ladder transitions", ("direction",)),
+    SERVING_SCALE_EVENTS: ("counter", "Autoscaler fleet scale events, by direction (up/down)", ("direction",)),
+    SERVING_SCALE_TARGET_WORKERS: ("gauge", "Worker count the autoscaler is currently steering toward", ()),
+    SERVING_SCALE_WORKERS_DRAINING: ("gauge", "Workers currently draining ahead of scale-down removal", ()),
+    SERVING_SCALE_DRAIN_SECONDS: ("histogram", "Drain duration from scale-down decision to worker retirement", ()),
+    BOOTIMAGE_BUILDS: ("counter", "Boot images built (fitted weights, kernel libraries, parity digests)", ()),
+    BOOTIMAGE_LOADS: ("counter", "Boot-image load attempts, by status (loaded/refused)", ("status",)),
+    BOOTIMAGE_BUILD_SECONDS: ("histogram", "Whole boot-image builds (parity runs + library bundling)", ()),
+    BOOTIMAGE_LOAD_SECONDS: ("histogram", "Boot-image loads (verify, library hydration, weights, parity warm-up)", ()),
+    FLEET_SPAN_FRAGMENTS: ("counter", "Span fragments folded into the fleet trace collector, per shipping process role", ("role",)),
+    FLEET_TRACE_BYTES: ("counter", "Serialized span-fragment bytes shipped over the heartbeat channel", ()),
+    FLEET_CLOCK_SKEW: ("gauge", "Estimated per-process wall-clock offset vs the collector at heartbeat receipt", ("role",)),
+    FLEET_REQUESTS: ("counter", "Fleet-aggregated requests served per worker id, monotonic across worker incarnations", ("worker",)),
+    FLEET_FAILURES: ("counter", "Fleet-aggregated failed requests per worker id, monotonic across worker incarnations", ("worker",)),
+    FLEET_WORKER_SERIES: ("gauge", "Fleet-summed worker-process registry series (heartbeat metric deltas, folded across incarnations), keyed by flat series name", ("series",)),
     INGEST_IMAGES: ("counter", "Records successfully decoded by ingest", ()),
     INGEST_CORRUPT: ("counter", "Records quarantined by ingest", ()),
     INGEST_BYTES: ("counter", "Raw bytes read by ingest", ()),

@@ -2,9 +2,8 @@
 
 A copy of ``keystone_tpu/obs/quality.py`` (stdlib only). In the port
 the refit daemon feeds it: the watch window's label join, the drift
-detector behind adaptive decay, and the sequential watch gate. The
-fleet-wide sketch merges arrive with the multi-worker runtime
-(ROADMAP item 13).
+detector behind adaptive decay, and the sequential watch gate; the
+serving supervisor merges its workers' sketch deltas fleet-wide.
 
 The rest of obs/ measures *performance* — spans, fleet traces, the cost
 observatory. This module measures *model quality on live traffic* and

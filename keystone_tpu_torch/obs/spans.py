@@ -1,8 +1,6 @@
 """Hierarchical spans: the trace substrate the serving layer reports into.
 
-A copy of ``keystone_tpu/obs/spans.py`` without its fleet-tracing parts
-(the wire context carried between processes and the process-lifetime
-session of a serving worker), which wait for the multi-worker runtime.
+A copy of ``keystone_tpu/obs/spans.py``.
 
 One :class:`TraceSession` collects the spans of one instrumented run.
 Spans nest through a per-thread stack — ``span("fit")`` inside
@@ -10,7 +8,11 @@ Spans nest through a per-thread stack — ``span("fit")`` inside
 explicit context handoff: a serving request captures
 :func:`current_context` at submit time and the worker thread re-parents
 its batch/request spans under it via :func:`attach`, so a request's
-trace id survives submit → batch assembly → apply.
+trace id survives submit → batch assembly → apply. Across *processes*
+the context rides the serving control pipe in its wire form
+(:func:`to_wire` / :func:`from_wire`), and a serving worker holds a
+process-lifetime ring session (:func:`install_session`) whose spans ship
+to the supervisor on heartbeats.
 
 Inactive is free: with no session installed, ``span()`` yields a shared
 no-op without allocating a record, and ``add_span_event`` is a single
@@ -25,11 +27,16 @@ from __future__ import annotations
 import random
 import threading
 import time
+from collections import deque
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 TraceContext = Tuple[str, str]  # (trace_id, span_id)
+
+#: JSON field name the serving control pipe carries a wire context under
+#: (supervisor → worker request lines).
+WIRE_FIELD = "trace"
 
 # Span-id generator: seeded from the system entropy pool once, then a
 # single C-level getrandbits per id (~0.5µs). uuid4 here cost ~17µs per
@@ -40,6 +47,26 @@ _id_rng = random.Random()
 
 def _new_id() -> str:
     return "%016x" % _id_rng.getrandbits(64)
+
+
+def to_wire(context: Optional[TraceContext]) -> Optional[str]:
+    """Compact wire form of a trace context — ``"<trace_id>:<span_id>"``
+    — for JSON-lines control messages. None stays None (tracing off adds
+    zero bytes to the pipe)."""
+    if context is None:
+        return None
+    return f"{context[0]}:{context[1]}"
+
+
+def from_wire(value: Any) -> Optional[TraceContext]:
+    """Parse a wire context; tolerant of garbage (a malformed trace field
+    must never fail a request — it just drops the trace link)."""
+    if not isinstance(value, str) or ":" not in value:
+        return None
+    trace_id, _, span_id = value.partition(":")
+    if not trace_id:
+        return None
+    return (trace_id, span_id)
 
 
 @dataclass(slots=True)
@@ -101,30 +128,65 @@ NOOP_SPAN = _NoopSpan()
 
 
 class TraceSession:
-    """Bounded collector of the spans of one instrumented run: past
-    ``max_spans`` it drops NEW spans (``dropped`` counts them), so a
-    runaway run can't evict the phases already captured."""
+    """Bounded collector of the spans of one instrumented run.
 
-    def __init__(self, name: str = "trace", max_spans: int = 100_000):
+    ``sync_timings`` declares whether this session needs real per-node
+    device timings: when True (profiling sessions), the executor waits
+    for the device per node, so a node span's duration is the node's
+    work; when False, node spans record dispatch time only (sessions that
+    exist for counters and coarse spans, such as a serving worker's).
+
+    ``ring`` selects what the cap sacrifices: False (bounded profiling
+    runs) drops NEW spans past ``max_spans`` (``dropped`` counts them), so
+    a runaway run can't evict the phases already captured; True
+    (process-lifetime sessions: serving workers, fleet tracing) evicts
+    the OLDEST (``evicted`` counts them), so the buffer always holds the
+    most recent window. ``added`` counts every accepted span, so ring
+    consumers (``fleet.drain_fragments``) can cursor by absolute index
+    across evictions.
+    """
+
+    def __init__(
+        self,
+        name: str = "trace",
+        max_spans: int = 100_000,
+        sync_timings: bool = True,
+        ring: bool = False,
+    ):
         self.name = name
+        self.sync_timings = sync_timings
         self.trace_id = _new_id()
         self.started_unix = time.time()
         self.started_s = time.perf_counter()
         self.max_spans = max_spans
+        self.ring = ring
         self.dropped = 0
+        self.evicted = 0
+        self.added = 0
         self._lock = threading.Lock()
-        self._spans: List[Span] = []
+        self._spans: "deque[Span]" = deque()
 
     def add(self, span: Span) -> None:
         with self._lock:
             if len(self._spans) >= self.max_spans:
-                self.dropped += 1
-                return
+                if not self.ring:
+                    self.dropped += 1
+                    return
+                self._spans.popleft()
+                self.evicted += 1
             self._spans.append(span)
+            self.added += 1
 
     def spans(self) -> List[Span]:
         with self._lock:
             return list(self._spans)
+
+    def tail(self) -> Tuple[List[Span], int]:
+        """(current buffer, total spans ever accepted): the absolute
+        index of ``buffer[0]`` is ``total - len(buffer)``, the datum
+        ring-aware cursors (fleet shipping) advance against."""
+        with self._lock:
+            return list(self._spans), self.added
 
     def find(self, name_prefix: str) -> List[Span]:
         return [s for s in self.spans() if s.name.startswith(name_prefix)]
@@ -155,18 +217,18 @@ def _stack() -> List[Span]:
 
 @contextmanager
 def tracing_session(
-    name: str = "trace", max_spans: int = 100_000
+    name: str = "trace", max_spans: int = 100_000, sync_timings: bool = True
 ) -> Iterator[TraceSession]:
     """Install a process-wide :class:`TraceSession`. Nested calls reuse the
     outer session (the yielded object is the ACTIVE session, which is what
-    exporters should read)."""
+    exporters should read — including its ``sync_timings`` choice)."""
     global _session
     with _session_lock:
         if _session is not None:
             outer = _session
             nested = True
         else:
-            outer = TraceSession(name, max_spans=max_spans)
+            outer = TraceSession(name, max_spans=max_spans, sync_timings=sync_timings)
             _session = outer
             nested = False
     try:
@@ -175,6 +237,25 @@ def tracing_session(
         if not nested:
             with _session_lock:
                 _session = None
+
+
+def install_session(
+    name: str = "trace",
+    max_spans: int = 100_000,
+    sync_timings: bool = True,
+    ring: bool = True,
+) -> TraceSession:
+    """Install a process-LIFETIME session (no context manager: worker
+    processes and long-lived daemons own the process scope; fleet tracing
+    ships its recent spans on heartbeats). Ring semantics by default: a
+    long-lived process keeps its most RECENT spans, so shipping never
+    goes dark once the buffer is full. Idempotent: an existing session is
+    reused, like a nested :func:`tracing_session`."""
+    global _session
+    with _session_lock:
+        if _session is None:
+            _session = TraceSession(name, max_spans=max_spans, sync_timings=sync_timings, ring=ring)
+        return _session
 
 
 class _NoopSpanContext:

@@ -5,8 +5,10 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 then loaded with ``ctypes``; a source that calls a CUDA library names it
 in :data:`LINK_FLAGS`. The hash covers every file under ``csrc/`` and the
 flags, so an edited source or header rebuilds and a stale library is
-never loaded. Nothing is built or loaded at import time: the
-CPU tests import this module on machines without ``nvcc``.
+never loaded. ``KEYSTONE_CUDA_BUILD_DIR`` puts the libraries elsewhere
+(a serving boot image hydrates a fresh directory with the libraries it
+bundles). Nothing is built or loaded at import time: the CPU tests
+import this module on machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -72,14 +74,27 @@ def find_nvcc() -> Optional[str]:
     return None
 
 
-def library_path(name: str) -> Path:
-    """The library's path, named by a hash of every file under ``csrc/``
-    (so an edited header rebuilds) and the flags."""
+def build_dir() -> Path:
+    """Where libraries are built and looked for: ``KEYSTONE_CUDA_BUILD_DIR``
+    when set, else ``build/`` beside the sources."""
+    return Path(env_str("KEYSTONE_CUDA_BUILD_DIR") or BUILD_DIR)
+
+
+def sources_hash(link_flags: Sequence[str] = ()) -> str:
+    """A hash of every file under ``csrc/`` (so an edited header
+    rebuilds) and the flags. With no link flags it is what a serving boot
+    image records, so an image built from other sources is refused
+    (KV307)."""
     h = hashlib.sha256()
     for path in sorted(p for p in SOURCE_DIR.rglob("*") if p.is_file()):
         h.update(str(path.relative_to(SOURCE_DIR)).encode() + b"\0" + path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS.get(name, ())).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    h.update(" ".join(NVCC_FLAGS + tuple(link_flags)).encode())
+    return h.hexdigest()[:12]
+
+
+def library_path(name: str) -> Path:
+    """The library's path, named by :func:`sources_hash` of its flags."""
+    return build_dir() / f"lib{name}-{sources_hash(LINK_FLAGS.get(name, ()))}.so"
 
 
 def build(names: Sequence[str]) -> Dict[str, Path]:
@@ -98,7 +113,8 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
             "nvcc not found (looked in $CUDA_HOME/bin, PATH and /usr/local/cuda/bin); "
             "the CUDA kernels of keystone_tpu_torch are built from source at first use"
         )
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
     for name in todo:
@@ -111,7 +127,7 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
     failures = []
     for name, (tmp, proc) in procs.items():
         output, _ = proc.communicate()
-        (BUILD_DIR / f"{name}.log").write_text(output)
+        (out_dir / f"{name}.log").write_text(output)
         if proc.returncode != 0:
             failures.append(f"{name}.cu (exit {proc.returncode}):\n{output}")
             continue
@@ -122,8 +138,14 @@ def build(names: Sequence[str]) -> Dict[str, Path]:
     return paths
 
 
+#: Calls of :func:`load_library` per library in this process: what a
+#: serving boot image reads to bundle the libraries a model's apply uses.
+use_counts: Dict[str, int] = {}
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``name``, building it first if needed."""
+    use_counts[name] = use_counts.get(name, 0) + 1
     if name not in _loaded:
         _loaded[name] = ctypes.CDLL(str(build([name])[name]))
     return _loaded[name]
@@ -132,5 +154,5 @@ def load_library(name: str) -> ctypes.CDLL:
 def build_log(name: str) -> str:
     """The compiler's output (``-Xptxas -v``: registers, shared memory,
     spills) from the last build of ``name``, or "" if none ran here."""
-    path = BUILD_DIR / f"{name}.log"
+    path = build_dir() / f"{name}.log"
     return path.read_text() if path.exists() else ""

@@ -27,7 +27,7 @@ The model stores means/variances as (d, k) — a column per cluster — as
 the reference does (GaussianMixtureModel.scala:19-24); the Fisher-vector
 encoder relies on it.
 
-Left out for now: ``out_spec`` (ROADMAP item 13).
+Left out for now: ``out_spec`` (ROADMAP item 13b).
 """
 
 from __future__ import annotations

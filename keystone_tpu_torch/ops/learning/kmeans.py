@@ -12,7 +12,7 @@ sample). Lloyd runs on the data's device as a Python loop with the JAX
 ``lax.while_loop``'s stop rule; its products go through ``linalg.mm``
 at the solver mode's precision.
 
-Left out for now: ``out_spec`` (ROADMAP item 13).
+Left out for now: ``out_spec`` (ROADMAP item 13b).
 """
 
 from __future__ import annotations

@@ -24,7 +24,7 @@ through ``linalg.mm`` at the solver mode's precision; the QR, SVD and
 eigh are ``torch.linalg``'s.
 
 Left out for now: the mesh (``fit_mesh``) paths (ROADMAP item 14) and
-``out_spec`` (item 13).
+``out_spec`` (item 13b).
 """
 
 from __future__ import annotations

@@ -12,14 +12,15 @@ Port of ``keystone_tpu/refit/`` on one device:
                    drop-counting backpressure that never blocks serving.
 - :mod:`shadow`  — shadow evaluation of a candidate against the
                    incumbent on held-out labels and mirrored traffic.
-- :mod:`publish` — :class:`InProcessPublisher`: registry hot-swap,
-                   bucket re-warm, KV305 gate, O(1) rollback.
+- :mod:`publish` — :class:`InProcessPublisher` (registry hot-swap,
+                   bucket re-warm, KV305 gate, O(1) rollback) and
+                   :class:`SupervisorPublisher` (checkpoint store + the
+                   fleet's swap broadcast).
 - :mod:`daemon`  — the supervised tap → fold → shadow → publish → watch
                    loop with its round journal, and the drifting-workload
                    demo behind ``python -m keystone_tpu_torch refit``.
 
-``SupervisorPublisher`` and the daemon's scheduler lease are ROADMAP
-item 13. Exports resolve lazily (PEP 562): the Gram estimators import
+The daemon's scheduler lease is ROADMAP item 13b. Exports resolve lazily (PEP 562): the Gram estimators import
 :mod:`state` at module scope, and pulling the whole control plane in
 from there would slow that import and risk cycles.
 """
@@ -39,6 +40,7 @@ _LAZY = {
     "ShadowReport": "keystone_tpu_torch.refit.shadow",
     "InProcessPublisher": "keystone_tpu_torch.refit.publish",
     "PublishTicket": "keystone_tpu_torch.refit.publish",
+    "SupervisorPublisher": "keystone_tpu_torch.refit.publish",
     "RefitConfig": "keystone_tpu_torch.refit.daemon",
     "RefitDaemon": "keystone_tpu_torch.refit.daemon",
 }

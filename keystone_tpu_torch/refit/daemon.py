@@ -50,7 +50,7 @@ before publish (a ``corrupt`` spec here is the seeded bad candidate the
 watch window rolls back), ``refit.publish`` faults the swap itself.
 
 Not here: the ``scheduler=`` lease path (preemptible, cost-priced folds
-under a mesh co-scheduler; ROADMAP Queue A item 13 — passing one raises)
+under a mesh co-scheduler; ROADMAP Queue A item 13b — passing one raises)
 and the sharded fold (``partition=``, item 14).
 
 The module also carries the synthetic drifting-workload closed loop
@@ -87,7 +87,7 @@ from .tap import TrafficTap
 class RefitConfig:
     """Knobs for one :class:`RefitDaemon` (env defaults via envknobs).
     The JAX package's scheduler knobs (``auto_chunk_rows``,
-    ``sched_ckpt_every``) arrive with the scheduler (item 13)."""
+    ``sched_ckpt_every``) arrive with the scheduler (item 13b)."""
 
     name: str = "default"
     #: seconds between supervised rounds (KEYSTONE_REFIT_INTERVAL_S).
@@ -155,7 +155,7 @@ class RefitDaemon:
         if scheduler is not None:
             raise NotImplementedError(
                 "RefitDaemon(scheduler=...): the mesh co-scheduler's lease path "
-                "is not ported yet (ROADMAP Queue A item 13)"
+                "is not ported yet (ROADMAP Queue A item 13b)"
             )
         if partition is not None:
             raise NotImplementedError(

@@ -1,10 +1,21 @@
 """The publish/rollback controller: how a passing candidate reaches
 traffic, and how a regressing one leaves it.
 
-Port of ``keystone_tpu/refit/publish.py``'s single-process publisher,
-:class:`InProcessPublisher`, over a live
-:class:`~keystone_tpu_torch.serving.server.PipelineServer`: publish is a
-registry hot-swap (in-flight batches finish on the entry they resolved)
+Port of ``keystone_tpu/refit/publish.py``. Two publishers, one per
+serving runtime:
+
+- :class:`InProcessPublisher` over a live
+  :class:`~keystone_tpu_torch.serving.server.PipelineServer`;
+- :class:`SupervisorPublisher` over a
+  :class:`~keystone_tpu_torch.serving.supervisor.WorkerSupervisor`
+  fleet: the candidate is persisted to a
+  :class:`~keystone_tpu_torch.reliability.checkpoint.CheckpointStore`
+  under a content digest and the fleet swaps to it by the swap broadcast
+  (each worker loads the entry onto its own card, re-warms every bucket
+  and acks with its ``warmup_s``); rollback swaps back to the previous
+  digest, and restarted workers come up on whatever the fleet serves.
+
+In process, publish is a registry hot-swap (in-flight batches finish on the entry they resolved)
 followed by a re-warm of every bucket on the server's device, which
 restamps the ``cufft_plans_since_warmup`` baseline — serving after a
 settled publish meets no new shape.
@@ -21,12 +32,11 @@ recovery ledger (``refit_publish`` / ``refit_rollback``) and the
 ``keystone_refit_*`` counters; the daemon's post-publish watch window
 decides WHEN to roll back (refit/daemon.py).
 
-``SupervisorPublisher``, the multi-worker fleet's publisher, is ROADMAP
-Queue A item 13.
 """
 
 from __future__ import annotations
 
+import hashlib
 import logging
 import time
 from dataclasses import dataclass, field
@@ -193,4 +203,118 @@ class InProcessPublisher:
         return entry
 
 
-__all__ = ["InProcessPublisher", "PublishTicket"]
+class SupervisorPublisher:
+    """Publish/rollback across a :class:`WorkerSupervisor` fleet via the
+    checkpoint store + swap broadcast (per-worker re-warm acks)."""
+
+    def __init__(
+        self,
+        supervisor: Any,
+        store_path: str,
+        name: Optional[str] = None,
+        incumbent: Any = None,
+        incumbent_digest: Optional[str] = None,
+        device: Any = None,
+    ):
+        from ..reliability.checkpoint import CheckpointStore
+
+        self.supervisor = supervisor
+        self.store = CheckpointStore(store_path, device=device)
+        self.name = name or supervisor.config.model_name
+        #: the daemon fits candidates in THIS process; the incumbent
+        #: model object is tracked here for shadow eval (workers hold
+        #: their own copies loaded from the store).
+        self._current = incumbent
+        self._current_digest = incumbent_digest
+        self._prev = incumbent
+        self._version = 0
+        self._m_publishes = _names.metric(_names.REFIT_PUBLISHES)
+        self._m_rollbacks = _names.metric(_names.REFIT_ROLLBACKS)
+
+    def current_model(self):
+        return self._current
+
+    def serving_stats(self) -> Dict[str, Any]:
+        return self.supervisor.stats()
+
+    def apply_live(self, x: np.ndarray) -> np.ndarray:
+        """Live predictions through the FLEET (real served traffic)."""
+        futures = self.supervisor.submit_many(
+            [row.tolist() for row in np.asarray(x, np.float32)],
+            deadline_s=30.0,
+        )
+        return np.asarray([f.result(timeout=60.0) for f in futures])
+
+    def _persist(self, candidate: Any, tag: str) -> str:
+        from ..reliability.checkpoint import _value_token
+
+        # Content-addressed like every other store entry: a digest built
+        # from (name, round) alone would collide across daemon restarts —
+        # a new run's round-1 candidate would OVERWRITE the entry the
+        # previous ticket's rollback points at. The content token reads
+        # tensors by their host bytes, whatever device holds them.
+        content = hashlib.sha1(repr(_value_token(candidate)).encode()).hexdigest()
+        digest = hashlib.sha1(f"refit-candidate:{self.name}:{tag}:{content}".encode()).hexdigest()
+        if not self.store.save(None, candidate, digest=digest):
+            raise RuntimeError(
+                f"checkpoint store refused refit candidate {tag!r} "
+                f"(unpicklable model of type {type(candidate).__name__})"
+            )
+        return digest
+
+    def _swap_to(self, digest: str) -> Dict[str, Dict[str, Any]]:
+        spec = {"checkpoint_dir": self.store.path, "digest": digest}
+        acks = self.supervisor.swap(spec, name=self.name)
+        swapped = [a for a in acks.values() if a.get("kind") == "swapped"]
+        if acks and not swapped:
+            raise RuntimeError(f"no worker acked the swap: {acks}")
+        # Restarts must come up on what the fleet is serving NOW.
+        self.supervisor.spec = spec
+        return acks
+
+    def publish(self, candidate: Any, round_index: int = 0) -> PublishTicket:
+        probe("refit.publish")
+        _verify_publish(candidate, self._current, None, None, None)
+        digest = self._persist(candidate, f"round{round_index}")
+        acks = self._swap_to(digest)
+        self._version += 1
+        ticket = PublishTicket(
+            name=self.name,
+            version=self._version,
+            prev_version=self._version - 1,
+            source=f"refit:round{round_index}",
+            acks=acks,
+            digest=digest,
+            prev_digest=self._current_digest,
+        )
+        self._prev = self._current
+        self._current = candidate
+        self._current_digest = digest
+        self._m_publishes.inc()
+        get_recovery_log().record(
+            "refit_publish",
+            self.name,
+            digest=digest[:12],
+            round=round_index,
+            acked=len([a for a in acks.values() if a.get("kind") == "swapped"]),
+        )
+        return ticket
+
+    def rollback(self, ticket: PublishTicket, reason: str = "") -> Any:
+        if ticket.prev_digest is None:
+            raise RuntimeError("no previous digest retained — cannot roll the fleet back")
+        acks = self._swap_to(ticket.prev_digest)
+        self._current = self._prev
+        self._current_digest = ticket.prev_digest
+        self._m_rollbacks.inc()
+        get_recovery_log().record(
+            "refit_rollback",
+            self.name,
+            to_digest=ticket.prev_digest[:12],
+            reason=reason,
+            acked=len([a for a in acks.values() if a.get("kind") == "swapped"]),
+        )
+        return self._current
+
+
+__all__ = ["InProcessPublisher", "PublishTicket", "SupervisorPublisher"]

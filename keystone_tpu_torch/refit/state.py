@@ -34,7 +34,7 @@ with ``torch.save`` (host numpy carries), so a file written by one
 package is never loaded by the other: their classes differ.
 
 Not ported: the scheduler lease the JAX package's ``finish_from_state``
-takes (the scheduler is ROADMAP item 13; on one device the finish runs
+takes (the scheduler is ROADMAP item 13b; on one device the finish runs
 without one).
 """
 

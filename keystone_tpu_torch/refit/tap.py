@@ -25,7 +25,8 @@ worth keeping.
 Hook point (opt-in, default-off): ``PipelineServer(..., tap=...)``
 samples settled request payloads into ``observe`` after each batch (off
 the submit hot path — the batch worker thread pays one lock + copy per
-sampled row). The multi-worker supervisor's tap is ROADMAP item 13.
+sampled row). ``WorkerSupervisor(..., tap=...)`` samples each accepted
+payload at submit, the one place that sees every request of a fleet.
 """
 
 from __future__ import annotations

@@ -23,9 +23,11 @@ probe, the executor its per-node retry, deadline and fault injection
 ``BlockLeastSquaresEstimator.solve`` probe, and ``load_csv`` its
 quarantine publishing, and the executor its checkpoint hook
 (``PipelineEnv.checkpoint``).
+
+The checkpoint store imports torch and resolves lazily (PEP 562): a stub
+serving worker and ``serve --help`` import this package without torch.
 """
 
-from .checkpoint import CheckpointStore, enable_checkpointing, prefix_digest
 from .degrade import DegradationLadder, LadderExhausted, halving_rungs
 from .errors import (
     CLASSIFICATION_TABLE,
@@ -49,6 +51,22 @@ from .faultinject import (
 )
 from .recovery import RecoveryLog, get_recovery_log, reset_recovery_log
 from .retry import Deadline, RetryPolicy, run_with_deadline, wait_until
+
+_LAZY = {
+    "CheckpointStore": "keystone_tpu_torch.reliability.checkpoint",
+    "enable_checkpointing": "keystone_tpu_torch.reliability.checkpoint",
+    "prefix_digest": "keystone_tpu_torch.reliability.checkpoint",
+}
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        import importlib
+
+        value = getattr(importlib.import_module(_LAZY[name]), name)
+        globals()[name] = value
+        return value
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 __all__ = [
     "CLASSIFICATION_TABLE",

@@ -9,10 +9,14 @@ Process-level chaos: the ``kill`` kind SIGKILLs the *current process* at
 a probed call — a real ``kill -9`` mid-fit, the crash durable fits must
 survive. The injector is per-process, so specs cross a process boundary
 through the environment: :func:`specs_to_env` serializes a spec list to
-JSON and :func:`install_from_env` (called by the ``fit`` entry point at
-startup) installs a process-lifetime injector from
-``KEYSTONE_FAULT_SPECS``. Env-carried specs can't ship a ``corrupt``
-callable; they use the default corruption.
+JSON and :func:`install_from_env` (called by the ``fit`` entry point and
+by a serving worker at startup) installs a process-lifetime injector
+from ``KEYSTONE_FAULT_SPECS``; the serving supervisor carries
+``KEYSTONE_FAULT_SPECS_WORKER_<id>`` into worker ``<id>``'s first
+incarnation only. Env-carried specs can't ship a ``corrupt`` callable;
+they use the default corruption, which garbles a string into non-JSON
+bytes: at the worker's heartbeat site, the wire corruption the supervisor
+must treat as a dead heartbeat.
 
 Library code calls ``probe("site-name")`` at its retryable boundaries. A
 no-op (one global ``is None`` check) unless an injector is active, so
@@ -36,9 +40,6 @@ import time
 from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
-
-import numpy as np
-import torch
 
 from ..envknobs import env_raw
 from ..utils.tree import tree_map
@@ -106,13 +107,19 @@ def _nan_corrupt(value: Any) -> Any:
     if data is not None and hasattr(value, "num_examples"):
         return type(value)(_nan_corrupt(data), value.num_examples)
 
+    # Poisoned leaves can only be tensors or arrays of modules already
+    # loaded: this module stays importable without torch (a stub serving
+    # worker probes its request and heartbeat sites without it).
+    torch = sys.modules.get("torch")
+    np = sys.modules.get("numpy")
+
     def poison(leaf):
-        if isinstance(leaf, torch.Tensor):
+        if torch is not None and isinstance(leaf, torch.Tensor):
             out = leaf.clone()
             if out.is_floating_point():
                 out.fill_(float("nan"))
             return out
-        if isinstance(leaf, np.ndarray):
+        if np is not None and isinstance(leaf, np.ndarray):
             out = leaf.copy()
             if np.issubdtype(out.dtype, np.floating):
                 out.fill(np.nan)
@@ -188,12 +195,13 @@ _current: Optional[FaultInjector] = None
 
 #: Every probe site the port exposes, by its exact label. Chaos specs
 #: target sites by these names; a site is registered next to the code
-#: that adds it. The JAX package registers more, and each arrives with
-#: the module that probes it: the worker and shard-loss sites with the
-#: multi-worker and multi-device runtimes.
+#: that adds it. The JAX package registers one more, the shard-loss
+#: site, which arrives with the multi-device runtime.
 KNOWN_PROBE_SITES = frozenset(
     {
         "serving.apply",  # serving/server.py: per-batch apply
+        "serving.worker.request",  # serving/worker.py: request handling
+        "serving.worker.heartbeat",  # serving/worker.py: heartbeat wire
         "streaming.chunk",  # workflow/streaming.py: per-chunk dispatch
         "refit.fold",  # refit/daemon.py: incremental fold
         "refit.candidate",  # refit/daemon.py: candidate, post-eval

@@ -1,10 +1,11 @@
-"""Online serving, in process: micro-batched inference for fitted
-pipelines on the card.
+"""Online serving: micro-batched inference for fitted pipelines on the
+card, in one process or across a supervised fleet of worker processes.
 
-Port of the single-process part of ``keystone_tpu/serving/``:
+Port of ``keystone_tpu/serving/``:
 
 - :mod:`registry`   — versioned models, atomic hot-swap, loading
-                      ``FittedPipeline.save`` artifacts onto a device.
+                      ``FittedPipeline.save`` artifacts and checkpoint
+                      store entries onto a device.
 - :mod:`batcher`    — bounded queue + deadline-aware micro-batch assembly
                       (max-batch / max-wait).
 - :mod:`admission`  — queue-depth backpressure; a DegradationLadder-driven
@@ -15,15 +16,34 @@ Port of the single-process part of ``keystone_tpu/serving/``:
 - :mod:`server`     — the threaded front-end: ``submit``/``submit_many``,
                       shape-bucket padding, and the ``serve`` stdin/JSON
                       CLI.
+- :mod:`worker`     — one server behind a JSON-lines control pipe: the
+                      worker-process side of the multi-worker runtime.
+- :mod:`supervisor` — N worker processes with heartbeat monitoring,
+                      backoff restarts, and in-flight requeue (a SIGKILL
+                      mid-batch drops zero requests).
+- :mod:`slo`        — drives the admission ladder from observed p99 vs
+                      target instead of queue depth.
+- :mod:`frontend`   — stdlib HTTP JSON front door over the supervisor;
+                      the stdin CLI is just another client.
+- :mod:`autoscaler` — sustained p99/backlog pressure adds workers,
+                      sustained idle drains them (zero dropped in-flight).
+- :mod:`loadgen`    — seeded diurnal/bursty/heavy-tail arrival processes
+                      and a replay harness.
+- :mod:`bootimage`  — versioned boot artifacts: fitted weights, the
+                      kernel libraries the apply loads, parity digests
+                      per bucket, refused by KV307 when stale.
 - :mod:`synthetic`  — a synthetic fitted pipeline for smoke tests.
 
-Left out for now (ROADMAP Queue A items 12–14): the multi-worker runtime
-(``worker``, ``supervisor``, ``frontend``, ``slo``, ``autoscaler``,
-``loadgen``, ``bootimage``), checkpoint loading, the refit tap and the
-serving partition.
+The modules that hold models (``registry``, ``server``, ``synthetic``,
+``bootimage``) import torch and resolve lazily (PEP 562); the fleet's
+control plane imports none of it, so a stub worker and ``serve --help``
+start without it.
+
+Left out for now (ROADMAP item 14): the sharded serving partition.
 """
 
 from .admission import DEFAULT_RUNGS, AdmissionController, AdmissionRung
+from .autoscaler import Autoscaler, AutoscalerConfig
 from .batcher import MicroBatcher
 from .config import (
     Request,
@@ -36,37 +56,45 @@ from .config import (
     bucket_for,
     default_bucket_sizes,
 )
-from .registry import ModelEntry, ModelRegistry
-from .server import PipelineServer
-from .synthetic import (
-    SyntheticDense,
-    synthetic_chain_pipeline,
-    synthetic_fitted_pipeline,
-    synthetic_requests,
-)
+from .frontend import ServingFrontend
+from .loadgen import LoadReport, bursty_offsets, diurnal_offsets, heavy_tail_offsets, run_load
+from .slo import SLO_RUNGS, SLOController
+from .supervisor import HashRing, SupervisorConfig, WorkerSupervisor
 from .telemetry import ServingTelemetry, percentile
 
-__all__ = [
-    "AdmissionController",
-    "AdmissionRung",
-    "DEFAULT_RUNGS",
-    "MicroBatcher",
-    "ModelEntry",
-    "ModelRegistry",
-    "PipelineServer",
-    "Request",
-    "RequestShed",
-    "RequestTimeout",
-    "ServerClosed",
-    "ServingConfig",
-    "ServingError",
-    "ServingTelemetry",
-    "SyntheticDense",
-    "UnknownModel",
-    "bucket_for",
-    "default_bucket_sizes",
-    "percentile",
-    "synthetic_chain_pipeline",
-    "synthetic_fitted_pipeline",
-    "synthetic_requests",
-]
+_LAZY = {
+    "ModelEntry": "keystone_tpu_torch.serving.registry",
+    "ModelRegistry": "keystone_tpu_torch.serving.registry",
+    "PipelineServer": "keystone_tpu_torch.serving.server",
+    "SyntheticDense": "keystone_tpu_torch.serving.synthetic",
+    "synthetic_chain_pipeline": "keystone_tpu_torch.serving.synthetic",
+    "synthetic_fitted_pipeline": "keystone_tpu_torch.serving.synthetic",
+    "synthetic_requests": "keystone_tpu_torch.serving.synthetic",
+    "BootImageError": "keystone_tpu_torch.serving.bootimage",
+    "BootImageModel": "keystone_tpu_torch.serving.bootimage",
+    "BootImageRefused": "keystone_tpu_torch.serving.bootimage",
+    "build_boot_image": "keystone_tpu_torch.serving.bootimage",
+    "load_boot_image": "keystone_tpu_torch.serving.bootimage",
+}
+
+__all__ = sorted(
+    [
+        "AdmissionController", "AdmissionRung", "Autoscaler", "AutoscalerConfig", "DEFAULT_RUNGS",
+        "HashRing", "LoadReport", "MicroBatcher", "Request", "RequestShed", "RequestTimeout",
+        "SLOController", "SLO_RUNGS", "ServerClosed", "ServingConfig", "ServingError",
+        "ServingFrontend", "ServingTelemetry", "SupervisorConfig", "UnknownModel",
+        "WorkerSupervisor", "bucket_for", "bursty_offsets", "default_bucket_sizes",
+        "diurnal_offsets", "heavy_tail_offsets", "percentile", "run_load",
+    ]
+    + list(_LAZY)
+)
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        import importlib
+
+        value = getattr(importlib.import_module(_LAZY[name]), name)
+        globals()[name] = value
+        return value
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

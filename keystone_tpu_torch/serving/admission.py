@@ -28,9 +28,10 @@ Two sources of rung transitions share this controller:
 - **depth mode** (default, the in-process server): each ``admit`` walks
   the rung whose ``queue_frac`` bound the current depth satisfies —
   queue depth IS the overload signal.
-- **external mode** (the JAX package's multi-worker supervisor, not
-  ported yet): rung transitions come only from :meth:`force_rung` — an
-  SLO controller pins the rung from *observed p99 vs target*, and
+- **external mode** (the multi-worker supervisor): rung transitions
+  come only from :meth:`force_rung` — the
+  :class:`~keystone_tpu_torch.serving.slo.SLOController` pins the rung
+  from *observed p99 vs target*, and
   ``admit`` just enforces the pinned rung's depth bound. Rungs then read
   inverted: the normal rung admits to the full bound and degraded rungs
   admit to SHRINKING fractions (shedding earlier is how a latency SLO is

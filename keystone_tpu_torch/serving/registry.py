@@ -28,10 +28,12 @@ import os
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import TYPE_CHECKING, Any, Dict, List, Optional
 
-from ..device import DeviceLike, resolve_device
 from .config import UnknownModel
+
+if TYPE_CHECKING:
+    from ..device import DeviceLike
 
 
 @dataclass(frozen=True)
@@ -144,6 +146,8 @@ class ModelRegistry:
         (the recovery log prints 12-hex prefixes); no match raises
         ``FileNotFoundError``, several raise ``ValueError``."""
         import torch
+
+        from ..device import resolve_device
 
         matches = [
             f for f in sorted(os.listdir(store_path))

@@ -27,31 +27,32 @@ payloads to a :class:`~keystone_tpu_torch.refit.tap.TrafficTap` after
 every future of the batch has settled; a failure in the tap is logged
 and never fails a request.
 
-Left out for now: the serving partition, the persistent compilation
-cache, and the multi-worker CLI paths.
+``serve`` with ``--workers > 1``, ``--listen``, ``--slo-p99-ms``,
+``--boot-image`` or ``--autoscale`` runs the supervised multi-worker
+runtime instead (:func:`~keystone_tpu_torch.serving.frontend.
+serve_multiworker_from_args`). torch is imported where a server is
+built, not with this module: ``serve --help`` and the fleet's front-end
+process import none of it.
+
+Left out for now: the serving partition.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import logging
 import sys
 import threading
 import time
 from concurrent.futures import Future
-from typing import Any, Dict, List, Optional, Sequence
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Sequence
 
 import numpy as np
-import torch
 
-from ..data.dataset import ArrayDataset, _stack
-from ..device import DeviceLike, resolve_device
 from ..obs import spans as _spans
 from ..ops.cuda import device_counts
 from ..reliability.faultinject import probe
 from ..reliability.retry import Deadline, RetryPolicy
-from ..utils.aot import warm_buckets
 from ..utils.tree import tree_leaves, tree_map, tree_structure
 from .admission import AdmissionController
 from .batcher import MicroBatcher
@@ -70,6 +71,9 @@ from .config import (
 from .registry import ModelEntry, ModelRegistry
 from .telemetry import ServingTelemetry
 
+if TYPE_CHECKING:
+    from ..device import DeviceLike
+
 logger = logging.getLogger("keystone_tpu_torch.serving")
 
 
@@ -86,6 +90,8 @@ class PipelineServer:
         device: DeviceLike = None,
         tap: Any = None,
     ):
+        from ..device import resolve_device
+
         self.device = resolve_device(device)
         self.config = config or ServingConfig()
         self.registry = registry or ModelRegistry()
@@ -156,6 +162,8 @@ class PipelineServer:
         a tuple/list/dict of them). Returns per-model ``bucket_<n>_s``
         seconds, and stamps the cuFFT plan-cache baseline for
         ``stats()``."""
+        from ..utils.aot import warm_buckets
+
         out: Dict[str, Any] = {}
         for model_name in models or self.registry.names():
             entry = self.registry.resolve(model_name)
@@ -172,6 +180,8 @@ class PipelineServer:
         CPU): one per FFT shape met so far in this process."""
         if self.device.type != "cuda":
             return None
+        import torch
+
         index = self.device.index if self.device.index is not None else torch.cuda.current_device()
         return torch.backends.cuda.cufft_plan_cache[index].size
 
@@ -379,6 +389,10 @@ class PipelineServer:
         """Stack payloads on the host, zero-pad to the nearest bucket,
         copy the batch to the device once, apply with retries, copy the
         output to the host once and slice the real rows out there."""
+        import torch
+
+        from ..data.dataset import ArrayDataset, _stack
+
         n = len(payloads)
         bucket = bucket_for(n, self._buckets)
         stacked = tree_map(_stack, *payloads)
@@ -431,9 +445,6 @@ class PipelineServer:
 
 # --------------------------------------------------------------------- CLI
 
-#: The JAX package's multi-worker serve flags, refused here by name.
-_FLEET_FLAGS = ("--workers > 1", "--listen", "--slo-p99-ms", "--boot-image", "--autoscale")
-
 
 def add_serve_arguments(parser) -> None:
     """Flags for the ``serve`` subcommand (plain argparse)."""
@@ -456,27 +467,52 @@ def add_serve_arguments(parser) -> None:
         "--device", default=None,
         help="torch device to serve on (default: the CUDA device; 'cpu' to serve on the CPU)",
     )
-    # Accepted so that they are refused by name (serve_from_args).
-    parser.add_argument("--workers", type=int, default=1, help=argparse.SUPPRESS)
-    parser.add_argument("--listen", default=None, help=argparse.SUPPRESS)
-    parser.add_argument("--slo-p99-ms", type=float, default=None, help=argparse.SUPPRESS)
-    parser.add_argument("--boot-image", default=None, help=argparse.SUPPRESS)
-    parser.add_argument("--autoscale", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument(
+        "--workers", type=int, default=1,
+        help="worker PROCESSES; >1 runs the supervised multi-worker runtime, "
+             "1 keeps the in-process server",
+    )
+    parser.add_argument(
+        "--listen", default=None, metavar="HOST:PORT",
+        help="also serve the HTTP JSON front-end (stdin stays a client)",
+    )
+    parser.add_argument(
+        "--slo-p99-ms", type=float, default=None,
+        help="enable the SLO controller: drive admission from observed p99 "
+             "against this target (multi-worker path)",
+    )
+    parser.add_argument(
+        "--boot-image", default=None, metavar="DIR",
+        help="boot workers from a serving boot image (build_boot_image): "
+             "weights, kernel libraries and example, no kernel build; a "
+             "stale image is refused (KV307) and the worker falls back to "
+             "the classic warm path",
+    )
+    parser.add_argument(
+        "--autoscale", action="store_true",
+        help="scale worker processes up under sustained p99/backlog pressure "
+             "and down on sustained idle",
+    )
+    parser.add_argument("--min-workers", type=int, default=None, help="autoscale floor (default 1)")
+    parser.add_argument(
+        "--max-workers", type=int, default=None, help="autoscale ceiling (default max(4, --workers))"
+    )
 
 
 def serve_from_args(args) -> int:
     """Run the stdin/JSON front-end: one request per line
     (``{"id": ..., "x": [...]}`` or a bare array), one response line per
     request as it completes, then a final ``SERVE_STATS:{...}`` line (the
-    server's stats and this process's ``device_counts``).
-    Exits 2 on the JAX package's options this port does not have yet."""
+    server's stats and this process's ``device_counts``). The fleet flags
+    route to the supervised multi-worker runtime."""
     if args.workers > 1 or args.listen or args.slo_p99_ms or args.boot_image or args.autoscale:
-        print(
-            f"serve: {', '.join(_FLEET_FLAGS)} need the multi-worker runtime, "
-            "which is not ported yet (ROADMAP Queue A item 13)",
-            file=sys.stderr,
-        )
-        return 2
+        # Autoscaling and boot images are fleet features, so either flag
+        # routes here too.
+        from .frontend import serve_multiworker_from_args
+
+        return serve_multiworker_from_args(args)
+    from ..device import resolve_device
+
     device = resolve_device(args.device)
     config = ServingConfig(
         max_batch=args.max_batch,

@@ -9,13 +9,15 @@ a ``node:<label>`` child span (attribute ``op``, the operator's type;
 ``keystone_executor_node_seconds`` histogram labelled by ``op=<label>``.
 Timing forces each operator's lazy result and, when a leaf of it lies on
 a CUDA device, waits for the device (``torch.cuda.synchronize()``), so a
-node's seconds cover its device work. Tracing is a profiling mode:
-outside ``trace()`` nothing is forced or synchronized, operators keep
-their laziness and the executor opens no node spans.
+node's seconds cover its device work. Under a span session opened
+without ``trace()`` the executor opens the same node spans; it waits for
+the device only when the session asks for real timings
+(``sync_timings``, the default), and otherwise records dispatch time,
+marked ``synced=False`` (a serving worker's session). With neither,
+nothing is forced or synchronized and operators keep their laziness.
 
 Left out for now: the cost frames and the compile counter of the JAX
-package, and node spans under a span session opened without ``trace()``
-(the JAX package's ``sync_timings`` sessions).
+package.
 """
 
 from __future__ import annotations
@@ -106,13 +108,16 @@ def _force(value: Any) -> None:
 
 
 def timed_execute(op, deps):
-    """Execute ``op``; under an active :func:`trace`, force the result,
-    wait for the device, and record the node's span, wall time and
-    histogram observation."""
+    """Execute ``op``; under an active :func:`trace` or span session,
+    record the node's span, wall time and histogram observation, forcing
+    the result and waiting for the device when the trace or the session
+    needs real timings."""
     tr = current_trace()
+    session = _spans.active_session()
     expression = op.execute(deps)
-    if tr is None:
+    if tr is None and session is None:
         return expression
+    sync = tr is not None or session.sync_timings
     label = str(getattr(op, "label", type(op).__name__))
     members = getattr(op, "member_labels", None)
     with _spans.span(f"node:{label}", op=type(op).__name__) as sp:
@@ -120,9 +125,13 @@ def timed_execute(op, deps):
             sp.set_attribute("fused_members", ",".join(members))
         start = time.perf_counter()
         value = expression.get()
-        _force(value)
+        if sync:
+            _force(value)
         seconds = time.perf_counter() - start
         sp.set_attribute("seconds", round(seconds, 6))
-    tr.record(label, seconds)
+        if not sync:
+            sp.set_attribute("synced", False)
+    if tr is not None:
+        tr.record(label, seconds)
     _names.metric(_names.NODE_SECONDS).observe(seconds, op=label)
     return expression

@@ -1,10 +1,10 @@
-"""Verification of persisted and published state: the resume and publish
-checks.
+"""Verification of persisted and published state: the resume, publish
+and boot-image checks.
 
 Port of the first part of ``keystone_tpu/workflow/verify.py``: the
 diagnostic record, the report, the ``KEYSTONE_VERIFY`` enforcement mode
-and the two checks the durable-fit and refit layers run before they act
-on state another process or another round produced:
+and the three checks the durable-fit, refit and serving layers run
+before they act on state another process or another round produced:
 
 ========  ========  ====================================================
 code      severity  meaning
@@ -18,6 +18,10 @@ KV306     error     a persisted mid-stream resume entry's fingerprints
                     digest, featurized width/dtype) disagree with the
                     re-planned pipeline — seeding a fold from it would
                     silently corrupt the fit (:func:`verify_stream_resume`)
+KV307     error     a serving boot image's fingerprints (format, torch
+                    and CUDA versions, card and compute capability, the
+                    kernel sources' hash, the weights digest) disagree
+                    with the loading worker's (:func:`verify_boot_image`)
 ========  ========  ====================================================
 
 The JAX package reads a candidate's apply spec by shape-only tracing
@@ -28,7 +32,7 @@ chain. The ``meta`` device is not used: the cuBLAS binding cannot launch
 on it, so the check would read UNKNOWN on the card.
 
 The graph verifier (shape propagation over a whole pipeline, codes
-KV1xx–KV4xx and KV307–KV308) is ROADMAP Queue A item 13 and not here.
+KV1xx–KV4xx and KV308) is ROADMAP Queue A item 13b and not here.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ WARNING = "warning"
 CODES: Dict[str, Tuple[str, str]] = {
     "KV305": (ERROR, "refit candidate disagrees with incumbent warm state"),
     "KV306": (ERROR, "stale stream-resume entry refused"),
+    "KV307": (ERROR, "stale serving boot image refused"),
 }
 
 
@@ -298,6 +303,59 @@ def verify_stream_resume(cursor: Any, current: Dict[str, Any], context: str = "s
     return report
 
 
+# -------------------------------------------------------------- KV307
+
+#: manifest/environment fields verify_boot_image compares, with the human
+#: titles its diagnostics use. serving/bootimage.py builds both sides.
+BOOT_IMAGE_FINGERPRINTS: Tuple[Tuple[str, str], ...] = (
+    ("format_version", "artifact format version"),
+    ("torch_version", "torch version"),
+    ("cuda_version", "CUDA version"),
+    ("device_name", "device"),
+    ("compute_capability", "compute capability"),
+    ("kernel_sources", "kernel sources hash"),
+    ("weights_digest", "fitted-weights digest"),
+)
+
+
+def verify_boot_image(
+    manifest: Dict[str, Any], current: Dict[str, Any], context: str = "boot-image"
+) -> VerifyReport:
+    """The serving face of stale-state corruption (KV307).
+
+    A boot image carries the fitted weights, the kernel libraries the
+    model's apply loads and the parity digests of its build — sound to
+    serve from only when the loading worker's environment matches the
+    builder's: the same artifact format, torch and CUDA versions (the
+    pickled model and the libraries' ABI), the same card and compute
+    capability (libraries built for ``sm_90a``; digests of products on
+    that card), the same kernel sources (a library built from other
+    sources must not be placed where ``_build`` looks), and the same
+    weights digest (a ``model.pkl`` that is not the one the digests were
+    taken from). Any disagreement refuses the image: the worker falls
+    back to the classic warm path — slower first request, never garbage.
+    Pure host-side comparison, no device work."""
+    t0 = time.perf_counter()
+    report = VerifyReport(context=context)
+    for field_name, title in BOOT_IMAGE_FINGERPRINTS:
+        have = manifest.get(field_name)
+        want = current.get(field_name)
+        if have != want:
+            report.diag(
+                "KV307",
+                f"boot image's {title} ({str(have)[:24]}) disagrees with "
+                f"this worker's ({str(want)[:24]}) — serving from it could "
+                "return garbage; the image is refused and the worker warms "
+                "through the classic path",
+                field=field_name,
+                image=str(have)[:24],
+                worker=str(want)[:24],
+            )
+    report.seconds = time.perf_counter() - t0
+    _publish(report, context)
+    return report
+
+
 __all__ = [
     "CODES",
     "Diagnostic",
@@ -305,6 +363,7 @@ __all__ = [
     "VerificationError",
     "VerifyReport",
     "verification_mode",
+    "verify_boot_image",
     "verify_refit_publish",
     "verify_stream_resume",
 ]

@@ -1,6 +1,7 @@
 """Guards on the port package: it imports neither JAX nor the JAX
 package, it never runs on the CPU unless asked, and a CUDA tensor never
-falls back to the plain version."""
+falls back to the plain version; the fleet's stub workers and ``serve
+--help`` start without torch."""
 
 import json
 import subprocess
@@ -156,8 +157,55 @@ print(json.dumps({"imported": names, "bad": bad}))
         "keystone_tpu_torch.ops.nlp.corenlp",
         "keystone_tpu_torch.ops.learning.lda",
         "keystone_tpu_torch.pipelines.stupid_backoff",
+        "keystone_tpu_torch.obs.export",
+        "keystone_tpu_torch.obs.fleet",
+        "keystone_tpu_torch.serving.worker",
+        "keystone_tpu_torch.serving.supervisor",
+        "keystone_tpu_torch.serving.frontend",
+        "keystone_tpu_torch.serving.slo",
+        "keystone_tpu_torch.serving.autoscaler",
+        "keystone_tpu_torch.serving.loadgen",
+        "keystone_tpu_torch.serving.bootimage",
     }
     assert expected <= set(result["imported"])
+
+
+#: Runs a port entry point in a fresh interpreter and reports, on its
+#: last stderr line, whether torch was imported.
+_NO_TORCH_PROBE = """
+import runpy, sys
+sys.argv = {argv!r}
+try:
+    runpy.run_module({module!r}, run_name="__main__")
+except SystemExit:
+    pass
+sys.stderr.write("\\nTORCH_IMPORTED=%s\\n" % ("torch" in sys.modules))
+"""
+
+
+@pytest.mark.parametrize(
+    "module,argv,stdin,expect",
+    [
+        (
+            "keystone_tpu_torch.serving.worker",
+            ["worker", "--spec", '{"stub": {}}', "--worker-id", "7"],
+            '{"kind": "request", "id": 1, "x": [1.5]}\n{"kind": "shutdown"}\n',
+            '"y": [3.0]',
+        ),
+        ("keystone_tpu_torch", ["keystone_tpu_torch", "serve", "--help"], "", "--autoscale"),
+    ],
+    ids=["stub_worker", "serve_help"],
+)
+def test_fleet_entry_points_import_no_torch(module, argv, stdin, expect):
+    """A stub serving worker answers, and ``serve --help`` prints the fleet
+    flags, without importing torch: the fleet's control plane stays light."""
+    out = subprocess.run(
+        [sys.executable, "-c", _NO_TORCH_PROBE.format(argv=argv, module=module)],
+        cwd=REPO, input=stdin, capture_output=True, text=True, timeout=60,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert expect in out.stdout
+    assert out.stderr.strip().splitlines()[-1] == "TORCH_IMPORTED=False"
 
 
 def test_kernel_sources_ship_in_the_package():

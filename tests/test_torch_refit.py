@@ -366,7 +366,7 @@ def test_supervised_loop_runs_rounds_and_stops(tmp_path):
         server.stop()
 
 
-@pytest.mark.parametrize("kwargs,item", [({"scheduler": object()}, "item 13"), ({"partition": object()}, "item 14")])
+@pytest.mark.parametrize("kwargs,item", [({"scheduler": object()}, "item 13b"), ({"partition": object()}, "item 14")])
 def test_daemon_refuses_what_is_not_ported(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         RefitDaemon(LinearMapEstimator(device="cpu"), TrafficTap(), object(), **kwargs)

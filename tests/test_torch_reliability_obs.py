@@ -342,13 +342,26 @@ def test_trace_spans_histogram_and_rule_counters_match_jax():
 
 
 def test_nothing_is_traced_outside_trace():
-    (_, _), (tpipe, _) = _mnist_pipelines()
+    """With neither ``trace()`` nor a span session the executor records
+    nothing; under a bare session both packages open the same node
+    spans (``sync_timings=False``: dispatch time, marked ``synced``)."""
+    from keystone_tpu.obs import spans as jspans
+
+    (jpipe, _), (tpipe, _) = _mnist_pipelines()
     hist = tnames.metric(tnames.NODE_SECONDS)
     before = hist.count(op="BlockLeastSquaresEstimator")
-    with tspans.tracing_session("bare") as session:
-        tpipe.fit()
-    assert session.find("node:") == []
+    tpipe.fit()
     assert hist.count(op="BlockLeastSquaresEstimator") == before
+    texec.PipelineEnv.reset()  # the untraced fit's saved state would be reused
+    with tspans.tracing_session("bare", sync_timings=False) as session:
+        tpipe.fit()
+    with jspans.tracing_session("bare", sync_timings=False) as jsession:
+        jpipe.fit()
+    t_nodes = Counter(s.name for s in session.find("node:"))
+    j_nodes = Counter(s.name for s in jsession.find("node:"))
+    assert t_nodes == j_nodes and t_nodes[f"node:{FUSED}"] == 2
+    assert all(s.attributes["synced"] is False for s in session.find("node:"))
+    assert hist.count(op="BlockLeastSquaresEstimator") == before + 1
 
 
 # ------------------------------------------------------------------- store

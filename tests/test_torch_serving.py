@@ -704,8 +704,8 @@ def test_serve_cli_synthetic_roundtrip():
 @pytest.mark.parametrize(
     "args,status,message",
     [
-        (["--synthetic", "4", "--device", "cpu", "--workers", "2"], 2, "item 13"),
-        (["--synthetic", "4", "--device", "cpu", "--listen", "localhost:0"], 2, "item 13"),
+        (["--device", "cpu", "--workers", "2"], 2, "need --model"),
+        (["--device", "cpu", "--listen", "localhost:0"], 2, "need --model"),
         (["--checkpoint-dir", "x", "--digest", "y", "--device", "cpu"], 1, "FileNotFoundError"),
         (["--synthetic", "4"], 1, "device='cpu'"),
     ],
