@@ -138,9 +138,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 16. solver_ladder — the six rows of the JAX sweep's ``FULL_GRID``
    (``scripts/solver_comparison.py``): (500,000, 1,024, 138),
    (500,000, 2,048, 138) and (1,000,000, 1,024, 138) dense, drawn on the
-   card, and (1,000,000, 1,024, 2), (250,000, 4,096, 2) and (250,000,
-   16,384, 2) at density 0.005 (the sweep's 10^6 rows cut for the 660 s
-   cap at the two widest: cuts 3 and 4) as host CSR matrices. Each eligible rung of the sweep's
+   card, and (250,000, 1,024, 2), (250,000, 4,096, 2) and (250,000,
+   16,384, 2) at density 0.005 (the sweep's 10^6 rows cut for the time
+   cap: cuts 3, 4 and 10) as host CSR matrices. Each eligible rung of the sweep's
    ``solvers()`` (``exact``, ``block`` 1,024 × 3 epochs, ``lbfgs`` 20
    iterations; only ``sparse_lbfgs`` on the sparse rows) is timed after
    one warm fit (the host ``sparse_lbfgs`` cold), with its train MSE;
@@ -159,16 +159,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    own site too, whose ladder halves 4,096 → 2,048; scores within 1e-6 of
    a direct block fit at 2,048;
 18. newsgroups — ``run_newsgroups`` on a synthetic 20-class directory tree
-   of 11,314 train and 7,532 test documents (Zipf vocabularies from the
-   seed), 2-grams, 100,000 common features: the vectorizer is exactly
+   of 5,657 train and 3,766 test documents (half of 20news-bydate's
+   11,314 / 7,532, cut 5; Zipf vocabularies from the seed), 2-grams,
+   100,000 common features: the vectorizer is exactly
    100,000 wide, naive Bayes's (π, θ) within 1e-5 of a float64 closed
    form on the card over the fit's own inputs; ``featurize_s``,
    ``densify_s``, ``fit_s``, ``apply_s`` from ``trace()``, test error and
    the host's peak RSS;
 19. amazon_reviews — ``run_amazon`` on synthetic JSON-lines reviews
    (polarity lexicons plus Zipf filler), threshold 3.5, 2-grams, 100,000
-   common features, 20 iterations, the reference's 65M rows cut to 32,768
-   train / 8,192 test (a 13.1 GB dense train matrix): L-BFGS iterations,
+   common features, 20 iterations, the reference's 65M rows cut to 16,384
+   train / 4,096 test (a 6.6 GB dense train matrix; cut 6): L-BFGS iterations,
    objective evaluations, the objective per iteration (non-increasing to
    the line search's 1e-6·|f| allowance), ``fit_s`` and accuracy;
 20. sketched — ``bench.py::_bench_sketched`` at its full shape: 2,048 ×
@@ -186,7 +187,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 21. timit_sketched — TIMIT's featurizer at its published width (50 ×
    4,096 cosine features) as one chunk member over the raw 440-wide rows,
    fitted by ``LeastSquaresEstimator.fit_stream`` (which picks the
-   sketched rung, CountSketch, s = 4,096) on 131,072 synthetic rows in 32
+   sketched rung, CountSketch, s = 4,096) on 65,536 synthetic rows (cut 12) in 16
    chunks; the fit's wall split into fold, capture and finish (spans);
    the captured carry exactly 3,358,687,820 B; W within 1e-5 of a float64
    solve of the same carry with plain PyTorch on the card; K of that
@@ -196,7 +197,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    rows, not gated); the peak under the card's memory;
 22. kernel_ridge — ``KernelRidgeRegression`` at RandomPatchCifarKernel's
    configuration (γ = 2e-4, block 2,048, 1 epoch, permuter 12,334, λ =
-   1e-3) on 50,000 / 10,000 synthetic class-centred rows of d = 800, k =
+   1e-3) on 25,000 / 5,000 (cut 13) synthetic class-centred rows of d = 800, k =
    10: fit and apply seconds, test error, scores against a float64 sweep
    in plain PyTorch (``KRR_FP64_TOL``), the same fit on the CPU at 4,096
    rows (``KRR_CPU_TOL``); the Nyström rung at 2,048 landmarks (its host
@@ -244,7 +245,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``pipelines/voc.py::run`` at the JAX CLI's default configuration
    (desc_dim 80, vocab 256, λ 0.5, 10⁶ PCA and GMM samples, 256×256,
    block 4,096: 24,030 descriptors of 128 per image, 40,960 features) on
-   generated 500×375 JPEG tars of 2,048 train / 1,024 test images (20
+   generated 500×375 JPEG tars of 1,024 train / 512 test images (cut 7; 20
    classes of oriented gratings, 1–3 per image; ``VOC_*`` says why the
    cut): its seconds split by node and span (ingest, SIFT, the sample
    draws, the PCA pick and fit, the host k-means++ seeding, Lloyd, EM and
@@ -285,7 +286,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 30. imagenet_cli — ``python -m keystone_tpu_torch imagenet-sift-lcs-fv``
    at the defaults on a 64-image tar, in a subprocess beside ``run()`` on
    the same tar: the same top-5 error;
-31. imagenet_native — ``run_native_resolution`` on the first 512 of
+31. imagenet_native — ``run_native_resolution`` on the first 256 (cut 14) of
    1,024 JPEGs at five ImageNet sizes (granularity 32, 10⁶ PCA and GMM
    samples): the split by span, the peak, training top-5 error; over all
    1,024 the buckets and padding share and, on each bucket's first two
@@ -294,7 +295,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``IMAGENET_LCS_STD_ABS``);
 32. imagenet_streaming_ondevice — the fused streaming flagship through
    ``pipelines/imagenet_streaming.py::run_flagship_ondevice`` at the JAX
-   package's defaults (50,000 + 5,000 images of 256×256 generated on the
+   package's defaults at 25,000 + 2,500 images (cut 11) of 256×256 generated on the
    card in batches of 64, 1,000 classes, the reference configuration's
    widths): codebook, encode, solve and predict seconds, images/s, the
    solve's path and largest class, the peak (< 20 GB), the test top-5
@@ -351,7 +352,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    fit;
 40. refit_full — ``run_refit_demo`` in this process at the README main
    path's width (MNIST random-FFT's linear head: d = 2,048, 10 classes),
-   65,536 labeled rows per round, 1,024-row chunks, the CLI's defaults
+   32,768 labeled rows per round (cut 8), 1,024-row chunks, the CLI's defaults
    otherwise: the same invariants, the round-1 candidate's weights ≤
    ``REFIT_FP64_TOL`` from a float64 solve of the same statistics, and
    per round ``fold_s``, the state save's seconds and bytes, the round's
@@ -381,8 +382,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    --workers 1 --autoscale --min-workers 1 --max-workers 3 --boot-image
    DIR --slo-p99-ms`` (2× phase 41's 1-worker p99; one row a batch,
    ``FLEET_REPLAY_MAX_BATCH`` says why) under a seeded
-   ``bursty_offsets`` replay through ``run_load`` (bursts at 2× its
-   1-worker requests/s, base 0.2×), then no traffic until it drains back
+   ``bursty_offsets`` replay of 4 s (cut 9) through ``run_load`` (bursts
+   at 2× its 1-worker requests/s, base 0.2×), then no traffic until it drains back
    to one worker: ≥ 1 ``scale_up`` and ``scale_down``, nothing dropped,
    ``slo`` transitions in the ledger, every answer's label equal;
 43. fleet_publish — two card workers serving ``refit_full``'s incumbent
@@ -390,15 +391,55 @@ Phases, in order; any failure raises and the script exits non-zero:
    round-1 candidate and rolls it back while 8 clients send 2,048-wide
    rows: every worker acks each swap with its ``warmup_s``, nothing
    dropped, every answer within ``PUBLISH_TOL`` of the version that
-   served it.
+   served it;
+44. roofline_probe — ``obs/cost.py``'s roofline on the card: one 8,192²
+   product per binding kind (IEEE fp32, TF32, bf16, fp64; CUDA events,
+   min of 3) and a 1 GiB device copy, each > 0 and ≤ 1.05× the data
+   sheet (67 / 495 / 989 / 67 TFLOP/s, 3.35 TB/s);
+45. explain_card — ``explain`` in this process on the hashing-TF slice
+   (phase 3's corpus and shape, one pass): its fit node's ELL facts equal
+   phase 2's bound counts (2 launches); on the MNIST random-FFT pipeline
+   at full width (16,384 rows); on ``explain``'s synthetic pipeline,
+   clean (no drift event) and with ``--seed-drift 4`` (exactly one, the
+   sentinel's band at 2×: ``EXPLAIN_DRIFT_RATIO`` says why); every node's
+   share of its roofline ≤ 1.05;
+46. tune_card — ``tune --tasks stream,solver,blocksparse`` at the JAX
+   CLI's default shape (8,192 × 256, 4 classes; 6 candidates and 6 s a
+   task) into a store of its own: winners under the three key families
+   with ``source: tune``, ELL launches in the density sweep, the tuned
+   crossover beside the 0.05 default; an MNIST fit under
+   ``KEYSTONE_MEASURED_KNOBS=all`` then reads them (the override counter
+   moves);
+47. profile_card — ``profile`` (8,192 rows, 4 × 2,048, 64 served
+   requests): valid Chrome JSON with a ``solver:fit`` span under a
+   ``node:*`` span under ``profile``, and the Prometheus file's device
+   memory gauges non-zero for each phase;
+48. cosched — ``sched/demo.py``: the MNIST artifact served at 320
+   requests/s while ``refit_full``'s head (d = 2,048, 10 classes) folds
+   16,384 rows a round, serially and co-scheduled with a seeded
+   preemption: nothing dropped, the preempted fold resumed from its
+   cursor and published, the final states within 1e-6; serial against
+   co-scheduled wall and serving p99;
+49. trace_fleet — ``python -m keystone_tpu_torch trace`` with two card
+   workers serving a synthetic 64-wide pipeline, 64 HTTP requests: every
+   request answered, the merged trace holding the front end and both
+   workers, none in ``fragments_missing``;
+50. obs_cli — on the host: ``bench-diff`` between artifacts made of this
+   run's phase lines (itself: OK; one dropped request: a regression; a
+   CPU baseline: counts only) and ``quality`` (clean: exit 0; a 3σ shift:
+   exit 2 with one rollback).
 
 Where the compiler finds no ``jpeglib.h`` the script prints
 ``native_decode: unavailable (no jpeglib.h)`` and every VOC and ImageNet
 phase decodes with PIL (``use_native=False``, passed explicitly).
 
-Phases 4–14, 16 and 18–43 reach no ELL kernel: each sets its count to 0
-and fails if it moved; phase 15 launches it only in
-``oom_injected_sparse``, phase 17 exactly twice. Every phase
+Phases 4–14, 16, 18–44 and 47–50 reach no ELL kernel: each sets its
+count to 0 and fails if it moved; phase 15 launches it only in
+``oom_injected_sparse``, phase 17 exactly twice, phase 45 in the hashing-TF
+fit (twice in its node) and the auto-cache planner's sample fits, phase
+46 in the density sweep's sparse legs. Inside ``solver_ladder`` a
+``cost_constants_fit`` line fits the cost model's weights to the rungs'
+times (``keystone_tpu_torch/tools/solver_comparison.py``). Every phase
 starts from a reset ``PipelineEnv`` and reports its peak device memory
 and the solver binding's calls per product kind (``ops/cuda/gemm.py``).
 Phases 37–39 and 41–43 run their work in other processes (``python -m
@@ -524,7 +565,9 @@ DURABLE_KILL_CALL, DURABLE_CURSOR, DURABLE_TOL = 48, 32, 1e-5
 SERVE_CKPT_TOL = 1e-6
 # Refit at the README main path's width; candidate weights against a
 # float64 solve of the same statistics.
-REFIT_FULL = {"d": 2048, "classes": 10, "rows_per_round": 65_536, "chunk_rows": 1024}
+# Cut 8: 32,768 labeled rows a round (was 65,536); width, classes
+# and chunk rows stay.
+REFIT_FULL = {"d": 2048, "classes": 10, "rows_per_round": 32_768, "chunk_rows": 1024}
 REFIT_FP64_TOL = 1e-5
 
 # The serving fleet (phases 41–43): worker processes on this one card,
@@ -552,7 +595,11 @@ FLEET_WORKER_QUEUE, FLEET_BUCKETS = 4096, (1, 2, 4, 8, 16, 32, 64)
 # on average over 10 s, seeded; then up to 60 s of no traffic for the
 # scale-down (the autoscaler's 4 s idle and 8 s cooldown, a worker's
 # drain).
-FLEET_TRACE_S, FLEET_BURST_S, FLEET_QUIET_S, FLEET_TRACE_SEED = 10.0, 2.0, 4.0, 7
+# Cut 9: a 4 s replay (was 10 s) at the same burst schedule (2 s bursts
+# at 2×, 4 s quiet at 0.2× the 1-worker rate). At one row a batch the
+# fleet serves far below the burst rate, so the replay's wall is the
+# offered count over that rate: 9,154 requests took 25 s in a 6 s trace.
+FLEET_TRACE_S, FLEET_BURST_S, FLEET_QUIET_S, FLEET_TRACE_SEED = 4.0, 2.0, 4.0, 7
 # Publish across the fleet: each answer against the version that served
 # it, applied in this process to all probe rows at once (another batch
 # shape than the worker's bucket: fp32 products round in another order).
@@ -603,7 +650,12 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+#: Each phase's last line, by phase (``obs_cli`` diffs some of them).
+PHASE_LINES: dict = {}
+
+
 def log(phase: str, **fields) -> None:
+    PHASE_LINES[phase] = fields
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
@@ -1121,19 +1173,20 @@ def _mnist_start():
     gemm.reset_launches()
 
 
-def _mnist_end(phase: str) -> dict:
-    """The phase's peak memory and solver-binding calls per product kind;
-    raises if the ELL kernel was launched."""
+def _mnist_end(phase: str, ell_allowed: bool = False) -> dict:
+    """The phase's peak memory, ELL launches and solver-binding calls per
+    product kind; raises if the ELL kernel was launched unless
+    ``ell_allowed``."""
     import torch
 
     from keystone_tpu_torch.ops.cuda import blocksparse as bs
     from keystone_tpu_torch.ops.cuda import gemm
 
     torch.cuda.synchronize()
-    if bs.ell_matmul.launches != 0:
+    if bs.ell_matmul.launches != 0 and not ell_allowed:
         raise AssertionError(f"{phase} launched the ELL kernel {bs.ell_matmul.launches} times")
     SOLVER_GEMM_CALLS[phase] = dict(gemm.launches)
-    return {"peak_device_bytes": torch.cuda.max_memory_allocated(), "ell_launches": 0,
+    return {"peak_device_bytes": torch.cuda.max_memory_allocated(), "ell_launches": bs.ell_matmul.launches,
             "solver_gemm_launches": dict(gemm.launches)}
 
 
@@ -1934,16 +1987,16 @@ def phase_solver_precision(device, flags_around_import) -> int:
 
 
 def card_peaks() -> dict:
-    """Data-sheet dense peaks (FLOP/s) of the card by its name: bf16 and
-    TF32 on the tensor cores, fp32 outside them. Raises for a card it
+    """Data-sheet dense peaks (FLOP/s) of the card by its name: bf16, TF32
+    and fp64 on the tensor cores, fp32 outside them. Raises for a card it
     does not know."""
     import torch
 
     name = torch.cuda.get_device_name(0)
     if "H100" in name and "PCIe" in name:
-        return {"bf16": 756e12, "tf32": 378e12, "fp32": 51e12, "bytes_per_s": 2.0e12}
+        return {"bf16": 756e12, "tf32": 378e12, "fp32": 51e12, "fp64": 51e12, "bytes_per_s": 2.0e12}
     if "H100" in name or "H200" in name:
-        return {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12,
+        return {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12, "fp64": 67e12,
                 "bytes_per_s": 4.8e12 if "H200" in name else 3.35e12}
     raise AssertionError(f"no data-sheet peaks for {name!r}")
 
@@ -2711,7 +2764,10 @@ LADDER_GRID = (
     (500_000, 1024, 138, 1.0),
     (500_000, 2048, 138, 1.0),
     (1_000_000, 1024, 138, 1.0),
-    (1_000_000, 1024, 2, 0.005),
+    # Cut 10: the sparse d = 1,024 row at 250,000 of the sweep's
+    # 10^6 rows (its host L-BFGS fit), width and density kept; no gate
+    # reads its pick.
+    (250_000, 1024, 2, 0.005),
     # Cuts 3 and 4 for the 660 s cap (ROADMAP "Tests"): the sweep's 10^6
     # rows at d = 16,384 spent 34.7 s in one host scipy L-BFGS fit, run
     # twice (timed, and as the pipeline's pick), and the d = 4,096 row
@@ -2743,6 +2799,11 @@ LS_SITE = "LeastSquaresEstimator.solve"
 # 7,532 test) and configuration (NewsgroupsPipeline: 2-grams, 100,000
 # common features); the NB parameters against a float64 closed form.
 NG_TRAIN, NG_TEST, NG_FEATURES, NB_TOL = 11_314, 7_532, 100_000, 1e-5
+# Cut 5 for the time cap: half of each split's documents, 5,657
+# train and 3,766 test. The configuration stays (2-grams, 100,000 common
+# features: the half corpus still holds ~340,000 distinct uni- and
+# bigrams, so the vectorizer stays exactly 100,000 wide).
+NG_TRAIN, NG_TEST = NG_TRAIN // 2, NG_TEST // 2
 # The synthetic text's own parameters have no public source: the tokens
 # per document, the vocabulary and lexicon sizes, the topic and polarity
 # shares and the Zipf exponent (1.1, near the exponent of about 1 of
@@ -2755,6 +2816,10 @@ NG_DOC_TOKENS, NG_VOCAB, NG_TOPIC_WORDS, NG_TOPIC_SHARE = 100, 50_000, 2_000, 0.
 # the reference's 65M reviews to 32,768 / 8,192: a 13.1 GB dense float32
 # train matrix after Densify.
 AMAZON_TRAIN, AMAZON_TEST, AMAZON_REFERENCE_ROWS, AMAZON_FEATURES = 32_768, 8_192, 65_000_000, 100_000
+# Cut 6: 16,384 train / 4,096 test reviews (a 6.6 GB dense train
+# matrix); the configuration stays (~520,000 distinct uni- and bigrams
+# at this size: the vectorizer stays 100,000 wide).
+AMAZON_TRAIN, AMAZON_TEST = AMAZON_TRAIN // 2, AMAZON_TEST // 2
 AMAZON_DOC_TOKENS, AMAZON_LEXICON, AMAZON_POLAR_SHARE, AMAZON_NOISE_SHARE = 60, 300, 0.15, 0.03
 
 
@@ -2964,6 +3029,7 @@ def phase_solver_ladder(device) -> int:
                 row["failed"].append("pick_is_not_the_fastest_rung")
         log("solver_ladder_row", **row)
         rows.append(row)
+    fit_cost_constants(rows)
     end = _mnist_end("solver_ladder")
     failed = {f"{r['shape']}": r["failed"] for r in rows if r["failed"] or not r["pipeline_finite"]}
     log("solver_ladder", seconds=time.perf_counter() - t0,
@@ -2971,6 +3037,28 @@ def phase_solver_ladder(device) -> int:
     if failed:
         raise AssertionError(f"solver_ladder failed {failed}")
     return 0
+
+
+def fit_cost_constants(rows: list) -> dict:
+    """``keystone_tpu_torch.tools.solver_comparison``'s constant fit on the
+    ladder's measured rung times, each weight bounded below by the card's
+    data-sheet peak (``cuda_weights()``): the fitted ``CostWeights``
+    beside the defaults, printed only (the defaults stay)."""
+    from keystone_tpu_torch.ops.learning.cost import cuda_weights
+    from keystone_tpu_torch.tools.solver_comparison import fit_constants
+
+    measured = [
+        {"solver": name, "n": r["shape"][0], "d": r["shape"][1], "k": r["shape"][2],
+         "sparsity": r["density"], "ms": e["ms"], "machines": 1}
+        for r in rows for name, e in r["rungs"].items()
+    ]
+    defaults = cuda_weights()
+    fitted = fit_constants(measured, defaults)
+    log("cost_constants_fit", fitted={k: fitted[k] for k in ("cpu", "mem", "network", "dispatch_intercept_ms")},
+        defaults={"cpu": defaults.cpu, "mem": defaults.mem, "network": defaults.network},
+        fit_residual_ms=fitted["fit_residual_ms"], per_row_rel_residual=fitted["per_row_rel_residual"],
+        host_sparse=fitted.get("host_sparse"))
+    return fitted
 
 
 def phase_least_squares_ladder(device, slice_fit) -> int:
@@ -3050,7 +3138,7 @@ def _split_docs(words, lengths):
 
 def newsgroups_corpus(root, seed):
     """The 20-class directory tree (``load_newsgroups``'s layout) with
-    20news-bydate's 11,314 train and 7,532 test documents under ``root``.
+    ``NG_TRAIN`` train and ``NG_TEST`` test documents under ``root``.
     A document of class c has 10 + Poisson(100) tokens: each, with odds 3
     in 4, from a Zipf law over a shared 50,000-word vocabulary, else from
     a Zipf law over class c's own 2,000 topic words (a seeded draw from
@@ -3339,6 +3427,9 @@ SK_SRHT_REG = 1.0
 # timit_sketched: TIMIT's featurizer at its published width, rows cut
 # from 2,200,000 to 131,072 train (32 chunks) and 16,384 test.
 TS_TRAIN, TS_TEST, TS_CHUNK = 131_072, 16_384, 4096
+# Cut 12: 65,536 train rows (16 chunks); the sketch (s = 4,096),
+# the width and the carry's bytes stay.
+TS_TRAIN = TS_TRAIN // 2
 TS_STATE_BYTES, TS_GRAM_BYTES, TS_FP64_TOL = 3_358_687_820, 167_892_582_400, 1e-5
 # kernel_ridge: RandomPatchCifarKernel's KRR (keystone_tpu/pipelines/cifar.py:
 # gamma, kernel_block_size, num_epochs, seed as block_permuter; d = 8 ·
@@ -3347,6 +3438,8 @@ TS_STATE_BYTES, TS_GRAM_BYTES, TS_FP64_TOL = 3_358_687_820, 167_892_582_400, 1e-
 # The features are synthetic (class-centred Gaussian rows, standardized):
 # the generator and the Nyström landmark count are unsourced.
 KRR_N, KRR_TEST, KRR_D, KRR_K = 50_000, 10_000, 800, 10
+# Cut 13: 25,000 / 5,000 rows; γ, the block, λ and d stay.
+KRR_N, KRR_TEST = KRR_N // 2, KRR_TEST // 2
 KRR_GAMMA, KRR_BLOCK, KRR_EPOCHS, KRR_PERMUTER, KRR_REG = 2e-4, 2048, 1, 12334, 1e-3
 KRR_SPREAD, KRR_SEED, KRR_CPU_ROWS, KRR_NYSTROM = 2.0, 7, 4096, 2048
 # fp32 sweeps against float64 and against each other: γ·‖a − b‖² ≈ 0.3
@@ -4166,6 +4259,10 @@ def phase_cifar_workloads(device) -> int:
 # script's flags on a 64-image tar (train = test), against run() on the
 # same tar.
 VOC_TRAIN, VOC_TEST, VOC_CLI_IMAGES = 2048, 1024, 64
+# Cut 7: 1,024 train / 512 test images (51 per class); the
+# configuration stays (10⁶ PCA and GMM samples still come from 24.6M
+# descriptors).
+VOC_TRAIN, VOC_TEST = VOC_TRAIN // 2, VOC_TEST // 2
 VOC_WIDTH, VOC_HEIGHT, VOC_CLASSES, VOC_SEED = 500, 375, 20, 7
 VOC_PERIODS, VOC_AMPLITUDE, VOC_NOISE, VOC_QUALITY = (14.0, 30.0), 60.0, 12.0, 85
 VOC_LABEL_COUNTS, VOC_LABEL_SHARES = (1, 2, 3), (0.5, 0.35, 0.15)
@@ -4544,12 +4641,13 @@ NATIVE_DECODE_MEAN_ABS = 1.5  # at the source size (tests/native/test_native_ker
 # output whole (PERF.md §4 lists the prediction of the peak).
 # imagenet_cli: the CLI at the defaults on a 64-image tar of 16 classes
 # (train = test) beside run() on it. imagenet_native: run_native_resolution
-# on the first 512 of 1,024 JPEGs at ImageNet's common sizes (cut from all
-# 1,024 to keep the script under its 660 s cap; its gate and the streaming
+# on the first 256 of 1,024 JPEGs at ImageNet's common sizes (cut from all
+# 1,024 for the time cap, cuts 1 and 14; its gate and the streaming
 # phase 33 still read all 1,024), granularity 32, with the PCA
 # and GMM samples cut to 10⁶ each (the time budget).
 IMAGENET_TRAIN, IMAGENET_TEST, IMAGENET_CLI_IMAGES, IMAGENET_NATIVE_IMAGES = 2048, 1000, 64, 1024
-IMAGENET_NATIVE_RUN_IMAGES = 512
+# Cut 14: 256 (cut 1 took it to 512).
+IMAGENET_NATIVE_RUN_IMAGES = 256
 IMAGENET_CLASSES, IMAGENET_CLI_CLASSES, IMAGENET_SEED = 1000, 16, 13
 IMAGENET_SIZE = (500, 375)  # (width, height), as ImageNet's sizes are quoted
 IMAGENET_NATIVE_SIZES = ((500, 375), (375, 500), (500, 333), (333, 500), (400, 300))
@@ -5041,7 +5139,7 @@ def phase_imagenet_cli(device, paths, use_native) -> int:
 
 
 def phase_imagenet_native(device, paths):
-    """Phase 31: ``run_native_resolution`` on the first 512 of 1,024 JPEGs
+    """Phase 31: ``run_native_resolution`` on the first ``IMAGENET_NATIVE_RUN_IMAGES`` of 1,024 JPEGs
     at ImageNet's common sizes (granularity 32; PCA and GMM samples cut to
     10⁶): the split by span, the peak, the training top-5 error; over all
     1,024, the buckets and their padding share and, per bucket, the masked
@@ -5153,6 +5251,9 @@ def phase_imagenet_native(device, paths):
 # path: 16 KB of rows per image, not the materialized phase's 57 GB at
 # 2,048 images) and the test top-5 error (chance is 99.5%).
 STREAM_TRAIN, STREAM_TEST, STREAM_CLASSES, STREAM_SIZE, STREAM_BATCH = 50_000, 5_000, 1_000, 256, 64
+# Cut 11: 25,000 train / 2,500 test images (25 a class), the
+# configuration and widths kept.
+STREAM_TRAIN, STREAM_TEST = STREAM_TRAIN // 2, STREAM_TEST // 2
 STREAM_FUSED_TOL, STREAM_CARD_VS_CPU_TOL, STREAM_GATE_IMAGES = 1e-5, 5e-3, 8
 STREAM_FP64_CLASSES, STREAM_PEAK_BOUND, STREAM_TOP5_BOUND = 48, 20e9, 50.0
 # imagenet_native_streaming: run_native_resolution_streaming on
@@ -5216,7 +5317,7 @@ def _on_cpu(fs):
 
 def phase_imagenet_streaming_ondevice(device) -> int:
     """Phase 32: ``run_flagship_ondevice()`` at the JAX package's defaults
-    (50,000 + 5,000 device-generated images of 256×256, 1,000 classes):
+    (``STREAM_TRAIN`` + ``STREAM_TEST`` device-generated images of 256×256, 1,000 classes):
     its phases' seconds, images/s, the solve's path, the peak and the test
     top-5 error; the fused encode against the op-by-op composition and
     against the CPU on one batch, the test scores against float64."""
@@ -5720,7 +5821,7 @@ def phase_refit_cli(device, work: str) -> int:
 
 
 def phase_refit_full(device, work: str) -> dict:
-    """Phase 40: ``run_refit_demo`` at d = 2,048 with 65,536 rows a round.
+    """Phase 40: ``run_refit_demo`` at d = 2,048 with ``REFIT_FULL`` rows a round.
     Returns the incumbent (version 1) and the round-1 candidate, which
     ``fleet_publish`` serves."""
     import torch
@@ -6366,6 +6467,445 @@ def phase_fleet_publish(device, heads: dict, work: str) -> int:
     return counts["ell_launches"]
 
 
+# -------------------------------------------------------------- phases 44-50
+#
+# The cost observatory and the plan-tuning control plane (ROADMAP item
+# 13b): the card's roofline per product kind, explain, tune, profile, the
+# serving + refit co-scheduler, the fleet trace and the host-side
+# bench-diff / quality commands.
+
+#: explain_card: the hashing-TF slice's corpus and shape (phase 3's), one
+#: pass (the featurization is host Python); the MNIST pipeline at full
+#: width on 16,384 synthetic rows, 3 passes; the drift check clean and
+#: with a 4× seeded mis-prediction. The sentinel baselines a node on its
+#: first pass, and on the card later passes ran 0.75–1.48× that wall in
+#: clean runs (four runs recorded on an H100): so a 4× corruption reads
+#: 3–6× and a clean run under 1.5×. The JAX package's 4× band would miss
+#: the corruption as often as not, a 3× band missed it once in two card
+#: runs; the band here is 2×, with room on both sides. Each run gets a
+#: fresh store and sentinel, as a fresh ``explain`` process would.
+EXPLAIN_MNIST_ROWS, EXPLAIN_PASSES, EXPLAIN_DRIFT_FACTOR, EXPLAIN_DRIFT_RATIO = 16_384, 3, 4.0, "2.0"
+#: The drift check runs on ``explain``'s own synthetic pipeline (the JAX
+#: package's default), whose auto-cache predictions the sentinel scores;
+#: on the MNIST pipeline the planner's 128-row sample fits are singular
+#: (8,192 features) and it plans nothing, so no calibrated prediction
+#: exists there to corrupt. 65,536 rows × 512 make its nodes' walls tens
+#: of milliseconds on the card.
+EXPLAIN_SYNTHETIC = ["--rows", "65536", "--dim", "512", "--classes", "8"]
+#: Achieved share of a node's roofline: ≤ 1.05 (the probe's min of 3
+#: against a node's one synced wall).
+ROOF_SHARE_MAX = 1.05
+#: tune_card: the JAX CLI's default shape (8,192 × 256, 4 classes), each
+#: task's candidate and wall budget sized to the phases' 75 s.
+TUNE_FLAGS = ["--rows", "8192", "--dim", "256", "--classes", "4", "--budget", "6",
+              "--time-budget-s", "6", "--seed", "0"]
+#: profile_card: the MNIST random-FFT pipeline (4 × 2,048) on 8,192 rows,
+#: 64 served requests.
+PROFILE_FLAGS = ["--rows", "8192", "--num-ffts", "4", "--block-size", "2048", "--serve-requests", "64"]
+#: cosched: refit_full's head (d = 2,048, 10 classes) folding 16,384 rows
+#: a round in 2,048-row chunks while the MNIST artifact serves 96
+#: requests a round at 320/s, 3 rounds per phase (the preemption in the
+#: second); the serial and
+#: co-scheduled final states within 1e-6 (the JAX demo's bound).
+COSCHED = {"d": 2048, "classes": 10, "rows_per_round": 16_384, "chunk_rows": 2048, "rounds": 3,
+           "serve_requests": 96, "serve_rps": 320.0}
+COSCHED_PARITY_TOL = 1e-6
+#: trace_fleet: two card workers serving a synthetic 64-wide pipeline, 64
+#: HTTP requests.
+TRACE_FLEET_FLAGS = ["--backend", "synthetic", "--dim", "64", "--workers", "2", "--requests", "64"]
+
+
+def _cli(argv: list) -> tuple:
+    """``python -m keystone_tpu_torch <argv>`` run in this process (the
+    subcommand's own entry point, without a process start): its exit code
+    and the JSON of each ``PREFIX:{...}`` line it printed, by prefix."""
+    import contextlib
+    import io
+
+    from keystone_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    lines = {}
+    for line in buf.getvalue().splitlines():
+        head, sep, body = line.partition(":")
+        if sep and head.isupper() and body.startswith("{"):
+            lines[head] = json.loads(body)
+    return rc, lines
+
+
+def phase_roofline_probe(device) -> dict:
+    """Phase 44: ``obs/cost.py``'s roofline probe on the card — one
+    8,192² product per binding kind (CUDA events, min of 3) and a 1 GiB
+    device copy — against the data sheet: every reading > 0 and ≤ 1.05×
+    its peak. Returns the roofline, which the later phases price with."""
+    from keystone_tpu_torch.obs import cost
+
+    _mnist_start()
+    t0 = time.perf_counter()
+    cost.set_roofline(None)
+    roof = cost.get_roofline(refresh=True, device=device)
+    peaks = card_peaks()
+    sheet = {"ieee_fp32": peaks["fp32"], "tf32": peaks["tf32"], "bf16": peaks["bf16"], "fp64": peaks["fp64"]}
+    readings = {k: roof.peak_flops_by_kind.get(k, 0.0) for k in sheet}
+    share = {k: readings[k] / sheet[k] for k in sheet}
+    share["copy_bytes_per_s"] = roof.peak_bytes_per_s / peaks["bytes_per_s"]
+    failed = [k for k, v in share.items() if not 0.0 < v <= 1.05]
+    log("roofline_probe", backend=roof.backend,
+        probed_tflops_per_s={k: v / 1e12 for k, v in readings.items()},
+        data_sheet_tflops_per_s={k: v / 1e12 for k, v in sheet.items()},
+        probed_copy_tb_per_s=roof.peak_bytes_per_s / 1e12, data_sheet_tb_per_s=peaks["bytes_per_s"] / 1e12,
+        share_of_data_sheet=share, ridge_fp32_flop_per_byte=roof.ridge_intensity,
+        seconds=time.perf_counter() - t0, failed=failed, **_mnist_end("roofline_probe"))
+    if failed:
+        raise AssertionError(f"roofline_probe failed {failed}")
+    return roof.to_json()
+
+
+def _explain_fresh(argv: list, work: str, name: str) -> tuple:
+    """``explain`` in this process as a fresh process would run it: its
+    own profile store and a reset observatory, the probed roofline kept."""
+    from keystone_tpu_torch.obs import cost, store
+
+    roof = cost.get_roofline()
+    saved = os.environ.get("KEYSTONE_PROFILE_STORE")
+    os.environ["KEYSTONE_PROFILE_STORE"] = os.path.join(work, f"{name}.jsonl")
+    store.set_store(None)
+    cost.reset_cost_observatory()
+    cost.set_roofline(roof)
+    try:
+        rc, out = _cli(argv)
+    finally:
+        os.environ["KEYSTONE_PROFILE_STORE"] = saved
+        store.set_store(None)
+    return rc, out
+
+
+def _node_shares(report: dict) -> list:
+    return [(n["node"], n["bound_frac"]) for n in report["nodes"] if n.get("bound_frac") is not None]
+
+
+def phase_explain_card(device, kernel: dict) -> int:
+    """Phase 45: ``explain`` on the card. The hashing-TF slice (phase 3's
+    corpus, 65,536 documents, d = 16,384, 16×16 tiles): its fit node ran
+    the ELL kernel twice with the FLOP and bytes of the kernel table's
+    bound (phase 2's AᵀA and AᵀY counts, summed). The MNIST random-FFT
+    pipeline at full width. ``explain``'s synthetic pipeline clean, no
+    drift event, and with ``--seed-drift 4``, exactly one. Every node's
+    achieved share of its roofline ≤ 1.05."""
+    from keystone_tpu_torch.ops.cuda import blocksparse as bs
+
+    _mnist_start()
+    t0 = time.perf_counter()
+    failed = []
+    rc, out = _cli(["explain", "--pipeline", "hashing-tf", "--rows", str(TOPICS * DOCS_PER_TOPIC),
+                    "--dim", str(NUM_FEATURES), "--classes", str(NUM_CLASSES), "--seed", str(SEED),
+                    "--passes", "1", "--json", "--device", str(device)])
+    hashing = out["EXPLAIN_JSON"]
+    hashing_s = time.perf_counter() - t0
+    fit_nodes = [n for n in hashing["nodes"] if "ell_matmul" in n.get("sites", {})]
+    want_flops = sum(e["useful_flops"] for e in kernel["shapes"])
+    want_bytes = sum(e["bytes"] for e in kernel["shapes"])
+    ell = fit_nodes[0]["sites"]["ell_matmul"] if len(fit_nodes) == 1 else {}
+    if rc != 0 or len(fit_nodes) != 1:
+        failed.append("hashing_tf_fit_node")
+    elif ell["launches"] != 2 or ell["flops"] != want_flops or ell["bytes"] != want_bytes:
+        failed.append("ell_facts_vs_bound_counts")
+    ell_launches = bs.ell_matmul.launches
+    os.environ["KEYSTONE_COST_DRIFT_RATIO"] = EXPLAIN_DRIFT_RATIO
+    work = tempfile.TemporaryDirectory(prefix="keystone-explain-")
+    mnist = ["explain", "--pipeline", "mnist", "--rows", str(EXPLAIN_MNIST_ROWS), "--num-ffts", "4",
+             "--passes", str(EXPLAIN_PASSES), "--json", "--device", str(device)]
+    synthetic = ["explain", "--pipeline", "synthetic", *EXPLAIN_SYNTHETIC, "--passes", str(EXPLAIN_PASSES),
+                 "--json", "--device", str(device)]
+    try:
+        t1 = time.perf_counter()
+        rc_mnist, mnist_out = _explain_fresh(mnist, work.name, "mnist")
+        mnist_s = time.perf_counter() - t1
+        rc_clean, clean = _explain_fresh(synthetic, work.name, "clean")
+        rc_drift, drift = _explain_fresh(synthetic + ["--seed-drift", str(EXPLAIN_DRIFT_FACTOR)], work.name, "drift")
+    finally:
+        os.environ.pop("KEYSTONE_COST_DRIFT_RATIO", None)
+        work.cleanup()
+    mnist_report, clean, drift = mnist_out["EXPLAIN_JSON"], clean["EXPLAIN_JSON"], drift["EXPLAIN_JSON"]
+    if rc_mnist != 0:
+        failed.append("mnist")
+    if rc_clean != 0 or clean["drift_events"]:
+        failed.append("drift_without_seed")
+    if rc_drift != 2 or len(drift["drift_events"]) != 1 or drift["seeded_corruptions"] != 1:
+        failed.append("seeded_drift_not_flagged_once")
+    shares = {"hashing_tf": _node_shares(hashing), "mnist": _node_shares(mnist_report),
+              "synthetic": _node_shares(clean), "synthetic_drift": _node_shares(drift)}
+    over = [(run, node, v) for run, rows in shares.items() for node, v in rows if not v <= ROOF_SHARE_MAX]
+    if over:
+        failed.append("share_over_roofline")
+    if any(r["harvest_compiles"] for r in (hashing, mnist_report, clean, drift)):
+        failed.append("harvest_compiles")
+    keep = ("node", "seconds", "flops", "bytes_accessed", "roofline", "bound_frac", "predicted_s",
+            "predicted_model", "sites", "cold", "drift")
+    log("explain_card",
+        hashing_tf={"seconds": hashing_s, "nodes": [{k: n[k] for k in keep if k in n} for n in fit_nodes],
+                    "bound_counts": {"flops": want_flops, "bytes": want_bytes}},
+        mnist={"seconds": mnist_s, "passes": mnist_report["passes"],
+               "nodes": [{k: n[k] for k in keep if k in n} for n in mnist_report["nodes"]]},
+        synthetic={"passes": clean["passes"], "drift_events": clean["drift_events"],
+                   "nodes": [{k: n[k] for k in keep if k in n} for n in clean["nodes"]]},
+        synthetic_seeded_drift={"passes": drift["passes"], "drift_events": drift["drift_events"],
+                                "stale_keys": drift["store"]["stale_keys"]},
+        shares_over_roofline=over, ell_launches_hashing_tf_run=ell_launches,
+        seconds=time.perf_counter() - t0, failed=failed, **_mnist_end("explain_card", ell_allowed=True))
+    if failed:
+        raise AssertionError(f"explain_card failed {failed}")
+    return ell_launches
+
+
+def phase_tune_card(device) -> int:
+    """Phase 46: ``tune --tasks stream,solver,blocksparse`` at the JAX
+    CLI's default shape into a store of its own: winners persisted under
+    the three key families with ``source: tune``, ELL launches in the
+    blocksparse sweep, the tuned crossover density beside the 0.05
+    default; then an MNIST fit under ``KEYSTONE_MEASURED_KNOBS=all`` on
+    8,192 rows (the tuned rows bucket) reads them (the knob-override
+    counter moves)."""
+    from keystone_tpu_torch.obs import names, store
+    from keystone_tpu_torch.ops.cuda import blocksparse as bs
+    from keystone_tpu_torch.pipelines.mnist_random_fft import (
+        MnistRandomFFTConfig,
+        build_pipeline,
+        synthetic_mnist,
+    )
+
+    _mnist_start()
+    t0 = time.perf_counter()
+    failed = []
+    saved = {k: os.environ.get(k) for k in ("KEYSTONE_PROFILE_STORE", "KEYSTONE_MEASURED_KNOBS")}
+    work = tempfile.TemporaryDirectory(prefix="keystone-tune-")
+    os.environ["KEYSTONE_PROFILE_STORE"] = os.path.join(work.name, "tuned.jsonl")
+    store.set_store(None)
+    try:
+        rc, out = _cli(["tune", "--tasks", "stream,solver,blocksparse", *TUNE_FLAGS, "--device", str(device)])
+        tune_s = time.perf_counter() - t0
+        payload = out["TUNE_JSON"]
+        ps = store.get_store()
+        families = {f: sorted(k for k, _s, m in ps.entries(key_prefix=f) if m.get("source") == "tune")
+                    for f in ("stream:", "solver:block_ls:", "blocksparse:threshold")}
+        if rc != 0 or not all(families.values()):
+            failed.append("winners_persisted")
+        sweep = payload["tasks"]["blocksparse"]["measured"]
+        sweep_launches = sum(m.get("ell_launches", 0) for m in sweep)
+        if sweep_launches <= 0:
+            failed.append("ell_launches_in_sweep")
+        threshold = [m for _k, _s, m in ps.entries(key_prefix="blocksparse:threshold")][0]
+        overrides = names.metric(names.PROFILE_STORE_KNOB_OVERRIDES)
+        before = sum(overrides.series().values())
+        os.environ["KEYSTONE_MEASURED_KNOBS"] = "all"
+        t1 = time.perf_counter()
+        train = synthetic_mnist(8192, seed=0, device=device)
+        build_pipeline(MnistRandomFFTConfig(), train, device=device).fit()
+        knob_fit_s = time.perf_counter() - t1
+        knob_overrides = sum(overrides.series().values()) - before
+        if knob_overrides <= 0:
+            failed.append("measured_knobs_read")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        store.set_store(None)
+        work.cleanup()
+    ell_launches = bs.ell_matmul.launches
+    log("tune_card", tasks={t: {k: payload["tasks"][t][k] for k in
+                                ("winner", "winner_objective", "default", "default_objective", "improved",
+                                 "candidates_measured", "seconds")} for t in payload["tasks"]},
+        blocksparse_sweep=[{"density": m["knobs"]["density"], "sparse_over_dense": m["objective"],
+                            "sparse_fit_wall_s": m["sparse_fit_wall_s"], "dense_fit_wall_s": m["dense_fit_wall_s"],
+                            "ell_launches": m["ell_launches"]} for m in sweep],
+        crossover_density=threshold["threshold"], crossover_speedup=threshold["speedup"],
+        default_density_threshold=bs.DEFAULT_DENSITY_THRESHOLD,
+        donation_probe=next((m["donation_probe"] for m in payload["tasks"]["solver"]["measured"]
+                             if "donation_probe" in m), None),
+        winner_keys=families, knob_overrides=knob_overrides, knob_fit_s=knob_fit_s, tune_s=tune_s,
+        seconds=time.perf_counter() - t0, failed=failed, **_mnist_end("tune_card", ell_allowed=True))
+    if failed:
+        raise AssertionError(f"tune_card failed {failed}")
+    return ell_launches
+
+
+def phase_profile_card(device) -> int:
+    """Phase 47: ``profile`` on the card: the trace is valid Chrome JSON in
+    which a ``solver:fit`` span sits under a ``node:*`` span under the
+    ``profile`` root, and the Prometheus file's device memory gauges are
+    non-zero for every phase."""
+    _mnist_start()
+    t0 = time.perf_counter()
+    failed = []
+    work = tempfile.TemporaryDirectory(prefix="keystone-profile-")
+    try:
+        rc, out = _cli(["profile", *PROFILE_FLAGS, "--out-dir", work.name, "--device", str(device)])
+        summary = out["PROFILE_JSON"]
+        with open(os.path.join(work.name, "profile_trace.json")) as f:
+            trace = json.load(f)
+        with open(os.path.join(work.name, "profile_metrics.prom")) as f:
+            prom = f.read()
+    finally:
+        work.cleanup()
+    # Span slices carry their ids; the stream engine's chunk slices do not.
+    spans = {e["args"]["span_id"]: e for e in trace["traceEvents"]
+             if e.get("ph") == "X" and "span_id" in e.get("args", {})}
+
+    def chain(event):
+        names_up = []
+        while event is not None:
+            names_up.append(event["name"])
+            event = spans.get(event["args"].get("parent_id"))
+        return names_up
+
+    nested = [chain(e) for e in spans.values() if e["name"] == "solver:fit"]
+    nested_ok = any(any(n.startswith("node:") for n in c[1:]) and c[-1] == "profile" for c in nested)
+    gauges = {}
+    for line in prom.splitlines():
+        if line.startswith(("keystone_peak_memory_bytes{", "keystone_memory_in_use_bytes{")):
+            key, value = line.rsplit(" ", 1)
+            gauges[key] = float(value)
+    peaks = {k: v for k, v in gauges.items() if k.startswith("keystone_peak_memory_bytes")}
+    device_in_use = {k: v for k, v in gauges.items() if 'source="device"' in k}
+    if rc != 0:
+        failed.append("exit")
+    if not nested_ok:
+        failed.append("pipeline_node_solver_nesting")
+    if len(peaks) < 3 or not all(v > 0 for v in peaks.values()) or not device_in_use \
+            or not all(v > 0 for v in device_in_use.values()):
+        failed.append("device_memory_gauges")
+    cost_tracks = sum(1 for e in trace["traceEvents"] if e.get("name") == "cost-ledger" and e.get("ph") == "C")
+    log("profile_card", summary={k: summary.get(k) for k in ("fit_s", "apply_s", "serve", "spans")},
+        trace_events=len(trace["traceEvents"]), cost_ledger_samples=cost_tracks,
+        solver_chains=nested[:2], memory_gauges=gauges,
+        seconds=time.perf_counter() - t0, failed=failed, **_mnist_end("profile_card"))
+    if failed:
+        raise AssertionError(f"profile_card failed {failed}")
+    return 0
+
+
+def phase_cosched(device, artifact: str) -> int:
+    """Phase 48: ``sched/demo.py`` on the card: the MNIST artifact serves a
+    paced trace while refit_full's head (d = 2,048, 10 classes) folds, one
+    serial and one co-scheduled phase with a seeded preemption. Nothing
+    dropped, the preempted fold resumed from its cursor, the co-scheduled
+    final state within 1e-6 of the serial one."""
+    from keystone_tpu_torch.sched.demo import CoschedDemoConfig, run_cosched_demo
+    from keystone_tpu_torch.workflow.pipeline import FittedPipeline
+
+    _mnist_start()
+    t0 = time.perf_counter()
+    work = tempfile.TemporaryDirectory(prefix="keystone-cosched-")
+    try:
+        served = FittedPipeline.load(artifact, device=device)
+        ev = run_cosched_demo(CoschedDemoConfig(store_dir=work.name, serve_model=served, serve_dim=784,
+                                                **COSCHED), device=device)
+    finally:
+        work.cleanup()
+    resumed = [r for r in ev["rounds"] if r["outcomes"][:1] == ["deferred"]]
+    checks = {
+        "dropped": ev["dropped"] == 0,
+        "preempted_once": ev["preemptions"] == 1 and ev["preempted_at_chunk"] is not None,
+        "resumed_and_published": len(resumed) == 1 and resumed[0]["outcomes"][-1] == "published",
+        "parity": ev["parity_max_abs_diff"] <= COSCHED_PARITY_TOL,
+        "cufft_plans": ev["cufft_plans_steady_state_post_settle"] == 0,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    log("cosched", **COSCHED, **{k: ev[k] for k in (
+        "serial_wall_s", "cosched_wall_s", "cosched_vs_serial_ratio", "serial_p99_ms_worst", "p99_ms_worst",
+        "dropped", "publishes", "deferred_rounds", "leases", "preemptions", "preempted_at_chunk",
+        "parity_max_abs_diff", "idle_harvest_s", "ledger_kinds", "cufft_plans_steady_state_post_settle")},
+        round_records=ev["rounds"], schedule=ev["obs"]["schedule"],
+        seconds=time.perf_counter() - t0, failed=failed, **_mnist_end("cosched"))
+    if failed:
+        raise AssertionError(f"cosched failed {failed}")
+    return 0
+
+
+def phase_trace_fleet(device) -> int:
+    """Phase 49: ``python -m keystone_tpu_torch trace`` with two card
+    workers serving a synthetic pipeline: every request answered and the
+    merged trace holding the front-end and every worker, none named in
+    ``fragments_missing`` (the merge after the fleet stops)."""
+    _mnist_start()
+    t0 = time.perf_counter()
+    work = tempfile.TemporaryDirectory(prefix="keystone-trace-")
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "keystone_tpu_torch", "trace", *TRACE_FLEET_FLAGS, "--device", str(device),
+             "--out-dir", work.name], cwd=ROOT, capture_output=True, text=True, timeout=300,
+        )
+    finally:
+        work.cleanup()
+    stats = next((json.loads(line.split(":", 1)[1]) for line in proc.stdout.splitlines()
+                  if line.startswith("TRACE_STATS:")), None)
+    if proc.returncode != 0 or stats is None:
+        raise AssertionError(f"trace_fleet: exit {proc.returncode}: {proc.stderr[-3000:]}")
+    roles = sorted(stats["processes"].values())
+    workers = [r for r in roles if r.startswith("worker")]
+    checks = {
+        "errors": stats["errors"] == 0,
+        "frontend": "frontend" in roles,
+        "every_worker": len(set(workers)) == 2,
+        "fragments_missing": stats["fragments_missing"] == [],
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    log("trace_fleet", roles=roles, span_counts=stats["span_counts"], span_names=stats["span_names"],
+        fragments_missing=stats["fragments_missing"], requests=stats["requests"], errors=stats["errors"],
+        trace_ids=len(stats["trace_ids"]), metric_families=stats["metric_families"],
+        seconds=time.perf_counter() - t0, failed=failed, **_mnist_end("trace_fleet"))
+    if failed:
+        raise AssertionError(f"trace_fleet failed {failed}")
+    return 0
+
+
+def phase_obs_cli(artifacts: dict) -> int:
+    """Phase 50, on the host: ``bench-diff`` between two artifacts made of
+    this run's own phase lines (``"platform": "gpu"``) — the same run
+    against itself is OK (exit 0), a copy with one dropped request
+    regresses (exit 1), and a baseline from another platform compares
+    counts only — then ``quality`` on its seeded scenario: clean traffic
+    exits 0 with no decision, a 3σ shift exits 2 with one rollback."""
+    t0 = time.perf_counter()
+    work = tempfile.TemporaryDirectory(prefix="keystone-obs-cli-")
+    try:
+        base = dict(artifacts, platform="gpu")
+        worse = json.loads(json.dumps(base))
+        worse["cosched"]["dropped"] = 1
+        other = dict(base, platform="cpu")
+        paths = {}
+        for name, body in (("base", base), ("worse", worse), ("other", other)):
+            paths[name] = os.path.join(work.name, f"{name}.json")
+            with open(paths[name], "w") as f:
+                json.dump(body, f)
+        same_rc, same = _cli(["bench-diff", "--baseline", paths["base"], "--current", paths["base"]])
+        worse_rc, worse_v = _cli(["bench-diff", "--baseline", paths["base"], "--current", paths["worse"]])
+        other_rc, other_v = _cli(["bench-diff", "--baseline", paths["other"], "--current", paths["base"]])
+    finally:
+        work.cleanup()
+    clean_rc, clean = _cli(["quality", "--json"])
+    shift_rc, shift = _cli(["quality", "--json", "--shift", "3"])
+    checks = {
+        "same_ok": same_rc == 0 and same["BENCH_DIFF_JSON"]["ok"],
+        "regression_caught": worse_rc == 1 and worse_v["BENCH_DIFF_JSON"]["regressions"] == ["cosched"],
+        "cross_platform_counts_only": other_rc == 0 and not other_v["BENCH_DIFF_JSON"]["timings_comparable"],
+        "quality_clean": clean_rc == 0 and clean["QUALITY_STATS"]["decisions"] == [],
+        "quality_shift": shift_rc == 2 and shift["QUALITY_STATS"]["rollbacks"] == 1,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    log("obs_cli", legs=sorted(artifacts), verdicts={"same": same["BENCH_DIFF_JSON"]["legs"],
+                                                     "worse": worse_v["BENCH_DIFF_JSON"]["regressions"]},
+        quality_shift_drift_events=shift["QUALITY_STATS"]["drift_events"],
+        seconds=time.perf_counter() - t0, failed=failed)
+    if failed:
+        raise AssertionError(f"obs_cli failed {failed}")
+    return 0
+
+
 def card_name_and_limit() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -6487,7 +7027,18 @@ def main() -> int:
     launches_by_path["fleet_publish"] = phase_fleet_publish(device, heads, fleet_dir.name)
     del heads
     fleet_dir.cleanup()
+    t_new = time.perf_counter()
+    phase_roofline_probe(device)
+    launches_by_path["roofline_probe"] = 0  # phase_roofline_probe raises otherwise
+    launches_by_path["explain_card"] = phase_explain_card(device, kernel)
+    launches_by_path["tune_card"] = phase_tune_card(device)
+    launches_by_path["profile_card"] = phase_profile_card(device)
+    launches_by_path["cosched"] = phase_cosched(device, artifact)
     artifact_dir.cleanup()
+    launches_by_path["trace_fleet"] = phase_trace_fleet(device)
+    phase_obs_cli({name: {k: v for k, v in PHASE_LINES[name].items() if not isinstance(v, list)}
+                   for name in ("roofline_probe", "profile_card", "cosched")})
+    log("control_plane_phases", seconds=time.perf_counter() - t_new)
     # The binding's calls on the paths (gram_modes times it and is left out).
     paths = {p: c for p, c in SOLVER_GEMM_CALLS.items() if p != "gram_modes"}
     binding["launches"] = {k: sum(c[k] for c in paths.values()) for k in next(iter(paths.values()))}

@@ -9,18 +9,28 @@ The ``serve`` subcommand answers JSON request lines on stdin with a fitted
 pipeline (``serving/server.py``); ``fit`` runs one durable streamed fit
 (``workflow/fitcmd.py``, a ``FIT_STATS:`` line); ``refit`` runs the
 drifting-workload continuous-refit loop (``refit/daemon.py``, a
-``REFIT_STATS:`` line).
+``REFIT_STATS:`` line). The observability and control-plane commands:
+``profile`` (``obs/profile.py``: an instrumented fit → apply → serve run,
+a Chrome trace and a Prometheus file), ``trace`` (``obs/fleet.py``: a
+multiworker sweep, the merged fleet trace), ``bench-diff``
+(``obs/benchdiff.py``), ``explain`` (``workflow/explain.py``: per-node
+predicted vs measured cost against the card's roofline; ``--schedule``
+the co-scheduler demo), ``tune`` (``workflow/tune.py``: the offline
+autotuner) and ``quality`` (``obs/quality_cli.py``). Flag wiring imports
+no torch: ``--help`` of every subcommand runs without it.
 
 Usage:
     python -m keystone_tpu_torch <workload> [--flag value ...] [--device cpu]
     python -m keystone_tpu_torch serve (--model PATH | --checkpoint-dir D --digest P | --synthetic D) [--device cpu]
     python -m keystone_tpu_torch fit --store-dir D [--rows N ...] [--device cpu]
     python -m keystone_tpu_torch refit [--rounds N ...] [--device cpu]
+    python -m keystone_tpu_torch {profile,explain,tune} [...] [--device cpu]
+    python -m keystone_tpu_torch trace [--backend synthetic --device cpu]
+    python -m keystone_tpu_torch {bench-diff,quality} [...]
     python -m keystone_tpu_torch --list
 
-Every workload of the JAX package is here. Left out for now: its other
-subcommands (``profile``, ``trace``, ``bench-diff``, ``check``,
-``explain``, ``tune``, ``quality``; ROADMAP item 13b).
+Every workload of the JAX package is here. Left out for now: the ``check``
+subcommand (ROADMAP item 13c).
 """
 
 from __future__ import annotations
@@ -90,6 +100,105 @@ def add_config_arguments(parser: argparse.ArgumentParser, config_cls) -> None:
 def build_config(config_cls, args: argparse.Namespace):
     names = {f.name for f in dataclasses.fields(config_cls)}
     return config_cls(**{k: v for k, v in vars(args).items() if k in names})
+
+
+def _add_device_argument(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument(
+        "--device", default=None,
+        help="torch device to run on (default: the CUDA device; 'cpu' to run on the CPU)",
+    )
+
+
+def add_explain_arguments(parser: argparse.ArgumentParser) -> None:
+    """Flags for ``explain`` — wired here so --help/--list never import the
+    workflow package (which imports torch); ``workflow.explain`` consumes
+    the parsed namespace at dispatch time."""
+    parser.add_argument(
+        "--pipeline", default="synthetic", metavar="PATH|synthetic|hashing-tf|mnist",
+        help="FittedPipeline.save artifact to explain, 'synthetic' (featurize "
+        "chain + block solve under the auto-cache optimizer), 'hashing-tf' "
+        "(hashed text → block-sparse fit through the ELL kernel) or 'mnist' "
+        "(the MNIST random-FFT pipeline)",
+    )
+    parser.add_argument("--rows", type=int, default=2048, help="training rows (documents for hashing-tf)")
+    parser.add_argument(
+        "--dim", type=int, default=64,
+        help="feature width: the synthetic pipeline's, the hashing-tf feature "
+        "count, or — for --pipeline PATH — the artifact's input width",
+    )
+    parser.add_argument("--classes", type=int, default=4, help="label width")
+    parser.add_argument("--num-ffts", type=int, default=4, help="FFT branches of --pipeline mnist")
+    parser.add_argument(
+        "--passes", type=int, default=3,
+        help="plan executions: a pass that built a kernel is cold (never "
+        "drift-scored), later passes measure steady state",
+    )
+    parser.add_argument(
+        "--seed-drift", type=float, default=0.0, metavar="FACTOR",
+        help="corrupt stored autocache measurements by FACTOR× (the negative "
+        "control: the drift sentinel must flag it)",
+    )
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--out", default=None, help="write report JSON here")
+    parser.add_argument(
+        "--json", action="store_true", dest="as_json",
+        help="print EXPLAIN_JSON: line instead of the human table",
+    )
+    parser.add_argument(
+        "--schedule", action="store_true",
+        help="run the co-scheduled serving+refit demo and print the card's "
+        "schedule instead: per lease — who ran, what displaced or deferred "
+        "it, predicted vs measured wall, price provenance",
+    )
+    _add_device_argument(parser)
+
+
+def add_tune_arguments(parser: argparse.ArgumentParser) -> None:
+    """Flags for ``tune`` — wired here so --help/--list never import the
+    workflow package; ``workflow.tune.tune_from_args`` consumes them."""
+    parser.add_argument(
+        "--tasks", default="stream,solver,blocksparse",
+        help="comma-separated tune tasks (stream, solver, blocksparse)",
+    )
+    parser.add_argument("--rows", type=int, default=8192, help="synthetic problem rows")
+    parser.add_argument("--dim", type=int, default=256, help="synthetic feature width")
+    parser.add_argument("--classes", type=int, default=4, help="synthetic label width")
+    parser.add_argument(
+        "--budget", type=int, default=None,
+        help="max measured candidates per task (default KEYSTONE_TUNE_BUDGET)",
+    )
+    parser.add_argument("--seed", type=int, default=None, help="exploration seed (default KEYSTONE_TUNE_SEED)")
+    parser.add_argument(
+        "--time-budget-s", type=float, default=None,
+        help="per-task wall budget (default KEYSTONE_TUNE_TIME_S)",
+    )
+    parser.add_argument("--out", default=None, help="write result JSON here")
+    _add_device_argument(parser)
+
+
+#: Subcommands beside the workloads: name → (help, flag-wiring module,
+#: flag-wiring function or None for this module's, dispatch module,
+#: dispatch function). Flag wiring imports no torch.
+COMMANDS: Dict[str, Tuple[str, Optional[str], str, str, str]] = {
+    "serve": ("serve a fitted pipeline over stdin/JSON lines",
+              ".serving.server", "add_serve_arguments", ".serving.server", "serve_from_args"),
+    "fit": ("one durable streamed fit (checkpoints, kill-and-resume)",
+            ".workflow.fitcmd", "add_fit_arguments", ".workflow.fitcmd", "fit_from_args"),
+    "refit": ("continuous refit over a drifting synthetic workload",
+              ".refit.daemon", "add_refit_arguments", ".refit.daemon", "refit_from_args"),
+    "profile": ("instrumented fit → apply → serve: Chrome trace + Prometheus snapshot",
+                ".obs.profile", "add_profile_arguments", ".obs.profile", "profile_from_args"),
+    "trace": ("fleet trace: multiworker sweep → merged Perfetto trace + /metrics scrape",
+              ".obs.fleet", "add_trace_arguments", ".obs.fleet", "trace_from_args"),
+    "bench-diff": ("compare two benchmark json artifacts, fail on regression",
+                   ".obs.benchdiff", "add_bench_diff_arguments", ".obs.benchdiff", "bench_diff_from_args"),
+    "explain": ("cost observatory: predicted vs measured per node, roofline placement, drift",
+                None, "add_explain_arguments", ".workflow.explain", "explain_from_args"),
+    "tune": ("offline autotuner: measured knob search → profile-store winners",
+             None, "add_tune_arguments", ".workflow.tune", "tune_from_args"),
+    "quality": ("quality-plane report: score streams, drift state, sequential decisions",
+                ".obs.quality_cli", "add_quality_arguments", ".obs.quality_cli", "quality_from_args"),
+}
 
 
 # name → (module, config class name, run callable name, bound keyword
@@ -177,22 +286,17 @@ def main(argv: Optional[list] = None) -> int:
         if name == selected:
             resolved[name] = _resolve(name)
             add_config_arguments(sp, resolved[name][0])
-    serve = sub.add_parser("serve", help="serve a fitted pipeline over stdin/JSON lines")
-    fit = sub.add_parser("fit", help="one durable streamed fit (checkpoints, kill-and-resume)")
-    refit = sub.add_parser("refit", help="continuous refit over a drifting synthetic workload")
-    command = next((a for a in argv if a in ("serve", "fit", "refit")), None) if selected is None else None
-    if command == "serve":
-        from .serving.server import add_serve_arguments
+    import importlib
 
-        add_serve_arguments(serve)
-    elif command == "fit":
-        from .workflow.fitcmd import add_fit_arguments
-
-        add_fit_arguments(fit)
-    elif command == "refit":
-        from .refit.daemon import add_refit_arguments
-
-        add_refit_arguments(refit)
+    command = next((a for a in argv if a in COMMANDS), None) if selected is None else None
+    for name, (help_text, wiring_module, wiring_fn, _mod, _fn) in COMMANDS.items():
+        sp = sub.add_parser(name, help=help_text)
+        if name == command:
+            module = (
+                importlib.import_module(wiring_module, package="keystone_tpu_torch")
+                if wiring_module else sys.modules[__name__]
+            )
+            getattr(module, wiring_fn)(sp)
 
     args = parser.parse_args(argv)
     logging.basicConfig(
@@ -201,19 +305,13 @@ def main(argv: Optional[list] = None) -> int:
     if args.list or not args.workload:
         for name, entry in sorted(WORKLOADS.items()):
             print(f"{name:28s} {entry[-1]}")
+        for name, entry in COMMANDS.items():
+            print(f"{name:28s} {entry[0]}")
         return 0
-    if args.workload == "serve":
-        from .serving.server import serve_from_args
-
-        return serve_from_args(args)
-    if args.workload == "fit":
-        from .workflow.fitcmd import fit_from_args
-
-        return fit_from_args(args)
-    if args.workload == "refit":
-        from .refit.daemon import refit_from_args
-
-        return refit_from_args(args)
+    if args.workload in COMMANDS:
+        _help, _wm, _wf, module_name, fn_name = COMMANDS[args.workload]
+        module = importlib.import_module(module_name, package="keystone_tpu_torch")
+        return getattr(module, fn_name)(args)
 
     config_cls, run_fn = resolved[args.workload]
     results = run_fn(build_config(config_cls, args), device=args.device)

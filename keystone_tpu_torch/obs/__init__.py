@@ -14,16 +14,24 @@
   metric snapshots and marks, dumped on crash-class events.
 - :mod:`.quality` — the quality plane: score streams, sketches, the
   sequential gate and the drift detector the refit daemon reads.
-- :mod:`.export`  — the Prometheus text exposition.
+- :mod:`.export`  — the Chrome trace of one session, the Prometheus text
+  exposition and the span report.
 - :mod:`.fleet`   — the fleet plane: worker span fragments, clock
-  anchors and metric deltas merged into one trace and one scrape.
+  anchors and metric deltas merged into one trace and one scrape, and
+  the ``trace`` command.
+- :mod:`.cost`    — the cost observatory: launch-site flop/byte facts,
+  the card's probed roofline per product kind, the perf ledger and the
+  drift sentinel.
+- :mod:`.device`  — memory sampling (the card's allocator counters, or
+  host RSS) and profiler annotations.
+- :mod:`.profile`, :mod:`.benchdiff`, :mod:`.quality_cli` — the
+  ``profile``, ``bench-diff`` and ``quality`` commands.
 
 The serving layer and its fleet, the recovery ledger, the executor (node
 counters, ``optimize`` span, ``node:<label>`` spans and the node-seconds
-histogram under ``trace()`` or a span session), the optimizer's rule
-counters and spans, the block solver and the refit daemon publish into
-them. Device memory sampling, the Chrome-trace export of one session and
-the cost observatory are not ported yet (ROADMAP item 13b).
+histogram under ``trace()`` or a span session, cost frames with the
+observatory on), the optimizer's rule counters and spans, the block
+solver and the refit daemon publish into them.
 """
 
 from .metrics import (

@@ -1,6 +1,5 @@
 """Fleet aggregation: merge per-process telemetry into one trace and one
-scrape. A copy of ``keystone_tpu/obs/fleet.py`` without its ``trace``
-command (ROADMAP item 13b).
+scrape. A copy of ``keystone_tpu/obs/fleet.py``.
 
 The multi-worker runtime is a fleet of processes — HTTP frontend +
 supervisor in one, N workers — each with its own
@@ -27,6 +26,14 @@ This module is the plane that makes them one system:
   counters published from the supervisor's restart-safe high-water
   aggregation.
 
+- **``trace``** (:func:`trace_from_args`): drive a traffic sweep against a
+  real multiworker fleet (the torch-free stub backend by default, card
+  workers serving a synthetic pipeline with ``--backend synthetic``,
+  optional seeded worker kill) and emit the merged trace + scrape
+  artifacts. The merge runs after the fleet stops: each worker ships the
+  fragments no heartbeat carried on its exit line, and a worker whose
+  exit line never came is named in the trace's ``fragments_missing``.
+
 Imports no torch, like the rest of ``obs/``.
 """
 
@@ -35,7 +42,7 @@ from __future__ import annotations
 import json
 import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from . import names as _names
 from .export import _json_safe, prometheus_text
@@ -220,11 +227,14 @@ class FleetTraceCollector:
         self,
         local_session: Optional[TraceSession] = None,
         local_role: str = "supervisor",
+        fragments_missing: Sequence[str] = (),
     ) -> Dict[str, Any]:
         """One Perfetto-loadable Chrome trace over every process: worker
         fragments plus the local session's spans, pid-mapped tracks with
         process_name/thread_name metadata, timestamps normalized to the
-        earliest fragment."""
+        earliest fragment. ``fragments_missing`` names the workers whose
+        last fragments never arrived (the supervisor's
+        ``fragments_missing()``); the metadata lists them."""
         import os
 
         per_process = self.fragments()
@@ -295,6 +305,7 @@ class FleetTraceCollector:
                 "base_unix": t0,
                 "clock_skew_s": clock_skews,
                 "dropped_fragments": dropped,
+                "fragments_missing": sorted(fragments_missing),
             },
         }
 
@@ -304,10 +315,15 @@ def write_fleet_trace(
     path: str,
     local_session: Optional[TraceSession] = None,
     local_role: str = "supervisor",
+    fragments_missing: Sequence[str] = (),
 ) -> str:
     with open(path, "w") as f:
         json.dump(
-            collector.merge(local_session=local_session, local_role=local_role), f
+            collector.merge(
+                local_session=local_session, local_role=local_role,
+                fragments_missing=fragments_missing,
+            ),
+            f,
         )
     return path
 
@@ -364,3 +380,229 @@ def fleet_prometheus_text(supervisor: Any) -> str:
     if supervisor is not None and hasattr(supervisor, "fleet_counter_totals"):
         publish_fleet_metrics(supervisor)
     return prometheus_text(get_registry())
+
+
+# ----------------------------------------------------------------- trace CLI
+
+
+def add_trace_arguments(parser) -> None:
+    """Flags for ``trace`` (plain argparse — the CLI's --help path imports
+    no torch, and the default stub backend keeps the whole run
+    torch-free)."""
+    parser.add_argument(
+        "--workers", type=int, default=2, help="worker processes in the fleet"
+    )
+    parser.add_argument(
+        "--requests", type=int, default=64, help="HTTP requests to sweep"
+    )
+    parser.add_argument(
+        "--backend", choices=("stub", "synthetic"), default="stub",
+        help="worker backend: the torch-free stub echo (default), or "
+             "workers serving a synthetic --dim-wide pipeline on --device",
+    )
+    parser.add_argument(
+        "--dim", type=int, default=64, help="the synthetic pipeline's width",
+    )
+    parser.add_argument(
+        "--device", default=None,
+        help="the synthetic workers' torch device (default: the CUDA device; "
+             "'cpu' to run on the CPU)",
+    )
+    parser.add_argument(
+        "--stub-delay-ms", type=float, default=0.0,
+        help="per-request delay of the stub backend",
+    )
+    parser.add_argument(
+        "--kill-request", type=int, default=0,
+        help="SIGKILL worker 0 at its Nth request (0 = no chaos); the "
+             "killed worker leaves a flight-recorder dump and its "
+             "in-flight work requeues under the same trace id",
+    )
+    parser.add_argument(
+        "--concurrency", type=int, default=4,
+        help="parallel HTTP client threads",
+    )
+    parser.add_argument(
+        "--deadline-ms", type=float, default=60000.0,
+        help="per-request deadline for the sweep",
+    )
+    parser.add_argument(
+        "--out-dir", default="tracedir",
+        help="directory for fleet_trace.json / fleet_metrics.prom / "
+             "flightrec-*.json",
+    )
+    parser.add_argument("--listen", default="127.0.0.1:0")
+
+
+def trace_from_args(args) -> int:
+    """Drive a traffic sweep against a real multiworker fleet under full
+    fleet tracing; write the merged Perfetto trace and two /metrics
+    scrapes; print one ``TRACE_STATS:`` JSON line."""
+    import os
+    import queue as queue_mod
+    import urllib.request
+
+    from ..reliability.retry import RetryPolicy
+    from ..serving.frontend import ServingFrontend, parse_listen
+    from ..serving.supervisor import (
+        FAULT_SPECS_WORKER_ENV,
+        SupervisorConfig,
+        WorkerSupervisor,
+    )
+    from . import spans as _spans
+    from .flight import install_flight_recorder
+
+    out_dir = os.path.abspath(args.out_dir)
+    os.makedirs(out_dir, exist_ok=True)
+    recorder = install_flight_recorder("frontend", out_dir=out_dir)
+    session = _spans.install_session("fleet-trace", sync_timings=False)
+
+    synthetic = args.backend == "synthetic"
+    d = args.dim if synthetic else 4
+    spec: Dict[str, Any] = (
+        {"synthetic": {"d": d}} if synthetic else {"stub": {"delay_ms": args.stub_delay_ms}}
+    )
+    env = {FLEET_TRACE_ENV: "1", "KEYSTONE_FLIGHT_DIR": out_dir}
+    if args.kill_request:
+        env[FAULT_SPECS_WORKER_ENV + "0"] = json.dumps(
+            [{"match": "serving.worker.request", "kind": "kill",
+              "calls": [args.kill_request]}]
+        )
+    supervisor = WorkerSupervisor(
+        spec,
+        SupervisorConfig(
+            workers=args.workers,
+            heartbeat_s=0.1,
+            hang_timeout_s=10.0,
+            ready_timeout_s=240.0,
+            queue_depth=args.requests + 64,
+            worker_queue_depth=args.requests + 32,
+            restart_policy=RetryPolicy(
+                max_attempts=4, base_delay_s=0.2, max_delay_s=2.0
+            ),
+            # The stub ignores the device; card workers take it.
+            device=args.device if synthetic else None,
+        ),
+        env=env,
+    ).start()
+    host, port = parse_listen(args.listen)
+    frontend = None
+    errors = 0
+    scrapes: List[str] = []
+    stats: Dict[str, Any] = {}
+    try:
+        supervisor.wait_ready()
+        frontend = ServingFrontend(
+            supervisor, host, port,
+            default_deadline_s=args.deadline_ms / 1e3,
+        ).start()
+        base_url = f"http://{frontend.host}:{frontend.port}"
+
+        def scrape() -> str:
+            with urllib.request.urlopen(base_url + "/metrics", timeout=30) as r:
+                return r.read().decode()
+
+        work: "queue_mod.Queue" = queue_mod.Queue()
+        for i in range(args.requests):
+            work.put(i)
+        error_lock = threading.Lock()
+        error_box = [0]
+
+        def client() -> None:
+            while True:
+                try:
+                    i = work.get_nowait()
+                except queue_mod.Empty:
+                    return
+                body = json.dumps(
+                    {"x": [float(i % 7)] * d, "deadline_ms": args.deadline_ms}
+                ).encode()
+                request = urllib.request.Request(
+                    base_url + "/v1/apply", data=body,
+                    headers={"Content-Type": "application/json"},
+                )
+                try:
+                    with urllib.request.urlopen(request, timeout=120) as r:
+                        json.loads(r.read())
+                except Exception:
+                    with error_lock:
+                        error_box[0] += 1
+
+        with _spans.span("trace:sweep", requests=args.requests):
+            threads = [
+                threading.Thread(target=client, name=f"trace-client-{t}")
+                for t in range(max(args.concurrency, 1))
+            ]
+            for t in threads:
+                t.start()
+            # Mid-sweep scrape: with the after-sweep scrape below it is
+            # the monotonic-through-restart evidence.
+            time.sleep(0.2)
+            scrapes.append(scrape())
+            for t in threads:
+                t.join()
+        errors = error_box[0]
+        scrapes.append(scrape())
+        stats = supervisor.stats()
+    finally:
+        if frontend is not None:
+            frontend.stop()
+        # Stop BEFORE the merge: each worker's exit line carries the
+        # fragments no heartbeat shipped, so the merge waits on no beat.
+        supervisor.stop(drain=True)
+    merged = supervisor.fleet.merge(
+        local_session=session, local_role="frontend",
+        fragments_missing=supervisor.fragments_missing(),
+    )
+
+    trace_path = os.path.join(out_dir, "fleet_trace.json")
+    with open(trace_path, "w") as f:
+        json.dump(merged, f)
+    prom_path = os.path.join(out_dir, "fleet_metrics.prom")
+    with open(prom_path, "w") as f:
+        f.write(scrapes[-1])
+
+    def fleet_served(text: str) -> float:
+        total = 0.0
+        for line in text.splitlines():
+            if line.startswith(_names.FLEET_REQUESTS + "{"):
+                try:
+                    total += float(line.rsplit(" ", 1)[1])
+                except ValueError:
+                    pass
+        return total
+
+    span_counts: Dict[str, int] = {}
+    span_names: Dict[str, List[str]] = {}
+    for event in merged["traceEvents"]:
+        if event.get("ph") == "X":
+            role = merged["otherData"]["processes"].get(str(event["pid"]), "?")
+            span_counts[role] = span_counts.get(role, 0) + 1
+            names_seen = span_names.setdefault(role, [])
+            if event["name"] not in names_seen:
+                names_seen.append(event["name"])
+    flight_dumps = sorted(
+        name for name in os.listdir(out_dir) if name.startswith("flightrec-")
+    )
+    summary = {
+        "trace_path": trace_path,
+        "prom_path": prom_path,
+        "backend": args.backend,
+        "requests": args.requests,
+        "errors": errors,
+        "trace_ids": merged["otherData"]["trace_ids"][:8],
+        "processes": merged["otherData"]["processes"],
+        "fragments_missing": merged["otherData"]["fragments_missing"],
+        "span_counts": span_counts,
+        "span_names": {role: sorted(names) for role, names in span_names.items()},
+        "clock_skew_s": merged["otherData"]["clock_skew_s"],
+        "metric_families": scrapes[-1].count("# HELP"),
+        "fleet_served_mid": fleet_served(scrapes[0]),
+        "fleet_served_final": fleet_served(scrapes[-1]),
+        "requeued": stats["supervisor"]["requeued"],
+        "restarts": stats["supervisor"]["restarts"],
+        "flight_dumps": flight_dumps,
+        "local_flight_dumps": [d["trigger"] for d in recorder.dumps],
+    }
+    print("TRACE_STATS:" + json.dumps(summary))
+    return 0

@@ -3,8 +3,8 @@ telemetry, dumped to a post-mortem artifact when something goes wrong.
 
 A copy of ``keystone_tpu/obs/flight.py``. In the port the refit daemon,
 the serving supervisor, its workers and the fleet's front-end install
-it; until the cost observatory arrives (ROADMAP item 13b), a dump's
-``perf_ledger`` is empty.
+it; a dump's ``perf_ledger`` holds the cost observatory's last 32
+per-node entries (``obs/cost.py``).
 
 "Worker died, requeued" is a healthy-system log line and a terrible
 post-mortem: by the time a human looks, the spans, ledger events, and
@@ -224,8 +224,12 @@ class FlightRecorder:
                 for s in session.spans()[-self.capacity:]
             ]
             dropped = session.dropped
-        # The cost observatory's per-node entries arrive with it (item 13b).
-        perf_ledger: List[Dict[str, Any]] = []
+        # The cost observatory's recent per-node entries: a crash snapshot
+        # carries the perf picture (predicted vs measured, roofline
+        # placement) alongside the events that explain it.
+        from . import cost as _cost
+
+        perf_ledger = [e.to_json() for e in _cost.get_ledger().tail(32)]
         payload = {
             "flightrec": 1,
             "role": self.role,

@@ -171,6 +171,35 @@ INGEST_BYTES = "keystone_ingest_bytes_total"
 INGEST_DECODE_SECONDS = "keystone_ingest_decode_seconds_total"
 
 
+# ------------------------------------------------------------------- autocache
+AUTOCACHE_CACHED_NODES = "keystone_autocache_cached_nodes_total"
+AUTOCACHE_HITS = "keystone_autocache_hits_total"
+AUTOCACHE_MISSES = "keystone_autocache_misses_total"
+AUTOCACHE_PROFILE_SECONDS = "keystone_autocache_profile_seconds"
+
+# ------------------------------------------------------------------- autotuner
+TUNE_CANDIDATES = "keystone_tune_candidates_total"
+TUNE_WINNERS = "keystone_tune_winners_total"
+TUNE_SECONDS = "keystone_tune_seconds"
+KNOB_REJECTED = "keystone_knob_rejected_total"
+
+# ------------------------------------------------------------------- scheduler
+SCHED_LEASES = "keystone_sched_leases_total"
+SCHED_IDLE_HARVEST_SECONDS = "keystone_sched_idle_harvest_seconds_total"
+SCHED_LEASE_WALL_RATIO = "keystone_sched_lease_wall_ratio"
+SCHED_REFIT_INTERVAL_SECONDS = "keystone_sched_refit_interval_seconds"
+
+# ------------------------------------------------------------ cost observatory
+COST_LEDGER_ENTRIES = "keystone_cost_ledger_entries_total"
+COST_DRIFT_EVENTS = "keystone_cost_drift_events_total"
+COST_DRIFT_RATIO = "keystone_cost_drift_ratio"
+COST_HARVEST_COMPILES = "keystone_cost_harvest_compiles_total"
+COST_ROOFLINE_PEAK = "keystone_cost_roofline_peak"
+
+# ---------------------------------------------------------------------- memory
+MEMORY_IN_USE_BYTES = "keystone_memory_in_use_bytes"
+PEAK_MEMORY_BYTES = "keystone_peak_memory_bytes"
+
 # name → (kind, help, label names). Histograms may carry a 4th element
 # naming a bucket preset ("ratio" → RATIO_BUCKETS).
 SCHEMA: Dict[str, Tuple] = {
@@ -280,6 +309,25 @@ SCHEMA: Dict[str, Tuple] = {
     INGEST_CORRUPT: ("counter", "Records quarantined by ingest", ()),
     INGEST_BYTES: ("counter", "Raw bytes read by ingest", ()),
     INGEST_DECODE_SECONDS: ("counter", "Cumulative decode wall time", ()),
+    AUTOCACHE_CACHED_NODES: ("counter", "Cacher nodes inserted by the auto-cache planner", ()),
+    AUTOCACHE_HITS: ("counter", "Re-reads of a cached (Cacher) node's memoized result", ()),
+    AUTOCACHE_MISSES: ("counter", "First executions of a Cacher node", ()),
+    AUTOCACHE_PROFILE_SECONDS: ("histogram", "Auto-cache sample-profiling passes", ()),
+    TUNE_CANDIDATES: ("counter", "Candidate configurations measured by the offline autotuner", ("task",)),
+    TUNE_WINNERS: ("counter", "Winning configurations persisted to the profile store by the autotuner", ("task",)),
+    TUNE_SECONDS: ("histogram", "Whole autotuner task runs (all budgeted measurements)", ("task",)),
+    KNOB_REJECTED: ("counter", "Measured knob overrides rejected before applying, by knob and reason", ("knob", "reason")),
+    SCHED_LEASES: ("counter", "Mesh-scheduler leases, by work kind and outcome (admitted/deferred/preempted/resumed/completed)", ("kind", "outcome")),
+    SCHED_IDLE_HARVEST_SECONDS: ("counter", "Serving idle-gap seconds harvested by admitted background leases", ()),
+    SCHED_LEASE_WALL_RATIO: ("histogram", "Measured / predicted lease wall, by price provenance (tune/store/roofline/default); >1 = lease ran slower than priced", ("source",), "ratio"),
+    SCHED_REFIT_INTERVAL_SECONDS: ("gauge", "Last pressure-aware refit cadence chosen by the scheduler-governed daemon loop", ()),
+    COST_LEDGER_ENTRIES: ("counter", "Perf-ledger entries recorded by the cost observatory, by roofline classification", ("roofline",)),
+    COST_DRIFT_EVENTS: ("counter", "Sustained cost-model drift events fired by the drift sentinel, by model", ("model",)),
+    COST_DRIFT_RATIO: ("gauge", "Latest measured-vs-predicted cost ratio observed per model (>1 = slower than predicted)", ("model",)),
+    COST_HARVEST_COMPILES: ("counter", "Kernel builds triggered by cost harvesting; must stay 0 (facts are counted at launch sites, nothing is built for them)", ()),
+    COST_ROOFLINE_PEAK: ("gauge", "Probe-calibrated roofline peaks for this process's card, by resource (flops_per_s/bytes_per_s)", ("resource",)),
+    MEMORY_IN_USE_BYTES: ("gauge", "Current memory in use", ("source", "device")),
+    PEAK_MEMORY_BYTES: ("gauge", "Peak memory observed, attributed per stage", ("stage", "device")),
 }
 
 

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ...envknobs import env_float, env_set, env_str
+from ...obs import cost as _cost
 from ...utils.sparse import BlockSparseMatrix
 from . import _build
 
@@ -201,6 +202,14 @@ def _check_args(indices, blocks, b, counts) -> None:
 
 
 def _dispatch(indices, blocks, b, counts):
+    nbr, k_slots, bm, bn = blocks.shape
+    # The cost observatory's facts for this launch: 2 × stored blocks ×
+    # bm × bn × N FLOP, and the stored indices, counts, blocks, b and the
+    # output, each once (obs/cost.py reads ``counts`` back at finalize).
+    _cost.note_launch(
+        "ell_matmul", "ell_fp32", nbr=nbr, slots=k_slots, bm=bm, bn=bn,
+        d_pad=b.shape[0], n=b.shape[1], counts=counts,
+    )
     if all(t.device.type == "cpu" for t in (indices, blocks, b, counts) if t is not None):
         return ell_matmul_reference(indices, blocks, b, counts)
     return _launch(indices, blocks, b, counts)

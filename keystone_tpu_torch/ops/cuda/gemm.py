@@ -31,7 +31,10 @@ any other status raises ``RuntimeError``. On CPU tensors they take their
 plain versions (:func:`gemm_reference` and its siblings): the inputs rounded as the kind
 rounds them (:func:`round_inputs`), then a ``torch.matmul`` in the
 inputs' own type (float32 for the fp32 and bf16 kinds). Each binding call
-adds one to ``launches[kind]``; a chunked call counts once.
+adds one to ``launches[kind]``; a chunked call counts once. Every call,
+on either device, notes its shape and kind to the cost observatory
+(``obs/cost.py``), which counts 2·m·n·k FLOP and (m·k + k·n + m·n) ×
+itemsize bytes per product.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from ...obs import cost as _cost
 
 #: Product kind → the binding's kind code.
 KINDS = {"ieee_fp32": 0, "tf32": 1, "bf16": 2, "fp64": 3, "bf16_inputs": 2}
@@ -234,6 +238,9 @@ def gemm(
     kind, out_dtype = _dispatch_dtypes(a, b, kind, "gemm")
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"gemm: shapes {tuple(a.shape)} @ {tuple(b.shape)} do not chain")
+    _cost.note_launch(
+        "gemm", kind, m=a.shape[0], n=b.shape[1], k=a.shape[1], itemsize=a.element_size()
+    )
     if all(t.device.type == "cpu" for t in (a, b) + (() if out is None else (out,))):
         return gemm_reference(a, b, kind, out=out, beta=beta)
     device = _check_cuda("gemm", a, b, *(() if out is None else (out,)))
@@ -275,6 +282,9 @@ def gemm_tn_chunked(
     kind, out_dtype = _dispatch_dtypes(a, b, kind, "gemm_tn_chunked")
     if a.ndim != 2 or b.ndim != 2 or a.shape[0] != b.shape[0]:
         raise ValueError(f"gemm_tn_chunked: shapes {tuple(a.shape)}, {tuple(b.shape)} differ in rows")
+    _cost.note_launch(
+        "gemm", kind, m=a.shape[1], n=b.shape[1], k=a.shape[0], itemsize=a.element_size()
+    )
     if all(t.device.type == "cpu" for t in (a, b) + (() if out is None else (out,))):
         return gemm_tn_chunked_reference(a, b, kind, out=out, beta=beta, rows=rows)
     device = _check_cuda("gemm_tn_chunked", a, b, *(() if out is None else (out,)))
@@ -320,6 +330,10 @@ def gemm_batched(a: torch.Tensor, b: torch.Tensor, kind: str = "ieee_fp32") -> t
     kind, out_dtype = _dispatch_dtypes(a, b, kind, "gemm_batched")
     if a.ndim != 3 or b.ndim != 3 or a.shape[0] != b.shape[0] or a.shape[2] != b.shape[1]:
         raise ValueError(f"gemm_batched: shapes {tuple(a.shape)} @ {tuple(b.shape)} do not chain")
+    _cost.note_launch(
+        "gemm", kind, m=a.shape[1], n=b.shape[2], k=a.shape[2], batch=a.shape[0],
+        itemsize=a.element_size(),
+    )
     if a.device.type == "cpu" and b.device.type == "cpu":
         return gemm_batched_reference(a, b, kind)
     device = a.device

@@ -130,6 +130,12 @@ class BlockLeastSquaresEstimator(GramStreamStateMixin, LabelEstimator):
         self.device = device
         self.host_streaming = host_streaming
 
+    @property
+    def weight(self) -> int:
+        """Passes over its input (the reference's WeightedOperator): the
+        auto-cache planner multiplies a node's recomputations by it."""
+        return 3 * self.num_iter + 1
+
     def fit_stream(self, stream, state=None) -> BlockLinearMapper:
         """Row-chunked fit: accumulate (AᵀA, AᵀY, Σx, Σy) one chunk at a
         time on the stream's device, then run the SAME Gauss-Seidel block

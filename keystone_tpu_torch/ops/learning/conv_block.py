@@ -144,6 +144,12 @@ class ConvBlockLeastSquaresEstimator(LabelEstimator):
 
     # ---------------------------------------------------------------- fit
 
+    @property
+    def weight(self) -> int:
+        """Passes over its input (the reference's WeightedOperator): the
+        auto-cache planner multiplies a node's recomputations by it."""
+        return 3 * self.num_iter + 1
+
     def fit(self, data: Dataset, labels: Dataset) -> ConvBlockModel:
         device = resolve_device(self.device)
         features = _as_array_dataset(data, device)

@@ -80,6 +80,12 @@ class DenseLBFGSEstimator(LabelEstimator):
         self.fit_intercept = fit_intercept
         self.device = device
 
+    @property
+    def weight(self) -> int:
+        """Passes over its input (reference: DenseLBFGSwithL2, weight =
+        2·numIterations)."""
+        return 2 * self.num_iterations
+
     def fit(self, data: Dataset, labels: Dataset) -> LinearMapper:
         device = resolve_device(self.device)
         features = _as_array_dataset(data, device)
@@ -127,6 +133,12 @@ class SparseLBFGSEstimator(LabelEstimator):
         self.memory_size = memory_size
         self.tol = tol
         self.device = device
+
+    @property
+    def weight(self) -> int:
+        """Passes over its input (reference: DenseLBFGSwithL2, weight =
+        2·numIterations)."""
+        return 2 * self.num_iterations
 
     def fit(self, data: Dataset, labels: Dataset) -> SparseLinearMapper:
         import scipy.sparse as sp

@@ -124,6 +124,12 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
     def weight(self) -> int:
         return 3 * self.num_iter + 1
 
+    @property
+    def weight(self) -> int:
+        """Passes over its input (the reference's WeightedOperator): the
+        auto-cache planner multiplies a node's recomputations by it."""
+        return 3 * self.num_iter + 1
+
     def fit(self, data: Dataset, labels: Dataset) -> BlockLinearMapper:
         features = _as_array_dataset(data, None)
         targets = _as_array_dataset(labels, None)

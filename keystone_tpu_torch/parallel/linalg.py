@@ -46,6 +46,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..envknobs import env_raw
+from ..obs import cost as _cost
 from ..ops.cuda import gemm as _gemm
 
 # ------------------------------------------------------------ precision modes
@@ -131,14 +132,22 @@ def precision() -> str:
 ROW_CHUNK = _gemm.ROW_CHUNK
 
 
+def _note_host_product(kind: str, m: int, n: int, k: int, itemsize: int) -> None:
+    """The host products below stand in for the binding's: they note the
+    same facts to the cost observatory as ``ops/cuda/gemm.py`` does."""
+    _cost.note_launch("gemm", kind, m=m, n=n, k=k, itemsize=itemsize)
+
+
 def _mm(a: torch.Tensor, b: torch.Tensor, kind: str) -> torch.Tensor:
     if a.device.type == "cpu" and b.device.type == "cpu":
+        _note_host_product(kind, a.shape[0], b.shape[-1], a.shape[-1], a.element_size())
         return torch.matmul(a, b)
     return _gemm.gemm(a, b, kind)
 
 
 def _addmm_t_(out: torch.Tensor, a: torch.Tensor, b: torch.Tensor, kind: str) -> torch.Tensor:
     if all(t.device.type == "cpu" for t in (out, a, b)):
+        _note_host_product(kind, a.shape[1], b.shape[1], a.shape[0], a.element_size())
         for start in range(0, a.shape[0], ROW_CHUNK):
             out.addmm_(a[start : start + ROW_CHUNK].T, b[start : start + ROW_CHUNK])
         return out
@@ -159,6 +168,8 @@ def _mm_nt(a: torch.Tensor, b: torch.Tensor, kind: str) -> torch.Tensor:
     (chip_smoke.py ``timit_sketched`` reads both forms against float64)."""
     out = torch.zeros(a.shape[0], b.shape[0], dtype=a.dtype, device=a.device)
     on_cpu = a.device.type == "cpu" and b.device.type == "cpu"
+    if on_cpu:
+        _note_host_product(kind, a.shape[0], b.shape[0], a.shape[1], a.element_size())
     for start in range(0, a.shape[1], ROW_CHUNK):
         ab, bb = a[:, start : start + ROW_CHUNK], b[:, start : start + ROW_CHUNK]
         if on_cpu:

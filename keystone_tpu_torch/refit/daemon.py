@@ -49,9 +49,15 @@ Chaos surface: ``refit.fold`` faults the incremental fold,
 before publish (a ``corrupt`` spec here is the seeded bad candidate the
 watch window rolls back), ``refit.publish`` faults the swap itself.
 
-Not here: the ``scheduler=`` lease path (preemptible, cost-priced folds
-under a mesh co-scheduler; ROADMAP Queue A item 13b — passing one raises)
-and the sharded fold (``partition=``, item 14).
+Under a ``scheduler=`` (``sched/scheduler.py``, one card) each round is
+a cost-priced lease: admitted only into serving idle gaps (else the round
+is ``deferred`` and the rows stay in the tap), preempted at a chunk
+boundary under sustained pressure — the durable cursor commits, the batch
+is parked in the journal as a planned resume (its replay budget
+untouched), and the next admitted round resumes the fold from the cursor
+— and the loop's cadence follows the tap's fill and the pressure.
+
+Not here: the sharded fold (``partition=``, ROADMAP item 14).
 
 The module also carries the synthetic drifting-workload closed loop
 behind ``python -m keystone_tpu_torch refit`` (:func:`run_refit_demo`).
@@ -85,9 +91,7 @@ from .tap import TrafficTap
 
 @dataclass
 class RefitConfig:
-    """Knobs for one :class:`RefitDaemon` (env defaults via envknobs).
-    The JAX package's scheduler knobs (``auto_chunk_rows``,
-    ``sched_ckpt_every``) arrive with the scheduler (item 13b)."""
+    """Knobs for one :class:`RefitDaemon` (env defaults via envknobs)."""
 
     name: str = "default"
     #: seconds between supervised rounds (KEYSTONE_REFIT_INTERVAL_S).
@@ -133,6 +137,13 @@ class RefitConfig:
     #: round-journal replay budget: a journaled batch that fails this
     #: many replays is DISCARDED (refit_journal_discard).
     max_journal_replays: int = 3
+    #: scheduled-path chunk policy: under a MeshScheduler, let the
+    #: roofline placement (or a tuned ProfileStore entry) choose
+    #: chunk_rows instead of the static default (KEYSTONE_SCHED_AUTO_CHUNKS).
+    auto_chunk_rows: bool = field(default_factory=lambda: env_flag("KEYSTONE_SCHED_AUTO_CHUNKS", False))
+    #: cursor cadence for SCHEDULED folds (chunks between commits): the
+    #: preemption contract needs a committable cursor even on small folds.
+    sched_ckpt_every: int = field(default_factory=lambda: env_int("KEYSTONE_SCHED_CKPT_EVERY", 1))
     #: persisted-state key in the checkpoint store.
     state_key: str = "refit-state"
 
@@ -152,17 +163,16 @@ class RefitDaemon:
         state: Optional[StreamState] = None,
         scheduler: Any = None,
     ):
-        if scheduler is not None:
-            raise NotImplementedError(
-                "RefitDaemon(scheduler=...): the mesh co-scheduler's lease path "
-                "is not ported yet (ROADMAP Queue A item 13b)"
-            )
         if partition is not None:
             raise NotImplementedError(
                 "RefitDaemon(partition=...): the sharded fold is not ported yet "
                 "(ROADMAP Queue A item 14)"
             )
         self.estimator = estimator
+        #: optional sched.MeshScheduler: rounds become cost-priced leases
+        #: (module docstring).
+        self.scheduler = scheduler
+        self._last_preempted_chunk: Optional[int] = None
         self.tap = tap
         self.publisher = publisher
         #: reliability CheckpointStore for the stream state (None = the
@@ -227,6 +237,21 @@ class RefitDaemon:
         self._rounds += 1
         round_index = self._rounds
         journal = self._load_journal()
+        if journal is not None and journal.get("deferred"):
+            # A scheduler preemption parked this batch mid-fold: a PLANNED
+            # resume, not a crash replay — the attempts budget is
+            # untouched. Re-admission goes back through the scheduler; a
+            # still-pressured card keeps the batch parked.
+            lease = self._acquire_lease(
+                round_index, rows=int(journal["x"].shape[0]), resume_of=journal.get("lease"),
+            )
+            if lease is not None and not lease.admitted:
+                return self._outcome(
+                    "deferred", round_index, keep_journal=True,
+                    rows=int(journal["x"].shape[0]), displaced_by=lease.displaced_by,
+                )
+            journal.pop("deferred", None)
+            return self._resume_from_journal(journal, round_index, lease=lease)
         if journal is not None:
             # A previous round died mid-flight: its rows survive in the
             # journal, not the tap. The replay budget is persisted BEFORE
@@ -258,11 +283,48 @@ class RefitDaemon:
                 round=round_index,
             )
             return self._outcome("skipped_nodata", round_index, rows=depth)
+        # Admission BEFORE drain: a deferred fresh round costs nothing —
+        # the rows stay in the tap and the cadence retries sooner as it
+        # fills.
+        lease = self._acquire_lease(round_index, rows=min(depth, self.config.max_rows_per_round))
+        if lease is not None and not lease.admitted:
+            return self._outcome("deferred", round_index, rows=depth, displaced_by=lease.displaced_by)
         drained = self.tap.drain(self.config.max_rows_per_round)
         if drained is None:  # raced another drainer
+            if lease is not None:
+                self.scheduler.release(lease)
             return self._outcome("skipped_nodata", round_index, rows=0)
         x, y = drained
-        return self._round_body(x, y, round_index)
+        return self._round_body(x, y, round_index, lease=lease)
+
+    def _acquire_lease(self, round_index: int, rows: int, resume_of: Optional[str] = None):
+        """Price this round's fold and ask the scheduler for card time
+        (None when unscheduled)."""
+        if self.scheduler is None:
+            return None
+        from ..sched.scheduler import LeaseRequest
+
+        width = classes = 0
+        if self._state is not None:
+            meta = getattr(self._state, "meta", {}) or {}
+            width = int(meta.get("d", 0) or 0)
+            classes = int(meta.get("k", 0) or 0)
+            carry = getattr(self._state, "carry", ())
+            if not width and len(carry) > 1 and getattr(carry[1], "ndim", 0) == 2:
+                # No estimator records d and k in the state's meta (the JAX
+                # package's daemon then prices every fold one feature
+                # wide); a Gram carry's AᵀY is (d, k).
+                width, classes = (int(v) for v in carry[1].shape)
+        return self.scheduler.submit(
+            LeaseRequest(
+                name=f"{self.config.name}:round-{round_index}",
+                kind="refit_fold",
+                rows=int(rows),
+                width=width,
+                classes=classes,
+                resume_of=resume_of,
+            )
+        )
 
     # -------------------------------------------------------- round journal
     #
@@ -295,7 +357,7 @@ class RefitDaemon:
         if self.store is not None:
             self.store.delete(self._journal_key())
 
-    def _resume_from_journal(self, journal: Dict[str, Any], round_index: int) -> str:
+    def _resume_from_journal(self, journal: Dict[str, Any], round_index: int, lease: Any = None) -> str:
         phase = str(journal.get("phase"))
         get_recovery_log().record(
             "refit_journal_resume",
@@ -308,13 +370,16 @@ class RefitDaemon:
         _names.metric(_names.DURABLE_RESUMES).inc(kind="refit_journal")
         if phase == "drained":
             # The fold may have half-applied: rewind to the journaled
-            # pre-fold snapshot so the re-fold is exactly once.
+            # pre-fold snapshot so the re-fold is exactly once. After a
+            # scheduler deferral the re-fold is still cheap: the durable
+            # cursor (armed in _fold) holds the committed prefix.
             self._state = journal.get("state_before")
         return self._round_body(
             journal["x"], journal["y"], round_index,
             skip_fold=(phase == "folded"),
             attempts=int(journal.get("attempts", 0)),
             token=journal.get("token"),
+            lease=lease,
         )
 
     def _sync(self) -> None:
@@ -326,6 +391,7 @@ class RefitDaemon:
     def _round_body(
         self, x: np.ndarray, y: np.ndarray, round_index: int,
         skip_fold: bool = False, attempts: int = 0, token: Optional[str] = None,
+        lease: Any = None,
     ) -> str:
         n = x.shape[0]
         eval_n = max(min(int(n * self.config.eval_fraction), n - 1), 1)
@@ -352,6 +418,7 @@ class RefitDaemon:
 
         # ---------------------------------------------------- incremental fold
         save_s = save_bytes = None
+        preempted_at: Optional[int] = None
         with _spans.span("refit:fold", rows=int(train_x.shape[0])):
             probe("refit.fold")
             t_fold = time.perf_counter()
@@ -360,10 +427,11 @@ class RefitDaemon:
                 # candidate from the persisted statistics alone.
                 candidate = self.estimator.finish_from_state(self._state)
             else:
-                candidate = self._fold(train_x, train_y)
+                candidate = self._fold(train_x, train_y, lease=lease)
+                preempted_at = self._last_preempted_chunk
             self._sync()
             fold_s = time.perf_counter() - t_fold
-            if not skip_fold:
+            if not skip_fold and preempted_at is None:
                 self._state = self.estimator.export_stream_state()
                 if self.store is not None and self._state is not None:
                     t_save = time.perf_counter()
@@ -380,6 +448,31 @@ class RefitDaemon:
                             "token": token,
                         }
                     )
+        if lease is not None:
+            self.scheduler.release(lease)
+        if preempted_at is not None:
+            # Preempted at a chunk boundary under sustained pressure: the
+            # durable cursor holds the committed prefix. Park the batch
+            # back in the journal as a PLANNED resume (attempts untouched)
+            # and leave self._state at the pre-fold snapshot so nothing
+            # partial publishes.
+            self._save_journal(
+                {
+                    "phase": "drained",
+                    "round": round_index,
+                    "x": x,
+                    "y": y,
+                    "state_before": self._state,
+                    "attempts": attempts,
+                    "token": token,
+                    "deferred": True,
+                    "lease": getattr(lease, "id", None),
+                }
+            )
+            return self._outcome(
+                "deferred", round_index, keep_journal=True, preempted_at_chunk=preempted_at,
+                fold_s=fold_s, displaced_by=getattr(lease, "displaced_by", None),
+            )
         self.last_candidate = candidate
         self._m_fold_s.observe(fold_s)
         self._m_state_rows.set(self.state_rows())
@@ -435,18 +528,33 @@ class RefitDaemon:
             state_decay=round(self.applied_decay, 4), **timings,
         )
 
-    def _fold(self, train_x: np.ndarray, train_y: np.ndarray):
+    def _fold(self, train_x: np.ndarray, train_y: np.ndarray, lease: Any = None):
         """Fold new rows into the stored statistics through the chunked
         fit_stream plan on the estimator's device (the rows stream from
-        host memory, as a planned streamed fit's would)."""
-        from ..data.dataset import ArrayDataset
-        from ..workflow.streaming import ChunkStream
+        host memory, as a planned streamed fit's would).
 
+        Under a scheduler lease the fold is preemptible: a durable cursor
+        is armed in the daemon's store so every chunk boundary can commit
+        the fold prefix, and the lease is consulted between chunks —
+        sustained pressure stops the fold at a boundary with the cursor
+        intact (``self._last_preempted_chunk``)."""
+        from ..data.dataset import ArrayDataset
+        from ..workflow.streaming import ChunkStream, last_stream_report
+
+        self._last_preempted_chunk = None
+        chunk_rows = self.config.chunk_rows
+        if self.scheduler is not None and self.config.auto_chunk_rows:
+            chunk_rows, _prefetch, _src = self.scheduler.chunk_rows_for(
+                rows=len(train_x),
+                width=int(train_x.shape[1]),
+                classes=int(train_y.shape[1]) if train_y.ndim > 1 else 1,
+                default=self.config.chunk_rows,
+            )
         stream = ChunkStream(
             ArrayDataset(train_x, device="cpu"),
             ArrayDataset(train_y, device="cpu"),
             (),
-            chunk_rows=min(self.config.chunk_rows, max(len(train_x), 1)),
+            chunk_rows=min(chunk_rows, max(len(train_x), 1)),
             device=getattr(self.estimator, "device", None),
         )
         state = self._state
@@ -456,9 +564,35 @@ class RefitDaemon:
             # so the fold weights the CURRENT distribution.
             decay = get_quality_plane().suggested_decay(self.config.name, base=decay)
         self.applied_decay = decay
+        durable = None
+        if self.scheduler is not None and self.store is not None:
+            # Preemption substrate: chunk-boundary checkpoints in the
+            # store the journal lives in. A valid cursor (resume after a
+            # deferral) already holds the decayed base plus the committed
+            # prefix: seeding from it and skipping the decay below keeps
+            # resume equal to an uninterrupted fold.
+            from ..reliability.durable import arm_durable_fold
+
+            durable, resume_state = arm_durable_fold(
+                stream, self.estimator, self.store, ckpt_every=self.config.sched_ckpt_every,
+            )
+            if resume_state is not None:
+                state = resume_state
+                decay = 1.0
         if state is not None and decay < 1.0:
             state = state.scaled(decay)
-        return self.estimator.fit_stream(stream, state=state)
+        if durable is not None:
+            # seed_rows AFTER decay: StreamState.scaled multiplies
+            # num_examples too, and the cursor's rows are post-decay.
+            if durable.resume_rows == 0:
+                durable.seed_rows = int(state.num_examples) if state is not None else 0
+            stream.durable = durable
+            stream.lease = lease
+        result = self.estimator.fit_stream(stream, state=state)
+        report = last_stream_report()
+        if lease is not None and report is not None and report.preempted_at_chunk is not None:
+            self._last_preempted_chunk = int(report.preempted_at_chunk)
+        return result
 
     def _watch(
         self, ticket, shadow_report, watch_x, watch_y, round_index: int,
@@ -601,11 +735,13 @@ class RefitDaemon:
         except Exception:
             pass  # quality is evidence, not correctness: never fail a round
 
-    def _outcome(self, outcome: str, round_index: int, **detail) -> str:
+    def _outcome(self, outcome: str, round_index: int, keep_journal: bool = False, **detail) -> str:
         # The round reached a decision: persist the quality join state,
-        # then retire its journal (a no-op when none was written).
+        # then retire its journal (a no-op when none was written). A
+        # scheduler deferral KEEPS the journal: it is the parked batch.
         self._persist_quality()
-        self._clear_journal()
+        if not keep_journal:
+            self._clear_journal()
         # Join lag: labeled rows already in the tap this round did not reach.
         _names.metric(_names.QUALITY_JOIN_LAG_ROWS).set(self.tap.depth(), model=self.config.name)
         self._m_rounds.inc(outcome=outcome)
@@ -634,9 +770,27 @@ class RefitDaemon:
     def __exit__(self, *exc) -> None:
         self.stop()
 
+    def _next_interval(self) -> float:
+        """Pressure-aware cadence: an unscheduled daemon keeps the fixed
+        ``interval_s``; a scheduled one drains sooner as the tap fills
+        toward its drop-oldest bound and backs off under pressure."""
+        base = self.config.interval_s
+        if self.scheduler is None:
+            return base
+        from ..sched.scheduler import pressure_aware_interval
+
+        stats = self.tap.stats()
+        fill = min(
+            float(stats.get("labeled_depth", 0)) / max(float(stats.get("capacity_rows", 1)), 1.0),
+            1.0,
+        )
+        interval = pressure_aware_interval(base, fill, self.scheduler.pressure())
+        _names.metric(_names.SCHED_REFIT_INTERVAL_SECONDS).set(interval)
+        return interval
+
     def _loop(self) -> None:
         failures = 0
-        while not self._stop.wait(self.config.interval_s):
+        while not self._stop.wait(self._next_interval()):
             try:
                 self.run_once()
                 failures = 0

@@ -33,9 +33,10 @@ to the JAX package's key for the same name. The envelope is written
 with ``torch.save`` (host numpy carries), so a file written by one
 package is never loaded by the other: their classes differ.
 
-Not ported: the scheduler lease the JAX package's ``finish_from_state``
-takes (the scheduler is ROADMAP item 13b; on one device the finish runs
-without one).
+``finish_from_state`` opts into the co-scheduler when one is installed
+(``sched/scheduler.py::maybe_lease``): admitted into an idle gap, the
+finish solve is priced and spanned; under pressure the deferral is
+ledgered but the solve still runs, since its callers need the model.
 """
 
 from __future__ import annotations
@@ -222,10 +223,22 @@ class GramStreamStateMixin:
 
     def finish_from_state(self, state: StreamState):
         """A fitted transformer from statistics alone (no data pass), on
-        the estimator's ``device`` (default CUDA)."""
+        the estimator's ``device`` (default CUDA), under a ``finish``
+        lease when a scheduler is installed (module docstring)."""
+        from ..sched.scheduler import maybe_lease
+
         self._check_state_kind(state)
         carry = _device_carry(state, resolve_device(getattr(self, "device", None)))
-        return self._finish_from_stats(carry, int(state.num_examples))
+        width, classes = (
+            (int(carry[1].shape[0]), int(carry[1].shape[-1]))
+            if len(carry) > 1 and getattr(carry[1], "ndim", 0) >= 1
+            else (0, 0)
+        )
+        with maybe_lease(
+            f"{type(self).__name__}:finish", "finish",
+            rows=int(state.num_examples), width=width, classes=classes,
+        ):
+            return self._finish_from_stats(carry, int(state.num_examples))
 
     # ------------------------------------------------------- fold-side hooks
     def _check_state_kind(self, state: StreamState) -> None:

@@ -417,24 +417,28 @@ def serve_multiworker_from_args(args) -> int:
             frontend.stop()
         if autoscaler is not None:
             autoscaler.stop()
+        # Drain settles every outstanding future; each worker's exit
+        # stats line lands through the reader before its pipe closes, so
+        # the aggregate below carries final counters, and the merged
+        # trace below each worker's last span fragments.
+        supervisor.stop(drain=True)
         if trace_out:
-            # Merge BEFORE stop: fragments ship on heartbeats, and the
-            # last beats land while workers are still alive.
-            try:
-                time.sleep(supervisor.config.heartbeat_s * 2)
-                from ..obs.fleet import write_fleet_trace
+            # Merge AFTER stop: a worker ships the fragments no beat has
+            # carried on its exit line, so the merge waits on no beat.
+            # A worker whose exit line never came is named in the
+            # trace's ``fragments_missing``.
+            from ..obs.fleet import write_fleet_trace
 
+            try:
                 write_fleet_trace(
                     supervisor.fleet, trace_out,
                     local_session=trace_session, local_role="frontend",
+                    fragments_missing=supervisor.fragments_missing(),
                 )
+            except OSError:
+                pass  # an artifact write failure must not fail the serve run
+            else:
                 print(f"FLEET_TRACE:{trace_out}", file=sys.stderr, flush=True)
-            except Exception:
-                pass  # an artifact failure must not fail the serve run
-        # Drain settles every outstanding future; each worker's exit
-        # stats line lands through the reader before its pipe closes, so
-        # the aggregate below carries final counters.
-        supervisor.stop(drain=True)
         from ..reliability.recovery import get_recovery_log
 
         payload = supervisor.stats()

@@ -214,6 +214,9 @@ class _Worker:
         #: ``init_s``, ``boot_image`` and ``ledger_kinds``, and the
         #: seconds from spawn to that line.
         self.ready_info: Dict[str, Any] = {}
+        #: the current incarnation's exit stats line (``final``), which
+        #: carries its last span fragments, has been read.
+        self.final_seen = False
 
     @property
     def alive(self) -> bool:
@@ -276,6 +279,7 @@ class WorkerSupervisor:
         #: deltas arriving on heartbeats land here; the frontend's
         #: /metrics and the merged fleet trace read it.
         self.fleet = FleetTraceCollector()
+        self._fragments_missing: List[str] = []
         #: Fleet quality view (the quality plane):
         #: worker heartbeat sketch deltas merge here; /metrics and
         #: stats() read it. Own instance, not the process
@@ -377,13 +381,20 @@ class WorkerSupervisor:
                     break
                 time.sleep(0.02)
         self._stop.set()
+        stopping = [w for w in self._workers.values() if w.alive]
         for worker in list(self._workers.values()):
             self._shutdown_worker(worker)
         for worker in list(self._workers.values()):
             # Join the reader so each worker's exit stats line (final
-            # counters) is folded in before stats() snapshots.
+            # counters and its last span fragments) is folded in before
+            # stats() snapshots or a fleet trace merges. The process has
+            # exited (or been killed) by now, so the pipe ends; the hang
+            # timeout bounds a reader still parsing a large last line.
             if worker.reader_thread is not None:
-                worker.reader_thread.join(2.0)
+                worker.reader_thread.join(max(2.0, self.config.hang_timeout_s))
+        self._fragments_missing = sorted(
+            f"worker{w.id}" for w in stopping if not w.final_seen
+        )
         if self._monitor is not None:
             self._monitor.join(5.0)
         with self._lock:
@@ -423,6 +434,7 @@ class WorkerSupervisor:
     # ------------------------------------------------------------------ spawn
     def _spawn(self, worker: _Worker) -> None:
         worker.incarnation += 1
+        worker.final_seen = False
         if worker.incarnation > 0:
             # A restart: fold the dead incarnation's counter high-water
             # marks into the base BEFORE the new process starts counting
@@ -667,6 +679,12 @@ class WorkerSupervisor:
                 if kind == "stats" and isinstance(msg.get("stats"), dict):
                     worker.stats = msg["stats"]
                     self._update_counter_hw(worker, incarnation, worker.stats)
+                if kind == "stats" and msg.get("final"):
+                    # The exit line ships the fragments no heartbeat
+                    # carried; only then is this worker's trace whole.
+                    self._ingest_fleet_telemetry(worker, msg, len(raw))
+                    if worker.incarnation == incarnation:
+                        worker.final_seen = True
         # EOF: the process is exiting; the monitor loop owns the verdict.
 
     def _stderr_loop(self, worker: _Worker, proc: subprocess.Popen) -> None:
@@ -1140,6 +1158,12 @@ class WorkerSupervisor:
                     break
                 time.sleep(0.02)
         return acks
+
+    def fragments_missing(self) -> List[str]:
+        """Workers alive when :meth:`stop` began whose exit stats line,
+        and with it their last span fragments, never arrived: a merged
+        fleet trace names them instead of silently lacking them."""
+        return list(self._fragments_missing)
 
     def fleet_counter_totals(self) -> Dict[str, Dict[str, float]]:
         """Per-worker LIFETIME counter totals (dead-incarnation base +

@@ -472,9 +472,11 @@ def main(argv: Optional[list] = None) -> int:
 
     stop = threading.Event()
 
+    #: the span-fragment cursor, shared by the beats and the exit line.
+    cursor = {"spans": 0}
+
     def heartbeat_loop() -> None:
         seq = 0
-        span_cursor = 0
         last_metrics: Dict[str, float] = get_registry().snapshot()
         while not stop.is_set():
             seq += 1
@@ -490,8 +492,8 @@ def main(argv: Optional[list] = None) -> int:
                 # drain, the clock anchor, and the metric-registry delta
                 # since the last beat (the supervisor folds deltas
                 # monotonically across incarnations).
-                fragments, span_cursor = _fleet.drain_fragments(
-                    session, span_cursor
+                fragments, cursor["spans"] = _fleet.drain_fragments(
+                    session, cursor["spans"]
                 )
                 if fragments:
                     payload["spans"] = fragments
@@ -582,9 +584,19 @@ def main(argv: Optional[list] = None) -> int:
     finally:
         stop.set()
         backend.close()
-        emitter.emit(
-            {"kind": "stats", "stats": backend.stats(), "final": True}
-        )
+        final: Dict[str, Any] = {"kind": "stats", "stats": backend.stats(), "final": True}
+        if session is not None:
+            # The exit line carries every fragment no beat has shipped
+            # yet, so a merge after the fleet stops holds this worker's
+            # whole trace however late its last beat would have come.
+            beat.join(max(1.0, 4 * args.heartbeat_s))
+            fragments, cursor["spans"] = _fleet.drain_fragments(
+                session, cursor["spans"], limit=1 << 30
+            )
+            if fragments:
+                final["spans"] = fragments
+            final["clock"] = {"unix": time.time(), "perf": time.perf_counter()}
+        emitter.emit(final)
     return exit_code
 
 

@@ -37,6 +37,12 @@ from .prefix import Prefix
 from .tracing import timed_execute
 
 
+def _is_cacher(op) -> bool:
+    from ..ops.util.misc import CacherOperator
+
+    return isinstance(op, CacherOperator)
+
+
 class PipelineEnv:
     """Process-wide executor state (reference: PipelineEnv.scala:7-37)."""
 
@@ -112,8 +118,13 @@ class GraphExecutor:
     def execute(self, graph_id: GraphId) -> Expression:
         graph = self.graph
         if graph_id in self._memo:
+            # Memo hits on Cacher nodes are the auto-cache planner's
+            # payoff: each one is a recomputation of the cached subtree
+            # avoided.
             if isinstance(graph_id, NodeId):
                 _names.metric(_names.MEMO_HITS).inc()
+                if _is_cacher(graph.get_operator(graph_id)):
+                    _names.metric(_names.AUTOCACHE_HITS).inc()
             return self._memo[graph_id]
         if isinstance(graph_id, SourceId):
             raise ValueError(
@@ -129,6 +140,8 @@ class GraphExecutor:
         env = PipelineEnv.get_or_create()
         env.nodes_executed += 1
         _names.metric(_names.NODES_EXECUTED).inc()
+        if _is_cacher(op):
+            _names.metric(_names.AUTOCACHE_MISSES).inc()
         prefix = self._prefixes.get(graph_id)
         expression = _wrap_reliability(op, deps, timed_execute(op, deps), prefix)
 

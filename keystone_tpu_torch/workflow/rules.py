@@ -16,8 +16,9 @@ counters per rule and the ``keystone_optimizer_seconds`` histogram, and
 opens ``optimize:rules`` and ``optimize:batch:<name>`` spans (a
 ``rule_rewrite`` event per rewrite) under an active span session.
 
-Left out for now: the ``measured-knobs`` and ``partition`` batches and
-``auto_caching_optimizer``.
+:func:`default_optimizer` and :func:`auto_caching_optimizer` run the JAX
+package's batches in its order without its last one, ``partition``
+(ROADMAP item 14).
 """
 
 from __future__ import annotations
@@ -200,12 +201,14 @@ class SavedStateLoadRule(Rule):
 
 def default_optimizer() -> RuleExecutor:
     """Saved-state reuse → CSE → node-level optimization → chain fusion →
-    streaming, the JAX package's stack in its order without its last two
-    batches (reference: DefaultOptimizer.scala:8-26). Fusion runs late so
-    every structural decision upstream sees real node boundaries;
-    streaming runs after it so it can absorb already-fused chains into
-    chunked fit plans."""
+    streaming → measured knobs (reference: DefaultOptimizer.scala:8-26).
+    Fusion runs late so every structural decision upstream sees real node
+    boundaries; streaming runs after it so it can absorb already-fused
+    chains into chunked fit plans; the measured-knob pass runs last so
+    the StreamingFitOperator nodes it tunes from profile-store history
+    already exist."""
     from .fusion import NodeFusionRule
+    from .knobs import MeasuredKnobRule
     from .optimize import NodeOptimizationRule
     from .streaming import StreamingPlanRule
 
@@ -219,5 +222,35 @@ def default_optimizer() -> RuleExecutor:
             Batch("node-level-optimization", [NodeOptimizationRule()]),
             Batch("fusion", [NodeFusionRule()]),
             Batch("streaming", [StreamingPlanRule()]),
+            Batch("measured-knobs", [MeasuredKnobRule()]),
+        ]
+    )
+
+
+def auto_caching_optimizer(budget_bytes: Optional[int] = None, strategy: str = "greedy") -> RuleExecutor:
+    """Default stack plus profile-driven cache insertion
+    (reference: DefaultOptimizer.scala AutoCachingOptimizer). Fusion runs
+    AFTER cache insertion: the cache planner profiles and splices against
+    real node boundaries, and inserted Cacher nodes then act as hard
+    fusion boundaries — and as streaming-chain boundaries for the
+    streaming batch that follows."""
+    from .autocache import AutoCacheRule
+    from .fusion import NodeFusionRule
+    from .knobs import MeasuredKnobRule
+    from .optimize import NodeOptimizationRule
+    from .streaming import StreamingPlanRule
+
+    return RuleExecutor(
+        [
+            Batch(
+                "load-saved-state",
+                [ExtractSaveablePrefixes(), SavedStateLoadRule(), UnusedBranchRemovalRule()],
+            ),
+            Batch("cse", [EquivalentNodeMergeRule()], fixed_point=True),
+            Batch("node-level-optimization", [NodeOptimizationRule()]),
+            Batch("auto-cache", [AutoCacheRule(budget_bytes=budget_bytes, strategy=strategy)]),
+            Batch("fusion", [NodeFusionRule()]),
+            Batch("streaming", [StreamingPlanRule()]),
+            Batch("measured-knobs", [MeasuredKnobRule()]),
         ]
     )

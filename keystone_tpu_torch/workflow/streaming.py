@@ -52,10 +52,22 @@ resume entry seeds the fold from its state and skips the chunks before
 its cursor (``resumed_from_chunk``, ``reingested_chunks``); a completed
 fold retires the entry.
 
-Left out (later slices, ROADMAP Queue A items 13–14): the partitioned
-(sharded, 2-D) chunk plans and shard-loss recovery, the scheduler lease
-(preemption at a chunk boundary), and the cost-observatory and
-profile-store observations.
+Scheduler leases (``sched/scheduler.py``). A scheduled caller (the
+refit daemon under a ``MeshScheduler``) arms ``ChunkStream.lease``; the
+fold consults :meth:`Lease.should_yield` at every chunk boundary, and on
+sustained serving pressure it commits its durable cursor, marks
+``StreamReport.preempted_at_chunk`` and returns the prefix carry
+(:class:`FoldPreempted` is raised and caught inside the fold), so the
+deferred fold resumes from the cursor, not from row zero.
+
+A completed, unresumed fold reports its rows/s to the cost observatory.
+Unlike the JAX package's fold it records no ``stream:<chain>:cr<rows>``
+observation in the profile store: a store write costs ~12 ms on the
+host, as much as a small refit fold. ``tune`` measures and records
+those entries, which ``MeasuredKnobRule`` replays.
+
+Left out (ROADMAP Queue A item 14): the partitioned (sharded, 2-D) chunk
+plans and shard-loss recovery.
 """
 
 from __future__ import annotations
@@ -81,6 +93,7 @@ from ..data.dataset import (
 from ..data.ingest import PrefetchQueue
 from ..device import DeviceLike, resolve_device
 from ..envknobs import env_disabled, env_int
+from ..obs import cost as _cost
 from ..obs import names as _names
 from ..obs import spans as _spans
 from ..reliability.faultinject import probe
@@ -158,6 +171,19 @@ def chain_class(members: Sequence[Any]) -> str:
 
     token = "|".join(f"{type(m).__module__}.{type(m).__qualname__}" for m in members)
     return hashlib.sha1(token.encode()).hexdigest()[:16]
+
+
+class FoldPreempted(Exception):
+    """Raised inside ``ChunkStream.fold``'s dispatch loop when the armed
+    scheduler lease yields at a chunk boundary (sustained serving
+    pressure). Caught by the fold itself — it returns normally with the
+    prefix carry and ``report.preempted_at_chunk`` set; the durable
+    cursor was committed before the raise, so the deferred fold resumes
+    from the boundary instead of restarting."""
+
+    def __init__(self, chunk_index: int):
+        self.chunk_index = int(chunk_index)
+        super().__init__(f"fold preempted at chunk {chunk_index}")
 
 
 class StreamingFallback(Exception):
@@ -523,6 +549,11 @@ class ChunkStream:
         #: the streaming operator when a checkpoint store is attached.
         #: None = the fold without checkpoints.
         self.durable = None
+        #: Mesh-scheduler lease (sched/scheduler.py), armed by scheduled
+        #: callers: consulted at every chunk boundary; sustained pressure
+        #: preempts the fold there, committing the durable cursor first.
+        #: None = an unscheduled fold.
+        self.lease = None
 
     def feature_aval(self):
         """Specs of one FEATURIZED chunk: the chain run on a zero batch of
@@ -583,7 +614,11 @@ class ChunkStream:
         # Chunks dispatched in this fold, and ABSOLUTE logical rows
         # dispatched (a resumed fold starts at the cursor's count): what a
         # committed cursor records.
-        progress = {"dispatched": 0, "rows": durable.resume_rows if durable is not None else 0}
+        progress = {
+            "dispatched": 0, "committed": 0,
+            "rows": durable.resume_rows if durable is not None else 0,
+        }
+        lease = self.lease
         cuda = device.type == "cuda"
         copy_stream = torch.cuda.Stream(device) if cuda else None
         compute_stream = torch.cuda.current_stream(device) if cuda else None
@@ -678,6 +713,7 @@ class ChunkStream:
                 rows_consumed=progress["rows"],
                 chunk_rows=chunk_rows,
             )
+            progress["committed"] = progress["dispatched"]
             if ok:
                 report.checkpoints += 1
                 report.checkpoint_s.append(time.perf_counter() - t_commit)
@@ -687,6 +723,15 @@ class ChunkStream:
             nonlocal carry
             x, y, mask, moved, copy_start, uploaded = staged
             done_chunks = progress["dispatched"]
+            if lease is not None and done_chunks > 0 and lease.should_yield():
+                # Preempt at the chunk boundary: commit the durable cursor
+                # FIRST (a deferred fold resumes from here), then unwind
+                # with the prefix carry, which stays valid statistics.
+                if durable is not None and progress["committed"] != done_chunks:
+                    commit_checkpoint()
+                report.preempted_at_chunk = start_chunk + done_chunks
+                lease.mark_preempted(start_chunk + done_chunks)
+                raise FoldPreempted(start_chunk + done_chunks)
             if (
                 durable is not None
                 and durable.ckpt_every > 0
@@ -737,8 +782,13 @@ class ChunkStream:
             with _spans.span(
                 "stream:fold", chunks=len(windows), chunk_rows=chunk_rows, start_chunk=start_chunk
             ):
-                stream_pipelined(queue, stage, compute, consume, prefetch=2 if cuda else 1)
-            if cuda and report.bytes_transferred:
+                try:
+                    stream_pipelined(queue, stage, compute, consume, prefetch=2 if cuda else 1)
+                except FoldPreempted:
+                    # Graceful yield: the cursor is committed and the
+                    # report marked; the prefix carry is returned below.
+                    pass
+            if cuda and report.bytes_transferred and report.preempted_at_chunk is None:
                 report.device_copy_ms = [s.elapsed_time(u) for s, u, _, _ in events]
                 report.device_compute_ms = [s.elapsed_time(d) for _, _, s, d in events]
                 report.device_overlap_ok = all(
@@ -751,17 +801,35 @@ class ChunkStream:
             report.host_buffer_peak_bytes = queue.peak_live_bytes + in_hand_peak
             report.compiles_steady_state = len(record.traces) - report.compiles_first_chunk
             _publish_report(report)
+        preempted = report.preempted_at_chunk is not None
         resume_rows = 0
         if durable is not None:
-            # The fit completed: a resume entry pointing into its middle
-            # must not outlive it.
-            durable.complete()
+            if not preempted:
+                # The fit completed: a resume entry pointing into its
+                # middle must not outlive it. A PREEMPTED fold's cursor is
+                # the resume point the next lease needs.
+                durable.complete()
             resume_rows = durable.resume_rows
+        if (
+            report.compute_done_t
+            and report.chunks == len(windows)
+            and report.resumed_from_chunk is None
+            and not preempted
+        ):
+            # A whole fold's throughput goes to the enclosing harvest
+            # frame (a resumed or preempted one measured a part: its
+            # rows/s would be a lie), so a rows/s prediction (the
+            # measured-knob chunk winner) is drift-scored in its unit.
+            wall = max(report.compute_done_t[-1], 1e-9)
+            _cost.note_stream_result(report.num_examples / wall, n)
         # Rows THIS fold absorbed: a resumed fold re-ingests only the
-        # suffix past the cursor — the cursor's rows live in the seeding
-        # state, and estimators add state.num_examples.
-        info = {"num_examples": n - resume_rows, "chunks": report.chunks, "report": report}
+        # suffix past the cursor (the cursor's rows live in the seeding
+        # state, and estimators add state.num_examples); a preempted fold
+        # absorbed only the dispatched prefix.
+        absorbed = progress["rows"] - resume_rows if preempted else n - resume_rows
+        info = {"num_examples": absorbed, "chunks": report.chunks, "report": report}
         return carry, info
+
 
 
 # ------------------------------------------------------------------- operator

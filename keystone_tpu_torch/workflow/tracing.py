@@ -16,8 +16,16 @@ the device only when the session asks for real timings
 marked ``synced=False`` (a serving worker's session). With neither,
 nothing is forced or synchronized and operators keep their laziness.
 
-Left out for now: the cost frames and the compile counter of the JAX
-package.
+With the cost observatory enabled (``obs/cost.py``, ``KEYSTONE_COST_OBS``)
+each forcing runs inside a harvest frame: the launch sites (the cuBLAS
+binding, the ELL kernel) note their launches into it, and the frame is
+finalized into a perf-ledger entry (predicted cost, measured wall,
+flop/byte facts, roofline placement) AFTER the wall measurement. A node
+during which nvcc built a kernel library or cuFFT created a plan is
+marked cold (never drift-scored), the port's counterpart of the JAX
+package's compile counter. With device
+annotations on (``obs/device.py``) each node's forcing is a
+``torch.profiler.record_function`` range.
 """
 
 from __future__ import annotations
@@ -30,8 +38,10 @@ from typing import Any, List, Optional
 
 import torch
 
+from ..obs import cost as _cost
 from ..obs import names as _names
 from ..obs import spans as _spans
+from ..obs.device import device_annotation
 from ..utils.tree import tree_leaves
 
 
@@ -107,31 +117,57 @@ def _force(value: Any) -> None:
             return
 
 
+def _compile_events() -> int:
+    """The port's counterpart of the JAX package's compile count: kernel
+    libraries nvcc built in this process, plus cuFFT plans created on
+    the current card (each a first-shape cost a warm node does not pay)."""
+    from ..ops.cuda import _build
+
+    events = sum(1 for s in _build.build_seconds.values() if s > 0)
+    if torch.cuda.is_initialized():
+        events += torch.backends.cuda.cufft_plan_cache[torch.cuda.current_device()].size
+    return events
+
+
 def timed_execute(op, deps):
     """Execute ``op``; under an active :func:`trace` or span session,
     record the node's span, wall time and histogram observation, forcing
     the result and waiting for the device when the trace or the session
-    needs real timings."""
+    needs real timings. With the cost observatory on (and no session) a
+    node's seconds measure dispatch, marked ``synced=False``."""
     tr = current_trace()
     session = _spans.active_session()
     expression = op.execute(deps)
-    if tr is None and session is None:
+    cost_on = _cost.cost_observatory_enabled()
+    if tr is None and session is None and not cost_on:
         return expression
-    sync = tr is not None or session.sync_timings
+    sync = tr is not None or (session is not None and session.sync_timings)
     label = str(getattr(op, "label", type(op).__name__))
     members = getattr(op, "member_labels", None)
+    frame = _cost.push_frame(label) if cost_on else None
     with _spans.span(f"node:{label}", op=type(op).__name__) as sp:
         if members is not None:
             sp.set_attribute("fused_members", ",".join(members))
-        start = time.perf_counter()
-        value = expression.get()
-        if sync:
-            _force(value)
-        seconds = time.perf_counter() - start
+        try:
+            if frame is not None:
+                compiles_before = _compile_events()
+            with device_annotation(f"keystone/node/{label}"):
+                start = time.perf_counter()
+                value = expression.get()
+                if sync:
+                    _force(value)
+                seconds = time.perf_counter() - start
+        finally:
+            if frame is not None:
+                frame.compiles = _compile_events() - compiles_before
+                _cost.pop_frame(frame)
         sp.set_attribute("seconds", round(seconds, 6))
         if not sync:
             sp.set_attribute("synced", False)
+    if frame is not None:
+        _cost.finalize_node(label, seconds, sync, op=op, span=sp, frame=frame)
     if tr is not None:
         tr.record(label, seconds)
-    _names.metric(_names.NODE_SECONDS).observe(seconds, op=label)
+    if tr is not None or session is not None:
+        _names.metric(_names.NODE_SECONDS).observe(seconds, op=label)
     return expression

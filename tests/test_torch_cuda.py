@@ -798,3 +798,53 @@ def test_kv305_resolves_on_a_binding_backed_linear_mapper(cuda):
     drifted = LinearMapper(torch.randn(16, 5, device=cuda))
     (diag,) = verify_refit_publish(drifted, incumbent, example=example).errors()
     assert diag.code == "KV305"
+
+
+def test_roofline_probe_on_the_card_stays_under_the_data_sheet(cuda, tmp_path, monkeypatch):
+    """``obs/cost.py``'s probe on the card: every kind the binding offers
+    measured, each under 1.05× the H100 SXM data sheet (the share
+    ``chip_smoke.py`` gates), and stored under the card's name."""
+    from keystone_tpu_torch.obs import cost, store
+
+    monkeypatch.setenv("KEYSTONE_PROFILE_STORE", str(tmp_path / "ps.jsonl"))
+    store.set_store(None)
+    cost.set_roofline(None)
+    roof = cost.get_roofline(refresh=True, device=cuda)
+    try:
+        assert roof.backend == f"cuda:{torch.cuda.get_device_name(cuda)}"
+        sheet = {"ieee_fp32": 67e12, "tf32": 495e12, "bf16": 989e12, "fp64": 67e12}
+        for kind, peak in sheet.items():
+            assert 0 < roof.peak_flops_by_kind[kind] <= 1.05 * peak
+        assert 0 < roof.peak_bytes_per_s <= 1.05 * 3.35e12
+        assert {k for k, _s, _m in store.get_store().entries(key_prefix="roofline:")} == {
+            f"roofline:{roof.backend}"
+        }
+    finally:
+        cost.reset_cost_observatory()
+        store.set_store(None)
+
+
+def test_ell_launch_facts_on_cuda_tensors_are_the_bound_counts(cuda):
+    """The ELL wrapper's facts for a launch on the card: 2 × stored blocks
+    × bm × bn × N FLOP and the bound's bytes, with the stored-block count
+    read back from the card's counts only at finalize."""
+    from keystone_tpu_torch.obs import cost
+    from keystone_tpu_torch.ops.cuda import blocksparse as bs
+
+    rng = np.random.RandomState(1)
+    nbr, k, bm, bn, n, d_pad = 16, 6, 16, 16, 40, 64 * 16
+    counts = torch.from_numpy(rng.randint(0, k + 1, nbr).astype(np.int32)).to(cuda)
+    indices = torch.from_numpy(rng.randint(0, d_pad // bn, (nbr, k)).astype(np.int32)).to(cuda)
+    blocks = torch.from_numpy(rng.randn(nbr, k, bm, bn).astype(np.float32)).to(cuda)
+    b = torch.randn(d_pad, n, device=cuda)
+    frame = cost.push_frame("node")
+    before = bs.ell_matmul.launches
+    try:
+        bs.ell_matmul(indices, blocks, b, counts)
+    finally:
+        cost.pop_frame(frame)
+    assert bs.ell_matmul.launches - before == 1
+    _flops, _bytes, sites = cost._harvest_frame(frame)
+    stored = int(counts.sum())
+    assert sites["ell_matmul"]["flops"] == 2.0 * stored * bm * bn * n
+    assert sites["ell_matmul"]["bytes"] == stored * 4 + nbr * 4 + stored * bm * bn * 4 + d_pad * n * 4 + nbr * bm * n * 4

@@ -1,7 +1,8 @@
 """Guards on the port package: it imports neither JAX nor the JAX
 package, it never runs on the CPU unless asked, and a CUDA tensor never
-falls back to the plain version; the fleet's stub workers and ``serve
---help`` start without torch."""
+falls back to the plain version; the fleet's stub workers and the
+``--help`` of ``serve``, ``profile``, ``trace``, ``bench-diff``,
+``explain``, ``tune`` and ``quality`` start without torch."""
 
 import json
 import subprocess
@@ -166,6 +167,20 @@ print(json.dumps({"imported": names, "bad": bad}))
         "keystone_tpu_torch.serving.autoscaler",
         "keystone_tpu_torch.serving.loadgen",
         "keystone_tpu_torch.serving.bootimage",
+        "keystone_tpu_torch.obs.device",
+        "keystone_tpu_torch.obs.profile",
+        "keystone_tpu_torch.obs.benchdiff",
+        "keystone_tpu_torch.obs.quality_cli",
+        "keystone_tpu_torch.workflow.knobs",
+        "keystone_tpu_torch.workflow.autocache",
+        "keystone_tpu_torch.workflow.explain",
+        "keystone_tpu_torch.workflow.tune",
+        "keystone_tpu_torch.sched",
+        "keystone_tpu_torch.sched.pricing",
+        "keystone_tpu_torch.sched.scheduler",
+        "keystone_tpu_torch.sched.demo",
+        "keystone_tpu_torch.tools",
+        "keystone_tpu_torch.tools.solver_comparison",
     }
     assert expected <= set(result["imported"])
 
@@ -193,8 +208,15 @@ sys.stderr.write("\\nTORCH_IMPORTED=%s\\n" % ("torch" in sys.modules))
             '"y": [3.0]',
         ),
         ("keystone_tpu_torch", ["keystone_tpu_torch", "serve", "--help"], "", "--autoscale"),
+        ("keystone_tpu_torch", ["keystone_tpu_torch", "profile", "--help"], "", "--serve-requests"),
+        ("keystone_tpu_torch", ["keystone_tpu_torch", "trace", "--help"], "", "--kill-request"),
+        ("keystone_tpu_torch", ["keystone_tpu_torch", "bench-diff", "--help"], "", "--baseline"),
+        ("keystone_tpu_torch", ["keystone_tpu_torch", "explain", "--help"], "", "--seed-drift"),
+        ("keystone_tpu_torch", ["keystone_tpu_torch", "tune", "--help"], "", "--time-budget-s"),
+        ("keystone_tpu_torch", ["keystone_tpu_torch", "quality", "--help"], "", "--shift"),
     ],
-    ids=["stub_worker", "serve_help"],
+    ids=["stub_worker", "serve_help", "profile_help", "trace_help", "bench_diff_help", "explain_help",
+         "tune_help", "quality_help"],
 )
 def test_fleet_entry_points_import_no_torch(module, argv, stdin, expect):
     """A stub serving worker answers, and ``serve --help`` prints the fleet

@@ -366,10 +366,20 @@ def test_supervised_loop_runs_rounds_and_stops(tmp_path):
         server.stop()
 
 
-@pytest.mark.parametrize("kwargs,item", [({"scheduler": object()}, "item 13b"), ({"partition": object()}, "item 14")])
+@pytest.mark.parametrize("kwargs,item", [({"partition": object()}, "item 14")])
 def test_daemon_refuses_what_is_not_ported(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         RefitDaemon(LinearMapEstimator(device="cpu"), TrafficTap(), object(), **kwargs)
+
+
+def test_daemon_takes_a_scheduler():
+    from keystone_tpu_torch.sched import MeshScheduler
+
+    scheduler = MeshScheduler(device="cpu")
+    daemon = RefitDaemon(LinearMapEstimator(device="cpu"), TrafficTap(), object(), scheduler=scheduler)
+    assert daemon.scheduler is scheduler
+    # An empty tap skips before asking for a lease.
+    assert daemon.run_once() == "skipped_nodata" and scheduler.stats()["leases"] == 0
 
 
 # ---------------------------------------------------------------- the demo

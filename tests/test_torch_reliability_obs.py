@@ -63,9 +63,7 @@ FUSED = "Fused[RandomSignNode+PaddedFFT+LinearRectifier]"
 SOLVE_SITE = "BlockLeastSquaresEstimator.solve"
 #: Spans of the JAX optimizer's ``measured-knobs`` and ``partition``
 #: batches, which the port has not yet (ROADMAP items 13 and 14).
-UNPORTED_SPANS = {
-    "optimize:batch:measured-knobs", "optimize:measured-knobs", "optimize:batch:partition",
-}
+UNPORTED_SPANS = {"optimize:batch:partition"}
 
 
 @pytest.fixture(autouse=True)
