@@ -159,8 +159,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    own site too, whose ladder halves 4,096 → 2,048; scores within 1e-6 of
    a direct block fit at 2,048;
 18. newsgroups — ``run_newsgroups`` on a synthetic 20-class directory tree
-   of 5,657 train and 3,766 test documents (half of 20news-bydate's
-   11,314 / 7,532, cut 5; Zipf vocabularies from the seed), 2-grams,
+   of 2,828 train and 1,883 test documents (a quarter of 20news-bydate's
+   11,314 / 7,532, cuts 5 and 17; Zipf vocabularies from the seed), 2-grams,
    100,000 common features: the vectorizer is exactly
    100,000 wide, naive Bayes's (π, θ) within 1e-5 of a float64 closed
    form on the card over the fit's own inputs; ``featurize_s``,
@@ -168,8 +168,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    the host's peak RSS;
 19. amazon_reviews — ``run_amazon`` on synthetic JSON-lines reviews
    (polarity lexicons plus Zipf filler), threshold 3.5, 2-grams, 100,000
-   common features, 20 iterations, the reference's 65M rows cut to 16,384
-   train / 4,096 test (a 6.6 GB dense train matrix; cut 6): L-BFGS iterations,
+   common features, 20 iterations, the reference's 65M rows cut to 8,192
+   train / 2,048 test (a 3.3 GB dense train matrix; cuts 6 and 16): L-BFGS iterations,
    objective evaluations, the objective per iteration (non-increasing to
    the line search's 1e-6·|f| allowance), ``fit_s`` and accuracy;
 20. sketched — ``bench.py::_bench_sketched`` at its full shape: 2,048 ×
@@ -273,8 +273,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 29. imagenet — the ImageNet SIFT + LCS + Fisher-vector flagship through
    ``pipelines/imagenet.py::run`` at the reference configuration (13,165
    SIFT and 3,136 LCS descriptors per image, 4,096 features, 1,000
-   classes) on generated 500×375 JPEG tars of 2,048 train / 1,000 test
-   images (``IMAGENET_*`` says why the cut): its seconds split by node and
+   classes) on generated 500×375 JPEG tars of 1,024 train / 500 test
+   images (``IMAGENET_*`` says why the cut; cut 15): its seconds split by node and
    span (ingest, both extractors, the four sample draws, the PCA picks,
    each GMM's host seeding, Lloyd and EM with its iterations, Fisher
    encoding, the weighted solve and its path), SIFT and LCS images/s by
@@ -427,7 +427,29 @@ Phases, in order; any failure raises and the script exits non-zero:
 50. obs_cli — on the host: ``bench-diff`` between artifacts made of this
    run's phase lines (itself: OK; one dropped request: a regression; a
    CPU baseline: counts only) and ``quality`` (clean: exit 0; a 3σ shift:
-   exit 2 with one rollback).
+   exit 2 with one rollback);
+51. check_card — the static verification tier (``workflow/verify.py``,
+   ``lint/``, ``check``), run after ``cosched`` on phase 6's saved MNIST
+   artifact: (a) under ``KEYSTONE_VERIFY=strict`` the README's MNIST
+   random-FFT plan (8,192 rows, 784 → 4 × 512 → 10) and the hashing-TF →
+   block-sparse slice's plan (65,536 documents, d = 16,384) verified by
+   ``Pipeline.fit``'s hook and fitted: 0 errors, and 0 ELL launches,
+   binding calls and allocated bytes during verification; the slice's fit
+   launches the ELL kernel twice; (b) the MNIST plan over a 783-wide
+   source: ``fit`` raises ``VerificationError`` with KV101 and nothing
+   launched, called or allocated; (c) the MNIST plan over a ``meta`` source
+   of 2^25 rows against the card's memory: one KV302 warning, nothing
+   allocated; (d) ``check --pipeline`` on the artifact with phase 6's
+   warmed buckets (exit 0), one bucket left unwarmed (exit 1, KV301), a
+   783-wide request (exit 1, KV101), each reporting 0 launches, calls and
+   bytes, and ``check --lint --concurrency`` over the port (exit 0,
+   torch-free) — four subprocesses started at once; the phase fails past
+   15 s. After the control-plane phases a ``verify_run`` line sums every
+   verification the fit and load hooks ran in this process (reports,
+   diagnostics by code, seconds): 0 errors outside (b)'s seeded refusal,
+   and the torch ops that no shape rule answered
+   (``workflow/shape_rules.py``), which made the process import torch's
+   Python ``meta`` kernels.
 
 Where the compiler finds no ``jpeglib.h`` the script prints
 ``native_decode: unavailable (no jpeglib.h)`` and every VOC and ImageNet
@@ -437,7 +459,8 @@ Phases 4–14, 16, 18–44 and 47–50 reach no ELL kernel: each sets its
 count to 0 and fails if it moved; phase 15 launches it only in
 ``oom_injected_sparse``, phase 17 exactly twice, phase 45 in the hashing-TF
 fit (twice in its node) and the auto-cache planner's sample fits, phase
-46 in the density sweep's sparse legs. Inside ``solver_ladder`` a
+46 in the density sweep's sparse legs, phase 51 twice in its slice fit
+and never during a verification. Inside ``solver_ladder`` a
 ``cost_constants_fit`` line fits the cost model's weights to the rungs'
 times (``keystone_tpu_torch/tools/solver_comparison.py``). Every phase
 starts from a reset ``PipelineEnv`` and reports its peak device memory
@@ -2804,6 +2827,9 @@ NG_TRAIN, NG_TEST, NG_FEATURES, NB_TOL = 11_314, 7_532, 100_000, 1e-5
 # features: the half corpus still holds ~340,000 distinct uni- and
 # bigrams, so the vectorizer stays exactly 100,000 wide).
 NG_TRAIN, NG_TEST = NG_TRAIN // 2, NG_TEST // 2
+# Cut 17: a quarter of each split (2,828 train, 1,883 test); the width
+# gate holds the vectorizer at 100,000 features.
+NG_TRAIN, NG_TEST = NG_TRAIN // 2, NG_TEST // 2
 # The synthetic text's own parameters have no public source: the tokens
 # per document, the vocabulary and lexicon sizes, the topic and polarity
 # shares and the Zipf exponent (1.1, near the exponent of about 1 of
@@ -2819,6 +2845,9 @@ AMAZON_TRAIN, AMAZON_TEST, AMAZON_REFERENCE_ROWS, AMAZON_FEATURES = 32_768, 8_19
 # Cut 6: 16,384 train / 4,096 test reviews (a 6.6 GB dense train
 # matrix); the configuration stays (~520,000 distinct uni- and bigrams
 # at this size: the vectorizer stays 100,000 wide).
+AMAZON_TRAIN, AMAZON_TEST = AMAZON_TRAIN // 2, AMAZON_TEST // 2
+# Cut 16: 8,192 train / 2,048 test reviews (a 3.3 GB dense train matrix);
+# the width gate holds the vectorizer at 100,000 features.
 AMAZON_TRAIN, AMAZON_TEST = AMAZON_TRAIN // 2, AMAZON_TEST // 2
 AMAZON_DOC_TOKENS, AMAZON_LEXICON, AMAZON_POLAR_SHARE, AMAZON_NOISE_SHARE = 60, 300, 0.15, 0.03
 
@@ -4646,6 +4675,9 @@ NATIVE_DECODE_MEAN_ABS = 1.5  # at the source size (tests/native/test_native_ker
 # phase 33 still read all 1,024), granularity 32, with the PCA
 # and GMM samples cut to 10⁶ each (the time budget).
 IMAGENET_TRAIN, IMAGENET_TEST, IMAGENET_CLI_IMAGES, IMAGENET_NATIVE_IMAGES = 2048, 1000, 64, 1024
+# Cut 15 for the time cap: 1,024 train / 500 test images (half of each);
+# the configuration, the image size and the gates stay.
+IMAGENET_TRAIN, IMAGENET_TEST = IMAGENET_TRAIN // 2, IMAGENET_TEST // 2
 # Cut 14: 256 (cut 1 took it to 512).
 IMAGENET_NATIVE_RUN_IMAGES = 256
 IMAGENET_CLASSES, IMAGENET_CLI_CLASSES, IMAGENET_SEED = 1000, 16, 13
@@ -6906,6 +6938,304 @@ def phase_obs_cli(artifacts: dict) -> int:
     return 0
 
 
+# -------------------------------------------------------------- phase 51
+
+#: Every plan-time verification the fit and load hooks ran in this process
+#: (``_install_verify_recorder``): context, report, seconds and what the
+#: card did during it.
+VERIFY_RECORDS: list = []
+
+#: Contexts of the verifications ``check_card`` seeds to fail: they stop a
+#: fit on purpose and are left out of the run-wide error gate.
+SEEDED_VERIFY_CONTEXTS = ("check_card:kv101",)
+
+#: ``check_card`` (c): rows of the meta-device MNIST plan whose estimated
+#: peak (its 784-wide source alone is 105 GB at 2^25 rows) passes the
+#: card's 80 GB.
+KV302_ROWS = 1 << 25
+
+#: ``check_card`` (a): MNIST rows of the strict fit (mnist_default's
+#: 8,192; the width is the README's, 784 → 4 × 512 → 10).
+CHECK_MNIST_ROWS = 8192
+
+#: ``check_card``'s budget in seconds: the phase fails past it. Its wall
+#: is that of its ``check`` subprocesses, each of which pays a torch
+#: import (5.3–6.6 s on the card's host) before it verifies anything.
+CHECK_CARD_BUDGET_S = 15.0
+
+
+def _card_counters() -> tuple:
+    import torch
+
+    from keystone_tpu_torch.ops.cuda import blocksparse as bs
+    from keystone_tpu_torch.ops.cuda import gemm
+
+    return bs.ell_matmul.launches, sum(gemm.launches.values()), torch.cuda.memory_allocated()
+
+
+def _install_verify_recorder() -> None:
+    """Wrap the fit/load hook (``workflow.verify.verify_and_enforce``,
+    which ``Pipeline.fit`` and ``ModelRegistry.load_fitted`` look up at
+    call time) so that every verification in this process is recorded
+    with the card's counters around it. A strict-mode refusal is recorded
+    from its ``VerificationError`` and re-raised."""
+    from keystone_tpu_torch.workflow import verify
+
+    real = verify.verify_and_enforce
+
+    def recording(graph, context, source_specs=None, **kwargs):
+        before = _card_counters()
+        report, error = None, None
+        try:
+            report = real(graph, context, source_specs, **kwargs)
+        except verify.VerificationError as e:
+            report, error = e.report, e
+        after = _card_counters()
+        VERIFY_RECORDS.append({
+            "context": context, "report": report,
+            "ell_launches": after[0] - before[0], "binding_calls": after[1] - before[1],
+            "memory_allocated_delta": after[2] - before[2],
+        })
+        if error is not None:
+            raise error
+        return report
+
+    verify.verify_and_enforce = recording
+
+
+def _report_line(record: dict) -> dict:
+    """A verification record as ``check_card`` prints it."""
+    import re
+
+    report = record["report"]
+    # The last axis of every rendered leaf, "(8192, 784):float32" → 784.
+    widths = sorted({int(w) for a in report.annotations for w in re.findall(r", (\d+)\):", a.spec)})
+    return {"context": record["context"], "ok": report.ok, "seconds": report.seconds,
+            "errors": len(report.errors()), "codes": sorted({d.code for d in report.diagnostics}),
+            "nodes": len(report.annotations), "widths": widths,
+            "ell_launches": record["ell_launches"], "binding_calls": record["binding_calls"],
+            "memory_allocated_delta": record["memory_allocated_delta"]}
+
+
+def _records_for(context: str, start: int) -> list:
+    return [r for r in VERIFY_RECORDS[start:] if r["context"] == context]
+
+
+def _check_clis(artifact: str, buckets: list) -> dict:
+    """(d)'s four ``check`` runs, started at once: the saved MNIST artifact
+    with phase 6's warmed buckets (exit 0), one bucket left out of the
+    warmed set (exit 1, KV301), a 783-wide request (exit 1, KV101), and
+    the static tier over the port's tree (exit 0, torch-free)."""
+    spec = ["--pipeline", artifact, "--input-spec", "16x784:float32", "--buckets", ",".join(map(str, buckets)),
+            "--json"]
+    warmed = ["--warmed-buckets", ",".join(map(str, buckets))]
+    return _port_clis({
+        "clean": ("check", spec + warmed),
+        "cold_bucket": ("check", spec + ["--warmed-buckets", ",".join(map(str, buckets[:-1]))]),
+        "seed_mismatch": ("check", spec + warmed + ["--seed-mismatch"]),
+        "static": ("check", ["--lint", "--concurrency", "--json"]),
+    })
+
+
+def phase_check_card(device, artifact: str) -> int:
+    """Phase 51: the static verification tier on the card.
+
+    (a) Under ``KEYSTONE_VERIFY=strict`` the README's MNIST random-FFT
+    plan (784 → 4 × 512 → 10, ``CHECK_MNIST_ROWS`` rows) and the
+    hashing-TF → block-sparse slice's plan (65,536 documents, d = 16,384)
+    are verified by ``Pipeline.fit``'s hook and fitted: 0 errors, and 0
+    ELL launches, binding calls and allocated bytes during verification;
+    the slice's fit then launches the ELL kernel twice. (b) The MNIST plan
+    over a 783-wide source: ``fit`` raises ``VerificationError`` (KV101)
+    with nothing launched, called or allocated. (c) The MNIST plan over a
+    ``meta`` source of ``KV302_ROWS`` rows against the card's memory: a
+    KV302 warning, no refusal, nothing allocated. (d) ``check`` in four
+    subprocesses (``_check_clis``), started first and read last. (e) One
+    line over every verification of the run (``VERIFY_RECORDS``): reports,
+    diagnostics by code, errors (0 outside the seeded ones), seconds."""
+    import torch
+
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.data.loaders.csv import LabeledData
+    from keystone_tpu_torch.ops.cuda import blocksparse as bs
+    from keystone_tpu_torch.ops.learning.block import BlockLeastSquaresEstimator
+    from keystone_tpu_torch.ops.util.labels import ClassLabelIndicators
+    from keystone_tpu_torch.pipelines.mnist_random_fft import MnistRandomFFTConfig, build_pipeline, synthetic_mnist
+    from keystone_tpu_torch.serving.config import ServingConfig, default_bucket_sizes
+    from keystone_tpu_torch.workflow.executor import PipelineEnv
+    from keystone_tpu_torch.workflow.verify import VerificationError, verify_and_enforce
+
+    _mnist_start()
+    t0 = time.perf_counter()
+    # Phase 6 served with max_batch 64 and warmed every bucket of it.
+    buckets = list(default_bucket_sizes(ServingConfig(max_batch=64).max_batch))
+    import threading
+
+    clis: dict = {}
+    cli_thread = threading.Thread(target=lambda: clis.update(_check_clis(artifact, buckets)))
+    cli_thread.start()
+    start = len(VERIFY_RECORDS)
+    failed = []
+    previous = os.environ.get("KEYSTONE_VERIFY")
+    os.environ["KEYSTONE_VERIFY"] = "strict"
+    try:
+        # (a) the two clean plans, verified and fitted under strict.
+        config = MnistRandomFFTConfig()
+        fitted = build_pipeline(config, synthetic_mnist(CHECK_MNIST_ROWS, seed=0, device=device),
+                                device=device).fit()
+        del fitted
+        PipelineEnv.reset()
+        train, labels = topic_corpus(TOPICS, DOCS_PER_TOPIC, SEED)
+        y = ClassLabelIndicators(NUM_CLASSES)(ArrayDataset(labels, device=device)).get()
+        ell_before = bs.ell_matmul.launches
+        slice_fitted = featurizer(NUM_FEATURES).then_label_estimator(
+            BlockLeastSquaresEstimator(BLOCK_SIZE, num_iter=1, reg=REG, device=device), train, y
+        ).fit()
+        torch.cuda.synchronize()
+        slice_fit_launches = bs.ell_matmul.launches - ell_before
+        del slice_fitted, y
+        fits = _records_for("fit", start)
+        if len(fits) != 2:
+            raise AssertionError(f"check_card: expected 2 fit verifications, recorded {len(fits)}")
+        clean = [_report_line(r) for r in fits]
+        for name, line in zip(("mnist", "hashing_tf"), clean):
+            if line["errors"] or any(line[k] for k in ("ell_launches", "binding_calls", "memory_allocated_delta")):
+                failed.append(f"clean_{name}")
+        if slice_fit_launches != 2:
+            failed.append("slice_fit_launches")
+
+        # (b) a 783-wide source: refused before anything reaches the card.
+        PipelineEnv.reset()
+        rng = np.random.default_rng(0)
+        narrow = LabeledData(
+            ArrayDataset(rng.integers(0, 10, CHECK_MNIST_ROWS).astype(np.int32), device=device),
+            ArrayDataset(rng.standard_normal((CHECK_MNIST_ROWS, 783)).astype(np.float32), device=device),
+        )
+        pipe = build_pipeline(config, narrow, device=device)
+        torch.cuda.synchronize()
+        before = _card_counters()
+        refused = None
+        try:
+            pipe.fit()
+        except VerificationError as e:
+            refused = e
+        torch.cuda.synchronize()
+        after = _card_counters()
+        seeded = {
+            "raised": refused is not None,
+            "codes": sorted({d.code for d in refused.report.errors()}) if refused else [],
+            "ell_launches": after[0] - before[0], "binding_calls": after[1] - before[1],
+            "memory_allocated_delta": after[2] - before[2],
+        }
+        if refused is not None:
+            VERIFY_RECORDS[-1]["context"] = "check_card:kv101"
+        if not (seeded["raised"] and seeded["codes"] == ["KV101"]) or any(
+                seeded[k] for k in ("ell_launches", "binding_calls", "memory_allocated_delta")):
+            failed.append("seeded_kv101")
+        del pipe, narrow
+
+        # (c) a plan whose estimated peak passes the card's memory.
+        PipelineEnv.reset()
+        card_bytes = int(torch.cuda.mem_get_info(device)[1])
+        huge = LabeledData(
+            ArrayDataset(torch.empty(KV302_ROWS, dtype=torch.int32, device="meta")),
+            ArrayDataset(torch.empty(KV302_ROWS, 784, device="meta")),
+        )
+        graph, _ = PipelineEnv.get_or_create().optimizer.execute(build_pipeline(config, huge, device=device).graph)
+        before = _card_counters()
+        report = verify_and_enforce(graph, context="check_card:kv302", device_memory_bytes=card_bytes)
+        after = _card_counters()
+        kv302 = report.by_code("KV302")
+        memory = {
+            "card_bytes": card_bytes, "kv302": len(kv302), "severity": kv302[0].severity if kv302 else None,
+            "peak_bytes": kv302[0].details["peak_bytes"] if kv302 else None, "ok": report.ok,
+            "ell_launches": after[0] - before[0], "binding_calls": after[1] - before[1],
+            "memory_allocated_delta": after[2] - before[2],
+        }
+        if len(kv302) != 1 or memory["severity"] != "warning" or any(
+                memory[k] for k in ("ell_launches", "binding_calls", "memory_allocated_delta")):
+            failed.append("kv302")
+        del graph, huge
+    finally:
+        if previous is None:
+            os.environ.pop("KEYSTONE_VERIFY", None)
+        else:
+            os.environ["KEYSTONE_VERIFY"] = previous
+        cli_thread.join()
+
+    # (d) the CLI runs.
+    cli = {}
+    for name, run in clis.items():
+        lines = [ln for ln in run["stdout"].splitlines() if ln.startswith("{")]
+        payload = json.loads(lines[-1]) if lines else {}
+        entry = {"rc": run["rc"], "wall_s": run["wall_s"]}
+        if "pipeline" in payload:
+            entry["codes"] = sorted({d["code"] for d in payload["pipeline"]["diagnostics"]
+                                     if d["severity"] == "error"})
+            entry["device_counts"] = payload.get("device_counts")
+            entry["verify_s"] = payload["pipeline"]["seconds"]
+            entry["shape_rule_fallbacks"] = payload.get("shape_rule_fallbacks")
+            entry["symbolic_shapes_imported"] = payload.get("symbolic_shapes_imported")
+        if "concurrency" in payload:
+            entry["torch_free"] = payload["concurrency"]["torch_free"]
+            entry["lint_findings"] = len(payload["lint"]["findings"])
+            entry["concurrency_findings"] = len(payload["concurrency"]["findings"])
+            entry["locks"] = len(payload["concurrency"]["lock_graph"]["locks"])
+        if run["rc"] not in (0, 1) or not payload:
+            entry["stderr"] = run["stderr"][-1500:]
+        cli[name] = entry
+    want = {"clean": (0, []), "cold_bucket": (1, ["KV301"]), "seed_mismatch": (1, ["KV101"])}
+    for name, (rc, codes) in want.items():
+        entry = cli.get(name, {})
+        zero = {"ell_launches": 0, "binding_calls": 0, "memory_allocated_delta": 0}
+        if entry.get("rc") != rc or entry.get("codes") != codes or entry.get("device_counts") != zero:
+            failed.append(f"cli_{name}")
+    static = cli.get("static", {})
+    if static.get("rc") != 0 or static.get("torch_free") is not True:
+        failed.append("cli_static")
+
+    seconds = time.perf_counter() - t0
+    if seconds > CHECK_CARD_BUDGET_S:
+        failed.append("budget")
+    log("check_card", mnist_rows=CHECK_MNIST_ROWS, slice_documents=len(train), slice_features=NUM_FEATURES,
+        clean=clean, slice_fit_ell_launches=slice_fit_launches, seeded_kv101=seeded, kv302=memory,
+        kv302_rows=KV302_ROWS, warmed_buckets=buckets, cli=cli, seconds=seconds,
+        budget_s=CHECK_CARD_BUDGET_S, failed=failed, **_mnist_end("check_card", ell_allowed=True))
+    if failed:
+        raise AssertionError(f"check_card failed {failed}")
+    return bs.ell_matmul.launches
+
+
+def log_verify_run() -> None:
+    """(e) of phase 51: every verification this run's fits and loads went
+    through, in this process (the subprocesses' own fits verify in their
+    own processes and are not counted here). An error-severity diagnostic
+    outside ``SEEDED_VERIFY_CONTEXTS`` is a verifier fault on a plan that
+    fits, and fails the run. The card's counters are not summed here:
+    serving threads share them with the verifications of some phases;
+    ``check_card`` reads them where nothing else runs."""
+    from keystone_tpu_torch.workflow.shape_rules import FALLBACKS
+
+    by_code: dict = {}
+    contexts: dict = {}
+    errors = []
+    for record in VERIFY_RECORDS:
+        report = record["report"]
+        contexts[record["context"].split(":")[0]] = contexts.get(record["context"].split(":")[0], 0) + 1
+        for d in report.diagnostics:
+            by_code[d.code] = by_code.get(d.code, 0) + 1
+        if record["context"] not in SEEDED_VERIFY_CONTEXTS:
+            errors += [f"{record['context']}: {d.render()[:300]}" for d in report.errors()]
+    log("verify_run", reports=len(VERIFY_RECORDS), by_context=contexts, diagnostics_by_code=by_code,
+        errors=len(errors), error_samples=errors[:5], seeded_contexts=list(SEEDED_VERIFY_CONTEXTS),
+        seconds=sum(r["report"].seconds for r in VERIFY_RECORDS),
+        # Ops no shape rule answered: each made this process import
+        # torch's Python meta kernels (workflow/shape_rules.py).
+        shape_rule_fallbacks=dict(FALLBACKS))
+    if errors:
+        raise AssertionError(f"verify_run: {len(errors)} error diagnostics on plans that fit: {errors[:3]}")
+
+
 def card_name_and_limit() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -6938,6 +7268,7 @@ def main() -> int:
 
     device = torch.device("cuda")
     t0 = time.perf_counter()
+    _install_verify_recorder()
     phase_build()
     kernel = phase_kernels(device)
     kernel["launches"], slice_fit = phase_slice(device)
@@ -7034,11 +7365,13 @@ def main() -> int:
     launches_by_path["tune_card"] = phase_tune_card(device)
     launches_by_path["profile_card"] = phase_profile_card(device)
     launches_by_path["cosched"] = phase_cosched(device, artifact)
+    launches_by_path["check_card"] = phase_check_card(device, artifact)
     artifact_dir.cleanup()
     launches_by_path["trace_fleet"] = phase_trace_fleet(device)
     phase_obs_cli({name: {k: v for k, v in PHASE_LINES[name].items() if not isinstance(v, list)}
                    for name in ("roofline_probe", "profile_card", "cosched")})
     log("control_plane_phases", seconds=time.perf_counter() - t_new)
+    log_verify_run()
     # The binding's calls on the paths (gram_modes times it and is left out).
     paths = {p: c for p, c in SOLVER_GEMM_CALLS.items() if p != "gram_modes"}
     binding["launches"] = {k: sum(c[k] for c in paths.values()) for k in next(iter(paths.values()))}

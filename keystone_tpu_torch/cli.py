@@ -16,8 +16,11 @@ multiworker sweep, the merged fleet trace), ``bench-diff``
 (``obs/benchdiff.py``), ``explain`` (``workflow/explain.py``: per-node
 predicted vs measured cost against the card's roofline; ``--schedule``
 the co-scheduler demo), ``tune`` (``workflow/tune.py``: the offline
-autotuner) and ``quality`` (``obs/quality_cli.py``). Flag wiring imports
-no torch: ``--help`` of every subcommand runs without it.
+autotuner) and ``quality`` (``obs/quality_cli.py``). ``check``
+(``lint/check.py``) is the static tier: keystone-lint (``--lint``), the
+concurrency analysis (``--concurrency``) — both without importing torch —
+and plan-time verification of a saved pipeline (``--pipeline``). Flag
+wiring imports no torch: ``--help`` of every subcommand runs without it.
 
 Usage:
     python -m keystone_tpu_torch <workload> [--flag value ...] [--device cpu]
@@ -27,10 +30,10 @@ Usage:
     python -m keystone_tpu_torch {profile,explain,tune} [...] [--device cpu]
     python -m keystone_tpu_torch trace [--backend synthetic --device cpu]
     python -m keystone_tpu_torch {bench-diff,quality} [...]
+    python -m keystone_tpu_torch check [--lint] [--concurrency] [--pipeline PATH|synthetic ...] [--json]
     python -m keystone_tpu_torch --list
 
-Every workload of the JAX package is here. Left out for now: the ``check``
-subcommand (ROADMAP item 13c).
+Every workload and subcommand of the JAX package is here.
 """
 
 from __future__ import annotations
@@ -198,6 +201,8 @@ COMMANDS: Dict[str, Tuple[str, Optional[str], str, str, str]] = {
              None, "add_tune_arguments", ".workflow.tune", "tune_from_args"),
     "quality": ("quality-plane report: score streams, drift state, sequential decisions",
                 ".obs.quality_cli", "add_quality_arguments", ".obs.quality_cli", "quality_from_args"),
+    "check": ("static tier: keystone-lint, concurrency analysis, plan-time pipeline verification",
+              ".lint.check", "add_check_arguments", ".lint.check", "check_from_args"),
 }
 
 

@@ -90,6 +90,7 @@ VERIFY_RUNS = "keystone_verify_runs_total"
 VERIFY_DIAGNOSTICS = "keystone_verify_diagnostics_total"
 VERIFY_NODES = "keystone_verify_nodes_annotated_total"
 VERIFY_SECONDS = "keystone_verify_seconds"
+VERIFY_LINT_FINDINGS = "keystone_verify_lint_findings_total"
 
 # ------------------------------------------------------------ continuous refit
 REFIT_ROUNDS = "keystone_refit_rounds_total"
@@ -248,6 +249,7 @@ SCHEMA: Dict[str, Tuple] = {
     VERIFY_DIAGNOSTICS: ("counter", "Plan-time verification diagnostics emitted", ("code", "severity")),
     VERIFY_NODES: ("counter", "Graph nodes annotated with propagated specs by the verifier", ()),
     VERIFY_SECONDS: ("histogram", "Whole-graph verification passes", ()),
+    VERIFY_LINT_FINDINGS: ("counter", "keystone-lint findings", ("rule",)),
     REFIT_ROUNDS: ("counter", "Refit daemon rounds, by outcome (published/skipped_nodata/skipped_eval/rolled_back/error)", ("outcome",)),
     REFIT_PUBLISHES: ("counter", "Candidate models published by the refit controller", ()),
     REFIT_ROLLBACKS: ("counter", "Automatic rollbacks triggered by the post-publish watch window", ()),

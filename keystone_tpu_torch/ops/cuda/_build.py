@@ -44,6 +44,28 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 CUDA_ERROR_MEMORY_ALLOCATION = 2
 
 
+class DtypeMismatch(TypeError):
+    """A wrapper's refusal of an operand's dtype. A ``TypeError`` like any
+    other, named so the plan-time verifier (``workflow/verify.py``) can
+    tell a dtype rejection (KV101) from a step that cannot run on the
+    ``meta`` device (KV402)."""
+
+
+def on_meta(name: str, *tensors) -> bool:
+    """True when a wrapper's operands lie on the ``meta`` device, where it
+    returns an empty output of the right shape and dtype (a shape rule for
+    the plan-time verifier) and launches, counts and notes nothing. All or
+    none: a mix of ``meta`` and other devices raises ``ValueError``, as a
+    mix of devices does on the card."""
+    devices = [t.device for t in tensors if t is not None]
+    meta = [d.type == "meta" for d in devices]
+    if not any(meta):
+        return False
+    if not all(meta):
+        raise ValueError(f"{name} needs its tensors on one device; got {[str(d) for d in devices]}")
+    return True
+
+
 def raise_status(name: str, text: str, out_of_memory: bool) -> None:
     """Raise for a source's non-zero return code, whose error string is
     ``text``. An allocation failure raises

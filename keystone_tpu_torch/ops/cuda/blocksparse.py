@@ -11,7 +11,10 @@ which reads the stored slots only:
   (replacing the Pallas kernel ``_ell_matmul_pallas``), built at first
   use; it raises on what it does not take and never falls back;
 - on CPU tensors, :func:`ell_matmul_reference`, the plain PyTorch version
-  with the same semantics (the JAX package's ``impl="lax"`` path).
+  with the same semantics (the JAX package's ``impl="lax"`` path);
+- on ``meta`` tensors, a shape rule for the plan-time verifier: the
+  card path's checks and an empty ``meta`` output; nothing launches, is
+  counted or noted to the cost observatory.
 
 The tensors' device decides; there is no other switch.
 :func:`bsr_gram_totals` returns the raw sufficient statistics
@@ -136,6 +139,17 @@ def _kernel():
     return lib
 
 
+def _check_launchable(indices, blocks, b, counts) -> None:
+    """What the kernel takes beyond :func:`_check_args`: tile sides in
+    1..MAX_TILE and contiguous operands."""
+    bm, bn = blocks.shape[2:]
+    if not (1 <= bm <= MAX_TILE and 1 <= bn <= MAX_TILE):
+        raise ValueError(f"the CUDA ELL kernel takes tiles 1..{MAX_TILE}, got ({bm}, {bn})")
+    for name, t in (("indices", indices), ("blocks", blocks), ("b", b), ("counts", counts)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"ell_matmul: {name} must be contiguous")
+
+
 def _launch(
     indices: torch.Tensor,
     blocks: torch.Tensor,
@@ -153,11 +167,7 @@ def _launch(
             f"(or all on the CPU); got {indices.device}, {blocks.device}, {b.device}"
             + ("" if counts is None else f", {counts.device}")
         )
-    if not (1 <= bm <= MAX_TILE and 1 <= bn <= MAX_TILE):
-        raise ValueError(f"the CUDA ELL kernel takes tiles 1..{MAX_TILE}, got ({bm}, {bn})")
-    for name, t in (("indices", indices), ("blocks", blocks), ("b", b), ("counts", counts)):
-        if t is not None and not t.is_contiguous():
-            raise ValueError(f"ell_matmul: {name} must be contiguous")
+    _check_launchable(indices, blocks, b, counts)
     lib = _kernel()
     out = torch.empty(nbr * bm, n, dtype=torch.float32, device=device)
     if out.numel() == 0 or k_slots == 0:
@@ -181,7 +191,7 @@ def _check_args(indices, blocks, b, counts) -> None:
     """Dtypes and shapes of :func:`ell_matmul`'s arguments; reads nothing
     back from the card."""
     if indices.dtype != torch.int32 or blocks.dtype != torch.float32 or b.dtype != torch.float32:
-        raise TypeError(
+        raise _build.DtypeMismatch(
             "ell_matmul takes int32 indices and float32 blocks and b; got "
             f"{indices.dtype}, {blocks.dtype}, {b.dtype}"
         )
@@ -194,7 +204,7 @@ def _check_args(indices, blocks, b, counts) -> None:
         raise ValueError(f"dense operand rows {b.shape[0]} not a multiple of bn={bn}")
     if counts is not None:
         if counts.dtype != torch.int32:
-            raise TypeError(f"ell_matmul takes int32 counts; got {counts.dtype}")
+            raise _build.DtypeMismatch(f"ell_matmul takes int32 counts; got {counts.dtype}")
         if tuple(counts.shape) != (indices.shape[0],):
             raise ValueError(
                 f"counts {tuple(counts.shape)} do not match {indices.shape[0]} block rows"
@@ -203,6 +213,11 @@ def _check_args(indices, blocks, b, counts) -> None:
 
 def _dispatch(indices, blocks, b, counts):
     nbr, k_slots, bm, bn = blocks.shape
+    if _build.on_meta("ell_matmul", indices, blocks, b, counts):
+        # The plan-time verifier's shape rule: the card path's checks, an
+        # empty output, and no launch, count or cost fact.
+        _check_launchable(indices, blocks, b, counts)
+        return torch.empty(nbr * bm, b.shape[1], dtype=torch.float32, device=b.device)
     # The cost observatory's facts for this launch: 2 × stored blocks ×
     # bm × bn × N FLOP, and the stored indices, counts, blocks, b and the
     # output, each once (obs/cost.py reads ``counts`` back at finalize).
@@ -245,7 +260,7 @@ def ell_matmul(
     card reads it back to the host (a sync); :func:`bsr_matmul` and
     :func:`bsr_gram_totals` build theirs valid and skip that."""
     _check_args(indices, blocks, b, counts)
-    if counts is not None and counts.numel():
+    if counts is not None and counts.numel() and counts.device.type != "meta":
         lo, hi = (int(v) for v in torch.aminmax(counts))
         if lo < 0 or hi > indices.shape[1]:
             raise ValueError(f"counts must lie in 0..{indices.shape[1]} (K); got {lo}..{hi}")

@@ -27,7 +27,10 @@ On CUDA tensors :func:`gemm`, :func:`gemm_tn_chunked` and
 ``torch.matmul``. A failed allocation in the binding (cuBLAS's own
 workspace or handle) raises ``torch.cuda.OutOfMemoryError``, as
 PyTorch's allocator does, so an OOM degradation ladder steps down a rung;
-any other status raises ``RuntimeError``. On CPU tensors they take their
+any other status raises ``RuntimeError``. On ``meta`` tensors they check
+the operands as on the card and return an empty ``meta`` output of the
+product's shape and dtype (the plan-time verifier's shape rule): nothing
+launches, counts or is noted. On CPU tensors they take their
 plain versions (:func:`gemm_reference` and its siblings): the inputs rounded as the kind
 rounds them (:func:`round_inputs`), then a ``torch.matmul`` in the
 inputs' own type (float32 for the fp32 and bf16 kinds). Each binding call
@@ -80,7 +83,7 @@ def resolve_kind(kind: str, dtype: torch.dtype) -> str:
     if dtype == torch.bfloat16:
         return "bf16_inputs"
     if dtype != torch.float32:
-        raise TypeError(f"solver products take float32, float64 or bfloat16 tensors; got {dtype}")
+        raise _build.DtypeMismatch(f"solver products take float32, float64 or bfloat16 tensors; got {dtype}")
     if kind not in ("ieee_fp32", "tf32", "bf16"):
         raise ValueError(f"float32 product kind {kind!r}: expected ieee_fp32, tf32 or bf16")
     return kind
@@ -213,7 +216,7 @@ def _raise_on(rc: int, lib, name: str) -> None:
 
 def _dispatch_dtypes(a: torch.Tensor, b: torch.Tensor, kind: str, name: str):
     if a.dtype != b.dtype:
-        raise TypeError(f"{name}: operands differ in type ({a.dtype}, {b.dtype})")
+        raise _build.DtypeMismatch(f"{name}: operands differ in type ({a.dtype}, {b.dtype})")
     kind = resolve_kind(kind, a.dtype)
     return kind, (torch.float32 if kind == "bf16_inputs" else a.dtype)
 
@@ -238,6 +241,8 @@ def gemm(
     kind, out_dtype = _dispatch_dtypes(a, b, kind, "gemm")
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"gemm: shapes {tuple(a.shape)} @ {tuple(b.shape)} do not chain")
+    if _build.on_meta("gemm", a, b, out):
+        return _out_tensor(out, a.shape[0], b.shape[1], out_dtype, a.device, "gemm")
     _cost.note_launch(
         "gemm", kind, m=a.shape[0], n=b.shape[1], k=a.shape[1], itemsize=a.element_size()
     )
@@ -282,6 +287,8 @@ def gemm_tn_chunked(
     kind, out_dtype = _dispatch_dtypes(a, b, kind, "gemm_tn_chunked")
     if a.ndim != 2 or b.ndim != 2 or a.shape[0] != b.shape[0]:
         raise ValueError(f"gemm_tn_chunked: shapes {tuple(a.shape)}, {tuple(b.shape)} differ in rows")
+    if _build.on_meta("gemm_tn_chunked", a, b, out):
+        return _out_tensor(out, a.shape[1], b.shape[1], out_dtype, a.device, "gemm_tn_chunked")
     _cost.note_launch(
         "gemm", kind, m=a.shape[1], n=b.shape[1], k=a.shape[0], itemsize=a.element_size()
     )
@@ -330,6 +337,8 @@ def gemm_batched(a: torch.Tensor, b: torch.Tensor, kind: str = "ieee_fp32") -> t
     kind, out_dtype = _dispatch_dtypes(a, b, kind, "gemm_batched")
     if a.ndim != 3 or b.ndim != 3 or a.shape[0] != b.shape[0] or a.shape[2] != b.shape[1]:
         raise ValueError(f"gemm_batched: shapes {tuple(a.shape)} @ {tuple(b.shape)} do not chain")
+    if _build.on_meta("gemm_batched", a, b):
+        return torch.empty(a.shape[0], a.shape[1], b.shape[2], dtype=out_dtype, device=a.device)
     _cost.note_launch(
         "gemm", kind, m=a.shape[1], n=b.shape[2], k=a.shape[2], batch=a.shape[0],
         itemsize=a.element_size(),

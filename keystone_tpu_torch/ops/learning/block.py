@@ -136,6 +136,13 @@ class BlockLeastSquaresEstimator(GramStreamStateMixin, LabelEstimator):
         auto-cache planner multiplies a node's recomputations by it."""
         return 3 * self.num_iter + 1
 
+    def out_spec(self, in_specs):
+        """Plan-time spec protocol (``workflow/verify.py``): the fitted
+        map takes (m, d) to (m, k)."""
+        from ...workflow.verify import dense_fit_spec
+
+        return dense_fit_spec(in_specs, self.label)
+
     def fit_stream(self, stream, state=None) -> BlockLinearMapper:
         """Row-chunked fit: accumulate (AᵀA, AᵀY, Σx, Σy) one chunk at a
         time on the stream's device, then run the SAME Gauss-Seidel block

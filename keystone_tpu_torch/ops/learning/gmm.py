@@ -27,7 +27,8 @@ The model stores means/variances as (d, k) — a column per cluster — as
 the reference does (GaussianMixtureModel.scala:19-24); the Fisher-vector
 encoder relies on it.
 
-Left out for now: ``out_spec`` (ROADMAP item 13b).
+The estimator declares its fitted map's spec (``out_spec``) for the
+plan-time verifier.
 """
 
 from __future__ import annotations
@@ -152,6 +153,13 @@ class GaussianMixtureModelEstimator(Estimator):
         self.absolute_variance_threshold = absolute_variance_threshold
         self.initialization_method = initialization_method
         self.seed = seed
+
+    def out_spec(self, in_specs):
+        """Plan-time spec protocol (``workflow/verify.py``): the fitted
+        map takes (m, d) to (m, k)."""
+        from ...workflow.verify import dense_fit_spec
+
+        return dense_fit_spec(in_specs, self.label, out_width=self.k)
 
     def fit(self, data: Dataset) -> GaussianMixtureModel:
         ds = _as_array_dataset(data)

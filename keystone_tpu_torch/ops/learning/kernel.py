@@ -150,6 +150,13 @@ class KernelRidgeRegression(LabelEstimator):
     def device(self):
         return self.kernel_generator.device
 
+    def out_spec(self, in_specs):
+        """Plan-time spec protocol (``workflow/verify.py``): the fitted
+        map takes (m, d) to (m, k)."""
+        from ...workflow.verify import dense_fit_spec
+
+        return dense_fit_spec(in_specs, self.label)
+
     def fit(self, data: Dataset, labels: Dataset) -> "KernelBlockLinearMapper":
         device = resolve_device(self.device)
         features = _as_array_dataset(data, device)

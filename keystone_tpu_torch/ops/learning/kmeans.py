@@ -12,7 +12,8 @@ sample). Lloyd runs on the data's device as a Python loop with the JAX
 ``lax.while_loop``'s stop rule; its products go through ``linalg.mm``
 at the solver mode's precision.
 
-Left out for now: ``out_spec`` (ROADMAP item 13b).
+The estimator declares its fitted map's spec (``out_spec``) for the
+plan-time verifier.
 """
 
 from __future__ import annotations
@@ -52,6 +53,13 @@ class KMeansPlusPlusEstimator(Estimator):
         self.max_iterations = max_iterations
         self.stop_tolerance = stop_tolerance
         self.seed = seed
+
+    def out_spec(self, in_specs):
+        """Plan-time spec protocol (``workflow/verify.py``): the fitted
+        map takes (m, d) to (m, k)."""
+        from ...workflow.verify import dense_fit_spec
+
+        return dense_fit_spec(in_specs, self.label, out_width=self.num_means)
 
     def fit(self, data: Dataset) -> KMeansModel:
         ds = _as_array_dataset(data)

@@ -151,6 +151,13 @@ class LeastSquaresEstimator(LabelEstimator, Optimizable):
         self.device = device
 
     # ------------------------------------------------------------ streaming
+    def out_spec(self, in_specs):
+        """Plan-time spec protocol (``workflow/verify.py``): the fitted
+        map takes (m, d) to (m, k)."""
+        from ...workflow.verify import dense_fit_spec
+
+        return dense_fit_spec(in_specs, self.label)
+
     def fit_stream(self, stream, state=None):
         inner = self._stream_solver(_stream_width(stream, self.block_size))
         fitted = inner.fit_stream(stream, state=state)

@@ -79,6 +79,13 @@ class LinearMapEstimator(GramStreamStateMixin, LabelEstimator):
         self.reg = reg
         self.device = device
 
+    def out_spec(self, in_specs):
+        """Plan-time spec protocol (``workflow/verify.py``): the fitted
+        map takes (m, d) to (m, k)."""
+        from ...workflow.verify import dense_fit_spec
+
+        return dense_fit_spec(in_specs, self.label)
+
     def fit_stream(self, stream, state=None) -> LinearMapper:
         """Row-chunked exact fit: the centering identity of the in-core
         solve (Σ(a−μ)(a−μ)ᵀ = AᵀA − n·μμᵀ) fed by per-chunk Gram
@@ -136,6 +143,13 @@ class LocalLeastSquaresEstimator(LabelEstimator):
     def __init__(self, reg: float = 0.0, device: DeviceLike = None):
         self.reg = reg
         self.device = device
+
+    def out_spec(self, in_specs):
+        """Plan-time spec protocol (``workflow/verify.py``): the fitted
+        map takes (m, d) to (m, k)."""
+        from ...workflow.verify import dense_fit_spec
+
+        return dense_fit_spec(in_specs, self.label)
 
     def fit(self, data: Dataset, labels: Dataset) -> LinearMapper:
         device = resolve_device(self.device)

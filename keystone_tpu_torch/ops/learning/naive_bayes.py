@@ -38,6 +38,13 @@ class NaiveBayesEstimator(LabelEstimator):
         self.smoothing = smoothing
         self.device = device
 
+    def out_spec(self, in_specs):
+        """Plan-time spec protocol (``workflow/verify.py``): the fitted
+        map takes (m, d) to (m, k)."""
+        from ...workflow.verify import dense_fit_spec
+
+        return dense_fit_spec(in_specs, self.label, out_width=self.num_classes)
+
     def fit(self, data: Dataset, labels: Dataset) -> NaiveBayesModel:
         device = resolve_device(self.device)
         features = _as_array_dataset(data, device)

@@ -23,8 +23,9 @@ the two draw different Ω; ``omega=`` takes a given one). Products go
 through ``linalg.mm`` at the solver mode's precision; the QR, SVD and
 eigh are ``torch.linalg``'s.
 
-Left out for now: the mesh (``fit_mesh``) paths (ROADMAP item 14) and
-``out_spec`` (item 13b).
+Every estimator declares its fitted projection's spec (``out_spec``) for
+the plan-time verifier. Left out for now: the mesh (``fit_mesh``) paths
+(ROADMAP item 14).
 """
 
 from __future__ import annotations
@@ -108,6 +109,13 @@ class PCAEstimator(Estimator, CostModel):
     def __init__(self, dims: int):
         self.dims = dims
 
+    def out_spec(self, in_specs):
+        """Plan-time spec protocol (``workflow/verify.py``): the fitted
+        projection replaces the last axis with ``dims``."""
+        from ...workflow.verify import projection_fit_spec
+
+        return projection_fit_spec(in_specs, self.label, dims=self.dims)
+
     def fit(self, data: Dataset) -> PCATransformer:
         ds = _as_array_dataset(data)
         x = ds.data[: ds.num_examples].to(torch.float32)
@@ -137,6 +145,13 @@ class DistributedPCAEstimator(Estimator, CostModel):
 
     def __init__(self, dims: int):
         self.dims = dims
+
+    def out_spec(self, in_specs):
+        """Plan-time spec protocol (``workflow/verify.py``): the fitted
+        projection replaces the last axis with ``dims``."""
+        from ...workflow.verify import projection_fit_spec
+
+        return projection_fit_spec(in_specs, self.label, dims=self.dims)
 
     def fit(self, data: Dataset) -> PCATransformer:
         ds = _as_array_dataset(data)
@@ -170,6 +185,13 @@ class ApproximatePCAEstimator(Estimator, CostModel):
         self.q = q
         self.p = p
         self.seed = seed
+
+    def out_spec(self, in_specs):
+        """Plan-time spec protocol (``workflow/verify.py``): the fitted
+        projection replaces the last axis with ``dims``."""
+        from ...workflow.verify import projection_fit_spec
+
+        return projection_fit_spec(in_specs, self.label, dims=self.dims)
 
     def fit(self, data: Dataset) -> PCATransformer:
         ds = _as_array_dataset(data)
@@ -217,6 +239,13 @@ class LocalColumnPCAEstimator(Estimator, CostModel):
         self.dims = dims
         self._inner = PCAEstimator(dims)
 
+    def out_spec(self, in_specs):
+        """Plan-time spec protocol (``workflow/verify.py``): the fitted
+        projection replaces the last axis with ``dims``."""
+        from ...workflow.verify import projection_fit_spec
+
+        return projection_fit_spec(in_specs, self.label, dims=self.dims)
+
     def fit(self, data: Dataset) -> BatchPCATransformer:
         return BatchPCATransformer(self._inner.fit(_columns_to_vectors(data)).components)
 
@@ -231,6 +260,13 @@ class DistributedColumnPCAEstimator(Estimator, CostModel):
     def __init__(self, dims: int):
         self.dims = dims
         self._inner = DistributedPCAEstimator(dims)
+
+    def out_spec(self, in_specs):
+        """Plan-time spec protocol (``workflow/verify.py``): the fitted
+        projection replaces the last axis with ``dims``."""
+        from ...workflow.verify import projection_fit_spec
+
+        return projection_fit_spec(in_specs, self.label, dims=self.dims)
 
     def fit(self, data: Dataset) -> BatchPCATransformer:
         return BatchPCATransformer(self._inner.fit(_columns_to_vectors(data)).components)
@@ -252,6 +288,13 @@ class ColumnPCAEstimator(Estimator, Optimizable, CostModel):
         self.weights = weights
         self.local = LocalColumnPCAEstimator(dims)
         self.distributed = DistributedColumnPCAEstimator(dims)
+
+    def out_spec(self, in_specs):
+        """Plan-time spec protocol (``workflow/verify.py``): the fitted
+        projection replaces the last axis with ``dims``."""
+        from ...workflow.verify import projection_fit_spec
+
+        return projection_fit_spec(in_specs, self.label, dims=self.dims)
 
     def fit(self, data: Dataset):
         return self.distributed.fit(data)

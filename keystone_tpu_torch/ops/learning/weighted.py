@@ -130,6 +130,13 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
         auto-cache planner multiplies a node's recomputations by it."""
         return 3 * self.num_iter + 1
 
+    def out_spec(self, in_specs):
+        """Plan-time spec protocol (``workflow/verify.py``): the fitted
+        map takes (m, d) to (m, k)."""
+        from ...workflow.verify import dense_fit_spec
+
+        return dense_fit_spec(in_specs, self.label)
+
     def fit(self, data: Dataset, labels: Dataset) -> BlockLinearMapper:
         features = _as_array_dataset(data, None)
         targets = _as_array_dataset(labels, None)
@@ -318,6 +325,13 @@ class PerClassWeightedLeastSquaresEstimator(LabelEstimator):
     @property
     def weight(self) -> int:
         return 3 * self.num_iter + 1
+
+    def out_spec(self, in_specs):
+        """Plan-time spec protocol (``workflow/verify.py``): the fitted
+        map takes (m, d) to (m, k)."""
+        from ...workflow.verify import dense_fit_spec
+
+        return dense_fit_spec(in_specs, self.label)
 
     def fit(self, data: Dataset, labels: Dataset) -> BlockLinearMapper:
         features = _as_array_dataset(data, None)

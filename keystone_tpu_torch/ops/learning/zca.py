@@ -45,6 +45,13 @@ class ZCAWhitenerEstimator(Estimator):
         self.eps = eps
         self.device = device
 
+    def out_spec(self, in_specs):
+        """Plan-time spec protocol (``workflow/verify.py``): the fitted
+        transformer keeps its input's shape and dtype."""
+        from ...workflow.verify import elementwise_fit_spec
+
+        return elementwise_fit_spec(in_specs, self.label)
+
     def fit(self, data: Dataset) -> ZCAWhitener:
         if isinstance(data, ArrayDataset):
             mat = data.data[: data.num_examples]

@@ -177,6 +177,13 @@ class StandardScaler(Estimator):
         self.normalize_std_dev = normalize_std_dev
         self.eps = eps
 
+    def out_spec(self, in_specs):
+        """Plan-time spec protocol (``workflow/verify.py``): the fitted
+        transformer keeps its input's shape and dtype."""
+        from ...workflow.verify import elementwise_fit_spec
+
+        return elementwise_fit_spec(in_specs, self.label)
+
     def fit(self, data: Dataset) -> StandardScalerModel:
         ds = data if isinstance(data, ArrayDataset) else data.to_arrays()
         x = ds.data

@@ -5,15 +5,15 @@ three doors —
 
 - :meth:`ModelRegistry.publish` — an in-process fitted pipeline object;
 - :meth:`ModelRegistry.load_fitted` — a ``FittedPipeline.save`` artifact,
-  with every tensor placed on the serving device;
+  with every tensor placed on the serving device, verified at plan time
+  first (``workflow/verify.py``);
 - :meth:`ModelRegistry.load_checkpoint` — a fitted value out of a
   reliability ``CheckpointStore`` directory, by digest prefix, onto the
   serving device.
 
-Left out for now: the plan-time verifier ``load_fitted`` runs in the JAX
-package
-(``verify_and_enforce``), and the serving partition it attaches for
-multi-device serving (``attach_serving_partition``).
+Left out for now: the serving partition ``load_fitted`` attaches for
+multi-device serving in the JAX package (``attach_serving_partition``,
+ROADMAP item 14).
 
 Hot-swap contract: ``resolve`` returns an immutable :class:`ModelEntry`;
 the worker holds that entry for the whole batch it is applying, so a
@@ -126,14 +126,63 @@ class ModelRegistry:
         self.evicted += len(history) - len(tail)
         self._versions[name] = tail
 
-    def load_fitted(self, name: str, path: str, device: DeviceLike = None) -> ModelEntry:
+    def load_fitted(
+        self,
+        name: str,
+        path: str,
+        device: DeviceLike = None,
+        example: Any = None,
+        buckets: Optional[List[int]] = None,
+        warmed_buckets: Optional[List[int]] = None,
+    ) -> ModelEntry:
         """Publish a ``FittedPipeline.save`` artifact with every tensor on
         ``device`` (default CUDA; ``"cpu"`` on a machine without a card),
         re-fused: an artifact saved unfused (or before fusion existed)
-        serves the fused plan that ``Pipeline.fit`` makes."""
+        serves the fused plan that ``Pipeline.fit`` makes.
+
+        Before publishing, the artifact goes through the plan-time
+        verifier (``workflow/verify.py``): cycles and internal shape/dtype
+        inconsistencies are diagnosed from specs alone, plus — when
+        ``example`` (one request payload) is given — the whole apply path
+        at one row, and — when ``buckets``/``warmed_buckets`` are given —
+        the serving-bucket/warm-set agreement (KV301). Warn by default;
+        ``KEYSTONE_VERIFY=strict`` raises ``VerificationError`` instead of
+        publishing a model that cannot serve."""
         from ..workflow.pipeline import FittedPipeline
+        from ..workflow.verify import spec_leaf, verify_and_enforce
 
         fitted = FittedPipeline.load(path, device=device).fused()
+        source_specs = None
+        if example is not None:
+            import numpy as np
+
+            from ..utils.tree import tree_map
+
+            def leaf_spec(a):
+                # Metadata first: np.asarray on a card tensor would copy
+                # it to the host just to read its dtype. The fallback
+                # only runs for host-native payloads (JSON lists).
+                dtype = getattr(a, "dtype", None)
+                shape = getattr(a, "shape", None)
+                if dtype is None or shape is None:
+                    arr = np.asarray(a)
+                    dtype, shape = arr.dtype, arr.shape
+                return spec_leaf((1,) + tuple(shape), dtype)
+
+            try:
+                source_specs = {fitted.source: tree_map(leaf_spec, example)}
+            except Exception:
+                # An unconvertible example must not block publication —
+                # verify the graph without a bound request spec instead
+                # (the warn contract: only verified findings interfere).
+                source_specs = None
+        verify_and_enforce(
+            fitted.graph,
+            context=f"load_fitted:{name}",
+            source_specs=source_specs,
+            buckets=buckets,
+            warmed_buckets=warmed_buckets,
+        )
         return self.publish(name, fitted, source=f"fitted:{path}")
 
     def load_checkpoint(

@@ -295,7 +295,7 @@ class PipelineServer:
             shape = getattr(leaf, "shape", None)
             dtype = getattr(leaf, "dtype", None)
             if shape is None or dtype is None:
-                host = np.asarray(leaf)
+                host = np.asarray(leaf)  # keystone: allow-sync — host-native leaf, no device copy
                 shape, dtype = host.shape, host.dtype
             return (tuple(shape), str(dtype))
 
@@ -435,6 +435,7 @@ class PipelineServer:
         # the device once per request.
         data = getattr(out, "data", None)
         if data is not None and hasattr(out, "num_examples"):
+            # The batch's one read-back, by design.  # keystone: allow-sync
             host = tree_map(
                 lambda a: a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a),
                 data,
@@ -556,6 +557,8 @@ def serve_from_args(args) -> int:
         def callback(future: Future) -> None:
             try:
                 row = future.result()
+                # Response egress: a host row the server already sliced
+                # from the batch's one read-back.  # keystone: allow-sync
                 emit({
                     "id": request_id,
                     "y": np.asarray(row).tolist(),
@@ -583,6 +586,7 @@ def serve_from_args(args) -> int:
             emit({"id": obj.get("id"), "error": str(exc)})
             continue
         try:
+            # Request ingress: x is a JSON list.  # keystone: allow-sync
             payload = np.asarray(x, np.float32)
             if x is None or payload.ndim == 0:
                 raise ValueError(f"x must be an array, got {x!r}")

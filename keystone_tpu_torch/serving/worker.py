@@ -290,6 +290,8 @@ class ServerBackend:
 
         request_id = msg.get("id")
         try:
+            # Request ingress: x arrived as JSON over the control pipe,
+            # host-native by construction.  # keystone: allow-sync
             payload = np.asarray(msg.get("x"), np.float32)
             if payload.ndim == 0:
                 raise ValueError(f"x must be an array, got {msg.get('x')!r}")
@@ -329,17 +331,19 @@ class ServerBackend:
             try:
                 # The server copied the batch's output to the host once
                 # and sliced this row there: no device sync per row.
+                # keystone: allow-sync — host row, host payload
                 y = np.asarray(f.result(), np.float64).reshape(-1)
+                y_list, x_list = y.tolist(), payload.reshape(-1).tolist()
                 get_quality_plane().observe_served(
                     msg.get("model") or self.name,
-                    payload.reshape(-1).tolist(),
+                    x_list,
                     float(y.mean()) if y.size else None,
                 )
                 emitter.emit(
                     {
                         "kind": "response",
                         "id": request_id,
-                        "y": y.tolist(),
+                        "y": y_list,
                         "latency_ms": round((time.monotonic() - t0) * 1e3, 3),
                     }
                 )

@@ -157,6 +157,13 @@ class SketchedLeastSquaresEstimator(SketchStreamStateMixin, LabelEstimator):
         return {"sketch_variant": self.variant, "sketch_seed": int(self.seed)}
 
     # ------------------------------------------------------- streamed path
+    def out_spec(self, in_specs):
+        """Plan-time spec protocol (``workflow/verify.py``): the fitted
+        map takes (m, d) to (m, k)."""
+        from ..workflow.verify import dense_fit_spec
+
+        return dense_fit_spec(in_specs, self.label)
+
     def fit_stream(self, stream, state=None):
         """One-pass sketch-and-solve over the chunk stream.
 

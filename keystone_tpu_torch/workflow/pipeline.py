@@ -368,9 +368,20 @@ class Pipeline(Chainable):
     # -------------------------------------------------------------------- fit
     def fit(self) -> "FittedPipeline":
         """Execute all estimator fits and return a transformer-only pipeline
-        (reference: Pipeline.scala:38-65)."""
+        (reference: Pipeline.scala:38-65).
+
+        Before any fit executes, the OPTIMIZED graph goes through the
+        plan-time verifier (``workflow/verify.py``): shape/dtype
+        mismatches, float64 widening and infeasible streamed fits are
+        diagnosed from specs alone, with nothing launched on the card —
+        warn by default, ``KEYSTONE_VERIFY=strict`` raises
+        ``VerificationError`` here instead of failing later inside a
+        kernel."""
+        from .verify import verify_and_enforce
+
         env = PipelineEnv.get_or_create()
         graph, prefixes = env.optimizer.execute(self.graph)
+        verify_and_enforce(graph, context="fit")
         executor = GraphExecutor(graph, optimize=False)
         executor._prefixes = prefixes
 

@@ -441,6 +441,7 @@ def _labels_host(labels: Dataset, device: torch.device):
     elif isinstance(labels, ArrayDataset) and isinstance(labels.data, torch.Tensor):
         y = labels.data[: labels.num_examples]
         if y.device.type == "cpu" or device.type == "cpu":
+            # Host labels, or a CPU fit: no card in the copy.  # keystone: allow-sync
             y = y.cpu().numpy()
         else:
             y = y.to(device)
@@ -462,6 +463,7 @@ def _chunk_spec(data: Dataset, chunk_rows: int):
     def spec(leaf) -> ChunkSpec:
         if isinstance(leaf, torch.Tensor) and leaf.device.type != "cpu":
             return ChunkSpec((chunk_rows,) + tuple(leaf.shape[1:]), leaf.dtype)
+        # A host leaf (a card leaf returned above).  # keystone: allow-sync
         arr = leaf.numpy() if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
         if arr.dtype == object:
             raise StreamingFallback(f"{type(data).__name__} of non-array records is not chunkable")
@@ -768,6 +770,8 @@ class ChunkStream:
             # The completion barrier for chunk i, one chunk behind the
             # dispatch frontier, so chunk timings and backpressure are real.
             if done is not None:
+                # The designed barrier, one chunk behind the dispatch
+                # frontier.  # keystone: allow-sync
                 done.synchronize()
             report.compute_done_t.append(time.perf_counter() - t0)
 

@@ -848,3 +848,73 @@ def test_ell_launch_facts_on_cuda_tensors_are_the_bound_counts(cuda):
     stored = int(counts.sum())
     assert sites["ell_matmul"]["flops"] == 2.0 * stored * bm * bn * n
     assert sites["ell_matmul"]["bytes"] == stored * 4 + nbr * 4 + stored * bm * bn * 4 + d_pad * n * 4 + nbr * bm * n * 4
+
+
+def test_meta_twin_of_a_card_call_moves_no_counter_and_the_card_call_still_launches(cuda):
+    """The wrappers' ``meta`` branch is a shape rule, not a fallback: the
+    card call launches (its counter up by one) and agrees with the plain
+    version; the same call on ``meta`` twins returns the card output's
+    shape and dtype and moves no counter and no card byte."""
+    from keystone_tpu_torch.ops.cuda import gemm
+
+    rng = np.random.RandomState(3)
+    idx, blocks, b = (torch.from_numpy(a).to(cuda) for a in _case(rng, 64, 5, 16, 16, 40, 300))
+    counts = torch.full((64,), 4, dtype=torch.int32, device=cuda)
+    a = torch.randn(300, 96, device=cuda)
+    w = torch.randn(96, 40, device=cuda)
+    meta = [torch.empty_like(t, device="meta") for t in (idx, blocks, b, counts, a, w)]
+    torch.cuda.synchronize()
+    ell_before, gemm_before = tbs.ell_matmul.launches, dict(gemm.launches)
+    allocated = torch.cuda.memory_allocated()
+    shapes = (
+        tbs.ell_matmul(*meta[:4]),
+        gemm.gemm(meta[4], meta[5]),
+        gemm.gemm_tn_chunked(meta[4], meta[4]),
+        gemm.gemm_batched(meta[4][None], meta[5][None]),
+    )
+    assert all(t.device.type == "meta" for t in shapes)
+    assert tbs.ell_matmul.launches == ell_before and dict(gemm.launches) == gemm_before
+    assert torch.cuda.memory_allocated() == allocated
+    out = tbs.ell_matmul(idx, blocks, b, counts)
+    prod = gemm.gemm(a, w)
+    torch.cuda.synchronize()
+    assert tbs.ell_matmul.launches == ell_before + 1
+    assert gemm.launches["ieee_fp32"] == gemm_before["ieee_fp32"] + 1
+    assert shapes[0].shape == out.shape and shapes[0].dtype == out.dtype
+    assert shapes[1].shape == prod.shape and shapes[1].dtype == prod.dtype
+    ref = tbs.ell_matmul_reference(idx, blocks, b, counts)
+    assert float((out - ref).norm() / ref.norm()) <= 1e-5
+
+
+def test_strict_fit_on_the_card_refuses_a_mis_sized_source_before_any_launch(cuda):
+    """``Pipeline.fit``'s plan-time hook on card-resident data: a 783-wide
+    MNIST source raises ``VerificationError`` (KV101) with no kernel
+    launched, no binding call and no card byte allocated; the 784-wide
+    one verifies clean and fits."""
+    import os
+
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.data.loaders.csv import LabeledData
+    from keystone_tpu_torch.ops.cuda import gemm
+    from keystone_tpu_torch.pipelines.mnist_random_fft import MnistRandomFFTConfig, build_pipeline
+    from keystone_tpu_torch.workflow.verify import VerificationError
+
+    rng = np.random.default_rng(0)
+    labels = ArrayDataset(rng.integers(0, 10, 4096).astype(np.int32), device=cuda)
+    config = MnistRandomFFTConfig(num_ffts=2, block_size=512, reg=1.0)
+    narrow = build_pipeline(
+        config, LabeledData(labels, ArrayDataset(rng.standard_normal((4096, 783)).astype(np.float32), device=cuda)),
+        device=cuda,
+    )
+    os.environ["KEYSTONE_VERIFY"] = "strict"
+    try:
+        torch.cuda.synchronize()
+        before = (tbs.ell_matmul.launches, dict(gemm.launches), torch.cuda.memory_allocated())
+        with pytest.raises(VerificationError, match="KV101"):
+            narrow.fit()
+        assert (tbs.ell_matmul.launches, dict(gemm.launches), torch.cuda.memory_allocated()) == before
+        wide = LabeledData(labels, ArrayDataset(rng.standard_normal((4096, 784)).astype(np.float32), device=cuda))
+        fitted = build_pipeline(config, wide, device=cuda).fit()
+        assert fitted.apply_batch(wide.data).data.shape == (4096,)
+    finally:
+        os.environ.pop("KEYSTONE_VERIFY", None)

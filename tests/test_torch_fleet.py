@@ -46,6 +46,7 @@ from keystone_tpu_torch.obs.export import prometheus_text as t_prometheus_text
 from keystone_tpu_torch.obs.flight import reset_flight_recorder
 from keystone_tpu_torch.reliability.recovery import get_recovery_log, reset_recovery_log
 from keystone_tpu_torch.workflow.executor import PipelineEnv
+from torch_lock_witness import _port_lock_witness  # noqa: F401 (autouse fixture)
 
 SERVE_TOL = 1e-5
 

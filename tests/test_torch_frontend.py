@@ -25,6 +25,7 @@ import pytest
 from keystone_tpu_torch.obs.flight import reset_flight_recorder
 from keystone_tpu_torch.serving.config import RequestShed, ServerClosed, ServingError
 from keystone_tpu_torch.serving.frontend import ServingFrontend, parse_listen
+from torch_lock_witness import _port_lock_witness  # noqa: F401 (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -114,6 +114,7 @@ print(json.dumps({"imported": names, "bad": bad}))
         "keystone_tpu_torch.reliability.checkpoint",
         "keystone_tpu_torch.reliability.durable",
         "keystone_tpu_torch.workflow.verify",
+        "keystone_tpu_torch.workflow.shape_rules",
         "keystone_tpu_torch.workflow.fitcmd",
         "keystone_tpu_torch.obs.flight",
         "keystone_tpu_torch.obs.quality",
@@ -181,6 +182,13 @@ print(json.dumps({"imported": names, "bad": bad}))
         "keystone_tpu_torch.sched.demo",
         "keystone_tpu_torch.tools",
         "keystone_tpu_torch.tools.solver_comparison",
+        "keystone_tpu_torch.diagnostics",
+        "keystone_tpu_torch.lint",
+        "keystone_tpu_torch.lint.rules",
+        "keystone_tpu_torch.lint.check",
+        "keystone_tpu_torch.lint.concurrency",
+        "keystone_tpu_torch.lint.lockmodel",
+        "keystone_tpu_torch.lint.lockwitness",
     }
     assert expected <= set(result["imported"])
 
@@ -538,3 +546,39 @@ def test_streaming_flagship_and_nlp_entry_points_without_device_raise_when_no_cu
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry_point()
+
+
+#: Runs ``check`` with torch and jax blocked from importing: the static
+#: halves must need neither.
+_STATIC_PROBE = """
+import sys
+sys.modules["torch"] = None
+sys.modules["jax"] = None
+from keystone_tpu_torch.cli import main
+try:
+    code = main({argv!r})
+except SystemExit as e:
+    code = e.code
+sys.stderr.write("\\nEXIT=%s\\n" % code)
+"""
+
+
+@pytest.mark.parametrize(
+    "argv,expect",
+    [
+        (["check", "--help"], "--concurrency"),
+        (["check", "--lint", "--json"], '"lint"'),
+        (["check", "--concurrency", "--json"], '"torch_free": true'),
+    ],
+    ids=["help", "lint", "concurrency"],
+)
+def test_check_static_halves_import_neither_torch_nor_jax(argv, expect):
+    """``check --help``, ``--lint`` and ``--concurrency`` run with torch
+    and jax unimportable, and exit 0 over the port's own tree."""
+    out = subprocess.run(
+        [sys.executable, "-c", _STATIC_PROBE.format(argv=argv)],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert expect in out.stdout
+    assert out.stderr.strip().splitlines()[-1] == "EXIT=0"

@@ -58,6 +58,7 @@ from keystone_tpu_torch.workflow.verify import (
     _apply_out_spec,
     verify_refit_publish,
 )
+from torch_lock_witness import _port_lock_witness  # noqa: F401 (autouse fixture)
 
 REPO = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")

@@ -28,6 +28,7 @@ from keystone_tpu_torch.obs import store as tstore
 from keystone_tpu_torch.reliability import recovery as trecovery
 from keystone_tpu_torch.sched import pricing as tpricing
 from keystone_tpu_torch.sched import scheduler as tsched
+from torch_lock_witness import _port_lock_witness  # noqa: F401 (autouse fixture)
 
 PEAKS = (2.0e12, 1.0e11)
 

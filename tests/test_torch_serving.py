@@ -43,6 +43,7 @@ from keystone_tpu_torch.serving.config import Request
 from keystone_tpu_torch.utils.aot import warm_buckets
 from keystone_tpu_torch.workflow.executor import PipelineEnv
 from keystone_tpu_torch.workflow.pipeline import FittedPipeline, Transformer
+from torch_lock_witness import _port_lock_witness  # noqa: F401 (autouse fixture)
 
 pytestmark = pytest.mark.serving
 

@@ -23,6 +23,7 @@ from keystone_tpu_torch.reliability.recovery import get_recovery_log, reset_reco
 from keystone_tpu_torch.reliability.retry import RetryPolicy
 from keystone_tpu_torch.serving.config import RequestShed, RequestTimeout, ServerClosed, ServingError
 from keystone_tpu_torch.serving.supervisor import SupervisorConfig, WorkerSupervisor
+from torch_lock_witness import _port_lock_witness  # noqa: F401 (autouse fixture)
 
 
 @pytest.fixture(autouse=True)
