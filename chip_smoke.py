@@ -451,6 +451,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``workflow/shape_rules.py``), which made the process import torch's
    Python ``meta`` kernels.
 
+52. mesh_collectives — the multi-device tier (ROADMAP item 14a) on one
+   card: an N-shard mesh names ``cuda:0`` N times. Each of the six
+   collectives (``parallel/collectives.py``) on 8 shards of 1,024 × 1,024,
+   held against its definition on the whole tensor (≤ 1e-5), every
+   result on the card, with CUDA-event milliseconds;
+53. sharded — ``bench.py::_bench_sharded``'s two fits at its full sizes
+   through ``Pipeline.fit`` and the partition batch on 1-, 2-, 4- and
+   8-shard meshes: an in-core ``BlockLeastSquaresEstimator`` fit of
+   65,536 × 1,024 (k = 16) and a streamed one of 8 host chunks of 8,192
+   × 768 (k = 8); per shard count the wall, peak, ``shards_chosen`` and
+   collective bytes (equal to ``SHARDED_JAX``, the JAX package's own plan
+   counters), predictions against the 1-shard fit (≤ 1e-5);
+54. sharded2d — ``_bench_sharded2d``'s width (d = 8,192, k = 8) at
+   65,536 card-resident rows in 8 chunks, streamed through
+   ``LinearMapEstimator`` on the 8×1, 4×2 and 2×4 layouts of an 8-shard
+   mesh: plan counters equal to ``SHARDED2D_JAX``, per-shard carry bytes
+   falling by the model-shard count, predictions against 8×1 (≤ 1e-5);
+   the sketched rung (2,048 sketch rows) on 8×1 and 2×4 likewise;
+55. mesh_legs — the legs of ``__graft_entry__.py::dryrun_multichip`` that
+   the tier covers, at its 8-device sizes: featurize + BCD + the exact
+   fit through the partition batch, the partitioned streamed fit, the
+   2-D solver and ``block_sharded_apply``, the weighted solver and the
+   ``all_to_all`` shuffle, host-streamed BCD — each against its closed
+   form or 1-shard run; then the hashing-TF slice's fit (phase 3's rows)
+   under an 8-shard mesh: 2 ELL launches, scores equal to the 1-shard
+   fit's. Walls do not fall with the shard count on one card (the
+   ``note`` field); no phase gates a speed.
+
 Where the compiler finds no ``jpeglib.h`` the script prints
 ``native_decode: unavailable (no jpeglib.h)`` and every VOC and ImageNet
 phase decodes with PIL (``use_native=False``, passed explicitly).
@@ -460,7 +488,8 @@ count to 0 and fails if it moved; phase 15 launches it only in
 ``oom_injected_sparse``, phase 17 exactly twice, phase 45 in the hashing-TF
 fit (twice in its node) and the auto-cache planner's sample fits, phase
 46 in the density sweep's sparse legs, phase 51 twice in its slice fit
-and never during a verification. Inside ``solver_ladder`` a
+and never during a verification, phases 52–54 never, phase 55 twice
+(its block-sparse leg under the 8-shard mesh). Inside ``solver_ladder`` a
 ``cost_constants_fit`` line fits the cost model's weights to the rungs'
 times (``keystone_tpu_torch/tools/solver_comparison.py``). Every phase
 starts from a reset ``PipelineEnv`` and reports its peak device memory
@@ -7236,6 +7265,451 @@ def log_verify_run() -> None:
         raise AssertionError(f"verify_run: {len(errors)} error diagnostics on plans that fit: {errors[:3]}")
 
 
+# ------------------------------------------------------------ phases 52-55
+#
+# The multi-device tier (ROADMAP item 14a) on one card. An N-shard mesh
+# names cuda:0 N times (``make_mesh(devices=[cuda:0] * N)``): the mesh,
+# the collectives, the partitioner's plans and the sharded solvers all
+# run as they would over N cards; only the copies between two cards are
+# left out. Walls therefore do not scale with the shard count
+# (MESH_NOTE), and no phase gates a speed.
+
+MESH_NOTE = ("N shards of one card: every shard's work runs on the same SMs in shard order, so wall time "
+             "does not fall with the shard count; the plan-pure counters (shards, collective bytes, "
+             "per-shard state) and the parity carry the evidence")
+MESH_TOL = 1e-5
+MESH_COLLECTIVE_ROWS, MESH_COLLECTIVE_COLS = 8 * 1024, 1024
+
+# _bench_sharded's full sizes (bench.py): the in-core Gram fit (n, d, k),
+# and the streamed fit: 8 chunks of 8,192 rows × 768, k = 8.
+SHARDED_GRAM = (65_536, 1_024, 16)
+SHARDED_STREAM = (8_192, 768, 8)
+SHARDED_COUNTS = (1, 2, 4, 8)
+# Plan-pure counters of the JAX package's own run of the same legs on the
+# CPU (8 virtual devices), rows cut (they do not depend on rows), widths
+# as above:
+#   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 python -c "..."
+#   (_bench_sharded's gram_fit and stream_fit at 1,024 and 8 × 64 rows:
+#   shards_chosen from last_partition_report(), collective bytes from
+#   last_stream_report())
+SHARDED_JAX = {
+    1: {"gram_shards_chosen": 1, "stream_shards_chosen": 1, "stream_collective_bytes": 0},
+    2: {"gram_shards_chosen": 2, "stream_shards_chosen": 2, "stream_collective_bytes": 2_386_976},
+    4: {"gram_shards_chosen": 4, "stream_shards_chosen": 4, "stream_collective_bytes": 7_160_928},
+    8: {"gram_shards_chosen": 8, "stream_shards_chosen": 8, "stream_collective_bytes": 16_708_832},
+}
+# _bench_sharded2d's width (d = 8,192, k = 8, LinearMapEstimator) at
+# n = 65,536 rows (8 chunks of 8,192) on 8 shards, three layouts; the
+# JAX package's plan-pure counters from the same CPU run (32-row chunks).
+SHARDED2D = (65_536, 8_192, 8, 8_192)
+SHARDED2D_LAYOUTS = ((1, "8x1"), (2, "4x2"), (4, "2x4"))
+SHARDED2D_JAX = {
+    "8x1": {"shards": 8, "model_shards": 1, "state_bytes_per_device": 268_730_400,
+            "collective_bytes_data": 1_881_112_800, "collective_bytes_model": 0},
+    "4x2": {"shards": 4, "model_shards": 2, "state_bytes_per_device": 134_365_216,
+            "collective_bytes_data": 806_191_296, "collective_bytes_model": 134_365_216},
+    "2x4": {"shards": 2, "model_shards": 4, "state_bytes_per_device": 67_182_624,
+            "collective_bytes_data": 268_730_496, "collective_bytes_model": 201_547_872},
+}
+SHARDED2D_SKETCH = 2_048  # sketch rows of the sketched rung's 2-D fit
+
+
+def card_mesh(shards: int, shape=None, axes=("data",)):
+    import torch
+
+    from keystone_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(shape, axes, devices=[torch.device("cuda", 0)] * shards)
+
+
+def phase_mesh_collectives(device) -> int:
+    """Phase 52: each of the six collectives on 8 shards of the card,
+    held against its definition on the whole tensor."""
+    import torch
+
+    from keystone_tpu_torch.parallel import collectives as coll
+
+    _mnist_start()
+    t0 = time.perf_counter()
+    mesh = card_mesh(8)
+    g = torch.Generator(device=device).manual_seed(52)
+    x = torch.randn(MESH_COLLECTIVE_ROWS, MESH_COLLECTIVE_COLS, device=device, generator=g)
+    xs = list(x.split(MESH_COLLECTIVE_ROWS // 8))
+    blocks = x.view(8, -1, MESH_COLLECTIVE_COLS)
+    total = blocks.sum(dim=0)
+    checks, ms = {}, {}
+
+    def run(name, fn, check):
+        out = fn()
+        torch.cuda.synchronize()
+        checks[name] = check(out)
+        ms[name] = cuda_ms(fn, 5)
+
+    run("allreduce_sum", lambda: coll.allreduce_sum(xs, mesh),
+        lambda out: max(rel_err(t, total) for t in out))
+    run("all_gather", lambda: coll.all_gather(xs, mesh, tiled=True),
+        lambda out: max(rel_err(t, x) for t in out))
+    run("ring_permute", lambda: coll.ring_permute(xs, mesh, shift=1),
+        lambda out: max(rel_err(out[i], xs[(i - 1) % 8]) for i in range(8)))
+    run("reduce_scatter", lambda: coll.reduce_scatter(xs, mesh),
+        lambda out: rel_err(torch.cat(out), total))
+    run("all_to_all", lambda: coll.all_to_all(xs, mesh, split_axis=0, concat_axis=1),
+        lambda out: max(rel_err(out[j], torch.cat([t.chunk(8)[j] for t in xs], dim=1)) for j in range(8)))
+    index = coll.axis_index(mesh)
+    checks["axis_index"] = 0.0 if index == list(range(8)) else 1.0
+    mesh2d = card_mesh(8, (4, 2), ("data", "model"))
+    pairs = coll.allreduce_sum(xs, mesh2d, "model")
+    checks["allreduce_sum_model_axis_of_4x2"] = max(rel_err(pairs[i], xs[i - i % 2] + xs[i - i % 2 + 1])
+                                                  for i in range(8))
+    on_card = all(t.device.type == device.type for t in pairs)
+    counts = _mnist_end("mesh_collectives")
+    log("mesh_collectives", shards=8, shard_bytes=xs[0].numel() * 4, rel_err=checks, ms=ms,
+        on_card=on_card, seconds=time.perf_counter() - t0, note=MESH_NOTE, **counts)
+    bad = {k: v for k, v in checks.items() if not v <= MESH_TOL}
+    if bad or not on_card:
+        raise AssertionError(f"mesh_collectives: {bad}, on_card={on_card}")
+    return counts["ell_launches"]
+
+
+def phase_sharded(device) -> int:
+    """Phase 53: ``_bench_sharded``'s two fits through ``Pipeline.fit``
+    and the partition batch on 1-, 2-, 4- and 8-shard meshes of the
+    card."""
+    import torch
+
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.ops.learning.block import BlockLeastSquaresEstimator
+    from keystone_tpu_torch.ops.stats.core import LinearRectifier
+    from keystone_tpu_torch.parallel import collectives as coll
+    from keystone_tpu_torch.parallel.mesh import use_mesh
+    from keystone_tpu_torch.parallel.partitioner import last_partition_report
+    from keystone_tpu_torch.workflow.executor import PipelineEnv
+    from keystone_tpu_torch.workflow.streaming import last_stream_report, streaming_disabled
+
+    _mnist_start()
+    t0 = time.perf_counter()
+    gn, gd, gk = SHARDED_GRAM
+    chunk, sd, sk = SHARDED_STREAM
+    rng = np.random.default_rng(11)
+    gx = ArrayDataset(rng.normal(size=(gn, gd)).astype(np.float32), device=device)
+    gy = ArrayDataset(rng.normal(size=(gn, gk)).astype(np.float32), device=device)
+    # The streamed fit's records stay on the host: every chunk is uploaded.
+    sx = ArrayDataset(rng.normal(size=(8 * chunk, sd)).astype(np.float32), device="cpu")
+    sy = ArrayDataset(rng.normal(size=(8 * chunk, sk)).astype(np.float32), device="cpu")
+    probe_g, probe_s = gx.data[:64], sx.data[:64].to(device)
+    os.environ["KEYSTONE_STREAM_CHUNK_ROWS"] = str(chunk)
+
+    def fit(data, labels, block):
+        PipelineEnv.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        est = BlockLeastSquaresEstimator(block_size=block, num_iter=1, reg=1e-2, device=device)
+        pipe = LinearRectifier(0.0).to_pipeline().then_label_estimator(est, data, labels)
+        before = coll.calls["allreduce_sum"]
+        t = time.perf_counter()
+        fitted = pipe.fit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        return fitted, wall, torch.cuda.max_memory_allocated(), coll.calls["allreduce_sum"] - before
+
+    def scores(fitted, rows):
+        return fitted.apply_batch(ArrayDataset(rows)).data.clone()
+
+    with streaming_disabled():
+        fit(gx, gy, gd)  # warm: the first fit's one-time costs stay out of the walls
+    legs, ref, failures = {}, {}, []
+    for c in SHARDED_COUNTS:
+        with use_mesh(card_mesh(c)):
+            with streaming_disabled():  # the in-core path
+                fitted, wall, peak, allreduces = fit(gx, gy, gd)
+            decisions = [d.to_json() for d in last_partition_report() if d.eligible]
+            gram = {"wall_s": wall, "peak_device_bytes": peak, "allreduce_sum_calls": allreduces,
+                    "shards_chosen": decisions[0]["shards"] if decisions else 1,
+                    "spec": decisions[0]["spec"] if decisions else ""}
+            preds = scores(fitted, probe_g)
+            ref.setdefault("gram", preds)
+            gram["vs_1_shard_rel"] = rel_err(preds, ref["gram"])
+            fitted, wall, peak, _ = fit(sx, sy, 64)
+            rep = last_stream_report()
+            stream = {"wall_s": wall, "peak_device_bytes": peak, "shards_chosen": rep.shards,
+                      "collective_bytes": rep.collective_bytes, "chunks": rep.chunks,
+                      "chunk_rows": rep.chunk_rows, "compiles_steady_state": rep.compiles_steady_state,
+                      "state_bytes_per_device": rep.state_bytes_per_device}
+            preds = scores(fitted, probe_s)
+            ref.setdefault("stream", preds)
+            stream["vs_1_shard_rel"] = rel_err(preds, ref["stream"])
+        legs[c] = {"gram": gram, "stream": stream}
+        want = SHARDED_JAX[c]
+        got = {"gram_shards_chosen": gram["shards_chosen"], "stream_shards_chosen": stream["shards_chosen"],
+               "stream_collective_bytes": stream["collective_bytes"]}
+        if got != want:
+            failures.append(f"{c} shards: plan counters {got} != the JAX package's {want}")
+        if (gram["allreduce_sum_calls"] > 0) != (c > 1):
+            failures.append(f"{c} shards: {gram['allreduce_sum_calls']} allreduce_sum calls in the in-core fit")
+        if not (gram["vs_1_shard_rel"] <= MESH_TOL and stream["vs_1_shard_rel"] <= MESH_TOL):
+            failures.append(f"{c} shards: predictions vs 1 shard {gram['vs_1_shard_rel']}, "
+                            f"{stream['vs_1_shard_rel']}")
+        if stream["chunks"] != 8 or stream["compiles_steady_state"] != 0:
+            failures.append(f"{c} shards: {stream['chunks']} chunks, {stream['compiles_steady_state']} new shapes")
+    os.environ.pop("KEYSTONE_STREAM_CHUNK_ROWS", None)
+    counts = _mnist_end("sharded")
+    log("sharded", gram={"n": gn, "d": gd, "k": gk}, stream={"n": 8 * chunk, "d": sd, "k": sk, "chunk_rows": chunk},
+        by_shards=legs, jax_plan_counters=SHARDED_JAX, note=MESH_NOTE,
+        seconds=time.perf_counter() - t0, **counts)
+    if failures:
+        raise AssertionError(f"sharded: {failures}")
+    return counts["ell_launches"]
+
+
+def phase_sharded2d(device) -> int:
+    """Phase 54: ``_bench_sharded2d``'s wide streamed fit (d = 8,192) on
+    the 8×1, 4×2 and 2×4 layouts of an 8-shard mesh of the card, and the
+    sketched rung on 8×1 and 2×4."""
+    import torch
+
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.ops.learning.linear import LinearMapEstimator
+    from keystone_tpu_torch.ops.stats.core import LinearRectifier
+    from keystone_tpu_torch.parallel.mesh import use_mesh
+    from keystone_tpu_torch.sketch.solvers import SketchedLeastSquaresEstimator
+    from keystone_tpu_torch.workflow.executor import PipelineEnv
+    from keystone_tpu_torch.workflow.streaming import last_stream_report
+
+    _mnist_start()
+    t0 = time.perf_counter()
+    n, d, k, chunk = SHARDED2D
+    g = torch.Generator(device=device).manual_seed(17)
+    # Made on the card: 2 GiB of host draws would take longer than the
+    # fits. The records stay card-resident (chunks are device slices).
+    x = ArrayDataset(torch.randn(n, d, device=device, generator=g))
+    y = ArrayDataset(torch.randn(n, k, device=device, generator=g))
+    probe = x.data[:64]
+    env = {"KEYSTONE_STREAM_CHUNK_ROWS": str(chunk), "KEYSTONE_PARTITION_MIN_WIDTH": "64"}
+    os.environ.update(env)
+
+    def fit(est, p_m):
+        os.environ["KEYSTONE_PARTITION_MODEL_SHARDS"] = str(p_m)
+        PipelineEnv.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        fitted = LinearRectifier(0.0).to_pipeline().then_label_estimator(est, x, y).fit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        rep = last_stream_report()
+        return fitted.apply_batch(ArrayDataset(probe)).data, {
+            "wall_s": wall, "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "shards": rep.shards, "model_shards": rep.model_shards,
+            "state_bytes_per_device": rep.state_bytes_per_device,
+            "collective_bytes_data": rep.collective_bytes_data,
+            "collective_bytes_model": rep.collective_bytes_model,
+            "chunks": rep.chunks, "compiles_steady_state": rep.compiles_steady_state}
+
+    layouts, failures, ref = {}, [], None
+    with use_mesh(card_mesh(8)):
+        for p_m, name in SHARDED2D_LAYOUTS:
+            preds, leg = fit(LinearMapEstimator(reg=1e-2, device=device), p_m)
+            ref = preds if ref is None else ref
+            leg["vs_8x1_rel"] = rel_err(preds, ref)
+            layouts[name] = leg
+            plan = {key: leg[key] for key in SHARDED2D_JAX[name]}
+            if plan != SHARDED2D_JAX[name]:
+                failures.append(f"{name}: plan counters {plan} != the JAX package's {SHARDED2D_JAX[name]}")
+            if not leg["vs_8x1_rel"] <= MESH_TOL or leg["chunks"] != n // chunk or leg["compiles_steady_state"]:
+                failures.append(f"{name}: {leg}")
+        sketch = {}
+        for p_m, name in ((1, "8x1"), (4, "2x4")):
+            est = SketchedLeastSquaresEstimator(reg=1e-2, sketch_size=SHARDED2D_SKETCH, device=device)
+            sketch[name] = fit(est, p_m)
+    for name, (_preds, leg) in sketch.items():
+        leg["vs_8x1_rel"] = rel_err(_preds, sketch["8x1"][0])
+    sketch = {name: leg for name, (_p, leg) in sketch.items()}
+    for key in ("KEYSTONE_PARTITION_MODEL_SHARDS", *env):
+        os.environ.pop(key, None)
+    carry_fall = {name: layouts["8x1"]["state_bytes_per_device"] / leg["state_bytes_per_device"]
+                  for name, leg in layouts.items()}
+    counts = _mnist_end("sharded2d")
+    log("sharded2d", n=n, d=d, k=k, chunk_rows=chunk, layouts=layouts, per_shard_carry_fall=carry_fall,
+        sketched=sketch, sketch_size=SHARDED2D_SKETCH, note=MESH_NOTE, seconds=time.perf_counter() - t0,
+        **counts)
+    s24 = sketch["2x4"]
+    if (s24["model_shards"], s24["shards"]) != (4, 2) or not s24["vs_8x1_rel"] <= MESH_TOL:
+        failures.append(f"sketched 2x4: {s24}")
+    if not s24["state_bytes_per_device"] < sketch["8x1"]["state_bytes_per_device"]:
+        failures.append("sketched 2x4: per-shard state did not fall")
+    if failures:
+        raise AssertionError(f"sharded2d: {failures}")
+    return counts["ell_launches"]
+
+
+def _dryrun_check(what, got, want, tol) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if not np.isfinite(got).all():
+        raise AssertionError(f"mesh_legs {what}: non-finite result")
+    rel = float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+    if rel > tol:
+        raise AssertionError(f"mesh_legs {what}: rel_err {rel:.3e} > {tol:g}")
+    return rel
+
+
+def phase_mesh_legs(device, slice_fit) -> int:
+    """Phase 55: the legs of ``__graft_entry__.py::dryrun_multichip`` this
+    slice covers, at their sizes (8 shards: n = 64, d = 32, k = 4), on
+    8 shards of the card, each against its closed form or its 1-shard
+    run with the dryrun's tolerance and against the 1-shard run at
+    MESH_TOL; then the hashing-TF slice's block-sparse fit under the
+    8-shard mesh."""
+    import torch
+
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.ops.cuda import blocksparse as bs
+    from keystone_tpu_torch.ops.learning.block import BlockLeastSquaresEstimator
+    from keystone_tpu_torch.ops.learning.weighted import PerClassWeightedLeastSquaresEstimator
+    from keystone_tpu_torch.ops.stats.core import LinearRectifier, PaddedFFT, RandomSignNode
+    from keystone_tpu_torch.parallel import collectives as coll
+    from keystone_tpu_torch.parallel import linalg
+    from keystone_tpu_torch.parallel.mesh import use_mesh
+    from keystone_tpu_torch.parallel.partitioner import last_partition_report, partition_disabled
+    from keystone_tpu_torch.workflow.executor import PipelineEnv
+    from keystone_tpu_torch.workflow.streaming import last_stream_report
+
+    _mnist_start()
+    t0 = time.perf_counter()
+    shards = 8
+    mesh, mesh1 = card_mesh(shards), card_mesh(1)
+    rng = np.random.default_rng(0)
+    n, d, k = 8 * shards, 32, 4
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    y = rng.normal(size=(n, k)).astype(np.float32)
+    legs, lam = {}, 0.1
+
+    def featurize_and_bcd(m):
+        with use_mesh(m):
+            ds = ArrayDataset(x, device=device).shard(m)
+            feats = RandomSignNode.create(d, seed=0, device=device).apply_batch(ds)
+            feats = LinearRectifier(0.0).apply_batch(PaddedFFT().apply_batch(feats))
+            f = feats.data[:n]
+            w = linalg.block_coordinate_descent(f, torch.as_tensor(y, device=device), lam, 30, 8, mesh=m)
+            PipelineEnv.reset()
+            est = BlockLeastSquaresEstimator(block_size=256, num_iter=1, reg=lam, device=device)
+            pipe = est.with_data(ArrayDataset(f), ArrayDataset(y, device=device))
+            preds = pipe.fit().apply_batch(ArrayDataset(f)).data
+            eligible = [dec for dec in last_partition_report() if dec.kind == "fit" and dec.eligible]
+        return f.double().cpu().numpy(), w, preds, eligible
+
+    fh, w8, p8, eligible = featurize_and_bcd(mesh)
+    _, w1, p1, _ = featurize_and_bcd(mesh1)
+    df = fh.shape[1]
+    fc, yc = fh - fh.mean(axis=0), y - y.mean(axis=0)
+    w_c = np.linalg.solve(fc.T @ fc + lam * np.eye(df), fc.T @ yc)
+    if not eligible:
+        raise AssertionError("mesh_legs: the partition batch recorded no eligible fit decision")
+    legs["featurize_and_bcd"] = {
+        "bcd_vs_ridge_closed_form": _dryrun_check(
+            "bcd", w8.cpu(), np.linalg.solve(fh.T @ fh + lam * np.eye(df), fh.T @ y), 5e-2),
+        "exact_centered_preds_partitioned": _dryrun_check("exact", p8.cpu(), fc @ w_c + y.mean(axis=0), 5e-2),
+        "bcd_vs_1_shard": _dryrun_check("bcd 8 vs 1", w8.cpu(), w1.cpu(), MESH_TOL),
+        "preds_vs_1_shard": _dryrun_check("preds 8 vs 1", p8.cpu(), p1.cpu(), MESH_TOL),
+        "decision": eligible[0].to_json(),
+    }
+
+    chunk = 8 * shards
+    xs = np.random.default_rng(7).normal(size=(16 * chunk, 16)).astype(np.float32)
+    ys = np.random.default_rng(8).normal(size=(16 * chunk, 3)).astype(np.float32)
+    os.environ["KEYSTONE_STREAM_CHUNK_ROWS"] = str(chunk)
+
+    def stream_preds(m, disabled):
+        with use_mesh(m):
+            PipelineEnv.reset()
+            est = BlockLeastSquaresEstimator(block_size=8, num_iter=1, reg=0.1, device=device)
+            pipe = LinearRectifier(0.0).to_pipeline().then_label_estimator(
+                est, ArrayDataset(xs, device="cpu"), ArrayDataset(ys, device="cpu"))
+            if disabled:
+                with partition_disabled():
+                    fitted = pipe.fit()
+            else:
+                fitted = pipe.fit()
+            return fitted.apply_batch(ArrayDataset(xs[:32], device=device)).data.cpu()
+
+    got = stream_preds(mesh, False)
+    rep = last_stream_report()
+    legs["partitioner_runtime"] = {
+        "partitioned_fit_stream_vs_single_device": _dryrun_check("fit_stream", got, stream_preds(mesh1, True),
+                                                                 MESH_TOL),
+        "shards": rep.shards, "collective_bytes": rep.collective_bytes,
+    }
+    os.environ.pop("KEYSTONE_STREAM_CHUNK_ROWS", None)
+    if rep.shards != shards:
+        raise AssertionError(f"mesh_legs: the streamed fit ran {rep.shards} shards")
+
+    mesh2d = card_mesh(shards, (shards // 2, 2), ("data", "model"))
+    a2 = rng.normal(size=(4 * shards, 16)).astype(np.float32)
+    y2 = rng.normal(size=(4 * shards, k)).astype(np.float32)
+    w2 = linalg.block_coordinate_descent_2d(
+        torch.as_tensor(a2, device=device), torch.as_tensor(y2, device=device), lam, 40, 4, mesh=mesh2d)
+    applied = linalg.block_sharded_apply(torch.as_tensor(a2, device=device), w2, mesh=mesh2d)
+    w2h = w2.double().cpu().numpy()
+    legs["mesh2d_data_model"] = {
+        "bcd2d_vs_ridge_closed_form": _dryrun_check(
+            "bcd2d", w2h, np.linalg.solve(a2.T @ a2 + lam * np.eye(16), a2.T @ y2), 5e-2),
+        "block_sharded_apply_vs_matmul": _dryrun_check("apply", applied.cpu(), a2.astype(np.float64) @ w2h, 1e-3),
+    }
+
+    labels = -np.ones((n, k), dtype=np.float32)
+    labels[np.arange(n), rng.integers(0, k, n)] = 1.0
+
+    def weighted(m):
+        with use_mesh(m):
+            pcw = PerClassWeightedLeastSquaresEstimator(block_size=16, num_iter=1, reg=0.1, mixture_weight=0.25)
+            return pcw.fit(ArrayDataset(x, device=device), ArrayDataset(labels, device=device)).weights.cpu()
+
+    rows_per_pair = 2
+    demo = torch.arange(rows_per_pair * shards * shards * 4, dtype=torch.float32, device=device).reshape(-1, 4)
+    shuffled = torch.cat(coll.all_to_all(list(demo.split(demo.shape[0] // shards)), mesh)).cpu()
+    want = demo.cpu().numpy().reshape(shards, shards, rows_per_pair, 4).transpose(1, 0, 2, 3).reshape(demo.shape)
+    legs["weighted_and_shuffle"] = {
+        "perclass_weighted_vs_single_device": _dryrun_check("weighted", weighted(mesh), weighted(mesh1), 1e-3),
+        "all_to_all_shard_transpose": _dryrun_check("all_to_all", shuffled, want, 1e-6),
+    }
+
+    xw = rng.normal(size=(8 * shards, 24)).astype(np.float32)
+    yw = rng.normal(size=(8 * shards, k)).astype(np.float32)
+
+    def host_stream(m):
+        return linalg.block_coordinate_descent_streaming(xw, yw, 0.1, 2, 8, device=device, mesh=m)[0].cpu()
+
+    legs["streaming_bcd"] = {
+        "streaming_bcd_vs_single_device": _dryrun_check("streaming_bcd", host_stream(mesh), host_stream(mesh1),
+                                                        MESH_TOL)}
+    torch.cuda.synchronize()
+    if bs.ell_matmul.launches:
+        raise AssertionError(f"mesh_legs: the dense legs launched the ELL kernel {bs.ell_matmul.launches} times")
+
+    # The hashing-TF slice's fit (phase 3's rows) under the 8-shard
+    # ambient mesh: the block-sparse Gram ignores the mesh, so the ELL
+    # kernel launches twice and the model predicts as the 1-shard fit.
+    def slice_scores():
+        model = BlockLeastSquaresEstimator(BLOCK_SIZE, num_iter=1, reg=REG, device=device).fit(
+            slice_fit["rows"], slice_fit["y"])
+        return scores(model, slice_fit["test"], device)
+
+    reference = slice_scores()
+    torch.cuda.synchronize()
+    bs.ell_matmul.launches = 0
+    with use_mesh(mesh):
+        sharded_scores = slice_scores()
+    torch.cuda.synchronize()
+    sparse_launches = bs.ell_matmul.launches
+    legs["block_sparse_slice"] = {"ell_launches": sparse_launches,
+                                  "scores_vs_1_shard": rel_err(sharded_scores, reference)}
+    counts = _mnist_end("mesh_legs", ell_allowed=True)
+    log("mesh_legs", shards=shards, legs=legs, seconds=time.perf_counter() - t0, note=MESH_NOTE,
+        dense_legs_ell_launches=0, **counts)
+    if sparse_launches != 2 or not legs["block_sparse_slice"]["scores_vs_1_shard"] <= MESH_TOL:
+        raise AssertionError(f"mesh_legs: block-sparse slice {legs['block_sparse_slice']}")
+    return sparse_launches
+
+
 def card_name_and_limit() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -7294,7 +7768,6 @@ def main() -> int:
     del host_problem
     launches_by_path["solver_ladder"] = phase_solver_ladder(device)
     launches_by_path["least_squares_ladder"] = phase_least_squares_ladder(device, slice_fit)
-    del slice_fit
     launches_by_path["newsgroups"] = phase_newsgroups(device)
     launches_by_path["amazon_reviews"] = phase_amazon_reviews(device)
     launches_by_path["sketched"] = phase_sketched(device)
@@ -7371,6 +7844,13 @@ def main() -> int:
     phase_obs_cli({name: {k: v for k, v in PHASE_LINES[name].items() if not isinstance(v, list)}
                    for name in ("roofline_probe", "profile_card", "cosched")})
     log("control_plane_phases", seconds=time.perf_counter() - t_new)
+    t_mesh = time.perf_counter()
+    launches_by_path["mesh_collectives"] = phase_mesh_collectives(device)
+    launches_by_path["sharded"] = phase_sharded(device)
+    launches_by_path["sharded2d"] = phase_sharded2d(device)
+    launches_by_path["mesh_legs"] = phase_mesh_legs(device, slice_fit)
+    del slice_fit
+    log("mesh_phases", seconds=time.perf_counter() - t_mesh)
     log_verify_run()
     # The binding's calls on the paths (gram_modes times it and is left out).
     paths = {p: c for p, c in SOLVER_GEMM_CALLS.items() if p != "gram_modes"}

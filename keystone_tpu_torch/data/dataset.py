@@ -19,7 +19,10 @@ host numpy windows with their stored dtype (the engine narrows with
 ``ArrayDataset`` yields device slices, so a streamed fit over it moves
 no bytes across the host link.
 
-Left out for now: ``shard`` (multi-device).
+``ArrayDataset.shard(mesh, axis)`` lays a dataset out over a mesh
+(``parallel/mesh.py``): rows zero-padded to the axis size, the leaves on
+the mesh's first device, and :meth:`ArrayDataset.shard_views` the
+per-shard row views the sharded solvers take.
 """
 
 from __future__ import annotations
@@ -272,6 +275,35 @@ class ArrayDataset(Dataset):
             return torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
 
         return ArrayDataset(tree_map(pad_leaf, self.data), self.num_examples)
+
+    def shard(self, mesh, axis: str = "data") -> "ArrayDataset":
+        """This dataset laid out over ``mesh`` along the leading axis: rows
+        zero-padded to a multiple of the ``axis`` size (the analog of the
+        reference's row-partitioned RDDs), every leaf on the mesh's first
+        device (host leaves crossed at their transfer dtype when the
+        dataset was built). ``num_shards`` then reads the axis size, and
+        :meth:`shard_views` gives each shard's rows."""
+        ds = self.padded_to(mesh.shape[axis])
+        out = ArrayDataset(ds.data, self.num_examples, device=mesh.flat_devices[0])
+        out._mesh_axis = (mesh, axis)
+        return out
+
+    def shard_views(self) -> Any:
+        """Per-leaf :class:`~keystone_tpu_torch.parallel.collectives.Sharded`
+        row layouts of a dataset made by :meth:`shard` (views on the
+        mesh's device)."""
+        mesh_axis = getattr(self, "_mesh_axis", None)
+        if mesh_axis is None:
+            raise ValueError("shard_views() needs a dataset laid out by shard(mesh, axis)")
+        from ..parallel.collectives import P, shard_tensor
+
+        mesh, axis = mesh_axis
+        return tree_map(lambda a: shard_tensor(a, mesh, P(axis)), self.data)
+
+    @property
+    def num_shards(self) -> int:
+        mesh_axis = getattr(self, "_mesh_axis", None)
+        return 1 if mesh_axis is None else mesh_axis[0].shape[mesh_axis[1]]
 
     def mask(self) -> torch.Tensor:
         """1.0 for real rows, 0.0 for padding — shape (physical_rows,)."""

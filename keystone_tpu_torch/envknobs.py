@@ -59,3 +59,16 @@ def env_disabled(name: str) -> bool:
     """True when a default-ON feature switch is explicitly off
     (``off``/``0``/``disabled``)."""
     return os.environ.get(name, "").lower() in _OFF_VALUES
+
+
+#: The partitioner's knobs (``parallel/partitioner.py``) with the JAX
+#: package's defaults: ``KEYSTONE_PARTITION`` (``off`` disables planning),
+#: the minimum logical rows per row shard, the requested feature-axis
+#: (``model``) shards (0 = the ambient mesh's model axis), and the minimum
+#: featurized columns per model shard.
+PARTITION_KNOBS = {
+    "KEYSTONE_PARTITION": "on",
+    "KEYSTONE_PARTITION_MIN_ROWS": 2,
+    "KEYSTONE_PARTITION_MODEL_SHARDS": 0,
+    "KEYSTONE_PARTITION_MIN_WIDTH": 512,
+}

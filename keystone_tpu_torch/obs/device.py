@@ -8,7 +8,7 @@ and host RSS (``/proc/self/statm``, then ``resource``) otherwise, as the
 JAX package does on its CPU meshes. Either way the snapshot says which
 source it used, so a reader never mistakes RSS for device memory. The
 JAX package's per-device snapshots and payload serve its multichip
-dry runs and come with ROADMAP item 14.
+dry runs and come with ROADMAP item 14b.
 
 ``device_annotation`` wraps a code region in
 ``torch.profiler.record_function`` and, on a card, an NVTX range, so

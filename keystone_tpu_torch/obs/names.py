@@ -6,8 +6,9 @@ modules publish: the executor and optimizer (``keystone_executor_*``,
 block-sparse dispatch, the solvers, the sketch tier, the recovery
 ledger, the checkpoint store and durable fits, the resume and publish
 verifiers, continuous refit, the flight recorder, the quality plane,
-serving and the multi-worker fleet (supervisor, SLO control,
-autoscaling, boot images, fleet tracing).
+the partitioner (``keystone_partition_*``), serving and the
+multi-worker fleet (supervisor, SLO control, autoscaling, boot images,
+fleet tracing).
 Names, kinds, help texts and labels are the JAX package's, so dashboards
 read both packages alike; the other families arrive with the modules
 that publish them. One help text says what its series counts in the
@@ -48,6 +49,13 @@ STREAM_BYTES = "keystone_stream_bytes_transferred_total"
 STREAM_STALL_SECONDS = "keystone_stream_stall_seconds_total"
 STREAM_PREFETCH_DEPTH = "keystone_stream_prefetch_depth"
 STREAM_HOST_BUFFER_PEAK = "keystone_stream_host_buffer_peak_bytes"
+
+# ---------------------------------------------------------------- partitioning
+PARTITION_DECISIONS = "keystone_partition_decisions_total"
+PARTITION_SHARDS = "keystone_partition_shards"
+PARTITION_FALLBACKS = "keystone_partition_fallbacks_total"
+PARTITION_COLLECTIVE_BYTES = "keystone_partition_collective_bytes_total"
+PARTITION_IMBALANCE = "keystone_partition_imbalance"
 
 # --------------------------------------------------------------- profile store
 PROFILE_STORE_HITS = "keystone_profile_store_hits_total"
@@ -221,6 +229,11 @@ SCHEMA: Dict[str, Tuple] = {
     STREAM_STALL_SECONDS: ("counter", "Seconds the streaming dispatch loop spent waiting on the host prefetch pipeline", ()),
     STREAM_PREFETCH_DEPTH: ("gauge", "Chunks currently buffered in the host prefetch queue", ()),
     STREAM_HOST_BUFFER_PEAK: ("gauge", "Peak bytes of host chunk buffers concurrently live in the last streaming fit", ()),
+    PARTITION_DECISIONS: ("counter", "Partitioner decisions recorded into plans, split by kind and eligibility", ("kind", "eligible")),
+    PARTITION_SHARDS: ("gauge", "Shards chosen by the last eligible partition decision, per kind and mesh axis (data = rows, model = feature blocks)", ("kind", "axis")),
+    PARTITION_FALLBACKS: ("counter", "Partition decisions that fell back (whole decision or just the model axis), by reason key", ("reason",)),
+    PARTITION_COLLECTIVE_BYTES: ("counter", "Payload bytes entering partitioner-managed cross-device reductions, per mesh axis (per-device payload × (axis shards−1))", ("axis",)),
+    PARTITION_IMBALANCE: ("gauge", "Fraction of sharded rows that are padding in the last partitioned dispatch, per kind", ("kind",)),
     PROFILE_STORE_HITS: ("counter", "Profile-store lookups served from a valid persisted entry", ()),
     PROFILE_STORE_MISSES: ("counter", "Profile-store lookups with no usable entry", ()),
     PROFILE_STORE_WRITES: ("counter", "Observations appended to the profile store", ()),

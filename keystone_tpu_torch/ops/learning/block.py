@@ -47,7 +47,16 @@ The refit state contract (``refit/state.py``, ``GramStreamStateMixin``):
 ``StreamState`` and captures the extended one, and ``finish_from_state``
 runs the same finish from statistics alone.
 
-Left out (later slices): 2-D meshes.
+Meshes (``parallel/mesh.py``): a fit shards over ``partitioner.fit_mesh``
+— the partition batch's pinned mesh, else the ambient one (one shard by
+default, which is the single-device path). With several row shards the
+in-core fit runs ``linalg.block_coordinate_descent`` over them; on a
+(``data``, ``model``) mesh ``linalg.block_coordinate_descent_2d`` (the
+feature dimension padded to model shards × block); host streaming runs
+over the row shards too, and is chosen automatically only on meshes
+without a ``model`` axis. The block-sparse fit stays single-device, as in
+the JAX package. The streamed fit's sharded chunk plan lives in the
+engine (``workflow/streaming.py``).
 """
 
 from __future__ import annotations
@@ -64,6 +73,7 @@ from ...obs import names as _names
 from ...obs import solver as solver_obs
 from ...obs import store as obs_store
 from ...parallel import linalg
+from ...parallel.partitioner import fit_mesh
 from ...refit.state import GramStreamStateMixin
 from ...reliability import DegradationLadder, halving_rungs, probe
 from ...utils.sparse import BlockSparseMatrix, block_density_exceeds, is_sparse_rows
@@ -115,6 +125,10 @@ class BlockLeastSquaresEstimator(GramStreamStateMixin, LabelEstimator):
     #: Chunked-fit protocol (workflow/streaming.py): this estimator can
     #: consume featurized row chunks incrementally via Gram accumulation.
     supports_fit_stream = True
+
+    #: 2-D partitioner protocol: the Gram carry blocks its feature rows
+    #: (``gram_stream_step.model_block_step``) on a (data, model) mesh.
+    supports_model_axis = True
 
     def __init__(
         self,
@@ -228,9 +242,12 @@ class BlockLeastSquaresEstimator(GramStreamStateMixin, LabelEstimator):
         targets = _as_array_dataset(labels, device)
         raw = features.data
         d = raw.shape[1]
+        mesh = fit_mesh(self)
         stream = self.host_streaming
         if stream is None:
-            stream = _auto_host_streaming(raw, device)
+            # Only on meshes without a model axis: the streaming solver
+            # shards rows only, and the 2-D in-core path owns that layout.
+            stream = _auto_host_streaming(raw, device) and linalg.model_axis_size(mesh) == 1
         block0 = min(self.block_size, d)
         # OOM degradation: a smaller block shrinks the live Gram workspace
         # and (streaming) the per-block panel on the card; two halvings
@@ -245,7 +262,7 @@ class BlockLeastSquaresEstimator(GramStreamStateMixin, LabelEstimator):
 
         def attempt(block):
             with solver_obs.rung_span("block_ls", block, next(attempts)):
-                return fit_impl(features, targets, block, device)
+                return fit_impl(features, targets, block, device, mesh)
 
         t_fit = time.perf_counter()
         with solver_obs.fit_span(
@@ -264,7 +281,7 @@ class BlockLeastSquaresEstimator(GramStreamStateMixin, LabelEstimator):
 
     def _fit_streaming(
         self, features: ArrayDataset, targets: ArrayDataset, block: int,
-        device: torch.device,
+        device: torch.device, mesh=None,
     ) -> BlockLinearMapper:
         """One feature block of the host matrix uploaded per update
         (``linalg.block_coordinate_descent_streaming``)."""
@@ -274,13 +291,13 @@ class BlockLeastSquaresEstimator(GramStreamStateMixin, LabelEstimator):
         reg = self.reg if self.reg > 0 else _scale_aware_reg_floor(raw[: min(n, 4096)], n)
         w, mu_a, mu_b = linalg.block_coordinate_descent_streaming(
             raw, targets.data, reg=reg, num_epochs=self.num_iter, block_size=block,
-            num_examples=n, device=device,
+            num_examples=n, device=device, mesh=mesh,
         )
-        return BlockLinearMapper(w, block_size=block, intercept=mu_b, feature_mean=mu_a)
+        return BlockLinearMapper(w.to(device), block_size=block, intercept=mu_b, feature_mean=mu_a)
 
     def _fit_in_core(
         self, features: ArrayDataset, targets: ArrayDataset, block: int,
-        device: torch.device,
+        device: torch.device, mesh=None,
     ) -> BlockLinearMapper:
         probe("BlockLeastSquaresEstimator.solve")
         x = features.data.to(device=device, dtype=torch.float32)
@@ -299,14 +316,21 @@ class BlockLeastSquaresEstimator(GramStreamStateMixin, LabelEstimator):
         reg = self.reg if self.reg > 0 else _scale_aware_reg_floor(xc[:n], n)
 
         # Pad the feature dim to whole blocks (zero columns are inert:
-        # their Gram rows/cols are zero and λ keeps the solve PD).
-        d_pad = _round_up(d, block)
+        # their Gram rows/cols are zero and λ keeps the solve PD); on a 2-D
+        # mesh each model group needs whole blocks: model shards × block.
+        m = linalg.model_axis_size(mesh) if mesh is not None else 1
+        d_pad = _round_up(d, block * m)
         if d_pad != d:
             xc = torch.nn.functional.pad(xc, (0, d_pad - d))
-        w = linalg.block_coordinate_descent(
-            xc, yc, reg=reg, num_epochs=self.num_iter, block_size=block
-        )
-        return BlockLinearMapper(w, block_size=block, intercept=mu_b, feature_mean=mu_a)
+        if m > 1:
+            w = linalg.block_coordinate_descent_2d(
+                xc, yc, reg=reg, num_epochs=self.num_iter, block_size=block, mesh=mesh
+            )
+        else:
+            w = linalg.block_coordinate_descent(
+                xc, yc, reg=reg, num_epochs=self.num_iter, block_size=block, mesh=mesh
+            )
+        return BlockLinearMapper(w.to(device), block_size=block, intercept=mu_b, feature_mean=mu_a)
 
     # ------------------------------------------------------- block-sparse
     def _blocksparse_dispatch(self, data):

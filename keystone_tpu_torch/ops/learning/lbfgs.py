@@ -31,6 +31,11 @@ closed form, ``Xcᵀ(Xc·W − Yc)/n + λW``, its two products through the
 solver binding at the mode's precision (``linalg.mm`` and the
 row-chunked ``linalg.mm_t``).
 
+Over the fit's mesh (``partitioner.fit_mesh``), with several row shards,
+the dense objective is a sum of per-shard partials (value and gradient)
+summed across shards by ``allreduce_sum``; the iterate and the recursion
+run once.
+
 The sparse variant solves on the host, as in the JAX package: scipy
 L-BFGS-B over CSR matvecs (``_sparse_lbfgs_host``), and the model lands
 on the estimator's device.
@@ -47,6 +52,7 @@ import torch
 from ...data.dataset import ArrayDataset, Dataset
 from ...device import DeviceLike, resolve_device
 from ...parallel import linalg
+from ...parallel.partitioner import fit_mesh
 from ...workflow.pipeline import LabelEstimator
 from .block import _as_array_dataset
 from .linear import LinearMapper, SparseLinearMapper
@@ -100,11 +106,14 @@ class DenseLBFGSEstimator(LabelEstimator):
             xc, yc = x, y
         del x, y
         reg = float(self.reg)
+        mesh = linalg._row_mesh(xc, fit_mesh(self))
+        xs, ys = linalg._row_shards(xc, mesh), linalg._row_shards(yc, mesh)
 
         def value_and_grad(w):
-            r = linalg.mm(xc, w) - yc
-            value = 0.5 * torch.sum(r * r) / n + 0.5 * reg * torch.sum(w * w)
-            return value, linalg.mm_t(xc, r) / n + reg * w
+            rs = [linalg.mm(xi, wi) - yi for xi, yi, wi in zip(xs, ys, linalg._bcast(w, mesh))]
+            sq = linalg._reduce([torch.sum(r * r) for r in rs], mesh)
+            value = 0.5 * sq / n + 0.5 * reg * torch.sum(w * w)
+            return value, linalg._reduce([linalg.mm_t(xi, r) for xi, r in zip(xs, rs)], mesh) / n + reg * w
 
         w0 = torch.zeros(xc.shape[1], yc.shape[1], dtype=torch.float32, device=device)
         w, info = minimize_lbfgs(value_and_grad, w0, self.num_iterations, self.memory_size, self.tol)

@@ -13,8 +13,10 @@ choice among the concrete least-squares solvers:
 Statistics (n, d, k, sparsity) come from the node-level optimizer's
 sample pass. The cost formulas are the JAX package's, verbatim; the
 weights are ``cost.default_cost_weights(device)``: the card's data-sheet
-peaks on CUDA, the reference's cluster constants on the CPU. The port
-runs on one device, so ``num_machines=None`` resolves to 1.
+peaks on CUDA, the reference's cluster constants on the CPU.
+``num_machines=None`` resolves to ``parallel.mesh.num_devices()``, the
+visible cards (1 on a one-card machine or the CPU), as the JAX package
+reads ``jax.devices()``.
 
 The sketched rung (``sketch/solvers.py``, imported lazily as in the JAX
 package) is priced at the sketch size the fit will run
@@ -51,6 +53,7 @@ import numpy as np
 import torch
 
 from ...data.dataset import ArrayDataset, Dataset
+from ...parallel.mesh import num_devices
 from ...device import DeviceLike
 from ...workflow.optimize import DataStats, Optimizable
 from ...workflow.pipeline import LabelEstimator, Transformer
@@ -124,6 +127,10 @@ class LeastSquaresEstimator(LabelEstimator, Optimizable):
     #: the streaming pick).
     supports_fit_stream = True
 
+    #: 2-D partitioner protocol: every rung this meta-solver delegates to
+    #: folds a blocked-carry step (gram_stream_step / sketch_stream_step).
+    supports_model_axis = True
+
     #: Refit state contract: the meta-solver's state is whatever its
     #: delegated rung accumulates — Gram for the exact/block rungs,
     #: "sketch" past ``sketch_min_width()``. The class attribute is the
@@ -159,20 +166,24 @@ class LeastSquaresEstimator(LabelEstimator, Optimizable):
         return dense_fit_spec(in_specs, self.label)
 
     def fit_stream(self, stream, state=None):
-        inner = self._stream_solver(_stream_width(stream, self.block_size))
+        inner = self._stream_solver(
+            _stream_width(stream, self.block_size), model_shards=_stream_model_shards(stream)
+        )
         fitted = inner.fit_stream(stream, state=state)
         # The delegate's captured statistics are the meta-solver's export:
         # the caller never needs to know which rung the width picked.
         self._stream_state = inner.export_stream_state()
         return fitted
 
-    def _stream_solver(self, width: int):
+    def _stream_solver(self, width: int, model_shards: int = 1):
         """The concrete streaming rung for a featurized ``width``: exact
         (narrow) → Gram-BCD (wide) → sketched (very wide, where the O(d²)
-        Gram itself is the memory problem)."""
+        Gram itself is the memory problem). Priced on PER-SHARD state: a
+        2-D plan splits the Gram's feature rows ``model_shards`` ways, so
+        the sketch floor scales with it."""
         from ...sketch.solvers import SketchedLeastSquaresEstimator, sketch_min_width
 
-        if width >= sketch_min_width():
+        if width >= sketch_min_width() * max(1, model_shards):
             inner = SketchedLeastSquaresEstimator(reg=self.reg, device=self.device)
             tuned = getattr(self, "_tuned_sketch_size", None)
             if tuned:
@@ -194,12 +205,16 @@ class LeastSquaresEstimator(LabelEstimator, Optimizable):
     def stream_state_kind_for(self, stream) -> str:
         """The kind of state a streamed fit of ``stream`` captures: the
         rung its width picks."""
-        return self._stream_solver(_stream_width(stream, self.block_size)).stream_state_kind
+        return self._stream_solver(
+            _stream_width(stream, self.block_size), model_shards=_stream_model_shards(stream)
+        ).stream_state_kind
 
     def stream_state_meta_for(self, stream) -> dict:
         """The chosen rung's envelope meta (the sketched rung's variant
         and seed; empty for the Gram family)."""
-        inner = self._stream_solver(_stream_width(stream, self.block_size))
+        inner = self._stream_solver(
+            _stream_width(stream, self.block_size), model_shards=_stream_model_shards(stream)
+        )
         return dict(getattr(inner, "stream_state_meta", {}) or {})
 
     # ------------------------------------------------ refit state contract
@@ -303,7 +318,7 @@ class LeastSquaresEstimator(LabelEstimator, Optimizable):
         but stay in the list, so every rung the argmin saw is reported."""
         from ...sketch.solvers import SketchedLeastSquaresEstimator, sketch_min_width
 
-        machines = self.num_machines or 1
+        machines = self.num_machines or num_devices()
         weights = self.weights if self.weights is not None else default_cost_weights(self.device)
         sparse_ok = sparsity < self.sparse_threshold
         sketch_ok = d >= sketch_min_width()
@@ -393,6 +408,14 @@ class LeastSquaresEstimator(LabelEstimator, Optimizable):
             candidates=tuple(provenance),
         )
         return chosen
+
+
+def _stream_model_shards(stream) -> int:
+    """Feature-axis shards of the stream's pinned partition decision (1
+    for an unpartitioned or row-only stream): the rung dispatch prices the
+    per-shard state, (d, d)/p of a Gram on p model shards."""
+    part = getattr(stream, "partition", None)
+    return max(1, int(getattr(part, "model_shards", 1) or 1))
 
 
 def _stream_width(stream, default: int) -> int:

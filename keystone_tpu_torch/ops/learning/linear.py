@@ -20,6 +20,11 @@ JAX package, whose model lands on the requested device.
 ``SparseLinearMapper`` applies a dense model to host CSR rows (densified
 on the weights' device) or to dense rows.
 
+``LinearMapEstimator.fit`` runs over the fit's mesh
+(``partitioner.fit_mesh``: the pinned partition decision, else the
+ambient mesh): with several row shards the Gram, column sums and
+refinement residuals are per-shard partials summed across shards.
+
 ``LinearMapEstimator`` carries the refit state contract
 (``refit/state.py``, ``GramStreamStateMixin``): ``fit_stream(stream,
 state=None)`` and ``finish_from_state``.
@@ -35,6 +40,7 @@ import torch
 from ...data.dataset import ArrayDataset, Dataset
 from ...device import DeviceLike, resolve_device
 from ...parallel import linalg
+from ...parallel.partitioner import fit_mesh
 from ...refit.state import GramStreamStateMixin
 from ...workflow.pipeline import BatchTransformer, LabelEstimator
 from .block import _as_array_dataset, _stream_shapes
@@ -74,6 +80,10 @@ class LinearMapEstimator(GramStreamStateMixin, LabelEstimator):
     #: Chunked-fit protocol (workflow/streaming.py): exact normal
     #: equations accumulate naturally over row chunks.
     supports_fit_stream = True
+
+    #: 2-D partitioner protocol: the Gram carry blocks its feature rows
+    #: (``gram_stream_step.model_block_step``) on a (data, model) mesh.
+    supports_model_axis = True
 
     def __init__(self, reg: Optional[float] = None, device: DeviceLike = None):
         self.reg = reg
@@ -126,13 +136,15 @@ class LinearMapEstimator(GramStreamStateMixin, LabelEstimator):
             gram_precision, refine_steps = "default", 2
         else:
             gram_precision, refine_steps = mode, 0
+        # Over the fit's mesh (``partitioner.fit_mesh``): per-shard Gram,
+        # column sums and residual partials, summed across the row shards.
         w, mu_a, mu_b = linalg.centered_solve_refined(
             x, y, features.num_examples, self.reg or 0.0,
-            gram_precision=gram_precision, refine_steps=refine_steps,
+            gram_precision=gram_precision, refine_steps=refine_steps, mesh=fit_mesh(self),
         )
         if not self.reg:  # singular-risk case only: fail loudly, not NaN
             linalg.check_finite(w, "LinearMapEstimator (reg=0)")
-        return LinearMapper(w, intercept=mu_b, feature_mean=mu_a)
+        return LinearMapper(w.to(device), intercept=mu_b.to(device), feature_mean=mu_a.to(device))
 
 
 class LocalLeastSquaresEstimator(LabelEstimator):

@@ -25,7 +25,7 @@ eigh are ``torch.linalg``'s.
 
 Every estimator declares its fitted projection's spec (``out_spec``) for
 the plan-time verifier. Left out for now: the mesh (``fit_mesh``) paths
-(ROADMAP item 14).
+(ROADMAP item 14b).
 """
 
 from __future__ import annotations

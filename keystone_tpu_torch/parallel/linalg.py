@@ -11,8 +11,24 @@ guard, ``check_finite``, ``bcd_from_gram``, ``block_coordinate_descent``
 and its rematerialized and host-streamed variants, and the solver
 precision modes (``solver_mode`` / ``solver_mode_scope`` /
 ``precision_for_mode``). The JAX package's ``lax.scan`` over blocks is a
-Python loop here, and its ``shard_map``/``psum`` collapse to one device;
-the sharded and 2-D variants are not ported yet.
+Python loop here.
+
+Over a mesh (``parallel/mesh.py``): ``prepare_row_sharded``, ``gram``,
+``normal_equations_solve``, ``centered_solve_refined``, ``tsqr_r`` /
+``tsqr_svd`` and the three block coordinate descents take ``mesh=``; with
+more than one row shard they loop over the shards around the collectives
+of ``parallel/collectives.py`` (per-shard partial products, one
+``allreduce_sum`` per reduction, the small solves once on the first
+shard's device), as the JAX package's ``shard_map`` bodies do with
+``psum``. ``prepare_block_sharded``, ``block_coordinate_descent_2d`` and
+``block_sharded_apply`` are the 2-D (``data`` × ``model``) layouts. Rows
+are zero-padded to a shard multiple, and a pad row adds nothing to a
+Gram; the centered solves take the logical row count ``n``. ``mesh=None``
+is one device: unlike the JAX package the port reads no ambient mesh
+here, so callers whose mesh paths wait for ROADMAP item 14b
+(``conv_block``, ``pca``, ``kernel``, ``gmm``) stay single-device; the
+estimators pass ``partitioner.fit_mesh(self)``. A block-sparse ``gram``
+ignores the mesh, as in the JAX package.
 
 Precision is pinned per call, never through a process-wide flag. Each
 product reads ``solver_mode()`` when it runs and, on a CUDA tensor, goes
@@ -40,7 +56,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -48,6 +64,8 @@ from ..device import DeviceLike, resolve_device
 from ..envknobs import env_raw
 from ..obs import cost as _cost
 from ..ops.cuda import gemm as _gemm
+from .collectives import P, Sharded, _fan_out, _to, all_gather, all_to_all, allreduce_sum, axis_index, shard_tensor
+from .mesh import MODEL_AXIS, Mesh, get_mesh, model_axis_size, row_axes, row_shard_count
 
 # ------------------------------------------------------------ precision modes
 
@@ -201,6 +219,65 @@ def addmm_t_(out: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tenso
     return _addmm_t_(out, a, b, precision())
 
 
+# ------------------------------------------------------------ row sharding
+
+
+def _pad_rows(a: torch.Tensor, multiple: int) -> torch.Tensor:
+    """``a`` with zero rows appended up to a multiple of ``multiple`` (one
+    copy when padding is needed, ``a`` itself otherwise)."""
+    rows = a.shape[0]
+    target = -(-rows // multiple) * multiple
+    if target == rows:
+        return a
+    return torch.cat([a, a.new_zeros((target - rows,) + tuple(a.shape[1:]))])
+
+
+def prepare_row_sharded(a, mesh: Optional[Mesh] = None) -> Sharded:
+    """``a`` zero-padded to a multiple of the mesh's row shards and laid
+    out by rows over them (``P(row_axes)``; replicated over ``model``).
+    On ``a``'s own device each shard is a view of its rows. Default mesh:
+    the ambient one."""
+    if isinstance(a, Sharded):
+        return a
+    mesh = mesh or get_mesh()
+    a = torch.as_tensor(a)
+    return shard_tensor(_pad_rows(a, row_shard_count(mesh)), mesh, P(row_axes(mesh)))
+
+
+def _row_mesh(a, mesh: Optional[Mesh]) -> Optional[Mesh]:
+    """The mesh a solver shards ``a``'s rows over, or None for the
+    single-device path: one row shard, no mesh, or a ``meta`` tensor
+    (the verifier's shape trace)."""
+    if isinstance(a, Sharded):
+        return a.mesh
+    if mesh is None or row_shard_count(mesh) <= 1 or a.device.type == "meta":
+        return None
+    return mesh
+
+
+def _row_shards(a, mesh: Optional[Mesh]) -> List[torch.Tensor]:
+    """Per-shard rows of ``a`` (``[a]`` without a mesh)."""
+    if mesh is None:
+        return [a]
+    return prepare_row_sharded(a, mesh).shards
+
+
+def _reduce(parts: List[torch.Tensor], mesh: Optional[Mesh], axes=None) -> torch.Tensor:
+    """Σ of per-shard partials over ``axes`` (default: the row axes),
+    summed in shard order (``allreduce_sum``); the first shard's copy.
+    Without a mesh, the one partial."""
+    if mesh is None:
+        return parts[0]
+    return allreduce_sum(parts, mesh, axes or row_axes(mesh))[0]
+
+
+def _bcast(t: torch.Tensor, mesh: Optional[Mesh]) -> List[torch.Tensor]:
+    """``t`` on every shard's device (one copy per distinct device)."""
+    if mesh is None:
+        return [t]
+    return _fan_out(t, mesh.flat_devices)
+
+
 # ------------------------------------------------------------- gram / solve
 
 
@@ -208,14 +285,17 @@ def gram(
     a,
     b: Optional[torch.Tensor] = None,
     device: DeviceLike = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(AᵀA, AᵀB) — AᵀB is None without ``b``. Zero-padded rows
-    contribute nothing.
+    contribute nothing. Over a ``mesh`` with several row shards: each
+    shard's partial product, summed by ``allreduce_sum``.
 
     ``a`` may be a host-side
     :class:`~keystone_tpu_torch.utils.sparse.BlockSparseMatrix`: the Gram
     then comes from ``bsr_gram_totals`` (the ELL kernel on a card), on
-    ``b``'s device, or on ``device`` without ``b``."""
+    ``b``'s device, or on ``device`` without ``b`` — single-device, the
+    mesh ignored (as in the JAX package)."""
     from ..utils.sparse import BlockSparseMatrix
 
     if isinstance(a, BlockSparseMatrix):
@@ -224,7 +304,13 @@ def gram(
         y = b if b is not None else torch.zeros(a.shape[0], 1, device=resolve_device(device))
         g, c, _sa, _sb = bsr_gram_totals(a, y)
         return g, (None if b is None else c)
-    return mm_t(a, a), (None if b is None else mm_t(a, b))
+    mesh = _row_mesh(a, mesh)
+    xs = _row_shards(a, mesh)
+    g = _reduce([mm_t(x, x) for x in xs], mesh)
+    if b is None:
+        return g, None
+    ys = _row_shards(b, mesh)
+    return g, _reduce([mm_t(x, y) for x, y in zip(xs, ys)], mesh)
 
 
 def _cholesky(a: torch.Tensor) -> torch.Tensor:
@@ -240,23 +326,31 @@ def solve_spd(ata: torch.Tensor, atb: torch.Tensor, reg: float = 0.0) -> torch.T
     return torch.cholesky_solve(atb, _cholesky(lhs))
 
 
-def normal_equations_solve(a: torch.Tensor, b: torch.Tensor, reg: float = 0.0) -> torch.Tensor:
-    """One-shot least squares: x = (AᵀA + λI)⁻¹ Aᵀb."""
-    ata, atb = gram(a, b)
+def normal_equations_solve(
+    a: torch.Tensor, b: torch.Tensor, reg: float = 0.0, mesh: Optional[Mesh] = None
+) -> torch.Tensor:
+    """One-shot least squares: x = (AᵀA + λI)⁻¹ Aᵀb (Gram over ``mesh``,
+    the solve once)."""
+    ata, atb = gram(a, b, mesh=mesh)
     return solve_spd(ata, atb, reg=reg)
 
 
-def tsqr_r(a: torch.Tensor) -> torch.Tensor:
-    """R factor of a tall-skinny matrix (mlmatrix ``TSQR``). On one device
-    the JAX package's per-shard QR and QR of the stacked factors is one
-    QR of ``a``."""
-    return torch.linalg.qr(a, mode="r")[1]
+def tsqr_r(a: torch.Tensor, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """R factor of a tall-skinny matrix (mlmatrix ``TSQR``): a local QR
+    per row shard, the small R factors gathered (``all_gather``), and one
+    QR of their stack. On one device, one QR of ``a``."""
+    mesh = _row_mesh(a, mesh)
+    if mesh is None:
+        return torch.linalg.qr(a, mode="r")[1]
+    rs = [torch.linalg.qr(x, mode="r")[1] for x in _row_shards(a, mesh)]
+    stacked = all_gather(rs, mesh, row_axes(mesh))[0]
+    return torch.linalg.qr(stacked.reshape(-1, stacked.shape[-1]), mode="r")[1]
 
 
-def tsqr_svd(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def tsqr_svd(a: torch.Tensor, mesh: Optional[Mesh] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Singular values and right singular vectors (Vᵀ) of ``a`` via the
     SVD of its TSQR R factor: A = QR, R = UΣVᵀ ⇒ A's (Σ, V) are R's."""
-    _, s, vt = torch.linalg.svd(tsqr_r(a), full_matrices=False)
+    _, s, vt = torch.linalg.svd(tsqr_r(a, mesh=mesh), full_matrices=False)
     return s, vt
 
 
@@ -342,19 +436,20 @@ def solve_from_gram(gc: torch.Tensor, cc: torch.Tensor, reg: float) -> torch.Ten
 _TEST_GRAM_PERTURB: float = 0.0
 
 
-def _centered_factor(x, y, n, reg, kind, perturb=0.0):
+def _centered_factor(xs, ys, n, reg, kind, mesh, perturb=0.0):
     """Gram at ``kind`` (plus the test seam's ``perturb``) → centering →
-    Cholesky: ``(w, factor, atb_c, μ_a, μ_b)``."""
-    d = x.shape[1]
-    mu_a = x.sum(dim=0) / n
-    mu_b = y.sum(dim=0) / n
-    ata = _mm_t(x, x, kind)
-    atb = _mm_t(x, y, kind)
+    Cholesky: ``(w, factor, atb_c, μ_a, μ_b)``. ``xs`` / ``ys`` are the
+    row shards (one each without a mesh)."""
+    d = xs[0].shape[1]
+    mu_a = _reduce([x.sum(dim=0) for x in xs], mesh) / n
+    mu_b = _reduce([y.sum(dim=0) for y in ys], mesh) / n
+    ata = _reduce([_mm_t(x, x, kind) for x in xs], mesh)
+    atb = _reduce([_mm_t(x, y, kind) for x, y in zip(xs, ys)], mesh)
     if perturb:
         ata = ata + perturb * (torch.trace(ata) / d) * torch.ones_like(ata)
     ata_c = ata - n * torch.outer(mu_a, mu_a)
     atb_c = atb - n * torch.outer(mu_a, mu_b)
-    factor = _cholesky(ata_c + reg * torch.eye(d, dtype=x.dtype, device=x.device))
+    factor = _cholesky(ata_c + reg * torch.eye(d, dtype=ata.dtype, device=ata.device))
     return torch.cholesky_solve(atb_c, factor), factor, atb_c, mu_a, mu_b
 
 
@@ -366,6 +461,7 @@ def centered_solve_refined(
     gram_precision: Optional[str] = None,
     refine_steps: int = 0,
     resid_precision: str = "highest",
+    mesh: Optional[Mesh] = None,
 ):
     """Centered ridge solve ``(w, μ_a, μ_b)`` with optional mixed-precision
     iterative refinement, as the JAX package's fused solve.
@@ -379,7 +475,9 @@ def centered_solve_refined(
 
         A_cᵀ(B_c − A_c·W) − λW = XᵀS − μ_a·(1ᵀS) − λW,
 
-    and corrects W through the same factor.
+    and corrects W through the same factor. Over a ``mesh`` with several
+    row shards, every product and column sum is a per-shard partial
+    summed by ``allreduce_sum``; the factor and the corrections run once.
 
     Divergence guard (when ``refine_steps > 0`` and the Gram is not IEEE
     fp32): refinement contracts the error by about cond(Gram)·ε_gram per
@@ -390,17 +488,20 @@ def centered_solve_refined(
     Gram with the same steps. The decision reads two norms back to the
     host once; ``centered_solve_refined.guard_checks`` and
     ``.guard_fired`` count the decisions and the fallbacks."""
-    x = x.to(torch.float32)
-    y = y.to(torch.float32)
+    mesh = _row_mesh(x, mesh)
+    xs = [t.to(torch.float32) for t in _row_shards(x, mesh)]
+    ys = [t.to(torch.float32) for t in _row_shards(y, mesh)]
     kind = precision_for_mode(gram_precision or solver_mode())
     resid_kind = precision_for_mode(resid_precision)
-    w, factor, atb_c, mu_a, mu_b = _centered_factor(x, y, n, reg, kind, _TEST_GRAM_PERTURB)
+    w, factor, atb_c, mu_a, mu_b = _centered_factor(xs, ys, n, reg, kind, mesh, _TEST_GRAM_PERTURB)
     if refine_steps == 0:
         return w, mu_a, mu_b
 
     def resid(w):
-        s = y - _mm(x, w, resid_kind)
-        r = _mm_t(x, s, resid_kind) - torch.outer(mu_a, s.sum(dim=0)) - reg * w
+        ss = [yi - _mm(xi, wi, resid_kind) for xi, yi, wi in zip(xs, ys, _bcast(w, mesh))]
+        ats = _reduce([_mm_t(xi, si, resid_kind) for xi, si in zip(xs, ss)], mesh)
+        ssum = _reduce([si.sum(dim=0) for si in ss], mesh)
+        r = ats - torch.outer(mu_a, ssum) - reg * w
         return r, torch.linalg.vector_norm(r)
 
     r, n0 = resid(w)
@@ -418,7 +519,7 @@ def centered_solve_refined(
         return w, mu_a, mu_b
     centered_solve_refined.guard_fired += 1
     del factor, r
-    w, factor, _, _, _ = _centered_factor(x, y, n, reg, "ieee_fp32")
+    w, factor, _, _, _ = _centered_factor(xs, ys, n, reg, "ieee_fp32", mesh)
     for _ in range(int(refine_steps)):
         r, _ = resid(w)
         w = w + torch.cholesky_solve(r, factor)
@@ -475,15 +576,20 @@ def bcd_from_gram(
     return w
 
 
-def _bcd_block_update(a_b, y, p, w_b, reg, eye):
+def _bcd_block_update(a_bs, ys, ps, w_b, reg, eye, mesh=None, axes=None):
     """One Gauss-Seidel block update: solve (A_bᵀA_b + λI) W_b' =
     A_bᵀ(Y − P + A_b W_b) and move the predictions P by A_b(W_b' − W_b).
-    Returns ``(W_b', P')``."""
-    r = y - p + mm(a_b, w_b)
-    g = mm_t(a_b, a_b)
-    c = mm_t(a_b, r)
+    ``a_bs`` / ``ys`` / ``ps`` are the row shards of the block panel, the
+    labels and the predictions (one each without a mesh); the Gram and the
+    right-hand side are summed over ``axes`` (default: the row axes), the
+    block solve runs once. Returns ``(W_b', P')``."""
+    w_bs = _bcast(w_b, mesh)
+    rs = [y - p + mm(a_b, w) for a_b, y, p, w in zip(a_bs, ys, ps, w_bs)]
+    g = _reduce([mm_t(a_b, a_b) for a_b in a_bs], mesh, axes)
+    c = _reduce([mm_t(a_b, r) for a_b, r in zip(a_bs, rs)], mesh, axes)
     w_b_new = torch.cholesky_solve(c, _cholesky(g + reg * eye))
-    return w_b_new, p + mm(a_b, w_b_new - w_b)
+    new_bs = _bcast(w_b_new, mesh)
+    return w_b_new, [p + mm(a_b, wn - w) for p, a_b, wn, w in zip(ps, a_bs, new_bs, w_bs)]
 
 
 def block_coordinate_descent(
@@ -492,23 +598,31 @@ def block_coordinate_descent(
     reg: float,
     num_epochs: int,
     block_size: int,
+    mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
     """Least-squares block coordinate descent over feature blocks: per
     block b, solve (A_bᵀA_b + λI) W_b = A_bᵀ (Y − P + A_b W_b), where P
     are the current predictions. ``a`` is (n, d) with d a multiple of
-    ``block_size`` (zero pad rows allowed), ``y`` is (n, k). Returns the
-    (d, k) weights."""
-    n, d = a.shape
-    k = y.shape[1]
+    ``block_size`` (zero pad rows allowed), ``y`` is (n, k); either may be
+    a row-:class:`Sharded` value. Over a ``mesh`` with several row shards
+    each shard keeps its rows' predictions and the per-block Gram and
+    right-hand side are summed across shards. Returns the (d, k)
+    weights."""
+    mesh = _row_mesh(a, mesh)
+    a_s, y_s = _row_shards(a, mesh), _row_shards(y, mesh)
+    d = a_s[0].shape[1]
+    k = y_s[0].shape[1]
     if d % block_size != 0:
         raise ValueError(f"d={d} not divisible by block_size={block_size}")
-    eye = torch.eye(block_size, dtype=a.dtype, device=a.device)
-    w = torch.zeros(d, k, dtype=a.dtype, device=a.device)
-    p = torch.zeros_like(y)
+    eye = torch.eye(block_size, dtype=a_s[0].dtype, device=a_s[0].device)
+    w = torch.zeros(d, k, dtype=a_s[0].dtype, device=a_s[0].device)
+    ps = [torch.zeros_like(t) for t in y_s]
     for _ in range(int(num_epochs)):
         for start in range(0, d, block_size):
             stop = start + block_size
-            w[start:stop], p = _bcd_block_update(a[:, start:stop], y, p, w[start:stop], reg, eye)
+            w[start:stop], ps = _bcd_block_update(
+                [t[:, start:stop] for t in a_s], y_s, ps, w[start:stop], reg, eye, mesh
+            )
     return w
 
 
@@ -519,6 +633,7 @@ def block_coordinate_descent_rematerialized(
     num_epochs: int,
     block_size: int,
     num_blocks: int,
+    mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
     """BCD where each feature block is COMPUTED when its update runs
     instead of read from anywhere — for feature matrices too large for the
@@ -526,27 +641,35 @@ def block_coordinate_descent_rematerialized(
 
     The same per-block update as :func:`block_coordinate_descent`.
     ``block_fn(b, row_offset, rows)`` returns the (rows, block_size) panel
-    of block ``b`` for the rows starting at ``row_offset`` — on one device
-    always ``row_offset = 0`` and ``rows = y.shape[0]`` — on ``y``'s
-    device. Only one panel and the (n, k) predictions are resident.
-    Returns the (num_blocks·block_size, k) weights."""
-    rows, k = y.shape
-    eye = torch.eye(block_size, dtype=y.dtype, device=y.device)
-    w = torch.zeros(num_blocks * block_size, k, dtype=y.dtype, device=y.device)
-    p = torch.zeros_like(y)
+    of block ``b`` for the rows starting at ``row_offset``, on the
+    shard's device: on one device always ``row_offset = 0`` and ``rows =
+    y.shape[0]``; over a ``mesh`` once per row shard, with that shard's
+    offset into the padded rows. Only one panel per shard and the (n, k)
+    predictions are resident. Returns the (num_blocks·block_size, k)
+    weights."""
+    mesh = _row_mesh(y, mesh)
+    y_s = _row_shards(y, mesh)
+    rows, k = y_s[0].shape
+    offsets = [0] if mesh is None else [i * rows for i in axis_index(mesh, row_axes(mesh))]
+    eye = torch.eye(block_size, dtype=y_s[0].dtype, device=y_s[0].device)
+    w = torch.zeros(num_blocks * block_size, k, dtype=y_s[0].dtype, device=y_s[0].device)
+    ps = [torch.zeros_like(t) for t in y_s]
     for _ in range(int(num_epochs)):
         for b in range(int(num_blocks)):
-            a_b = block_fn(b, 0, rows)
-            if tuple(a_b.shape) != (rows, block_size) or a_b.device != y.device:
-                raise ValueError(
-                    f"block_fn({b}) gave {tuple(a_b.shape)} on {a_b.device}; "
-                    f"expected ({rows}, {block_size}) on {y.device}"
-                )
+            a_bs = []
+            for offset, yi in zip(offsets, y_s):
+                a_b = block_fn(b, offset, rows)
+                if tuple(a_b.shape) != (rows, block_size) or a_b.device != yi.device:
+                    raise ValueError(
+                        f"block_fn({b}, {offset}) gave {tuple(a_b.shape)} on {a_b.device}; "
+                        f"expected ({rows}, {block_size}) on {yi.device}"
+                    )
+                a_bs.append(a_b)
             start = b * block_size
-            w[start : start + block_size], p = _bcd_block_update(
-                a_b, y, p, w[start : start + block_size], reg, eye
+            w[start : start + block_size], ps = _bcd_block_update(
+                a_bs, y_s, ps, w[start : start + block_size], reg, eye, mesh
             )
-            del a_b
+            del a_bs
     return w
 
 
@@ -559,6 +682,7 @@ def block_coordinate_descent_streaming(
     num_examples: Optional[int] = None,
     center: bool = True,
     device: DeviceLike = None,
+    mesh: Optional[Mesh] = None,
 ):
     """BCD least squares for feature matrices too large for the card.
 
@@ -569,6 +693,10 @@ def block_coordinate_descent_streaming(
     residency is one panel + the (n, k) predictions, independent of d.
     The short last block is zero-padded. Feature means come from one
     float64 host pass. Fits on ``device`` (default CUDA); ``y`` is (n, k).
+    Over a ``mesh`` with several row shards the rows are zero-padded to a
+    shard multiple and each uploaded panel is split into row shards (views
+    on the upload's device), updated as :func:`block_coordinate_descent`
+    does.
 
     Returns ``(w, mu_a, mu_b)``: weights (d, k) and the feature/label
     means used for centering (zeros when ``center=False``). Each call adds
@@ -586,6 +714,8 @@ def block_coordinate_descent_streaming(
     k = y_dev.shape[1]
     bs = min(block_size, d)
     num_blocks = -(-d // bs)
+    mesh = None if mesh is None or row_shard_count(mesh) <= 1 else mesh
+    n_pad = n_rows if mesh is None else -(-n_rows // row_shard_count(mesh)) * row_shard_count(mesh)
 
     if center:
         mu_a = (x_host[:n].sum(dim=0, dtype=torch.float64) / n).to(torch.float32).to(device)
@@ -595,26 +725,32 @@ def block_coordinate_descent_streaming(
     else:
         mu_a = torch.zeros(d, device=device)
         mu_b = torch.zeros(k, device=device)
-    mask = torch.zeros(n_rows, 1, device=device)
+    if mesh is not None:
+        y_dev = _pad_rows(y_dev, row_shard_count(mesh))
+    mask = torch.zeros(n_pad, 1, device=device)
     mask[:n] = 1.0
     mu_pad = torch.nn.functional.pad(mu_a, (0, num_blocks * bs - d))
 
-    staging = torch.empty(n_rows, bs, dtype=torch.float32, pin_memory=device.type == "cuda")
+    staging = torch.empty(n_pad, bs, dtype=torch.float32, pin_memory=device.type == "cuda")
+    staging[n_rows:].zero_()  # shard padding rows: zero in every panel
     eye = torch.eye(bs, device=device)
     w = torch.zeros(num_blocks * bs, k, device=device)
-    p = torch.zeros(n_rows, k, device=device)
+    y_s = _row_shards(y_dev, mesh)
+    ps = [torch.zeros_like(t) for t in y_s]
     for _ in range(int(num_epochs)):
         for b in range(num_blocks):
             start = b * bs
             width = min(bs, d - start)
-            staging[:, :width].copy_(x_host[:, start : start + width])
+            staging[:n_rows, :width].copy_(x_host[:, start : start + width])
             if width < bs:
-                staging[:, width:].zero_()
+                staging[:n_rows, width:].zero_()
             panel = staging.to(device, copy=True)
             block_coordinate_descent_streaming.blocks_uploaded += 1
             block_coordinate_descent_streaming.bytes_uploaded += panel.numel() * panel.element_size()
             a_b = panel.sub_(mu_pad[start : start + bs]).mul_(mask)
-            w[start : start + bs], p = _bcd_block_update(a_b, y_dev, p, w[start : start + bs], reg, eye)
+            w[start : start + bs], ps = _bcd_block_update(
+                _row_shards(a_b, mesh), y_s, ps, w[start : start + bs], reg, eye, mesh
+            )
             del a_b, panel
     return w[:d], mu_a, mu_b
 
@@ -623,13 +759,125 @@ block_coordinate_descent_streaming.blocks_uploaded = 0
 block_coordinate_descent_streaming.bytes_uploaded = 0
 
 
+# ------------------------------------------------------------------- 2-D BCD
+
+
+def prepare_block_sharded(a, mesh: Optional[Mesh] = None, fine_rows: bool = False) -> Sharded:
+    """Lay a matrix out for the 2-D (``data`` × ``model``) solver path,
+    rows zero-padded to a multiple of row shards × model shards.
+
+    ``fine_rows=False``: rows over the row axes, columns over ``model`` —
+    the layout for A: shard (i, j) holds the (n/D, d/M) tile, so A is
+    never column-replicated. ``fine_rows=True``: rows over (row axes,
+    ``model``) jointly, columns whole — the layout for Y and the carried
+    predictions, M× finer row shards than the 1-D path. On ``a``'s own
+    device every tile is a view."""
+    if isinstance(a, Sharded):
+        return a
+    mesh = mesh or get_mesh()
+    a = torch.as_tensor(a)
+    a = _pad_rows(a, row_shard_count(mesh) * model_axis_size(mesh))
+    if fine_rows:
+        return shard_tensor(a, mesh, P(row_axes(mesh) + (MODEL_AXIS,)))
+    return shard_tensor(a, mesh, P(row_axes(mesh), MODEL_AXIS))
+
+
+def block_coordinate_descent_2d(
+    a,
+    y,
+    reg: float,
+    num_epochs: int,
+    block_size: int,
+    mesh: Optional[Mesh] = None,
+) -> torch.Tensor:
+    """Gauss-Seidel feature-block coordinate descent on a 2-D (``data``,
+    ``model``) mesh — the JAX package's ``block_coordinate_descent_2d``:
+
+    - A is (row, model)-tiled (:func:`prepare_block_sharded`), so shard
+      (i, j) holds rows i and the columns of model group j's blocks;
+    - the carried predictions are (n/(D·M), k) per shard
+      (``fine_rows=True``), M× smaller than the 1-D path's;
+    - per local block index, one ``all_to_all`` over ``model`` re-shards
+      the M groups' (n/D, b) blocks into (n/(D·M), b) fine-row tiles on
+      every shard, so each block's Gram is summed over the whole mesh
+      (``allreduce_sum`` over (row axes, ``model``)); the owner group's
+      block weights reach the others by an ``allreduce_sum`` over
+      ``model`` of (own weights, zeros elsewhere).
+
+    Block order is (local block, model group)-major — a fixed permutation
+    of the 1-D order with the same fixed point (AᵀA + λI)W = AᵀY. d must
+    divide into M·block_size. Returns the (d, k) weights, the model
+    groups' blocks concatenated. With fewer than two model shards this is
+    :func:`block_coordinate_descent`."""
+    mesh = mesh or get_mesh()
+    m = model_axis_size(mesh)
+    if m < 2:
+        return block_coordinate_descent(a, y, reg, num_epochs, block_size, mesh)
+    a_s = prepare_block_sharded(a, mesh).shards
+    y_s = prepare_block_sharded(y, mesh, fine_rows=True).shards
+    d_loc = a_s[0].shape[1]
+    if d_loc % block_size != 0:
+        raise ValueError(f"d={d_loc * m} not divisible by model_axis·block_size={m}·{block_size}")
+    k = y_s[0].shape[1]
+    all_axes = row_axes(mesh) + (MODEL_AXIS,)
+    j_of = axis_index(mesh, MODEL_AXIS)
+    dtype, device = a_s[0].dtype, a_s[0].device
+    eye = torch.eye(block_size, dtype=dtype, device=device)
+    # Each shard's copy of its model group's weights, as in the JAX body.
+    w_local = [torch.zeros(d_loc, k, dtype=dtype, device=t.device) for t in a_s]
+    ps = [torch.zeros_like(t) for t in y_s]
+    for _ in range(int(num_epochs)):
+        for start in range(0, d_loc, block_size):
+            stop = start + block_size
+            refined = all_to_all([t[:, start:stop] for t in a_s], mesh, MODEL_AXIS, split_axis=0, concat_axis=1)
+            for jp in range(m):
+                a_j = [t[:, jp * block_size : (jp + 1) * block_size] for t in refined]
+                # Broadcast the owner group's current block weights.
+                w_old = allreduce_sum(
+                    [wl[start:stop] if j == jp else torch.zeros_like(wl[start:stop])
+                     for wl, j in zip(w_local, j_of)],
+                    mesh, MODEL_AXIS,
+                )
+                rs = [yi - p + mm(ai, wo) for yi, p, ai, wo in zip(y_s, ps, a_j, w_old)]
+                g = _reduce([mm_t(ai, ai) for ai in a_j], mesh, all_axes)
+                c = _reduce([mm_t(ai, r) for ai, r in zip(a_j, rs)], mesh, all_axes)
+                w_new = torch.cholesky_solve(c, _cholesky(g + reg * eye))
+                new_s = _bcast(w_new, mesh)
+                ps = [p + mm(ai, wn - wo) for p, ai, wn, wo in zip(ps, a_j, new_s, w_old)]
+                for wl, j, wn in zip(w_local, j_of, new_s):
+                    if j == jp:
+                        wl[start:stop] = wn
+    # Data row 0's copy of each model group's weights, in group order.
+    return torch.cat([_to(w_local[j], mesh.flat_devices[0]) for j in range(m)])
+
+
+def block_sharded_apply(x, w: torch.Tensor, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Predictions of a column-sharded X against a model-sharded W: each
+    shard's partial product X_ij·W_j, summed over ``model`` by
+    ``allreduce_sum`` (the reference's sum of per-block predictions,
+    BlockLinearMapper.scala:50-73, as a collective). Returns the (n, k)
+    predictions of the padded rows. With fewer than two model shards,
+    one product."""
+    mesh = mesh or get_mesh()
+    if model_axis_size(mesh) < 2 or (not isinstance(x, Sharded) and x.device.type == "meta"):
+        return mm(x.assemble() if isinstance(x, Sharded) else x, w)
+    x_s = prepare_block_sharded(x, mesh)
+    w_s = shard_tensor(w, mesh, P(MODEL_AXIS))
+    partial = [mm(xi, wi) for xi, wi in zip(x_s.shards, w_s.shards)]
+    out = allreduce_sum(partial, mesh, MODEL_AXIS)
+    rows = x_s.shape[0]
+    return Sharded(out, P(row_axes(mesh)), mesh, (rows, w.shape[1])).assemble()
+
+
 __all__ = [
     "ROW_CHUNK",
     "addmm_t_",
     "bcd_from_gram",
     "block_coordinate_descent",
+    "block_coordinate_descent_2d",
     "block_coordinate_descent_rematerialized",
     "block_coordinate_descent_streaming",
+    "block_sharded_apply",
     "centered_solve_refined",
     "check_finite",
     "gram",
@@ -639,7 +887,10 @@ __all__ = [
     "gram_stream_step",
     "mm",
     "mm_t",
+    "model_axis_size",
     "normal_equations_solve",
+    "prepare_block_sharded",
+    "prepare_row_sharded",
     "precision",
     "precision_for_mode",
     "set_solver_mode_override",

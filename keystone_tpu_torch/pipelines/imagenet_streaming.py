@@ -33,7 +33,7 @@ Entry points take ``device=`` (default ``None``: the CUDA device).
 templates equal to the JAX package's, noise from a ``torch.Generator``
 on the device: the port does not reproduce ``jax.random.normal``), so no
 image crosses the link. Left out: the mesh-sharded encode (``mesh=``,
-ROADMAP item 14).
+ROADMAP item 14b).
 """
 
 from __future__ import annotations
@@ -258,7 +258,7 @@ class StreamingFlagship:
         (16 KB per image at the reference's widths)."""
         if mesh is not None:
             raise NotImplementedError(
-                "the mesh-sharded encode waits for the port's multi-device tier (ROADMAP item 14)")
+                "the mesh-sharded encode waits for the port's multi-device tier (ROADMAP item 14b)")
         assert self.codebooks is not None, "fit_codebooks first"
         out_rows: List[np.ndarray] = []
         pin = self.device.type == "cuda"

@@ -57,7 +57,7 @@ is parked in the journal as a planned resume (its replay budget
 untouched), and the next admitted round resumes the fold from the cursor
 — and the loop's cadence follows the tap's fill and the pressure.
 
-Not here: the sharded fold (``partition=``, ROADMAP item 14).
+Not here: the sharded fold (``partition=``, ROADMAP item 14b).
 
 The module also carries the synthetic drifting-workload closed loop
 behind ``python -m keystone_tpu_torch refit`` (:func:`run_refit_demo`).
@@ -166,7 +166,7 @@ class RefitDaemon:
         if partition is not None:
             raise NotImplementedError(
                 "RefitDaemon(partition=...): the sharded fold is not ported yet "
-                "(ROADMAP Queue A item 14)"
+                "(ROADMAP item 14b)"
             )
         self.estimator = estimator
         #: optional sched.MeshScheduler: rounds become cost-priced leases

@@ -26,9 +26,12 @@ The contract is solver-agnostic: envelopes carry an opaque host-numpy
 carry (whatever ``kind`` the estimator accumulates), so the sketch tier
 is durable too.
 
-Not here: ``ShardLossError`` and ``shard_loss_index``, the multi-device
-shard-loss recovery (ROADMAP Queue A item 14); cursors keep the JAX
-package's mesh fields at their one-device values.
+Waiting for ROADMAP item 14b: ``ShardLossError`` and ``shard_loss_index``
+(shard-loss recovery) and the sharded durable fold. Cursors keep the JAX
+package's mesh fields at their one-device values, because a fold under a
+sharded partition plan refuses a checkpoint store
+(``workflow/streaming.py`` raises ``NotImplementedError``) rather than
+commit a one-device snapshot.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Cost-governed admission onto the serving card: train where you serve.
 
 Port of ``keystone_tpu/sched/scheduler.py`` for one card: the "mesh" is
-the one CUDA device the server and the background work share (item 14
-brings meshes).
+the one CUDA device the server and the background work share (the
+scheduler's own mesh admission waits for ROADMAP item 14b).
 
 Background work — refit daemon fold rounds, ``tune``
 probes, sketched/Gram finish reductions — historically ran in separate

@@ -39,7 +39,7 @@ The modules that hold models (``registry``, ``server``, ``synthetic``,
 control plane imports none of it, so a stub worker and ``serve --help``
 start without it.
 
-Left out for now (ROADMAP item 14): the sharded serving partition.
+Left out for now (ROADMAP item 14b): the sharded serving partition.
 """
 
 from .admission import DEFAULT_RUNGS, AdmissionController, AdmissionRung

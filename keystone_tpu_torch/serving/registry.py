@@ -13,7 +13,7 @@ three doors —
 
 Left out for now: the serving partition ``load_fitted`` attaches for
 multi-device serving in the JAX package (``attach_serving_partition``,
-ROADMAP item 14).
+ROADMAP item 14b).
 
 Hot-swap contract: ``resolve`` returns an immutable :class:`ModelEntry`;
 the worker holds that entry for the whole batch it is applying, so a

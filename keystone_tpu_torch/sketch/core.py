@@ -34,8 +34,12 @@ Row indices ride the float32 mask exactly up to 2²⁴ rows
 The carry leaves are updated in place, as ``linalg.gram_stream_step``
 updates the Gram carry. Every product runs at IEEE fp32 through the
 solver binding on a card (``ops/cuda/gemm.py``), the precision the JAX
-package's plain ``@`` has on the CPU. The JAX package's blocked
-``model_block_step`` protocol (2-D meshes) is not ported.
+package's plain ``@`` has on the CPU.
+
+Each step carries the blocked-carry protocol of the 2-D streamed fits
+(``model_layout`` / ``model_block_step``, ``workflow/streaming.py``): a
+carry block holds one column block of SA and Σx; SY, s1 and Σy are
+feature-free and accumulate on block 0 only.
 """
 
 from __future__ import annotations
@@ -194,6 +198,22 @@ def sketch_stream_step(variant: str, seed: int):
             sums_y.add_(y.sum(dim=0))
             return carry
 
+        def block_step(carry, x, y, mask, block_index):
+            # This block holds the block_index-th column block of SA and
+            # Σx and scatter-adds its own column slice of the chunk.
+            sa, sy, s1, sx, sums_y = carry
+            b = sa.shape[1]
+            xb = x[:, block_index * b : (block_index + 1) * b].to(sa.dtype)
+            bucket, sign = countsketch_hash(mask, sa.shape[0], seed)
+            sa.index_add_(0, bucket, sign[:, None] * xb)
+            sx.add_(xb.sum(dim=0))
+            if block_index == 0:
+                y = y.to(sa.dtype)
+                sy.index_add_(0, bucket, sign[:, None] * y)
+                s1.index_add_(0, bucket, sign)
+                sums_y.add_(y.sum(dim=0))
+            return carry
+
     else:  # srht
 
         def step(carry, x, y, mask):
@@ -208,9 +228,27 @@ def sketch_stream_step(variant: str, seed: int):
             sums_y.add_(y.sum(dim=0))
             return carry
 
+        def block_step(carry, x, y, mask, block_index):
+            sa, sy, s1, sx, sums_y = carry
+            b = sa.shape[1]
+            xb = x[:, block_index * b : (block_index + 1) * b].to(sa.dtype)
+            m = srht_mix_matrix(mask, sa.shape[0], seed)
+            sa.add_(_mm32(m, xb))
+            sx.add_(xb.sum(dim=0))
+            if block_index == 0:
+                y = y.to(sa.dtype)
+                sy.add_(_mm32(m, y))
+                s1.add_(m.sum(dim=1))
+                sums_y.add_(y.sum(dim=0))
+            return carry
+
     step.needs_mask = True
     step.sketch_variant = variant
     step.sketch_seed = seed
+    # Blocked-carry protocol: the feature axis of each carry leaf (SA's
+    # columns, Σx) — None = feature-free.
+    step.model_layout = (1, None, None, 0, None)
+    step.model_block_step = block_step
     return step
 
 

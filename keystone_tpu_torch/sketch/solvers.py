@@ -116,6 +116,10 @@ class SketchedLeastSquaresEstimator(SketchStreamStateMixin, LabelEstimator):
     #: accumulates per chunk exactly like a Gram does.
     supports_fit_stream = True
 
+    #: 2-D partitioner protocol: SA and Σx block the feature axis
+    #: (``sketch_stream_step``'s blocked protocol) on a (data, model) mesh.
+    supports_model_axis = True
+
     def __init__(
         self,
         reg: Optional[float] = None,

@@ -19,7 +19,8 @@ run since the last :meth:`PipelineEnv.reset`; the
 counters count the same across resets, and optimizing opens an
 ``optimize`` span.
 
-Left out for now: the auto-cache counters and ``partition_decisions``.
+A ``GraphExecutor`` keeps the partition decisions its own optimize
+recorded (``partition_decisions``), as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -98,15 +99,26 @@ class GraphExecutor:
         self._optimized: Optional[Graph] = None
         self._prefixes: Dict[NodeId, Prefix] = {}
         self._memo: Dict[GraphId, Expression] = {}
+        #: The partition decisions the planner recorded for THIS plan
+        #: (``parallel/partitioner.py``), captured at optimize time: the
+        #: global ``last_partition_report()`` describes only the LAST plan.
+        self.partition_decisions: list = []
 
     @property
     def graph(self) -> Graph:
         """The optimized graph (optimizes on first access)."""
         if self._optimized is None:
             if self._optimize:
+                from ..parallel.partitioner import last_partition_report, partition_report_generation
+
                 env = PipelineEnv.get_or_create()
+                generation = partition_report_generation()
                 with _spans.span("optimize"):
                     self._optimized, self._prefixes = env.optimizer.execute(self._raw_graph)
+                # Adopt the report only if THIS optimize ran a partition
+                # batch (its reset bumps the generation).
+                if partition_report_generation() != generation:
+                    self.partition_decisions = last_partition_report()
             else:
                 self._optimized = self._raw_graph
         return self._optimized

@@ -49,7 +49,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 logger = logging.getLogger(__name__)
 
@@ -199,9 +199,10 @@ def _run_pass(pipe, x_eval, optimizer_factory):
     return _cost.get_ledger().entries(cursor), handle._executor
 
 
-def _provenance(entry) -> Dict[str, Any]:
+def _provenance(entry, partition_by_label: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """The decision trail for one node: which model/rule claimed it and
-    from which stored entry, the whole ladder an argmin saw, and the
+    from which stored entry, the whole ladder an argmin saw, the
+    partitioner's recorded decision when one names the node, and the
     launch sites it ran."""
     out: Dict[str, Any] = {}
     if entry.predicted_model:
@@ -215,6 +216,13 @@ def _provenance(entry) -> Dict[str, Any]:
             {"rung": name, "predicted_s": cost, "reason": reason}
             for name, cost, reason in entry.predicted_candidates
         ]
+    decision = (partition_by_label or {}).get(entry.node)
+    if decision is not None:
+        out["partition"] = {
+            "eligible": bool(decision.eligible),
+            "reason": str(decision.reason),
+            "shards": int(decision.shards or 1),
+        }
     if entry.kinds:
         out["computations"] = list(entry.kinds)
     return out
@@ -403,7 +411,7 @@ def _explain(args: argparse.Namespace) -> int:
     total_passes = max(1, args.passes)
     index = 0
     while index < total_passes:
-        entries, _executor = _run_pass(pipe, x_eval, _explain_optimizer)
+        entries, executor = _run_pass(pipe, x_eval, _explain_optimizer)
         index += 1
         if seed_factor and not seeded and _cost.get_drift_sentinel().seen_count():
             # Corrupt only once the sentinel has re-based baselines to
@@ -426,10 +434,12 @@ def _explain(args: argparse.Namespace) -> int:
             }
         )
 
+    # The plan's partition decisions, by the node label they name.
+    partition_by_label = {str(d.node): d for d in executor.partition_decisions if d.node}
     nodes = []
     for entry in entries:
         node = entry.to_json()
-        node["provenance"] = _provenance(entry)
+        node["provenance"] = _provenance(entry, partition_by_label)
         nodes.append(node)
 
     report: Dict[str, Any] = {

@@ -16,11 +16,14 @@ plan instead of falling back to the operator's default. Every other
 error, a bare ``NotImplementedError`` included, is logged and leaves the
 default operator, as in the JAX package.
 
-Left out for now: ``PartitionPlanRule``.
+:class:`PartitionPlanRule` is the optimizer's last batch: it consults the
+partitioner (``parallel/partitioner.py``) for every fit in the plan and
+pins eligible decisions onto copies of their operators.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -28,7 +31,7 @@ from typing import Dict, List, Optional, Tuple
 from ..data.dataset import ArrayDataset, Dataset, ObjectDataset
 from ..utils.tree import tree_map
 from .graph import Graph, NodeId, SinkId, SourceId
-from .operators import DatasetOperator, Operator, wrap_expression
+from .operators import DatasetOperator, EstimatorOperator, Operator, wrap_expression
 from .rules import PrefixMap, Rule
 
 
@@ -141,6 +144,108 @@ class _SampleInterpreter:
                 if info is not None:
                     return info
         return None
+
+
+class PartitionPlanRule(Rule):
+    """Consult the :class:`~keystone_tpu_torch.parallel.partitioner.
+    Partitioner` for every fit in the plan — the LAST optimizer batch
+    (after measured-knobs, so a measured ``chunk_rows`` is what gets
+    rounded to the shard count).
+
+    Eligible nodes get the decision PINNED onto a copy of their operator
+    (``op.partition``, MeasuredKnobRule's pin-on-copy idiom): a
+    ``StreamingFitOperator`` runs the sharded chunk plan (``chunk_rows``
+    rounded up to a row-shard multiple); another estimator shards its
+    in-core fit over the decided mesh (``partitioner.fit_mesh``).
+    Ineligible nodes are decided too — the reason lands in the partition
+    report. The rule never fails a plan."""
+
+    def __init__(self, mesh=None):
+        self.mesh = mesh
+
+    def apply(self, graph: Graph, prefixes: PrefixMap) -> Tuple[Graph, PrefixMap]:
+        from ..parallel.partitioner import Partitioner, partition_enabled, reset_partition_report
+        from .streaming import StreamingFitOperator, stream_chunk_rows
+
+        reset_partition_report()
+        if not partition_enabled():
+            # Disabled: nothing pinned, in-core fits keep the ambient
+            # mesh, and the empty report plus the knob is the explanation.
+            return graph, prefixes
+        part = Partitioner(mesh=self.mesh)
+        for node in sorted(graph.nodes):
+            op = graph.get_operator(node)
+            if not isinstance(op, EstimatorOperator):
+                continue
+            label = str(getattr(op, "label", type(op).__name__))
+            streaming = isinstance(op, StreamingFitOperator)
+            # The opt-out and the 2-D protocol live on the estimator the
+            # user wrote — for a streamed fit the WRAPPED one.
+            target = op.estimator if streaming else op
+            opt_out = getattr(target, "partitionable", True) is False
+            rows = _upstream_rows(graph, node)
+            model_ok = getattr(target, "supports_model_axis", False)
+            width = _upstream_width(graph, node)
+            if streaming:
+                decision = part.decide_stream(
+                    label, op.chunk_rows or stream_chunk_rows(), rows=rows,
+                    opt_out=opt_out, width=width, model_ok=model_ok,
+                )
+            else:
+                decision = part.decide_fit(label, rows, opt_out=opt_out, width=width, model_ok=model_ok)
+            # Pin only ELIGIBLE decisions, always onto a COPY: the user
+            # still holds the original estimator.
+            if decision.eligible:
+                pinned = copy.copy(op)
+                pinned.partition = decision
+                if streaming:
+                    pinned.chunk_rows = decision.chunk_rows
+                graph = graph.set_operator(node, pinned)
+        return graph, prefixes
+
+
+def _upstream_dataset(graph: Graph, node: NodeId):
+    """The bound dataset at the head of ``node``'s first-dependency
+    ancestry, or None (an unbound source, a Cacher)."""
+    seen = set()
+    deps = graph.get_dependencies(node)
+    cur = deps[0] if deps else None
+    while isinstance(cur, NodeId) and cur not in seen:
+        seen.add(cur)
+        op = graph.get_operator(cur)
+        if isinstance(op, DatasetOperator):
+            return op.dataset
+        deps = graph.get_dependencies(cur)
+        cur = deps[0] if deps else None
+    return None
+
+
+def _upstream_rows(graph: Graph, node: NodeId) -> Optional[int]:
+    """Rows feeding a fit: the bound head dataset's length (transformers
+    preserve rows), or None when it is unbound or unsized."""
+    ds = _upstream_dataset(graph, node)
+    if ds is None:
+        return None
+    try:
+        return len(ds)
+    except Exception:
+        return None
+
+
+def _upstream_width(graph: Graph, node: NodeId) -> Optional[int]:
+    """Columns of the bound 2-D array dataset feeding a fit — the
+    planner's proxy for the featurized width when deciding the model axis
+    (streams re-validate against the real width at fold time)."""
+    from ..utils.tree import tree_leaves
+
+    ds = _upstream_dataset(graph, node)
+    if not isinstance(ds, ArrayDataset):
+        return None
+    for leaf in tree_leaves(ds.data):
+        shape = getattr(leaf, "shape", ())
+        if len(shape) >= 2:
+            return int(shape[1])
+    return None
 
 
 def _subsample(dataset: Dataset, n: int) -> Dataset:

@@ -17,8 +17,7 @@ opens ``optimize:rules`` and ``optimize:batch:<name>`` spans (a
 ``rule_rewrite`` event per rewrite) under an active span session.
 
 :func:`default_optimizer` and :func:`auto_caching_optimizer` run the JAX
-package's batches in its order without its last one, ``partition``
-(ROADMAP item 14).
+package's batches in its order, ``partition`` last.
 """
 
 from __future__ import annotations
@@ -201,15 +200,17 @@ class SavedStateLoadRule(Rule):
 
 def default_optimizer() -> RuleExecutor:
     """Saved-state reuse → CSE → node-level optimization → chain fusion →
-    streaming → measured knobs (reference: DefaultOptimizer.scala:8-26).
+    streaming → measured knobs → partition (reference:
+    DefaultOptimizer.scala:8-26).
     Fusion runs late so every structural decision upstream sees real node
     boundaries; streaming runs after it so it can absorb already-fused
     chains into chunked fit plans; the measured-knob pass runs last so
     the StreamingFitOperator nodes it tunes from profile-store history
-    already exist."""
+    already exist; the partition batch runs after it, so a measured
+    ``chunk_rows`` is what gets rounded to the shard count."""
     from .fusion import NodeFusionRule
     from .knobs import MeasuredKnobRule
-    from .optimize import NodeOptimizationRule
+    from .optimize import NodeOptimizationRule, PartitionPlanRule
     from .streaming import StreamingPlanRule
 
     return RuleExecutor(
@@ -223,6 +224,7 @@ def default_optimizer() -> RuleExecutor:
             Batch("fusion", [NodeFusionRule()]),
             Batch("streaming", [StreamingPlanRule()]),
             Batch("measured-knobs", [MeasuredKnobRule()]),
+            Batch("partition", [PartitionPlanRule()]),
         ]
     )
 
@@ -237,7 +239,7 @@ def auto_caching_optimizer(budget_bytes: Optional[int] = None, strategy: str = "
     from .autocache import AutoCacheRule
     from .fusion import NodeFusionRule
     from .knobs import MeasuredKnobRule
-    from .optimize import NodeOptimizationRule
+    from .optimize import NodeOptimizationRule, PartitionPlanRule
     from .streaming import StreamingPlanRule
 
     return RuleExecutor(
@@ -252,5 +254,6 @@ def auto_caching_optimizer(budget_bytes: Optional[int] = None, strategy: str = "
             Batch("fusion", [NodeFusionRule()]),
             Batch("streaming", [StreamingPlanRule()]),
             Batch("measured-knobs", [MeasuredKnobRule()]),
+            Batch("partition", [PartitionPlanRule()]),
         ]
     )

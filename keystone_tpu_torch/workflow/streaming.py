@@ -66,8 +66,25 @@ observation in the profile store: a store write costs ~12 ms on the
 host, as much as a small refit fold. ``tune`` measures and records
 those entries, which ``MeasuredKnobRule`` replays.
 
-Left out (ROADMAP Queue A item 14): the partitioned (sharded, 2-D) chunk
-plans and shard-loss recovery.
+Partitioned chunk plans (``parallel/partitioner.py``). With an eligible
+partition decision pinned by the optimizer's partition batch, the fold
+runs the sharded plan of the JAX package: ``chunk_rows`` is rounded up to
+a row-shard multiple, every chunk is split into row shards (views on the
+chunk's device), each shard featurizes its slice and accumulates into its
+OWN partial carry — no collective per chunk — and the partials are
+reduced once at finish, summed over the row shards in shard order. In a
+2-D layout (``model_shards`` > 1) each carry block holds one feature
+block of the statistics through the step's blocked protocol
+(``model_layout`` / ``model_block_step``) and the finish concatenates the
+blocks; a step without the protocol, or a featurized width the model
+shards do not divide or that is below the width floor, demotes the plan
+to row-only (``demote_model_axis``). The report's ``shards``,
+``model_shards``, ``mesh_shape``, per-axis ``collective_bytes`` and
+``state_bytes_per_device`` are the JAX package's plan-pure numbers.
+
+Waiting for ROADMAP item 14b: the sharded durable fold and shard-loss
+recovery. A fold under a sharded plan with a checkpoint store armed
+raises ``NotImplementedError`` rather than write a one-device snapshot.
 """
 
 from __future__ import annotations
@@ -262,9 +279,11 @@ class StreamReport:
     script and tests assert on (overlap, first applications, memory,
     durable commits).
 
-    The partition and preemption fields keep the JAX package's names and
-    single-device values until those paths are ported (ROADMAP Queue A
-    items 13–14)."""
+    The partition fields are the JAX package's: row and model shards,
+    mesh shape, the finish reduction's payload bytes per mesh axis
+    (``collective_bytes_data`` / ``_model``, their sum
+    ``collective_bytes``) and the bytes of streamed state one shard
+    holds (``state_bytes_per_device``); 1 / () / 0 single-device."""
 
     chunks: int = 0
     chunk_rows: int = 0
@@ -394,8 +413,10 @@ _STEP_RECORDS_MAX = 32
 _step_lock = threading.Lock()
 
 
-def _shared_step_record(members: tuple, step_fn: Callable) -> _StepRecord:
+def _shared_step_record(members: tuple, step_fn: Callable, partition=None) -> _StepRecord:
     key = tuple(id(m) for m in members) + (id(step_fn),)
+    if partition is not None:
+        key += ("sharded", id(partition.mesh), partition.shards, partition.model_shards)
     with _step_lock:
         record = _STEP_RECORDS.get(key)
         if record is None:
@@ -507,6 +528,83 @@ def _pinned(a: np.ndarray) -> torch.Tensor:
     return out
 
 
+def _carry_layout(step_fn, carry) -> Optional[Tuple[Optional[int], ...]]:
+    """The blocked-carry protocol's per-leaf feature axes, checked against
+    the carry — None when the step declares no protocol or it does not
+    match the carry's leaves."""
+    layout = getattr(step_fn, "model_layout", None)
+    if layout is None or getattr(step_fn, "model_block_step", None) is None:
+        return None
+    if len(tree_leaves(carry)) != len(layout):
+        return None
+    return tuple(layout)
+
+
+class _ShardedCarry:
+    """The per-shard partial carries of a partitioned fold: one carry per
+    block (row shard i, model shard j), block index i·model_shards + j,
+    each on the device of the mesh shard at those coordinates (model
+    coordinate 0 for a row-only plan on a 2-D mesh). Block 0 (and, for
+    feature leaves, blocks 0…model_shards−1 of data row 0) holds the
+    estimator's seed carry; every other block starts at zero — exact for
+    the additive accumulation the fit_stream protocol is."""
+
+    def __init__(self, part, step_fn, carry):
+        from ..parallel.collectives import axis_index
+        from ..parallel.mesh import MODEL_AXIS
+
+        mesh = part.mesh
+        self.p_d, self.p_m = part.shards, part.model_shards
+        self.layout = _carry_layout(step_fn, carry) if self.p_m > 1 else None
+        row_of = axis_index(mesh, part.mesh_axes)
+        model_of = axis_index(mesh, MODEL_AXIS) if MODEL_AXIS in mesh.shape else [0] * mesh.size
+        self.devices: List[Any] = [None] * (self.p_d * self.p_m)
+        for flat, device in enumerate(mesh.flat_devices):
+            j = model_of[flat]
+            if self.p_m == 1 and j != 0:
+                continue
+            self.devices[row_of[flat] * self.p_m + j] = device
+        leaves = tree_leaves(carry)
+        layout = self.layout or (None,) * len(leaves)
+
+        def block(b: int):
+            i, j = divmod(b, self.p_m)
+            out = []
+            for leaf, ax in zip(leaves, layout):
+                if ax is None or self.p_m == 1:
+                    part_leaf = leaf
+                else:
+                    width = leaf.shape[ax] // self.p_m
+                    part_leaf = leaf.narrow(ax, j * width, width)
+                seeded = i == 0 and (j == 0 or (ax is not None and self.p_m > 1))
+                dev = self.devices[b]
+                out.append(part_leaf.to(dev, copy=True) if seeded else torch.zeros_like(part_leaf, device=dev))
+            return tuple(out)
+
+        self.blocks = [block(b) for b in range(self.p_d * self.p_m)]
+
+    def merge(self, device: torch.device):
+        """THE finish reduction: per leaf, the partials summed over the row
+        shards in shard order; feature leaves then concatenate their model
+        blocks along the layout axis, feature-free leaves sum them."""
+        from ..parallel.collectives import _ordered_sum
+
+        layout = self.layout or (None,) * len(self.blocks[0])
+        out = []
+        for k, ax in enumerate(layout):
+            cols = [
+                _ordered_sum([self.blocks[i * self.p_m + j][k] for i in range(self.p_d)], device)
+                for j in range(self.p_m)
+            ]
+            if self.p_m == 1:
+                out.append(cols[0])
+            elif ax is None:
+                out.append(_ordered_sum(cols, device))
+            else:
+                out.append(torch.cat(cols, dim=ax))
+        return tuple(out)
+
+
 class ChunkStream:
     """The engine-side handle handed to ``Estimator.fit_stream``.
 
@@ -537,11 +635,18 @@ class ChunkStream:
         prefetch: Optional[int] = None,
         workers: Optional[int] = None,
         device: DeviceLike = None,
+        partition=None,
     ):
         self.data = data
         self.labels = labels
         self.members = tuple(members)
         self.chunk_rows = chunk_rows or stream_chunk_rows()
+        # An eligible PartitionDecision runs the sharded chunk plan: the
+        # chunk must divide evenly across the row shards.
+        self.partition = partition if partition is not None and getattr(partition, "eligible", False) else None
+        if self.partition is not None:
+            s = self.partition.shards
+            self.chunk_rows = -(-self.chunk_rows // s) * s
         self.prefetch = prefetch or stream_prefetch_depth()
         self.workers = workers or min(default_ingest_workers(), 4)
         self.device = resolve_device(device)
@@ -591,8 +696,19 @@ class ChunkStream:
         carry = init_fn(feat_spec, ChunkSpec((chunk_rows, y_all.shape[1]), y_dtype))
         if type(data).fetch_rows is Dataset.fetch_rows:
             raise StreamingFallback(f"{type(data).__name__} is not chunkable")
+        part = self.partition
+        if part is not None and part.model_shards > 1:
+            # The plan granted the model axis on the raw width; re-check it
+            # against the estimator's real carry and the step's protocol.
+            part = self._validate_model_axis(part, step_fn, carry)
+        if part is not None and self.durable is not None:
+            raise NotImplementedError(
+                "a checkpointed fold under a sharded partition plan: the sharded "
+                "durable fold and shard-loss recovery are ROADMAP item 14b"
+            )
+        sharded = _ShardedCarry(part, step_fn, carry) if part is not None else None
 
-        record = _shared_step_record(self.members, step_fn)
+        record = _shared_step_record(self.members, step_fn, part)
         members = self.members
         # Index-keyed folds (sketch/core.py) declare needs_mask: the step
         # receives the chunk's pad mask — whose lane holds absolute row
@@ -605,7 +721,12 @@ class ChunkStream:
             chunk_rows=chunk_rows,
             num_examples=n,
             prefetch_depth=self.prefetch,
-            state_bytes_per_device=_tree_nbytes(carry),
+            shards=part.shards if part is not None else 1,
+            model_shards=part.model_shards if part is not None else 1,
+            mesh_shape=tuple(part.mesh_shape) if part is not None else (),
+            # Bytes of streamed state ONE shard holds: falls with the
+            # model shards of a 2-D plan, whole in a row-only one.
+            state_bytes_per_device=_tree_nbytes(sharded.blocks[0] if sharded is not None else carry),
         )
         if start_chunk:
             # Crash-resume: chunks before the cursor live in the seeded
@@ -702,6 +823,31 @@ class ChunkStream:
             bytes_c.inc(nbytes)
             return x, y, mask, moved, copy_start, uploaded
 
+        def sharded_step(x, y, mask):
+            # Each row shard featurizes its slice of the chunk (once per
+            # device) and accumulates into its own carry block(s).
+            from ..parallel.collectives import _to
+
+            rps = chunk_rows // sharded.p_d
+            block_step = getattr(step_fn, "model_block_step", None)
+            slices = {}
+            for b, dev in enumerate(sharded.devices):
+                i, j = divmod(b, sharded.p_m)
+                if (i, dev) not in slices:
+                    rows = slice(i * rps, (i + 1) * rps)
+                    mi = _to(mask[rows], dev)
+                    xi = tree_map(lambda a: _to(a[rows], dev), x)
+                    slices[(i, dev)] = (_apply_chain(members, xi, mi), _to(y[rows], dev), mi)
+                feats, yi, mi = slices[(i, dev)]
+                c = sharded.blocks[b]
+                if sharded.p_m > 1:
+                    c = block_step(c, feats, yi, mi, j) if needs_mask else block_step(c, feats, yi, j)
+                elif needs_mask:
+                    c = step_fn(c, feats, yi, mi)
+                else:
+                    c = step_fn(c, feats, yi)
+                sharded.blocks[b] = c
+
         def commit_checkpoint():
             # Commit-before-continue barrier: the carry's device→host copy
             # waits for every chunk dispatched so far, and the atomic
@@ -749,8 +895,11 @@ class ChunkStream:
                 compute_start = torch.cuda.Event(enable_timing=True)
                 compute_start.record()
             record.note((x, y, mask))
-            feats = _apply_chain(members, x, mask)
-            carry = step_fn(carry, feats, y, mask) if needs_mask else step_fn(carry, feats, y)
+            if sharded is not None:
+                sharded_step(x, y, mask)
+            else:
+                feats = _apply_chain(members, x, mask)
+                carry = step_fn(carry, feats, y, mask) if needs_mask else step_fn(carry, feats, y)
             if cuda:
                 for t in moved:  # filled on the copy stream, read here
                     t.record_stream(compute_stream)
@@ -792,6 +941,8 @@ class ChunkStream:
                     # Graceful yield: the cursor is committed and the
                     # report marked; the prefix carry is returned below.
                     pass
+                if sharded is not None:
+                    carry = self._finish_sharded(sharded, report, len(windows))
             if cuda and report.bytes_transferred and report.preempted_at_chunk is None:
                 report.device_copy_ms = [s.elapsed_time(u) for s, u, _, _ in events]
                 report.device_compute_ms = [s.elapsed_time(d) for _, _, s, d in events]
@@ -834,6 +985,73 @@ class ChunkStream:
         info = {"num_examples": absorbed, "chunks": report.chunks, "report": report}
         return carry, info
 
+    def _finish_sharded(self, sharded: "_ShardedCarry", report: StreamReport, num_windows: int):
+        """THE cross-shard reduction of a partitioned fold, once at finish
+        (an O(d²) payload however many chunks streamed), onto the
+        stream's device, and its plan-pure accounting: with the reduced
+        leaves split into feature bytes B_f (blocked over ``model``) and
+        the remainder B_r, each block holds B_f/p_m + B_r; the data-axis
+        sum moves one block per non-root row shard per model column, the
+        model-axis reassembly one block per non-root model column."""
+        from ..parallel.partitioner import record_collective_bytes, record_imbalance
+
+        carry = sharded.merge(self.device)
+        if report.chunks:
+            p_d, p_m = sharded.p_d, sharded.p_m
+            reduced = _tree_nbytes(carry)
+            b_f = reduced
+            if sharded.layout is not None:
+                b_f = sum(
+                    leaf.numel() * leaf.element_size()
+                    for leaf, ax in zip(tree_leaves(carry), sharded.layout)
+                    if ax is not None
+                )
+            b_r = reduced - b_f
+            report.collective_bytes_data = (b_f + p_m * b_r) * (p_d - 1)
+            report.collective_bytes_model = (b_f // p_m + b_r) * (p_m - 1)
+            report.collective_bytes = report.collective_bytes_data + report.collective_bytes_model
+            record_collective_bytes(report.collective_bytes_data, axis="data")
+            record_collective_bytes(report.collective_bytes_model, axis="model")
+            record_imbalance("fit_stream", self.num_examples, num_windows * self.chunk_rows)
+        return carry
+
+    def _validate_model_axis(self, part, step_fn, carry):
+        """Fold-time check of an optimistically granted model axis against
+        what the planner lacked: the step's blocked-carry protocol and the
+        REAL featurized width in the estimator's carry. A failure demotes
+        the plan to row-only on the same mesh (``demote_model_axis``); a
+        demotion that leaves no row axis to shard returns None (the
+        single-device fold)."""
+        from ..parallel.partitioner import (
+            R_BELOW_WIDTH_FLOOR,
+            R_MODEL_INDIVISIBLE,
+            demote_model_axis,
+            partition_min_width_per_shard,
+        )
+
+        p_m = part.model_shards
+        layout = _carry_layout(step_fn, carry)
+        reason = detail = ""
+        if layout is None or all(ax is None for ax in layout):
+            reason = R_MODEL_INDIVISIBLE
+            detail = f"step {getattr(step_fn, '__name__', type(step_fn).__name__)} declares no blocked-carry protocol"
+        else:
+            widths = {leaf.shape[ax] for leaf, ax in zip(tree_leaves(carry), layout) if ax is not None}
+            width = max(widths)
+            if any(w % p_m for w in widths):
+                reason = R_MODEL_INDIVISIBLE
+                detail = f"featurized width {sorted(widths)} not divisible by {p_m} model shards"
+            elif width < p_m * partition_min_width_per_shard():
+                reason = R_BELOW_WIDTH_FLOOR
+                detail = (
+                    f"featurized width {width} < {p_m} shards × "
+                    f"{partition_min_width_per_shard()} min cols/shard"
+                )
+        if not reason:
+            return part
+        demoted = demote_model_axis(part, reason, detail)
+        return demoted if demoted.eligible else None
+
 
 
 # ------------------------------------------------------------------- operator
@@ -851,6 +1069,10 @@ class StreamingFitOperator(EstimatorOperator):
     batch application then ``fit_datasets`` — and records why on the
     ``stream:fit`` span's ``fallback`` attribute.
     """
+
+    #: PartitionDecision pinned by ``workflow/optimize.py::PartitionPlanRule``
+    #: on a copy of this operator (None: the single-device chunk plan).
+    partition = None
 
     def __init__(
         self,
@@ -901,6 +1123,7 @@ class StreamingFitOperator(EstimatorOperator):
                         chunk_rows=chunk_rows,
                         prefetch=self.prefetch,
                         device=getattr(self.estimator, "device", None),
+                        partition=self.partition,
                     )
                     # Durable fits: with a checkpoint store attached, arm
                     # mid-fit cursor checkpoints and look for a resume

@@ -18,7 +18,7 @@ Search tasks:
 - ``stream`` — chunk_rows × prefetch depth for the streaming engine,
   measured as real ``fit_stream`` runs on synthetic data at the target
   shape; keys ``stream:<chain>:cr<rows>``. One card, so there is no
-  shard-count axis (ROADMAP item 14 brings it).
+  shard-count axis (ROADMAP item 14b brings it).
 - ``solver`` — block_size × precision mode for the in-core block
   least-squares solver, measured as whole estimator fits; keys
   ``solver:block_ls:bs<b>:prec<mode>``. On the card the modes name the

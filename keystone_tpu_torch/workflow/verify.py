@@ -42,10 +42,15 @@ KV402     info      node not statically analyzable (no ``out_spec``, or
 ========  ========  ====================================================
 
 KV203 (sharding-ineligible fit) and KV304 (sharded per-device residency)
-stay in :data:`CODES` so the code table matches the JAX package's, but
-they need the partitioner (``parallel/partitioner.py``, ROADMAP item 14),
-which the port does not have yet: the port emits neither, and
-``VerifyReport.partition`` stays empty.
+come from the partitioner's own decisions (``parallel/partitioner.py``),
+re-derived for every fit without touching the last plan's report; each
+decision rides ``VerifyReport.partition`` (``check --pipeline --json``),
+and with ``buckets`` the serving decision too. KV304 reads per-shard
+residency as the JAX package does — the row slice (twice, for the
+working copy) plus the statistics, blocked over ``model`` in a 2-D plan —
+and multiplies it by the shards the plan maps onto one card (a mesh may
+name one card several times) before comparing it with the card's
+budget.
 
 The ``out_spec`` protocol
 -------------------------
@@ -171,8 +176,8 @@ class VerifyReport:
     annotations: List[NodeAnnotation] = field(default_factory=list)
     seconds: float = 0.0
     context: str = ""
-    #: The partitioner's per-fit decisions in the JAX package; empty in
-    #: the port until ``parallel/partitioner.py`` is ported.
+    #: The partitioner's per-fit decisions (mesh shape, row and model
+    #: shards, spec, reason), as ``PartitionDecision.to_json``.
     partition: List[Dict[str, Any]] = field(default_factory=list)
 
     def diag(self, code: str, message: str, node: Any = None, **details: Any) -> None:
@@ -1028,6 +1033,109 @@ def _sketch_feasibility(
 # ------------------------------------------------------------------ memory
 
 
+def _partition_diagnostics(
+    graph: Graph, interp: "_Interpreter", memory_limit: Optional[int], report: VerifyReport
+) -> None:
+    """The partitioner's view of every fit in the plan, re-derived with
+    ``record=False`` (the last plan's report and metrics stay untouched):
+    KV203 explains a fit that is not partition-managed with the
+    partitioner's reason key; KV304 errors when an ELIGIBLE sharded plan
+    still cannot hold its shards' slices next to their statistics on one
+    card — sharding divides the rows, not the Gram."""
+    from ..parallel.partitioner import Partitioner
+    from .streaming import StreamingFitOperator, stream_chunk_rows
+
+    part = Partitioner()
+    for node in sorted(graph.nodes):
+        op = graph.get_operator(node)
+        if not isinstance(op, EstimatorOperator):
+            continue
+        label = str(getattr(op, "label", type(op).__name__))
+        deps = graph.get_dependencies(node)
+        in_spec = interp.specs.get(deps[0], UNKNOWN) if deps else UNKNOWN
+        rows = _rows(in_spec)
+        streaming = isinstance(op, StreamingFitOperator)
+        pinned = getattr(op, "partition", None)
+        if pinned is not None:
+            # A planned graph carries the plan's own decision: report THAT.
+            decision = pinned
+        else:
+            target = op.estimator if streaming else op
+            opt_out = getattr(target, "partitionable", True) is False
+            model_ok = getattr(target, "supports_model_axis", False)
+            width = _width(in_spec)
+            if streaming:
+                decision = part.decide_stream(
+                    label, op.chunk_rows or stream_chunk_rows(), rows=rows, record=False,
+                    opt_out=opt_out, width=width, model_ok=model_ok,
+                )
+            else:
+                decision = part.decide_fit(
+                    label, rows, record=False, opt_out=opt_out, width=width, model_ok=model_ok
+                )
+        report.partition.append(decision.to_json())
+        if not decision.eligible:
+            interp.diag(
+                "KV203",
+                f"{label}: fit is not partition-managed ({decision.reason}"
+                + (f": {decision.detail}" if decision.detail else "")
+                + ") — streamed/serve fallbacks run single-device, in-core fits keep the legacy "
+                "ambient-mesh path",
+                node=node,
+                reason=decision.reason,
+            )
+            continue
+        if memory_limit is None:
+            continue
+        # Per-shard residency: the row slice (2× for the centered or
+        # featurized working copy) plus the statistics every shard holds.
+        in_bytes = spec_bytes(in_spec)
+        if streaming:
+            feat = interp.specs.get(("feat", node))
+            d = _width(feat) if feat is not None else None
+            chunk = decision.chunk_rows or stream_chunk_rows()
+            row_bytes = (in_bytes // max(rows, 1)) if (in_bytes and rows) else None
+            slice_bytes = 2 * chunk * row_bytes // decision.shards if row_bytes else 0
+        else:
+            d = _width(in_spec)
+            slice_bytes = 2 * in_bytes // decision.shards if in_bytes else 0
+        k = 1
+        if len(deps) > 1:
+            k = _width(interp.specs.get(deps[1])) or 1
+        # 2-D layouts block the feature-indexed statistics over the model
+        # axis; only the label-sized remainder stays whole per shard.
+        p_m = max(1, int(decision.model_shards or 1))
+        stat_bytes = 2 * 4 * ((d * d + d * k + d) // p_m + k) if d else 0
+        per_device = slice_bytes + stat_bytes
+        mesh = decision.mesh
+        per_card = 1
+        if mesh is not None:
+            busiest = max(mesh.shards_per_device().values())
+            per_card = max(1, decision.total_shards * busiest // mesh.size)
+        if per_device * per_card > memory_limit:
+            axis_hint = (
+                "raise KEYSTONE_PARTITION_MODEL_SHARDS or use the sketched tier"
+                if p_m > 1
+                else "sharding divides rows, not the O(d²) state; use the sketched tier or a model-axis layout"
+            )
+            interp.diag(
+                "KV304",
+                f"{label}: sharded over {decision.shards}"
+                + (f"×{p_m}" if p_m > 1 else "")
+                + f" devices the per-device residency is still ~{per_device / 1e9:.2f} GB "
+                f"(row slice {slice_bytes / 1e9:.2f} GB + "
+                + ("feature-blocked" if p_m > 1 else "replicated")
+                + f" statistics {stat_bytes / 1e9:.2f} GB), {per_card} shard(s) per card, against a "
+                f"{memory_limit / 1e9:.2f} GB budget — " + axis_hint,
+                node=node,
+                shards=decision.shards,
+                model_shards=p_m,
+                shards_per_card=per_card,
+                per_device_bytes=per_device,
+                memory_limit=memory_limit,
+            )
+
+
 def _graph_device(graph: Graph) -> Optional[torch.device]:
     """The device the graph's work runs on: the first tensor's device
     among its bound datasets, then the first ``device`` an operator
@@ -1179,8 +1287,13 @@ def _verify_graph(
 
     _fusion_diagnostics(graph, interp)
     _streaming_diagnostics(graph, interp, memory_limit)
+    _partition_diagnostics(graph, interp, memory_limit, report)
 
     if buckets:
+        # The serving decision rides the report next to the warm-set check.
+        from ..parallel.partitioner import Partitioner
+
+        report.partition.append(Partitioner().decide_serve("serving", buckets, record=False).to_json())
         warmed = set(int(b) for b in (warmed_buckets or ()))
         missing = sorted(set(int(b) for b in buckets) - warmed)
         if missing:

@@ -918,3 +918,95 @@ def test_strict_fit_on_the_card_refuses_a_mis_sized_source_before_any_launch(cud
         assert fitted.apply_batch(wide.data).data.shape == (4096,)
     finally:
         os.environ.pop("KEYSTONE_VERIFY", None)
+
+
+# ------------------------------------------------- the multi-device tier
+
+
+def _card_mesh(shape=(8,), axes=("data",)):
+    from keystone_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(shape, axes, devices=[torch.device("cuda", 0)] * 8)
+
+
+def test_collectives_on_8_shards_of_one_card(cuda):
+    """Eight shards of ``cuda:0``: every collective keeps each shard on
+    the card and equals its definition on the whole tensor."""
+    from keystone_tpu_torch.parallel import collectives as coll
+
+    mesh = _card_mesh()
+    x = torch.randn(64, 16, device=cuda)
+    xs = list(x.split(8))
+    total = sum(xs[1:], xs[0].clone())
+    assert all(torch.equal(t, total) for t in coll.allreduce_sum(xs, mesh))
+    assert torch.equal(coll.all_gather(xs, mesh, tiled=True)[3], x)
+    assert torch.equal(coll.ring_permute(xs, mesh, shift=1)[1], xs[0])
+    assert torch.equal(torch.cat(coll.reduce_scatter(xs, mesh)), total)
+    a2a = coll.all_to_all(xs, mesh, split_axis=0, concat_axis=1)
+    assert torch.equal(a2a[2], torch.cat([t[2:3] for t in xs], dim=1))
+    assert all(t.device.type == "cuda" for t in a2a)
+    with pytest.raises(ValueError, match="lies on"):
+        coll.allreduce_sum([t.cpu() for t in xs], mesh)
+
+
+def test_sharded_solvers_on_the_card_match_one_shard(cuda, monkeypatch):
+    """Gram, the refined centered solve, BCD (1-D and 2-D) over 8 shards
+    of the card against the 1-shard results, at IEEE fp32 products."""
+    from keystone_tpu_torch.parallel import linalg
+
+    monkeypatch.setenv("KEYSTONE_SOLVER_PRECISION", "highest")
+    g = torch.Generator(device="cpu").manual_seed(0)
+    x = (torch.randn(4100, 64, generator=g) + 0.5).to(cuda)
+    y = torch.randn(4100, 4, generator=g).to(cuda)
+    mesh = _card_mesh()
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    g8, c8 = linalg.gram(x, y, mesh=mesh)
+    g1, c1 = linalg.gram(x, y)
+    assert rel(g8, g1) <= 1e-5 and rel(c8, c1) <= 1e-5
+    w8 = linalg.centered_solve_refined(x, y, 4100, 1.0, refine_steps=2, mesh=mesh)[0]
+    w1 = linalg.centered_solve_refined(x, y, 4100, 1.0, refine_steps=2)[0]
+    assert rel(w8, w1) <= 1e-5
+    xc, yc = x - x.mean(0), y - y.mean(0)
+    b8 = linalg.block_coordinate_descent(xc, yc, 1.0, 2, 16, mesh=mesh)
+    b1 = linalg.block_coordinate_descent(xc, yc, 1.0, 2, 16)
+    assert rel(b8, b1) <= 1e-5
+    w2d = linalg.block_coordinate_descent_2d(xc, yc, 1.0, 30, 16, mesh=_card_mesh((4, 2), ("data", "model")))
+    assert w2d.device.type == "cuda"
+    exact = torch.linalg.solve(xc.T @ xc + torch.eye(64, device=cuda), xc.T @ yc)
+    assert rel(w2d, exact) <= 1e-4
+
+
+def test_sharded_streamed_fit_on_the_card_matches_one_shard(cuda, monkeypatch):
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.ops.learning.linear import LinearMapEstimator
+    from keystone_tpu_torch.parallel.mesh import use_mesh
+    from keystone_tpu_torch.workflow import BatchTransformer
+    from keystone_tpu_torch.workflow.executor import PipelineEnv
+    from keystone_tpu_torch.workflow.streaming import last_stream_report
+
+    class Scale(BatchTransformer):
+        def apply_arrays(self, a):
+            return a * 2.0
+
+    monkeypatch.setenv("KEYSTONE_STREAM_CHUNK_ROWS", "1024")
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(8192, 64)).astype(np.float32)
+    y = (x @ rng.normal(size=(64, 3)) + 0.01 * rng.normal(size=(8192, 3))).astype(np.float32)
+
+    def fit():
+        PipelineEnv.reset()
+        pipe = Scale().to_pipeline().then_label_estimator(
+            LinearMapEstimator(reg=1e-3, device=cuda), ArrayDataset(x, device="cpu"), ArrayDataset(y, device="cpu"))
+        return pipe.fit().apply_batch(ArrayDataset(x[:256], device=cuda)).data
+
+    one = fit()
+    assert last_stream_report().shards == 1
+    with use_mesh(_card_mesh()):
+        eight = fit()
+        report = last_stream_report()
+    assert (report.shards, report.compiles_steady_state) == (8, 0)
+    assert report.collective_bytes == 4 * (64 * 64 + 64 * 3 + 64 + 3) * 7
+    assert float((eight - one).norm() / one.norm()) <= 1e-5

@@ -137,7 +137,7 @@ def test_four_node_chain_fuses_to_one_node():
 
 def test_fusion_rule_is_in_default_optimizer():
     names = [b.name for b in default_optimizer().batches]
-    assert names[-3:] == ["fusion", "streaming", "measured-knobs"]
+    assert names[-4:] == ["fusion", "streaming", "measured-knobs", "partition"]
 
 
 def test_cacher_is_a_fusion_boundary():

@@ -189,6 +189,10 @@ print(json.dumps({"imported": names, "bad": bad}))
         "keystone_tpu_torch.lint.concurrency",
         "keystone_tpu_torch.lint.lockmodel",
         "keystone_tpu_torch.lint.lockwitness",
+        "keystone_tpu_torch.parallel.mesh",
+        "keystone_tpu_torch.parallel.collectives",
+        "keystone_tpu_torch.parallel.partitioner",
+        "keystone_tpu_torch.workflow.optimize",
     }
     assert expected <= set(result["imported"])
 

@@ -61,9 +61,9 @@ BM, BN = 8, 16
 SMALL_MNIST = dict(num_ffts=2, block_size=512, reg=10.0)
 FUSED = "Fused[RandomSignNode+PaddedFFT+LinearRectifier]"
 SOLVE_SITE = "BlockLeastSquaresEstimator.solve"
-#: Spans of the JAX optimizer's ``measured-knobs`` and ``partition``
-#: batches, which the port has not yet (ROADMAP items 13 and 14).
-UNPORTED_SPANS = {"optimize:batch:partition"}
+#: Spans of the JAX optimizer that the port does not open (none since
+#: the partition batch was ported).
+UNPORTED_SPANS: set = set()
 
 
 @pytest.fixture(autouse=True)

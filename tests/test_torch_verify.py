@@ -18,10 +18,12 @@ both readings and the reason:
   the port compiles nothing, so it counts what it could do on the card
   instead — ELL launches, binding calls, cost facts — and the fused
   chains' first-application counter.
-- KV203 and KV304 come from the JAX package's partitioner, which reads
-  its 8-device test mesh; the port has no partitioner (ROADMAP item 14)
-  and emits neither, so every comparison leaves those two codes out of
-  both reports (and ``ok`` is read without them).
+- KV203 and KV304 come from each package's partitioner, which reads its
+  ambient mesh: the JAX package's test mesh has 8 devices, the port's
+  default mesh one shard. The summaries leave those two codes out of
+  both reports (and ``ok`` is read without them); the tests that compare
+  whole diagnostic lists build the port's report on an 8-shard CPU mesh,
+  and ``tests/test_torch_partition.py`` holds the codes themselves.
 - ``test_docs_codes_sync`` becomes ``test_code_tables_equal_the_jax_packages``:
   the port has no ``docs/``; its tables must equal the JAX package's
   (the lint table without KV505, which the port leaves out).
@@ -210,9 +212,17 @@ def _linear_pair(**shape):
     return LinearMapEstimator(device=CPU).with_data(x, y), JLinearMapEstimator().with_data(jx, jy)
 
 
-#: The partitioner's codes (ROADMAP item 14): the JAX package emits them
-#: on its 8-device test mesh, the port has no partitioner yet.
+#: The partitioner's codes: they read the ambient mesh, 8 devices in the
+#: JAX package's tests and one shard by default in the port.
 PARTITION_CODES = ("KV203", "KV304")
+
+
+def _on_8_shards(fn, *args, **kwargs):
+    """``fn`` under an 8-shard CPU mesh: the JAX package's test mesh."""
+    from keystone_tpu_torch.parallel.mesh import make_mesh, use_mesh
+
+    with use_mesh(make_mesh(devices=[CPU] * 8)):
+        return fn(*args, **kwargs)
 
 
 def _summary(report, specs=True):
@@ -244,7 +254,7 @@ def _jspec(shape, dtype="float32"):
 
 def test_row_mismatch_is_kv101_error():
     pipe, jpipe = _linear_pair(n=64, rows_y=32)
-    report = verify_pipeline(pipe)
+    report = _on_8_shards(verify_pipeline, pipe)
     kv101 = report.by_code("KV101")
     assert len(kv101) == 1 and kv101[0].severity == ERROR
     assert "64 rows" in kv101[0].message and "32 rows" in kv101[0].message
@@ -1013,7 +1023,7 @@ def test_code_tables_equal_the_jax_packages():
 
 
 def test_report_json_roundtrip():
-    report = verify_pipeline(_linear_pair(n=64, rows_y=32)[0])
+    report = _on_8_shards(verify_pipeline, _linear_pair(n=64, rows_y=32)[0])
     payload = report.to_json()
     assert payload["ok"] is False
     assert any(d["code"] == "KV101" for d in payload["diagnostics"])

@@ -324,7 +324,7 @@ def test_default_optimizer_batches():
     names = [(b.name, b.fixed_point) for b in default_optimizer().batches]
     assert names == [
         ("load-saved-state", False), ("cse", True), ("node-level-optimization", False),
-        ("fusion", False), ("streaming", False), ("measured-knobs", False),
+        ("fusion", False), ("streaming", False), ("measured-knobs", False), ("partition", False),
     ]
 
 
