@@ -287,9 +287,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    at the defaults on a 64-image tar, in a subprocess beside ``run()`` on
    the same tar: the same top-5 error;
 31. imagenet_native — ``run_native_resolution`` on the first 256 (cut 14) of
-   1,024 JPEGs at five ImageNet sizes (granularity 32, 10⁶ PCA and GMM
+   512 JPEGs (cut 27) at five ImageNet sizes (granularity 32, 10⁶ PCA and GMM
    samples): the split by span, the peak, training top-5 error; over all
-   1,024 the buckets and padding share and, on each bucket's first two
+   512 the buckets and padding share and, on each bucket's first two
    images, the masked extractors' valid descriptors against each image's
    native-size run (equal counts, SIFT within one step, LCS to
    ``IMAGENET_LCS_STD_ABS``);
@@ -304,7 +304,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    the CPU (``STREAM_CARD_VS_CPU_TOL``); the test scores of classes 0–47
    against a float64 weighted solve (``IMAGENET_SCORES_FP64_TOL``);
 33. imagenet_native_streaming — ``run_native_resolution_streaming`` on
-   phase 31's 1,024 JPEGs (granularity 32, buckets of ≤ 64 rows): its
+   phase 31's 512 JPEGs (granularity 32, buckets of ≤ 64 rows): its
    seconds and training top-5 error; the bucket shapes and padding share
    equal phase 31's; one bucket's fused encode against the op-by-op
    composition, and bit for bit again after ``save`` → ``load``;
@@ -509,6 +509,7 @@ non-zero, printing no result, where no CUDA device is available.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -631,6 +632,10 @@ REFIT_FP64_TOL = 1e-5
 # Each worker's own queue (--queue-depth) holds whatever the supervisor
 # dispatches to it.
 FLEET_ROWS, FLEET_KILL_AT, FLEET_SWEEP_WINDOW, FLEET_WINDOW = 2048, 12, 64, 256
+# Cut 23: 1,024 rows (the sweep's and the kill leg's traffic, the
+# autoscaling replay's payloads, serving_partition's requests); the
+# worker count, the kill at the 12th request and the windows stay.
+FLEET_ROWS = FLEET_ROWS // 2
 # The autoscaling replay's fleet serves one row a batch. The serve
 # process's ingress (parsing each line and re-encoding its 784 floats for
 # the worker, ~1.7 ms a request on the card machine's host) caps what
@@ -652,6 +657,14 @@ FLEET_WORKER_QUEUE, FLEET_BUCKETS = 4096, (1, 2, 4, 8, 16, 32, 64)
 # fleet serves far below the burst rate, so the replay's wall is the
 # offered count over that rate: 9,154 requests took 25 s in a 6 s trace.
 FLEET_TRACE_S, FLEET_BURST_S, FLEET_QUIET_S, FLEET_TRACE_SEED = 4.0, 2.0, 4.0, 7
+# Cut 18: 1,024 requests of that schedule, evenly thinned. Its rates
+# follow the measured one-worker rate, so the count offered in 4 s varied
+# with the host (1,167, 2,571 and 4,177 requests on three H100 hosts, the
+# phase 45–67 s). Thinning keeps the schedule's shape: a burst stays ten
+# times the quiet rate and above what one worker serves at one row a
+# batch (~290 requests/s on the card), so the autoscaler still has a
+# burst to meet, and the replay's length no longer follows the host.
+FLEET_REPLAY_REQUESTS = 1024
 # Publish across the fleet: each answer against the version that served
 # it, applied in this process to all probe rows at once (another batch
 # shape than the worker's bucket: fp32 products round in another order).
@@ -2827,7 +2840,12 @@ LADDER_GRID = (
     # sketched rung priced infinite below its 8,192 floor and finite above
     # it, the pick the fastest rung; the cost model reads n).
     (250_000, 4096, 2, 0.005),
-    (250_000, 16384, 2, 0.005),
+    # Cut 19: the d = 16,384 row at 62,500 rows. Its host L-BFGS fit, run
+    # twice (timed, and as the pipeline's pick), took 12.9 + 13.8 s of the
+    # phase's 45.8 s at 250,000 and 7.5 + 7.1 s at 125,000 on an H100
+    # (PERF.md §4); width and density stay, and its gates read the
+    # width (the sketched rung's 8,192 floor) and the measured rungs, not n.
+    (62_500, 16384, 2, 0.005),
 )
 #: Sparse rows on which the sketched rung must price finite (d ≥ the
 #: 8,192 floor) or infinite (below it), and the pick must be the fastest
@@ -2859,6 +2877,8 @@ NG_TRAIN, NG_TEST = NG_TRAIN // 2, NG_TEST // 2
 # Cut 17: a quarter of each split (2,828 train, 1,883 test); the width
 # gate holds the vectorizer at 100,000 features.
 NG_TRAIN, NG_TEST = NG_TRAIN // 2, NG_TEST // 2
+# Cut 25: an eighth (1,414 train, 941 test); the width gate holds.
+NG_TRAIN, NG_TEST = NG_TRAIN // 2, NG_TEST // 2
 # The synthetic text's own parameters have no public source: the tokens
 # per document, the vocabulary and lexicon sizes, the topic and polarity
 # shares and the Zipf exponent (1.1, near the exponent of about 1 of
@@ -2877,6 +2897,8 @@ AMAZON_TRAIN, AMAZON_TEST, AMAZON_REFERENCE_ROWS, AMAZON_FEATURES = 32_768, 8_19
 AMAZON_TRAIN, AMAZON_TEST = AMAZON_TRAIN // 2, AMAZON_TEST // 2
 # Cut 16: 8,192 train / 2,048 test reviews (a 3.3 GB dense train matrix);
 # the width gate holds the vectorizer at 100,000 features.
+AMAZON_TRAIN, AMAZON_TEST = AMAZON_TRAIN // 2, AMAZON_TEST // 2
+# Cut 26: 4,096 train / 1,024 test reviews; the width gate holds.
 AMAZON_TRAIN, AMAZON_TEST = AMAZON_TRAIN // 2, AMAZON_TEST // 2
 AMAZON_DOC_TOKENS, AMAZON_LEXICON, AMAZON_POLAR_SHARE, AMAZON_NOISE_SHARE = 60, 300, 0.15, 0.03
 
@@ -3498,6 +3520,9 @@ TS_STATE_BYTES, TS_GRAM_BYTES, TS_FP64_TOL = 3_358_687_820, 167_892_582_400, 1e-
 KRR_N, KRR_TEST, KRR_D, KRR_K = 50_000, 10_000, 800, 10
 # Cut 13: 25,000 / 5,000 rows; γ, the block, λ and d stay.
 KRR_N, KRR_TEST = KRR_N // 2, KRR_TEST // 2
+# Cut 24: 12,500 / 2,500 rows; γ, the block, λ and d stay (mesh_estimators'
+# KRR leg runs at these rows too).
+KRR_N, KRR_TEST = KRR_N // 2, KRR_TEST // 2
 KRR_GAMMA, KRR_BLOCK, KRR_EPOCHS, KRR_PERMUTER, KRR_REG = 2e-4, 2048, 1, 12334, 1e-3
 KRR_SPREAD, KRR_SEED, KRR_CPU_ROWS, KRR_NYSTROM = 2.0, 7, 4096, 2048
 # fp32 sweeps against float64 and against each other: γ·‖a − b‖² ≈ 0.3
@@ -4001,6 +4026,10 @@ CONV_ONE_BLOCK_FP64_TOL = 2e-5
 # train and 10,000 test images written as CIFAR-10 binaries; the
 # augmented workloads' training set is cut to 5,000 images (× 10 crops).
 CIFAR_SYNTH_SEED, CIFAR_AUGMENT_TRAIN = 0, 5000
+# Cut 22: the augmented workloads' training set at 2,500 images (× 10
+# crops; both read test error 0.0 at 5,000); the other five workloads
+# keep 50,000 / 10,000.
+CIFAR_AUGMENT_TRAIN = CIFAR_AUGMENT_TRAIN // 2
 CIFAR_ERROR_BOUND, CIFAR_FUSED_VS_BLOCK = 0.2, 0.01
 CIFAR_WORKLOADS = (  # (variant, flags, augmented training set)
     ("random_patch", {"num_filters": 1000, "reg": 3000.0, "whitening_epsilon": 1e-5}, False),
@@ -4320,6 +4349,10 @@ VOC_TRAIN, VOC_TEST, VOC_CLI_IMAGES = 2048, 1024, 64
 # Cut 7: 1,024 train / 512 test images (51 per class); the
 # configuration stays (10⁶ PCA and GMM samples still come from 24.6M
 # descriptors).
+VOC_TRAIN, VOC_TEST = VOC_TRAIN // 2, VOC_TEST // 2
+# Cut 21: 512 train / 256 test images (25 per class; MAP read 0.973 at
+# 1,024 against the 0.5 bound); the configuration stays (10⁶ PCA and GMM
+# samples still come from 12.3M descriptors).
 VOC_TRAIN, VOC_TEST = VOC_TRAIN // 2, VOC_TEST // 2
 VOC_WIDTH, VOC_HEIGHT, VOC_CLASSES, VOC_SEED = 500, 375, 20, 7
 VOC_PERIODS, VOC_AMPLITUDE, VOC_NOISE, VOC_QUALITY = (14.0, 30.0), 60.0, 12.0, 85
@@ -4699,9 +4732,9 @@ NATIVE_DECODE_MEAN_ABS = 1.5  # at the source size (tests/native/test_native_ker
 # output whole (PERF.md §4 lists the prediction of the peak).
 # imagenet_cli: the CLI at the defaults on a 64-image tar of 16 classes
 # (train = test) beside run() on it. imagenet_native: run_native_resolution
-# on the first 256 of 1,024 JPEGs at ImageNet's common sizes (cut from all
-# 1,024 for the time cap, cuts 1 and 14; its gate and the streaming
-# phase 33 still read all 1,024), granularity 32, with the PCA
+# on the first 256 of 512 JPEGs at ImageNet's common sizes (cut from all
+# of them for the time cap, cuts 1 and 14; its gate and the streaming
+# phase 33 still read all 512, cut 27 below), granularity 32, with the PCA
 # and GMM samples cut to 10⁶ each (the time budget).
 IMAGENET_TRAIN, IMAGENET_TEST, IMAGENET_CLI_IMAGES, IMAGENET_NATIVE_IMAGES = 2048, 1000, 64, 1024
 # Cut 15 for the time cap: 1,024 train / 500 test images (half of each);
@@ -4709,6 +4742,11 @@ IMAGENET_TRAIN, IMAGENET_TEST, IMAGENET_CLI_IMAGES, IMAGENET_NATIVE_IMAGES = 204
 IMAGENET_TRAIN, IMAGENET_TEST = IMAGENET_TRAIN // 2, IMAGENET_TEST // 2
 # Cut 14: 256 (cut 1 took it to 512).
 IMAGENET_NATIVE_RUN_IMAGES = 256
+# Cut 27: the native-resolution set at 512 JPEGs (was 1,024), 102–103 at
+# each of the five sizes. Its loads took 7.8 s (phase 31's gate) and
+# 12.5 s (phase 33) of host decode and bucketing on an H100's host
+# (PERF.md §4); the sizes, the granularity, the buckets and every gate stay.
+IMAGENET_NATIVE_IMAGES = 512
 IMAGENET_CLASSES, IMAGENET_CLI_CLASSES, IMAGENET_SEED = 1000, 16, 13
 IMAGENET_SIZE = (500, 375)  # (width, height), as ImageNet's sizes are quoted
 IMAGENET_NATIVE_SIZES = ((500, 375), (375, 500), (500, 333), (333, 500), (400, 300))
@@ -5200,12 +5238,12 @@ def phase_imagenet_cli(device, paths, use_native) -> int:
 
 
 def phase_imagenet_native(device, paths):
-    """Phase 31: ``run_native_resolution`` on the first ``IMAGENET_NATIVE_RUN_IMAGES`` of 1,024 JPEGs
+    """Phase 31: ``run_native_resolution`` on the first ``IMAGENET_NATIVE_RUN_IMAGES`` of 512 JPEGs
     at ImageNet's common sizes (granularity 32; PCA and GMM samples cut to
     10⁶): the split by span, the peak, the training top-5 error; over all
-    1,024, the buckets and their padding share and, per bucket, the masked
+    512, the buckets and their padding share and, per bucket, the masked
     extractors' valid descriptors against each image's native-size run.
-    Returns the ELL launches and the 1,024 images' bucket shapes and
+    Returns the ELL launches and the 512 images' bucket shapes and
     padding share."""
     import torch
 
@@ -5315,10 +5353,14 @@ STREAM_TRAIN, STREAM_TEST, STREAM_CLASSES, STREAM_SIZE, STREAM_BATCH = 50_000, 5
 # Cut 11: 25,000 train / 2,500 test images (25 a class), the
 # configuration and widths kept.
 STREAM_TRAIN, STREAM_TEST = STREAM_TRAIN // 2, STREAM_TEST // 2
+# Cut 20: 12,500 train / 1,250 test images (12.5 a class; the top-5
+# error read 0.0% at 25 a class against the 50% bound); configuration and
+# widths kept.
+STREAM_TRAIN, STREAM_TEST = STREAM_TRAIN // 2, STREAM_TEST // 2
 STREAM_FUSED_TOL, STREAM_CARD_VS_CPU_TOL, STREAM_GATE_IMAGES = 1e-5, 5e-3, 8
 STREAM_FP64_CLASSES, STREAM_PEAK_BOUND, STREAM_TOP5_BOUND = 48, 20e9, 50.0
 # imagenet_native_streaming: run_native_resolution_streaming on
-# imagenet_native's 1,024 JPEGs (granularity 32, buckets of at most 64
+# imagenet_native's 512 JPEGs (cut 27) (granularity 32, buckets of at most 64
 # rows); its gate bucket is the first bucket of the tar's first
 # STREAM_NATIVE_GATE_IMAGES images. imagenet_streaming_cli: the CLI at the
 # defaults on imagenet_cli's 64-image tar beside the same run in process.
@@ -5396,6 +5438,7 @@ def phase_imagenet_streaming_ondevice(device) -> int:
             STREAM_TRAIN, STREAM_TEST, STREAM_CLASSES, STREAM_SIZE, STREAM_BATCH, device=device))
     run_peak = torch.cuda.max_memory_allocated()
     fs = out.pop("flagship")
+    MESH_STASH["flagship"] = fs  # mesh_estimators encodes with its codebooks
     result = {**out, "run_s": run_s, "run_peak_device_bytes": run_peak}
 
     # The float64 gate on the run's own features.
@@ -5475,7 +5518,7 @@ def _first_native_bucket(path):
 
 def phase_imagenet_native_streaming(device, paths, use_native, native_buckets) -> int:
     """Phase 33: ``run_native_resolution_streaming`` on imagenet_native's
-    1,024 JPEGs: its seconds, buckets and training top-5 error; the same
+    512 JPEGs: its seconds, buckets and training top-5 error; the same
     bucket shapes and padding share as the materialized phase; one
     bucket's fused encode against the op-by-op composition, and encoded
     bit for bit again after ``save`` → ``load``."""
@@ -6308,9 +6351,9 @@ def _single_worker(device, artifact, rows, want, boot_image, build_dir) -> dict:
 
 def phase_fleet_elastic(device, artifact: str, rows: np.ndarray, want: np.ndarray, serve: dict, work: str) -> int:
     """Phase 42: a boot image of the MNIST artifact; one worker from it,
-    one classic and one from a tampered manifest (KV307), each with its
-    own empty kernel build directory; then ``serve --autoscale`` from the
-    image under a seeded bursty replay."""
+    one classic and one from a tampered manifest (KV307), side by side,
+    each with its own empty kernel build directory; then ``serve
+    --autoscale`` from the image under a seeded bursty replay."""
     import shutil
     import threading
 
@@ -6331,24 +6374,29 @@ def phase_fleet_elastic(device, artifact: str, rows: np.ndarray, want: np.ndarra
     stale["torch_version"] = "0.0.0+stale"
     with open(os.path.join(tampered, MANIFEST), "w") as f:
         json.dump(stale, f)
-    singles = {"image": _single_worker(device, artifact, rows, want, image, os.path.join(work, "build-image"))}
-    side = {}  # the classic worker and the refused one, side by side
+    # The image's worker, the classic one and the refused one, side by
+    # side, each in its own empty build directory (starting the image's
+    # first, alone, cost one more worker start in sequence).
+    singles = {}
 
     def run(tag, boot_image):
-        side[tag] = _single_worker(device, artifact, rows, want, boot_image, os.path.join(work, f"build-{tag}"))
+        singles[tag] = _single_worker(device, artifact, rows, want, boot_image, os.path.join(work, f"build-{tag}"))
 
-    threads = [threading.Thread(target=run, args=a) for a in (("classic", None), ("refused", tampered))]
+    threads = [threading.Thread(target=run, args=a)
+               for a in (("image", image), ("classic", None), ("refused", tampered))]
     for t in threads:
         t.start()
     for t in threads:
         t.join(900)
-    singles.update(side)
 
     # The autoscaler under a bursty replay, from the image.
     target_ms = 2 * serve["one_worker_p99_ms"]
     rps = serve["one_worker_rps"]
     offsets = bursty_offsets(FLEET_TRACE_S, base_rps=0.2 * rps, burst_rps=2 * rps, burst_len_s=FLEET_BURST_S,
                              quiet_len_s=FLEET_QUIET_S, seed=FLEET_TRACE_SEED)
+    if len(offsets) > FLEET_REPLAY_REQUESTS:
+        keep = np.unique(np.linspace(0, len(offsets) - 1, FLEET_REPLAY_REQUESTS).round().astype(int))
+        offsets = [offsets[i] for i in keep]
     client = _LineClient(
         ["--model", artifact, "--workers", "1", "--autoscale", "--min-workers", "1", "--max-workers", "3",
          "--boot-image", image, "--slo-p99-ms", repr(target_ms), "--listen", "127.0.0.1:0",
@@ -6987,10 +7035,17 @@ KV302_ROWS = 1 << 25
 #: 8,192; the width is the README's, 784 → 4 × 512 → 10).
 CHECK_MNIST_ROWS = 8192
 
-#: ``check_card``'s budget in seconds: the phase fails past it. Its wall
-#: is that of its ``check`` subprocesses, each of which pays a torch
-#: import (5.3–6.6 s on the card's host) before it verifies anything.
-CHECK_CARD_BUDGET_S = 15.0
+#: ``check_card``'s gate on each torch-importing ``check`` process: the
+#: graph verification itself (``verify_s``) under this many seconds, with
+#: torch's symbolic-shapes machinery never imported and no op falling
+#: back from the shape rules to torch's own ``meta`` kernel. That import
+#: (sympy, dynamo: 5–9 s on the card's host, which writes no bytecode) is
+#: what the shape rules removed; the readings were 0.005–0.008 s (PERF.md
+#: §5). The phase's wall and each process's ``wall_s`` are printed, not
+#: gated: they are mostly the process's torch and CUDA start, which
+#: varies with the host (12.3 s and 17.3 s on two hosts for the same
+#: tree).
+CHECK_VERIFY_BUDGET_S = 1.0
 
 
 def _card_counters() -> tuple:
@@ -7219,17 +7274,21 @@ def phase_check_card(device, artifact: str) -> int:
         zero = {"ell_launches": 0, "binding_calls": 0, "memory_allocated_delta": 0}
         if entry.get("rc") != rc or entry.get("codes") != codes or entry.get("device_counts") != zero:
             failed.append(f"cli_{name}")
+        # The shape rules' repair, read in the process itself: no symbolic
+        # shapes imported, no fallback to torch's meta kernels, and the
+        # verification quick.
+        if entry.get("symbolic_shapes_imported") is not False or entry.get("shape_rule_fallbacks") != {} \
+                or not (entry.get("verify_s") is not None and entry["verify_s"] <= CHECK_VERIFY_BUDGET_S):
+            failed.append(f"cli_{name}_verify")
     static = cli.get("static", {})
     if static.get("rc") != 0 or static.get("torch_free") is not True:
         failed.append("cli_static")
 
     seconds = time.perf_counter() - t0
-    if seconds > CHECK_CARD_BUDGET_S:
-        failed.append("budget")
     log("check_card", mnist_rows=CHECK_MNIST_ROWS, slice_documents=len(train), slice_features=NUM_FEATURES,
         clean=clean, slice_fit_ell_launches=slice_fit_launches, seeded_kv101=seeded, kv302=memory,
         kv302_rows=KV302_ROWS, warmed_buckets=buckets, cli=cli, seconds=seconds,
-        budget_s=CHECK_CARD_BUDGET_S, failed=failed, **_mnist_end("check_card", ell_allowed=True))
+        verify_budget_s=CHECK_VERIFY_BUDGET_S, failed=failed, **_mnist_end("check_card", ell_allowed=True))
     if failed:
         raise AssertionError(f"check_card failed {failed}")
     return bs.ell_matmul.launches
@@ -7312,6 +7371,16 @@ SHARDED2D_JAX = {
             "collective_bytes_data": 268_730_496, "collective_bytes_model": 201_547_872},
 }
 SHARDED2D_SKETCH = 2_048  # sketch rows of the sketched rung's 2-D fit
+
+
+def card_hybrid_mesh(replicas: int, shards: int):
+    """``make_hybrid_mesh``'s (replica, data) mesh over ``shards`` shards of
+    the card, in this one process."""
+    import torch
+
+    from keystone_tpu_torch.parallel.mesh import make_hybrid_mesh
+
+    return make_hybrid_mesh(replicas, [torch.device("cuda", 0)] * shards)
 
 
 def card_mesh(shards: int, shape=None, axes=("data",)):
@@ -7710,6 +7779,509 @@ def phase_mesh_legs(device, slice_fit) -> int:
     return sparse_launches
 
 
+# ------------------------------------------------------ multi-device, part 2
+
+# shard_loss / sharded_durable: _bench_sharded's streamed size (8 host
+# chunks of 8,192 × 768, k = 8) through LinearMapEstimator, the estimator
+# of the JAX package's durable tests; the 2-D loss at _bench_sharded2d's
+# width (d = 8,192) on a 2 × 4 layout, card-resident.
+RECOVERY_TOL = 1e-5
+DURABLE_CKPT_CHUNKS, DURABLE_CRASH_CALL = 2, 5  # commits after 2, 4, 6; the 5th dispatch dies
+# mesh_estimators: KRR at kernel_ridge's widths and rows; PCA at VOC's
+# SIFT descriptor width (128 → desc_dim 80) on voc_cli's 10^5 PCA
+# samples; one conv-block epoch at the CIFAR reference's 10,000 filters
+# on MESH_CONV_IMAGES images (rows cut from 50,000: depth); the flagship's
+# encode on MESH_ENCODE_BUCKETS buckets of MESH_ENCODE_ROWS images at its
+# widths (not a multiple of 8: pad rows dropped).
+MESH_PCA_ROWS, MESH_PCA_WIDTH, MESH_PCA_DIMS = 100_000, 128, 80
+# The PCA gate: components are eigenvectors of a float32 Gram whose
+# relative eigengaps near component 80 are ~1.6%, so 8 shards against 1
+# move them by round-off over the gap: the card read 7.2e-5 on the whole
+# matrix on an H100 (a CPU 6.7e-6; PERF.md); the gate is on the whole
+# matrix at 1e-4.
+MESH_PCA_TOL = 1e-4
+# The KRR gate: each float32 fit of kernel_ridge's problem is itself
+# ~1e-4 from float64 (8.0e-5 on an H100; the first block's K + λI
+# has condition 4.8e4), so another grouping of the panel products and the
+# residual's sum moves the scores by as much: 8 shards against 1 read
+# 5.6e-5–9.9e-5 on an H100 (PERF.md). The gate is kernel_ridge's
+# own float64 bound.
+MESH_KRR_TOL = KRR_FP64_TOL
+MESH_CONV_IMAGES = 2048
+MESH_ENCODE_BUCKETS, MESH_ENCODE_ROWS = 3, 60
+# tune_shards: the JAX CLI's default stream shape, the stream grid whole
+# (chunk sizes up to rows / 2: 5 × 2 prefetch depths × shards [1, 8] = 20
+# candidates; the budget of 24 leaves none out).
+TUNE_SHARDS_FLAGS = ["--rows", "8192", "--dim", "256", "--classes", "4", "--budget", "24", "--time-budget-s", "120"]
+# rehearsal_card: two processes, 4 shards of the card each, on gloo.
+REHEARSAL_SHARDS, REHEARSAL_TOL, REHEARSAL_DEVICE = 4, 1e-5, "cuda"
+MESH_STASH: dict = {}
+
+
+def _stream_problem_host():
+    """The streamed legs' host rows (65,536 × 768, k = 8), drawn once."""
+    if "stream" not in MESH_STASH:
+        chunk, d, k = SHARDED_STREAM
+        rng = np.random.default_rng(56)
+        x = rng.normal(size=(8 * chunk, d)).astype(np.float32)
+        y = (x[:, :k] + 0.1 * rng.normal(size=(8 * chunk, k))).astype(np.float32)
+        MESH_STASH["stream"] = (x, y)
+    return MESH_STASH["stream"]
+
+
+def _recovery_fit(device, x, y, probe, shards, faults=(), one_device=False):
+    """One ``Pipeline.fit`` of LinearRectifier → LinearMapEstimator over
+    ``shards`` shards of the card (or with partitioning off): the probe
+    rows' predictions, the stream report and the wall."""
+    import torch
+
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.ops.learning.linear import LinearMapEstimator
+    from keystone_tpu_torch.ops.stats.core import LinearRectifier
+    from keystone_tpu_torch.parallel.mesh import use_mesh
+    from keystone_tpu_torch.parallel.partitioner import partition_disabled
+    from keystone_tpu_torch.reliability.faultinject import injected
+    from keystone_tpu_torch.workflow.executor import PipelineEnv
+    from keystone_tpu_torch.workflow.streaming import last_stream_report
+
+    store = PipelineEnv.get_or_create().checkpoint
+    PipelineEnv.reset()
+    if store is not None:
+        PipelineEnv.get_or_create().checkpoint = store
+    pipe = LinearRectifier(0.0).to_pipeline().then_label_estimator(
+        LinearMapEstimator(reg=1e-2, device=device), x, y)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with use_mesh(card_mesh(shards)), injected(*faults), \
+            (partition_disabled() if one_device else contextlib.nullcontext()):
+        fitted = pipe.fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return fitted.apply_batch(ArrayDataset(probe)).data.clone(), last_stream_report(), wall
+
+
+def _recovery_line(report, wall, preds, ref) -> dict:
+    return {"shard_losses": report.shard_losses, "shards": report.shards, "model_shards": report.model_shards,
+            "reingested_chunks": report.reingested_chunks, "resumed_from_chunk": report.resumed_from_chunk,
+            "chunks": report.chunks, "checkpoints": report.checkpoints, "wall_s": wall,
+            "vs_uninterrupted_rel": rel_err(preds, ref)}
+
+
+def phase_shard_loss(device) -> int:
+    """Phase 56: seeded shard losses mid-fold, each against the
+    uninterrupted 8-shard fold of the same rows: the last shard, the
+    seed-bearing shard 0, two losses in turn, and a loss on the model
+    axis of a 2 × 4 layout at d = 8,192."""
+    import torch
+
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.obs import names
+    from keystone_tpu_torch.reliability.faultinject import FaultSpec
+
+    _mnist_start()
+    t0 = time.perf_counter()
+    chunk, d, k = SHARDED_STREAM
+    hx, hy = _stream_problem_host()
+    x, y = ArrayDataset(hx, device="cpu"), ArrayDataset(hy, device="cpu")
+    probe = torch.as_tensor(hx[:64], device=device)
+    os.environ["KEYSTONE_STREAM_CHUNK_ROWS"] = str(chunk)
+    losses_before = names.metric(names.DURABLE_SHARD_LOSSES).value()
+    ref, ref_report, ref_wall = _recovery_fit(device, x, y, probe, 8)
+    legs = {"uninterrupted": _recovery_line(ref_report, ref_wall, ref, ref)}
+    cases = (("last_shard", None, (4,), (1, 7)), ("seed_shard_0", "0", (4,), (1, 7)),
+             ("two_losses", None, (2, 6), (2, 6)))
+    failed = []
+    for name, index, calls, (losses, shards) in cases:
+        if index is None:
+            os.environ.pop("KEYSTONE_SHARD_LOSS_INDEX", None)
+        else:
+            os.environ["KEYSTONE_SHARD_LOSS_INDEX"] = index
+        preds, report, wall = _recovery_fit(
+            device, x, y, probe, 8, (FaultSpec(match="parallel.shard_loss", kind="transient", calls=calls),))
+        legs[name] = _recovery_line(report, wall, preds, ref)
+        if (report.shard_losses, report.shards) != (losses, shards) or not report.reingested_chunks \
+                or not legs[name]["vs_uninterrupted_rel"] <= RECOVERY_TOL:
+            failed.append(name)
+    os.environ.pop("KEYSTONE_SHARD_LOSS_INDEX", None)
+
+    # The model axis of a 2 × 4 layout: flat shard 7 is (row 1, column 3).
+    n2, d2, k2, chunk2 = SHARDED2D
+    g = torch.Generator(device=device).manual_seed(56)
+    x2 = ArrayDataset(torch.randn(n2, d2, device=device, generator=g))
+    y2 = ArrayDataset(torch.randn(n2, k2, device=device, generator=g))
+    probe2 = x2.data[:64]
+    os.environ.update({"KEYSTONE_STREAM_CHUNK_ROWS": str(chunk2), "KEYSTONE_PARTITION_MIN_WIDTH": "64",
+                       "KEYSTONE_PARTITION_MODEL_SHARDS": "4"})
+    ref2, rep2, wall2 = _recovery_fit(device, x2, y2, probe2, 8)
+    legs["2x4_uninterrupted"] = _recovery_line(rep2, wall2, ref2, ref2)
+    preds2, rep2, wall2 = _recovery_fit(
+        device, x2, y2, probe2, 8, (FaultSpec(match="parallel.shard_loss", kind="transient", calls=(3,)),))
+    legs["2x4_model_axis"] = _recovery_line(rep2, wall2, preds2, ref2)
+    if legs["2x4_uninterrupted"]["model_shards"] != 4 or (rep2.shard_losses, rep2.shards, rep2.model_shards) \
+            != (1, 7, 1) or not legs["2x4_model_axis"]["vs_uninterrupted_rel"] <= RECOVERY_TOL:
+        failed.append("2x4_model_axis")
+    for key in ("KEYSTONE_STREAM_CHUNK_ROWS", "KEYSTONE_PARTITION_MIN_WIDTH", "KEYSTONE_PARTITION_MODEL_SHARDS"):
+        os.environ.pop(key, None)
+    del x2, y2, probe2, ref2, preds2
+    torch.cuda.empty_cache()
+    counted = names.metric(names.DURABLE_SHARD_LOSSES).value() - losses_before
+    if counted != 5:
+        failed.append(f"shard_losses_metric_{counted}")
+    counts = _mnist_end("shard_loss")
+    log("shard_loss", stream={"n": 8 * chunk, "d": d, "k": k, "chunk_rows": chunk},
+        wide={"n": n2, "d": d2, "k": k2, "chunk_rows": chunk2, "layout": "2x4"}, legs=legs,
+        shard_losses_counted=counted, tol=RECOVERY_TOL, note=MESH_NOTE, seconds=time.perf_counter() - t0,
+        failed=failed, **counts)
+    if failed:
+        raise AssertionError(f"shard_loss failed {failed}")
+    return counts["ell_launches"]
+
+
+def phase_sharded_durable(device) -> int:
+    """Phase 57: the 8-shard streamed fold with a checkpoint store,
+    stopped by an injected fault at its 5th chunk, resumed on 8 shards
+    and, from the same stopped state, on one device; both against the
+    uninterrupted fold."""
+    import shutil
+
+    import torch
+
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.reliability import enable_checkpointing
+    from keystone_tpu_torch.reliability.faultinject import FaultSpec
+    from keystone_tpu_torch.workflow.executor import PipelineEnv
+
+    _mnist_start()
+    t0 = time.perf_counter()
+    chunk, d, k = SHARDED_STREAM
+    hx, hy = _stream_problem_host()
+    x, y = ArrayDataset(hx, device="cpu"), ArrayDataset(hy, device="cpu")
+    probe = torch.as_tensor(hx[:64], device=device)
+    os.environ.update({"KEYSTONE_STREAM_CHUNK_ROWS": str(chunk), "KEYSTONE_STREAM_CKPT_CHUNKS": str(DURABLE_CKPT_CHUNKS)})
+    work = tempfile.TemporaryDirectory(prefix="keystone-sharded-durable-")
+    legs, failed = {}, []
+    try:
+        ref, report, wall = _recovery_fit(device, x, y, probe, 8)
+        legs["uninterrupted"] = _recovery_line(report, wall, ref, ref)
+        crash = FaultSpec(match="streaming.chunk", kind="transient", calls=(DURABLE_CRASH_CALL,))
+        stopped = os.path.join(work.name, "stopped")
+        for name, one_device in (("resumed_8_shards", False), ("resumed_one_device", True)):
+            store_dir = os.path.join(work.name, name)
+            PipelineEnv.reset()
+            enable_checkpointing(store_dir, device=device)
+            try:
+                _recovery_fit(device, x, y, probe, 8, (crash,))
+                failed.append(f"{name}_not_stopped")
+            except ConnectionError:
+                pass
+            if name == "resumed_8_shards":
+                shutil.copytree(store_dir, stopped)
+            PipelineEnv.reset()
+            enable_checkpointing(store_dir, device=device)
+            preds, report, wall = _recovery_fit(device, x, y, probe, 8, one_device=one_device)
+            legs[name] = _recovery_line(report, wall, preds, ref)
+            want_shards = 1 if one_device else 8
+            if report.resumed_from_chunk != 4 or report.shards != want_shards or report.chunks != 4 \
+                    or not legs[name]["vs_uninterrupted_rel"] <= RECOVERY_TOL:
+                failed.append(name)
+        legs["stopped_store_files"] = sorted(os.listdir(stopped))
+    finally:
+        PipelineEnv.reset()
+        for key in ("KEYSTONE_STREAM_CHUNK_ROWS", "KEYSTONE_STREAM_CKPT_CHUNKS"):
+            os.environ.pop(key, None)
+        work.cleanup()
+    counts = _mnist_end("sharded_durable")
+    log("sharded_durable", n=8 * chunk, d=d, k=k, chunk_rows=chunk, ckpt_chunks=DURABLE_CKPT_CHUNKS,
+        crash_at_dispatch=DURABLE_CRASH_CALL, legs=legs, tol=RECOVERY_TOL, seconds=time.perf_counter() - t0,
+        failed=failed, **counts)
+    if failed:
+        raise AssertionError(f"sharded_durable failed {failed}")
+    return counts["ell_launches"]
+
+
+def _timed_on_shards(fn, shards, mesh=None):
+    """``fn()`` under a mesh of ``shards`` shards of the card: its result,
+    wall and peak."""
+    import torch
+
+    from keystone_tpu_torch.parallel.mesh import use_mesh
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with use_mesh(mesh if mesh is not None else card_mesh(shards)):
+        out = fn()
+    torch.cuda.synchronize()
+    return out, {"wall_s": time.perf_counter() - t, "peak_device_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_mesh_estimators(device) -> int:
+    """Phase 58: the estimators' mesh paths, 8 shards against 1: KRR at
+    kernel_ridge's widths on 8 × 1 and on a 2 × 4 hybrid mesh (fit and
+    ring apply), the TSQR PCA at VOC's descriptor width, one conv-block
+    epoch at the CIFAR reference's 10,000 filters, and the flagship's
+    encode over a few buckets."""
+    import torch
+
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.ops.learning.conv_block import ConvBlockLeastSquaresEstimator
+    from keystone_tpu_torch.ops.learning.pca import DistributedPCAEstimator
+    from keystone_tpu_torch.parallel import collectives as coll
+    from keystone_tpu_torch.pipelines.imagenet_streaming import _synth_images
+
+    _mnist_start()
+    t0 = time.perf_counter()
+    legs, failed = {}, []
+
+    def compare(name, run, tol, meshes):
+        out = {}
+        ref, out["1"] = _timed_on_shards(run, 1)
+        for label, mesh in meshes:
+            calls = dict(coll.calls)
+            got, out[label] = _timed_on_shards(run, 8, mesh)
+            out[label]["collective_calls"] = {c: coll.calls[c] - calls[c] for c in calls if coll.calls[c] > calls[c]}
+            out[label]["vs_1_shard_rel"] = rel_err(got, ref)
+            if not out[label]["vs_1_shard_rel"] <= tol or not out[label]["collective_calls"]:
+                failed.append(f"{name}_{label}")
+        out["tol"] = tol
+        legs[name] = out
+        return ref
+
+    # KRR: the fit and the apply's scores on the test rows.
+    x, y, _labels = krr_problem()
+    xd = torch.as_tensor(x, device=device)
+    train, test = ArrayDataset(xd[:KRR_N]), xd[KRR_N:]
+    labels = ArrayDataset(torch.as_tensor(y[:KRR_N], device=device))
+
+    def krr():
+        return _krr(KRR_BLOCK, device).fit(train, labels).apply_arrays(test)
+
+    compare("krr", krr, MESH_KRR_TOL, (("8x1", card_mesh(8)), ("2x4_hybrid", card_hybrid_mesh(2, 8))))
+    legs["krr"].update(n=KRR_N, test=KRR_TEST, d=KRR_D, k=KRR_K, block=KRR_BLOCK)
+    del xd, train, test, labels
+
+    # PCA at VOC's SIFT width: a spectrum of scales 1…128.
+    rng = np.random.default_rng(58)
+    z = rng.normal(size=(MESH_PCA_ROWS, MESH_PCA_WIDTH)) * np.arange(1, MESH_PCA_WIDTH + 1)
+    q, _ = np.linalg.qr(rng.normal(size=(MESH_PCA_WIDTH, MESH_PCA_WIDTH)))
+    descriptors = ArrayDataset(torch.as_tensor((z @ q.T).astype(np.float32), device=device))
+    compare("pca", lambda: DistributedPCAEstimator(MESH_PCA_DIMS).fit(descriptors).components, MESH_PCA_TOL,
+            (("8x1", card_mesh(8)),))
+    legs["pca"].update(n=MESH_PCA_ROWS, d=MESH_PCA_WIDTH, dims=MESH_PCA_DIMS)
+    del descriptors
+
+    # One conv-block epoch at 10,000 filters (20 blocks of 512).
+    filters, cifar_labels, crng = cifar_reference_draws()
+    fz = cifar_featurizer(filters, device)
+    images = ArrayDataset(torch.as_tensor(crng.random((MESH_CONV_IMAGES, 32, 32, 3), dtype=np.float32),
+                                          device=device))
+    targets = ArrayDataset(torch.as_tensor(cifar_labels[:MESH_CONV_IMAGES], device=device))
+    probe = images.data[:256]
+
+    def conv():
+        model = ConvBlockLeastSquaresEstimator(fz, block_size=CIFAR_SOLVER_BLOCK, num_iter=1, reg=CIFAR_REG,
+                                               image_chunk=CIFAR_CHUNK, device=device).fit(images, targets)
+        return model.apply_arrays(probe)
+
+    compare("conv_block", conv, MESH_TOL, (("8x1", card_mesh(8)),))
+    legs["conv_block"].update(images=MESH_CONV_IMAGES, filters=CIFAR_FILTERS, feature_width=8 * CIFAR_FILTERS,
+                              solver_block=CIFAR_SOLVER_BLOCK)
+    del fz, images, targets, probe
+    torch.cuda.empty_cache()
+
+    # The flagship's encode over buckets whose rows are not a multiple of 8.
+    fs = MESH_STASH.pop("flagship")
+    gen = torch.Generator(device=device).manual_seed(58)
+    buckets = []
+    for b in range(MESH_ENCODE_BUCKETS):
+        lab = torch.arange(MESH_ENCODE_ROWS, device=device) % STREAM_CLASSES
+        buckets.append({"image": _synth_images(lab, STREAM_SIZE, gen).cpu().numpy(),
+                        "dims": np.full((MESH_ENCODE_ROWS, 2), STREAM_SIZE, np.int32)})
+    plain = fs.encode_buckets(iter(buckets))
+    sharded, timing = _timed_on_shards(lambda: fs.encode_buckets(iter(buckets), mesh=card_mesh(8)), 8)
+    encode_rel = rel_err(torch.from_numpy(sharded), torch.from_numpy(plain)) if sharded.shape == plain.shape else None
+    legs["encode"] = {"buckets": MESH_ENCODE_BUCKETS, "rows_per_bucket": MESH_ENCODE_ROWS, "size": STREAM_SIZE,
+                      "fv_dim": int(plain.shape[1]), "8x1": {**timing, "vs_1_shard_rel": encode_rel},
+                      "tol": MESH_TOL}
+    if encode_rel is None or not encode_rel <= MESH_TOL:
+        failed.append("encode")
+    del fs, buckets
+    torch.cuda.empty_cache()
+    counts = _mnist_end("mesh_estimators")
+    log("mesh_estimators", legs=legs, note=MESH_NOTE, seconds=time.perf_counter() - t0, failed=failed, **counts)
+    if failed:
+        raise AssertionError(f"mesh_estimators failed {failed}")
+    return counts["ell_launches"]
+
+
+def phase_serving_partition(device, artifact: str, rows: np.ndarray, want: np.ndarray) -> int:
+    """Phase 59: phase 6's MNIST artifact behind a ``PipelineServer`` on an
+    8-shard mesh of the card: the registry's load and the warmup attach
+    one serving decision, every divisible batch is applied shard by shard,
+    and the answers equal the unsharded server's, with nothing dropped."""
+    from concurrent.futures import wait
+
+    from keystone_tpu_torch.obs import names
+    from keystone_tpu_torch.parallel.mesh import use_mesh
+    from keystone_tpu_torch.serving import ModelRegistry, PipelineServer, ServingConfig
+    from keystone_tpu_torch.serving.config import default_bucket_sizes
+
+    _mnist_start()
+    t0 = time.perf_counter()
+    config = ServingConfig(max_batch=64, max_wait_ms=2.0, queue_depth=4096)
+    buckets = list(default_bucket_sizes(config.max_batch))
+    decisions = names.metric(names.PARTITION_DECISIONS)
+
+    def serve(shards):
+        with use_mesh(card_mesh(shards)):
+            before = decisions.value(kind="serve", eligible="1")
+            registry = ModelRegistry()
+            registry.load_fitted("mnist", artifact, device=device, buckets=buckets, warmed_buckets=buckets)
+            server = PipelineServer(config=config, registry=registry, name="mnist", device=device)
+            server.start()
+            try:
+                warm = server.warmup(rows[0])
+                server.warmup(rows[0])  # a second attach: one decision all the same
+                t = time.perf_counter()
+                futures = [server.submit(r) for r in rows]
+                wait(futures, timeout=120)
+                wall = time.perf_counter() - t
+                labels = _served_labels(futures)
+                stats = server.stats()
+            finally:
+                server.stop()
+            handle = registry.resolve("mnist").model.compiled_apply()
+            return labels, {
+                "decision": warm.get("partition_decisions", {}).get("mnist"),
+                "decisions_recorded": decisions.value(kind="serve", eligible="1") - before,
+                "sharded_batches": handle.sharded_calls, "batches": stats["batches"],
+                "served": stats["served"], "dropped": stats["sheds"] + stats["timeouts"] + stats["failures"],
+                "wall_s": wall, "requests_per_s": len(rows) / wall}
+
+    plain_labels, plain = serve(1)
+    labels, sharded = serve(8)
+    _check_labels("serving_partition unsharded", plain_labels, want, np.zeros((len(rows), 2)))
+    _check_labels("serving_partition sharded", labels, plain_labels, np.zeros((len(rows), 2)))
+    counts = _mnist_end("serving_partition")
+    log("serving_partition", requests=len(rows), buckets=buckets, unsharded=plain, sharded=sharded,
+        answers_equal=bool((labels == plain_labels).all()), seconds=time.perf_counter() - t0, **counts)
+    checks = {
+        "decision": (sharded["decision"] or {}).get("eligible") is True and sharded["decision"]["shards"] == 8,
+        "one_decision": sharded["decisions_recorded"] == 1 and plain["decisions_recorded"] == 0,
+        "sharded_batches": sharded["sharded_batches"] > 0 and plain["sharded_batches"] == 0,
+        "nothing_dropped": sharded["dropped"] == 0 and sharded["served"] >= len(rows),
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"serving_partition failed {failed}")
+    return counts["ell_launches"]
+
+
+def phase_tune_shards(device) -> int:
+    """Phase 60: ``tune --tasks stream`` under an 8-shard mesh of the card:
+    candidates at shards 1 and 8, each with the shard count that ran, and
+    the persisted winner with its shard count."""
+    from keystone_tpu_torch.obs import store
+    from keystone_tpu_torch.parallel.mesh import use_mesh
+
+    _mnist_start()
+    t0 = time.perf_counter()
+    saved = os.environ.get("KEYSTONE_PROFILE_STORE")
+    work = tempfile.TemporaryDirectory(prefix="keystone-tune-shards-")
+    os.environ["KEYSTONE_PROFILE_STORE"] = os.path.join(work.name, "tuned.jsonl")
+    store.set_store(None)
+    try:
+        with use_mesh(card_mesh(8)):
+            rc, out = _cli(["tune", "--tasks", "stream", *TUNE_SHARDS_FLAGS, "--device", str(device)])
+        task = out["TUNE_JSON"]["tasks"]["stream"]
+        entries = {k: m for k, _s, m in store.get_store().entries(key_prefix="stream:") if m.get("source") == "tune"}
+    finally:
+        if saved is None:
+            os.environ.pop("KEYSTONE_PROFILE_STORE", None)
+        else:
+            os.environ["KEYSTONE_PROFILE_STORE"] = saved
+        store.set_store(None)
+        work.cleanup()
+    measured = [{"knobs": m["knobs"], "rows_per_s": m["objective"], "shards_actual": m.get("shards_actual"),
+                 "chunk_rows_actual": m.get("chunk_rows_actual")} for m in task["measured"]]
+    winner = task["winner"]
+    ran = next((m for m in measured if m["knobs"] == winner), None)
+    # The winner's own entry, by the chunk rows, prefetch depth and shard
+    # count that ran, and the store's best entry, which the knob rule replays.
+    suffix = ran and f":cr{ran['chunk_rows_actual']}:p{winner['prefetch']}:s{ran['shards_actual']}"
+    persisted = next((e for k, e in entries.items() if suffix and k.endswith(suffix)), None)
+    best = max(entries.values(), key=lambda e: e["rows_per_s"], default=None)
+    counts = _mnist_end("tune_shards")
+    log("tune_shards", measured=measured, winner=winner, winner_objective=task["winner_objective"],
+        persisted_winner=persisted, best_persisted=best, entries=len(entries), candidates=len(measured),
+        seconds=time.perf_counter() - t0, **counts)
+    checks = {
+        "exit_0": rc == 0,
+        "both_shard_counts": {m["knobs"]["shards"] for m in measured} == {1, 8},
+        "shards_actual": all(m["shards_actual"] == m["knobs"]["shards"] for m in measured),
+        "one_entry_per_candidate": len(entries) == len(measured),
+        "winner_persisted_with_shards": bool(persisted) and persisted is best
+        and (persisted["shards"], persisted["prefetch_depth"], persisted["chunk_rows"])
+        == (ran["shards_actual"], winner["prefetch"], ran["chunk_rows_actual"]),
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"tune_shards failed {failed}")
+    return counts["ell_launches"]
+
+
+def start_rehearsal_card() -> dict:
+    """Phase 61's two rehearsal processes, started at once and early (as
+    ``check_card`` starts its CLIs), so that their torch and CUDA starts
+    overlap the in-process phases 56–60; :func:`phase_rehearsal_card`
+    joins them."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    procs = {
+        i: subprocess.Popen(
+            [sys.executable, "-m", "keystone_tpu_torch.parallel.rehearsal", "--coordinator", f"127.0.0.1:{port}",
+             "--num-hosts", "2", "--host-id", str(i), "--local-shards", str(REHEARSAL_SHARDS),
+             "--device", REHEARSAL_DEVICE, "--backend", "gloo"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for i in (0, 1)
+    }
+    return {"procs": procs, "t0": time.perf_counter(), "port": port}
+
+
+def phase_rehearsal_card(started: dict) -> int:
+    """Phase 61: two processes join a gloo group on the card (NCCL refuses
+    two ranks on one GPU), each holding 4 shards of its half of the known
+    matrix; the sharded Gram crosses them and matches the closed form."""
+    runs, failed = {}, []
+    try:
+        for i, proc in started["procs"].items():
+            out, err = proc.communicate(timeout=300)
+            line = next((ln for ln in out.splitlines() if ln.startswith("REHEARSAL_OK")), None)
+            fields = dict(kv.split("=") for kv in line.split()[1:]) if line else {}
+            runs[i] = {"rc": proc.returncode, "line": line, "host": next(
+                (ln for ln in out.splitlines() if ln.startswith("host ")), None),
+                "wall_s": time.perf_counter() - started["t0"]}
+            if proc.returncode != 0 or not line or not float(fields["rel_err"]) <= REHEARSAL_TOL \
+                    or fields.get("mode") != "gloo":
+                runs[i]["stderr"] = err[-1500:]
+                failed.append(f"process_{i}")
+    finally:
+        for proc in started["procs"].values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log("rehearsal_card", processes=2, local_shards=REHEARSAL_SHARDS, backend="gloo", runs=runs,
+        tol=REHEARSAL_TOL, seconds=time.perf_counter() - started["t0"], failed=failed)
+    if failed:
+        raise AssertionError(f"rehearsal_card failed {failed}")
+    return 0
+
+
 def card_name_and_limit() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -7839,7 +8411,6 @@ def main() -> int:
     launches_by_path["profile_card"] = phase_profile_card(device)
     launches_by_path["cosched"] = phase_cosched(device, artifact)
     launches_by_path["check_card"] = phase_check_card(device, artifact)
-    artifact_dir.cleanup()
     launches_by_path["trace_fleet"] = phase_trace_fleet(device)
     phase_obs_cli({name: {k: v for k, v in PHASE_LINES[name].items() if not isinstance(v, list)}
                    for name in ("roofline_probe", "profile_card", "cosched")})
@@ -7851,6 +8422,19 @@ def main() -> int:
     launches_by_path["mesh_legs"] = phase_mesh_legs(device, slice_fit)
     del slice_fit
     log("mesh_phases", seconds=time.perf_counter() - t_mesh)
+    t_mesh2 = time.perf_counter()
+    # Started after the first mesh phases, so that their starts share the
+    # host and the card with none of those timings; they overlap the
+    # in-process phases below.
+    rehearsal = start_rehearsal_card()
+    launches_by_path["shard_loss"] = phase_shard_loss(device)
+    launches_by_path["sharded_durable"] = phase_sharded_durable(device)
+    launches_by_path["mesh_estimators"] = phase_mesh_estimators(device)
+    launches_by_path["serving_partition"] = phase_serving_partition(device, artifact, fleet_rows, fleet_want)
+    artifact_dir.cleanup()
+    launches_by_path["tune_shards"] = phase_tune_shards(device)
+    launches_by_path["rehearsal_card"] = phase_rehearsal_card(rehearsal)
+    log("mesh_phases_part_2", seconds=time.perf_counter() - t_mesh2)
     log_verify_run()
     # The binding's calls on the paths (gram_modes times it and is left out).
     paths = {p: c for p, c in SOLVER_GEMM_CALLS.items() if p != "gram_modes"}

@@ -313,6 +313,16 @@ def main(argv: Optional[list] = None) -> int:
         for name, entry in COMMANDS.items():
             print(f"{name:28s} {entry[0]}")
         return 0
+    # A multi-host launch sets KEYSTONE_DISTRIBUTED=1: join the process
+    # group (KEYSTONE_COORDINATOR / KEYSTONE_NUM_HOSTS / KEYSTONE_HOST_ID,
+    # or a launcher's MASTER_ADDR / WORLD_SIZE / RANK) before any device
+    # use.
+    from .envknobs import env_set
+
+    if env_set("KEYSTONE_DISTRIBUTED"):
+        from .parallel.mesh import distributed_init
+
+        distributed_init()
     if args.workload in COMMANDS:
         _help, _wm, _wf, module_name, fn_name = COMMANDS[args.workload]
         module = importlib.import_module(module_name, package="keystone_tpu_torch")

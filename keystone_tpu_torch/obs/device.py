@@ -6,9 +6,12 @@ own accounting (``torch.cuda.memory_stats(device)``:
 ``allocated_bytes.all.current`` / ``.peak``) on an explicit CUDA device,
 and host RSS (``/proc/self/statm``, then ``resource``) otherwise, as the
 JAX package does on its CPU meshes. Either way the snapshot says which
-source it used, so a reader never mistakes RSS for device memory. The
-JAX package's per-device snapshots and payload serve its multichip
-dry runs and come with ROADMAP item 14b.
+source it used, so a reader never mistakes RSS for device memory.
+:func:`per_device_snapshots` takes one snapshot per distinct card of a
+mesh (default the ambient one) and one host-RSS entry, labelled
+``host``, for its CPU shards; :func:`publish_per_device_memory` and
+:func:`device_obs_payload` publish and embed them, as the JAX package's
+do for its multi-device runs.
 
 ``device_annotation`` wraps a code region in
 ``torch.profiler.record_function`` and, on a card, an NVTX range, so
@@ -139,6 +142,69 @@ def publish_memory(stage: Optional[str] = None, device: Any = None) -> Dict[str,
             snap["peak_bytes_in_use"], stage=stage, device="all"
         )
     return snap
+
+
+def per_device_snapshots(mesh: Any = None) -> list:
+    """One memory snapshot per distinct device of ``mesh`` (default: the
+    ambient mesh), labelled ``cuda:<i>`` for a card, in mesh order. The
+    CPU shards of a mesh collapse to ONE host-RSS entry labelled
+    ``host``: per-shard RSS attribution would be fiction. A card whose
+    statistics call fails gives an error entry instead of vanishing."""
+    from ..parallel.mesh import get_mesh
+
+    mesh = mesh if mesh is not None else get_mesh()
+    out, seen, host = [], set(), False
+    for dev in mesh.flat_devices:
+        if dev in seen:
+            continue
+        seen.add(dev)
+        if dev.type != "cuda":
+            host = True
+            continue
+        label = f"cuda:{dev.index}"
+        try:
+            snap = memory_snapshot(dev)
+        except Exception as e:  # the card most likely wedged is this one
+            out.append({"device": label, "source": "error", "error": f"{type(e).__name__}: {e}"})
+            continue
+        snap["device"] = label
+        out.append(snap)
+    if host or not out:
+        snap = memory_snapshot(None)
+        snap["device"] = "host"
+        out.append(snap)
+    return out
+
+
+def publish_per_device_memory(stage: Optional[str] = None, mesh: Any = None) -> list:
+    """Publish one gauge series per distinct device of ``mesh`` (one card
+    running out while seven idle is invisible in the aggregate) and
+    return the snapshots."""
+    snaps = per_device_snapshots(mesh)
+    in_use = names.metric(names.MEMORY_IN_USE_BYTES)
+    peak = names.metric(names.PEAK_MEMORY_BYTES)
+    for snap in snaps:
+        if "error" in snap:
+            continue  # an error entry carries no bytes
+        in_use.set(snap["bytes_in_use"], source=snap["source"], device=snap["device"])
+        if stage is not None:
+            peak.max(snap["peak_bytes_in_use"], stage=stage, device=snap["device"])
+    return snaps
+
+
+def device_obs_payload(snapshots: Optional[list] = None, mesh: Any = None) -> Dict[str, Any]:
+    """The per-device observability payload a multi-shard run embeds in
+    its artifact: per-device memory (``snapshots`` reuses an
+    already-taken sample, so the published gauges and the payload agree)
+    and how many shards each device holds."""
+    from ..parallel.mesh import get_mesh
+
+    mesh = mesh if mesh is not None else get_mesh()
+    return {
+        "devices": per_device_snapshots(mesh) if snapshots is None else snapshots,
+        "shards_per_device": {str(d): n for d, n in mesh.shards_per_device().items()},
+        "mesh_shape": dict(mesh.global_shape),
+    }
 
 
 @contextmanager

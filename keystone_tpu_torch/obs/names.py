@@ -92,6 +92,7 @@ DURABLE_CHECKPOINTS = "keystone_durable_fit_checkpoints_total"
 DURABLE_RESUMES = "keystone_durable_fit_resumes_total"
 DURABLE_RESUME_REFUSED = "keystone_durable_fit_resume_refused_total"
 DURABLE_REINGESTED_CHUNKS = "keystone_durable_fit_reingested_chunks_total"
+DURABLE_SHARD_LOSSES = "keystone_durable_fit_shard_losses_total"
 
 # ---------------------------------------------------------------- verification
 VERIFY_RUNS = "keystone_verify_runs_total"
@@ -258,6 +259,7 @@ SCHEMA: Dict[str, Tuple] = {
     DURABLE_RESUMES: ("counter", "Streamed fits resumed from a persisted cursor, by recovery kind (crash/shard/refit_journal)", ("kind",)),
     DURABLE_RESUME_REFUSED: ("counter", "Resume entries refused or discarded before seeding a fold, by reason (KV306 fingerprint mismatch / geometry drift)", ("reason",)),
     DURABLE_REINGESTED_CHUNKS: ("counter", "Chunks re-ingested by resumed or shard-loss-recovered folds", ()),
+    DURABLE_SHARD_LOSSES: ("counter", "Simulated/observed device losses absorbed mid-stream by the elastic fold", ()),
     VERIFY_RUNS: ("counter", "Plan-time verification runs", ("context",)),
     VERIFY_DIAGNOSTICS: ("counter", "Plan-time verification diagnostics emitted", ("code", "severity")),
     VERIFY_NODES: ("counter", "Graph nodes annotated with propagated specs by the verifier", ()),

@@ -23,10 +23,16 @@ kind. The solved model folds 1/σ into the weights and is permuted to the
 featurizer's standard layout, so it applies to ordinary featurizer
 output; padded filters are dropped.
 
-The JAX package's ``shard_map`` over a mesh and its donated residual
-carry wait for the multi-device slice. Its step is compiled and cached
-per featurizer; here nothing compiles, and only the packed filter blocks
-are cached on the device (``FusedConvFeaturizer.packed_filter_blocks``).
+Over a fit mesh with several row shards (``partitioner.fit_mesh``) the
+step is the JAX package's ``shard_map`` body, shard by shard: each shard
+featurizes its own rows of the block through the same product path, the
+masked column sums (and sums of squares) are reduced over the row axes
+into the block's mean and standard deviation, and the block update
+reduces the Gram and right-hand side the same way
+(``linalg._bcd_block_update``); pad rows are masked out. The JAX
+package's step is compiled and cached per featurizer; here nothing
+compiles, and only the packed filter blocks are cached on the device
+(``FusedConvFeaturizer.packed_filter_blocks``).
 """
 
 from __future__ import annotations
@@ -39,6 +45,9 @@ import torch
 from ...data.dataset import Dataset
 from ...device import DeviceLike, resolve_device
 from ...parallel import linalg
+from ...parallel.collectives import allreduce_sum
+from ...parallel.mesh import row_axes, row_shard_count
+from ...parallel.partitioner import fit_mesh
 from ...workflow.pipeline import BatchTransformer, LabelEstimator
 from ..images.core import FusedConvFeaturizer
 from .block import BlockLinearMapper, _as_array_dataset
@@ -178,22 +187,26 @@ class ConvBlockLeastSquaresEstimator(LabelEstimator):
             reg = max(1e-6 * n * float(probe.square().mean()), 1e-6)
 
         mus, inv_sds = [None] * nb, [None] * nb
+        mesh = fit_mesh(self)
+        if row_shard_count(mesh) > 1:
+            w = self._fit_sharded(mesh, images, yc, n, reg, (kblocks, fsum_blocks, offset_blocks), bs, mus, inv_sds)
+        else:
 
-        def block_fn(b: int, _offset: int, _rows: int) -> torch.Tensor:
-            a_raw = self._featurize_block(images, kblocks[b], fsum_blocks[b], offset_blocks[b], bs)
-            mu = a_raw.sum(dim=0) / n
-            if self.standardize:
-                var = (a_raw.square().sum(dim=0) - n * mu**2) / max(n - 1.0, 1.0)
-                sd = torch.sqrt(torch.clamp_min(var, 0.0))
-                inv_sd = torch.where((sd < 1e-8) | ~torch.isfinite(sd), 1.0, 1.0 / sd)
-            else:
-                inv_sd = torch.ones_like(mu)
-            mus[b], inv_sds[b] = mu, inv_sd
-            return a_raw.sub_(mu).mul_(inv_sd)
+            def block_fn(b: int, _offset: int, _rows: int) -> torch.Tensor:
+                a_raw = self._featurize_block(images, kblocks[b], fsum_blocks[b], offset_blocks[b], bs)
+                mu = a_raw.sum(dim=0) / n
+                if self.standardize:
+                    var = (a_raw.square().sum(dim=0) - n * mu**2) / max(n - 1.0, 1.0)
+                    sd = torch.sqrt(torch.clamp_min(var, 0.0))
+                    inv_sd = torch.where((sd < 1e-8) | ~torch.isfinite(sd), 1.0, 1.0 / sd)
+                else:
+                    inv_sd = torch.ones_like(mu)
+                mus[b], inv_sds[b] = mu, inv_sd
+                return a_raw.sub_(mu).mul_(inv_sd)
 
-        w = linalg.block_coordinate_descent_rematerialized(
-            block_fn, yc, reg=reg, num_epochs=self.num_iter, block_size=bs, num_blocks=nb
-        )
+            w = linalg.block_coordinate_descent_rematerialized(
+                block_fn, yc, reg=reg, num_epochs=self.num_iter, block_size=bs, num_blocks=nb
+            )
 
         # The standard-layout model: 1/σ folded into the weights, so it
         # applies to raw featurizer output.
@@ -207,6 +220,44 @@ class ConvBlockLeastSquaresEstimator(LabelEstimator):
         linear = BlockLinearMapper(w_std[keep], block_size=bs, intercept=mu_b,
                                    feature_mean=mu_std[keep])
         return ConvBlockModel(fz, linear, image_chunk=self.image_chunk)
+
+    def _fit_sharded(self, mesh, images, yc, n, reg, packed, bs, mus, inv_sds):
+        """The JAX package's sharded featurize → residual → block-update
+        step over ``mesh``'s row shards (rows zero-padded to a shard
+        multiple and masked out of every sum); fills ``mus`` /
+        ``inv_sds`` and returns the block-major weights."""
+        kblocks, fsum_blocks, offset_blocks = packed
+        nb = len(kblocks)
+        axes = row_axes(mesh)
+        shards = row_shard_count(mesh)
+        n_pad = -(-n // shards) * shards
+        xs = linalg.prepare_row_sharded(images, mesh).shards
+        ys = linalg.prepare_row_sharded(yc, mesh).shards
+        mask = torch.zeros(n_pad, 1, device=images.device)
+        mask[:n] = 1.0
+        masks = linalg.prepare_row_sharded(mask, mesh).shards
+        ps = [torch.zeros_like(t) for t in ys]
+        w = torch.zeros(nb * bs, yc.shape[1], device=images.device)
+        eye = torch.eye(bs, device=images.device)
+        for _ in range(int(self.num_iter)):
+            for b in range(nb):
+                a_raw = [self._featurize_block(x, kblocks[b], fsum_blocks[b], offset_blocks[b], bs) for x in xs]
+                mu = allreduce_sum([(a * m).sum(dim=0) for a, m in zip(a_raw, masks)], mesh, axes)[0] / n
+                if self.standardize:
+                    s2 = allreduce_sum([(a * m).square().sum(dim=0) for a, m in zip(a_raw, masks)], mesh, axes)[0]
+                    var = (s2 - n * mu**2) / max(n - 1.0, 1.0)
+                    sd = torch.sqrt(torch.clamp_min(var, 0.0))
+                    inv_sd = torch.where((sd < 1e-8) | ~torch.isfinite(sd), 1.0, 1.0 / sd)
+                else:
+                    inv_sd = torch.ones_like(mu)
+                mus[b], inv_sds[b] = mu, inv_sd
+                a_bs = [a.sub_(mu).mul_(inv_sd).mul_(m) for a, m in zip(a_raw, masks)]
+                start = b * bs
+                w[start : start + bs], ps = linalg._bcd_block_update(
+                    a_bs, ys, ps, w[start : start + bs], reg, eye, mesh
+                )
+                del a_raw, a_bs
+        return w
 
     def _featurize_block(self, images, kb, fs_b, off_b, bs: int) -> torch.Tensor:
         """The (n, bs) raw features of one filter block, ``image_chunk``

@@ -1,5 +1,5 @@
 """Kernel methods: blockwise Gaussian kernel, Gauss-Seidel kernel ridge
-regression, and kernel-block application, on one device.
+regression, and kernel-block application, on one device or over a mesh.
 
 Port of ``keystone_tpu/ops/learning/kernel.py`` (reference:
 nodes/learning/KernelGenerator.scala:36-206,
@@ -10,18 +10,26 @@ matrix is never materialized:
 
 - **Training** (Gauss-Seidel BCD on the dual, arXiv:1602.05310): per
   column block b, the (n_pad, bs) panel K(X, X_b), the block's residual
-  K_bᵀW, and a bs×bs Cholesky solve of (K_bb + λI) on cuSOLVER. The JAX
-  package's ``shard_map`` over the data axis and its psum-scatters
-  collapse to one device.
+  K_bᵀW, and a bs×bs Cholesky solve of (K_bb + λI) on cuSOLVER. Over a
+  fit mesh with several row shards (``partitioner.fit_mesh``), as the
+  JAX package's ``shard_map`` body: each shard holds its rows; block b's
+  rows are a zero-padded (bs, d) block per shard reduced over the row
+  axes (the psum of ``gather_block``), each shard computes its (rows, bs)
+  panel and its part of K_bᵀW, and one ``allreduce_sum`` gives the
+  residual. Sums run in shard order, so 8 shards against 1 differ only
+  by the grouping of the residual's sum.
 - **Application** (``KernelBlockLinearMapper``): a loop over training-row
   blocks accumulating K(x, X_b)·W_b, so the (m, n) panel never exists at
-  once — the JAX package's ring rotation on one device.
+  once. Under an ambient mesh with several row shards it is the JAX
+  package's ring: test rows stay on their shard while the training rows
+  and duals travel the ``data`` ring (``ring_permute``), with one hop of
+  the ``replica`` ring after each full data cycle on a hybrid mesh.
 
 Behavioural parity: λ is applied as K_bb + λI (not λnI); the per-epoch
 block order comes from ``np.random.default_rng(block_permuter)``; rows
 are zero-padded to a multiple of the block (pad rows solve to exactly
-zero duals). The JAX package also rounds rows to its device count, so
-its pad rows can differ in number; the real rows' duals do not.
+zero duals) and, over a mesh, to a multiple of the row shards too, as
+the JAX package rounds them to both.
 
 Reliability and observability: a halving ``DegradationLadder`` over the
 block size, ``probe("KernelRidgeRegression.solve")`` at the head of each
@@ -32,8 +40,7 @@ rung instead (``sketch/solvers.py::nystrom_krr``).
 
 Products go through ``linalg.mm`` / ``linalg.mm_t`` at the solver mode's
 precision, as the JAX package routes them through ``linalg.mm``. Every
-entry point takes ``device=`` (default CUDA). The mesh, ``shard_map``
-and 2-D parts are not ported.
+entry point takes ``device=`` (default CUDA).
 """
 
 from __future__ import annotations
@@ -50,6 +57,11 @@ from ...envknobs import env_int
 from ...obs import names as _names
 from ...obs import solver as solver_obs
 from ...parallel import linalg
+from ...parallel.collectives import P, Sharded, allreduce_sum, axis_index, ring_permute
+from ...parallel.mesh import (
+    DATA_AXIS, REPLICA_AXIS, Mesh, get_mesh, require_one_process, row_axes, row_shard_count,
+)
+from ...parallel.partitioner import fit_mesh
 from ...reliability import DegradationLadder, halving_rungs, probe
 from ...workflow.pipeline import BatchTransformer, Estimator, LabelEstimator
 from .block import _as_array_dataset, _record_solver_observation
@@ -221,9 +233,11 @@ class KernelRidgeRegression(LabelEstimator):
 
     def _fit_with_block(self, features, targets, bs: int, device) -> "KernelBlockLinearMapper":
         probe("KernelRidgeRegression.solve")
+        mesh = fit_mesh(self)
         n = features.num_examples
         gamma = self.kernel_generator.gamma
-        n_pad = _round_up(n, bs)
+        ndev = row_shard_count(mesh)
+        n_pad = _round_up_multiple(n, bs, ndev)
         x = _pad_rows_to(features.data[:n].to(device=device, dtype=torch.float32), n_pad)
         y = _pad_rows_to(targets.data[:n].to(device=device, dtype=torch.float32), n_pad)
 
@@ -236,29 +250,67 @@ class KernelRidgeRegression(LabelEstimator):
                 rng.shuffle(order)
             starts.extend((order * bs).tolist())
 
-        w = _krr_fit(x, y, starts, bs, gamma, float(self.reg), n)
+        w = _krr_fit(linalg._row_mesh(x, mesh), x, y, starts, bs, gamma, float(self.reg), n)
         return KernelBlockLinearMapper(x, w, gamma, num_train=n, block_size=bs)
 
 
-def _krr_fit(x, y, starts, bs: int, gamma: float, lam: float, n: int) -> torch.Tensor:
-    """The Gauss-Seidel sweep over the column blocks at ``starts``: rows
-    and columns at or past ``n`` (padding) are masked out of every panel,
-    so their duals stay exactly zero."""
-    n_pad = x.shape[0]
-    w = torch.zeros(n_pad, y.shape[1], dtype=x.dtype, device=x.device)
-    row_valid = (torch.arange(n_pad, device=x.device) < n).to(x.dtype)
-    eye = torch.eye(bs, dtype=x.dtype, device=x.device)
+def _krr_fit(mesh: Optional[Mesh], x, y, starts, bs: int, gamma: float, lam: float, n: int) -> torch.Tensor:
+    """The Gauss-Seidel sweep over the column blocks at ``starts``, the
+    JAX package's ``_krr_fit`` body per row shard of ``mesh`` (None: one
+    shard, ``x``'s device). Rows and columns at or past ``n`` (padding)
+    are masked out of every panel, so their duals stay exactly zero. The
+    duals W are replicated: one copy per distinct device, updated with
+    the same block solve."""
+    axes = row_axes(mesh) if mesh is not None else ()
+    xs = linalg._row_shards(x, mesh)
+    ys = linalg._row_shards(y, mesh)
+    pos = axis_index(mesh, axes) if mesh is not None else [0]
+    devices = mesh.flat_devices if mesh is not None else (x.device,)
+    n_local = xs[0].shape[0]
+    n_pad, k = x.shape[0], y.shape[1]
+    ws = {}
+    for d in devices:
+        if d not in ws:
+            ws[d] = torch.zeros(n_pad, k, dtype=x.dtype, device=d)
+    row_valid = [
+        ((pos[i] * n_local + torch.arange(n_local, device=d)) < n).to(x.dtype) for i, d in enumerate(devices)
+    ]
+
+    def reduce_rows(parts):
+        return allreduce_sum(parts, mesh, axes) if mesh is not None else parts
+
+    def gather_block(shards, s):
+        """Rows [s, s+bs) of the global matrix on every shard: each shard
+        places its own rows in a zero (bs, ·) block, reduced over the
+        row axes."""
+        parts = []
+        for i, local in enumerate(shards):
+            out = torch.zeros(bs, local.shape[1], dtype=local.dtype, device=local.device)
+            lo, hi = max(s, pos[i] * n_local), min(s + bs, (pos[i] + 1) * n_local)
+            if lo < hi:
+                out[lo - s : hi - s] = local[lo - pos[i] * n_local : hi - pos[i] * n_local]
+            parts.append(out)
+        return reduce_rows(parts)
+
     for s in starts:
-        xb = x[s : s + bs]
-        col_valid = row_valid[s : s + bs]
-        k_panel = gaussian_kernel_block(x, xb, gamma) * row_valid[:, None] * col_valid[None, :]
-        resid = linalg.mm_t(k_panel, w)  # (bs, k) = K_bᵀ·W
-        kbb = gaussian_kernel_block(xb, xb, gamma) * col_valid[:, None] * col_valid[None, :]
-        w_b_old = w[s : s + bs]
-        rhs = y[s : s + bs] - (resid - linalg.mm(kbb.T, w_b_old))
-        factor = torch.linalg.cholesky(kbb + lam * eye)
-        w[s : s + bs] = torch.cholesky_solve(rhs, factor)
-    return w
+        xbs = gather_block(xs, s)
+        ybs = gather_block(ys, s)
+        partials = []
+        for i, d in enumerate(devices):
+            col_valid = ((s + torch.arange(bs, device=d)) < n).to(x.dtype)
+            k_panel = gaussian_kernel_block(xs[i], xbs[i], gamma) * row_valid[i][:, None] * col_valid[None, :]
+            w_rows = ws[d][pos[i] * n_local : (pos[i] + 1) * n_local]
+            partials.append(linalg.mm_t(k_panel, w_rows))  # this shard's part of K_bᵀ·W
+        resids = reduce_rows(partials)
+        # The block solve is the same on every shard: once per device.
+        for d, w in ws.items():
+            i = devices.index(d)
+            col_valid = ((s + torch.arange(bs, device=d)) < n).to(x.dtype)
+            kbb = gaussian_kernel_block(xbs[i], xbs[i], gamma) * col_valid[:, None] * col_valid[None, :]
+            rhs = ybs[i] - (resids[i] - linalg.mm(kbb.T, w[s : s + bs]))
+            factor = torch.linalg.cholesky(kbb + lam * torch.eye(bs, dtype=x.dtype, device=d))
+            w[s : s + bs] = torch.cholesky_solve(rhs, factor)
+    return ws[devices[0]]
 
 
 # ------------------------------------------------------------------- apply
@@ -281,6 +333,9 @@ class KernelBlockLinearMapper(BatchTransformer):
         self.block_size = block_size
 
     def apply_arrays(self, x):
+        mesh = require_one_process(get_mesh(), "KernelBlockLinearMapper")
+        if row_shard_count(mesh) > 1:
+            return _ring_kernel_apply(mesh, x, self.train, self.duals, self.gamma)
         x = torch.as_tensor(x, dtype=torch.float32, device=self.train.device)
         acc = torch.zeros(x.shape[0], self.duals.shape[1], dtype=torch.float32, device=x.device)
         for start in range(0, self.train.shape[0], self.block_size):
@@ -289,11 +344,45 @@ class KernelBlockLinearMapper(BatchTransformer):
         return acc
 
 
+def _ring_kernel_apply(mesh: Mesh, x, train: torch.Tensor, duals: torch.Tensor, gamma: float) -> torch.Tensor:
+    """K(x, train)·duals over ``mesh``'s row shards, as the JAX package's
+    ``_ring_kernel_apply``: every shard keeps its test rows and
+    accumulates one panel product per ring step while the training rows
+    and duals rotate one hop of the ``data`` ring, and, after each full
+    data cycle of a hybrid mesh, one hop of the ``replica`` ring, so the
+    nd·nr steps visit every shard once."""
+    axes = row_axes(mesh)
+    nd = mesh.shape[DATA_AXIS]
+    nr = mesh.shape.get(REPLICA_AXIS, 1)
+    m = x.shape[0]
+    x = torch.as_tensor(x, dtype=torch.float32, device=train.device)
+    xt = linalg.prepare_row_sharded(_pad_rows_to(x, _round_up_multiple(m, row_shard_count(mesh))), mesh)
+    xs = linalg.prepare_row_sharded(train, mesh).shards
+    ws = linalg.prepare_row_sharded(duals, mesh).shards
+    acc = [torch.zeros(t.shape[0], duals.shape[1], dtype=torch.float32, device=t.device) for t in xt.shards]
+    for step in range(nd * nr):
+        acc = [a + linalg.mm(gaussian_kernel_block(t, xi, gamma), wi) for a, t, xi, wi in zip(acc, xt.shards, xs, ws)]
+        xs, ws = ring_permute(xs, mesh, DATA_AXIS), ring_permute(ws, mesh, DATA_AXIS)
+        if nr > 1 and (step + 1) % nd == 0:
+            xs, ws = ring_permute(xs, mesh, REPLICA_AXIS), ring_permute(ws, mesh, REPLICA_AXIS)
+    out = Sharded(acc, P(axes), mesh, (xt.shape[0], duals.shape[1])).assemble()
+    return out[:m]
+
+
 # -------------------------------------------------------------------- utils
 
 
 def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
+
+
+def _round_up_multiple(n: int, *multiples: int) -> int:
+    """The least count ≥ ``n`` that every one of ``multiples`` divides."""
+    out = n
+    while any(out % m for m in multiples):
+        for m in multiples:
+            out = _round_up(out, m)
+    return out
 
 
 def _pad_rows_to(a: torch.Tensor, target: int) -> torch.Tensor:

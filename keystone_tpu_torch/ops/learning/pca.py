@@ -13,9 +13,11 @@ nodes/learning/ApproximatePCA.scala:22-85), on one device:
   projects per-item (nᵢ, d) descriptor matrices M·P, a uniform
   (N, c, d) batch as one (N·c, d) product.
 
-``DistributedPCAEstimator`` is the JAX package's TSQR path on one
-device: the R factor of the sample (``linalg.tsqr_r``) and ``eigh`` of
-the algebraically centered Gram RᵀR − n·μμᵀ, with no centered copy.
+``DistributedPCAEstimator`` is the JAX package's TSQR path: the sample
+row-sharded over the fit mesh (``partitioner.fit_mesh``), the R factor
+of the shards' stacked R factors (``linalg.tsqr_r(x, mesh=mesh)``) and
+``eigh`` of the algebraically centered Gram RᵀR − n·μμᵀ, with no
+centered copy; one row shard is the single-device QR.
 ``ApproximatePCAEstimator`` is Halko et al. alg. 4.4/5.1 with q power
 iterations; its Gaussian test matrix Ω comes from a ``torch.Generator``
 seeded with ``seed`` (the JAX package draws it with ``jax.random``, so
@@ -24,8 +26,7 @@ through ``linalg.mm`` at the solver mode's precision; the QR, SVD and
 eigh are ``torch.linalg``'s.
 
 Every estimator declares its fitted projection's spec (``out_spec``) for
-the plan-time verifier. Left out for now: the mesh (``fit_mesh``) paths
-(ROADMAP item 14b).
+the plan-time verifier.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import torch
 from ...data.dataset import ArrayDataset, BucketedDataset, Dataset, _as_tensor
 from ...device import DeviceLike, resolve_device
 from ...parallel import linalg
+from ...parallel.partitioner import fit_mesh
 from ...workflow.optimize import DataStats, Optimizable
 from ...workflow.pipeline import BatchTransformer, Estimator, Transformer
 from ..stats.core import _as_array_dataset
@@ -139,8 +141,8 @@ def compute_pca(x: torch.Tensor, dims: int) -> torch.Tensor:
 
 
 class DistributedPCAEstimator(Estimator, CostModel):
-    """TSQR-based PCA (reference: DistributedPCA.scala:20-74, mlmatrix
-    TSQR), on one device. Centering is algebraic: eigh(RᵀR − n·μμᵀ) gives
+    """TSQR-based PCA over the row-sharded sample (reference:
+    DistributedPCA.scala:20-74, mlmatrix TSQR). Centering is algebraic: eigh(RᵀR − n·μμᵀ) gives
     the centered covariance eigenvectors without materializing A − μ."""
 
     def __init__(self, dims: int):
@@ -155,8 +157,9 @@ class DistributedPCAEstimator(Estimator, CostModel):
 
     def fit(self, data: Dataset) -> PCATransformer:
         ds = _as_array_dataset(data)
+        mesh = fit_mesh(self)
         x = ds.data[: ds.num_examples].to(torch.float32)
-        r = linalg.tsqr_r(x)
+        r = linalg.tsqr_r(x, mesh=mesh)
         sa = torch.sum(x, dim=0)
         components = _centered_eig_components(r, sa, float(ds.num_examples))
         return PCATransformer(components[:, : self.dims])

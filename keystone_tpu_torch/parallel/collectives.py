@@ -33,8 +33,24 @@ the result tensor (treat it as read-only).
 
 Between two cards a collective moves data with peer copies
 (``Tensor.to(device, non_blocking=True)``). That path is written but has
-run only where every shard lies on one device: it is unverified until a
-machine with several cards runs it (ROADMAP item 14b).
+run only where every shard lies on one device: it stays unverified until
+a machine with several cards runs it. What is missing there is the
+machine, not a module.
+
+Across processes (a mesh whose ``replica`` axis is a ``torch.distributed``
+group, ``mesh.make_hybrid_mesh`` after ``distributed_init``): a collective
+over an axis tuple that holds ``replica`` first runs over the local
+shards as above, then crosses processes. ``allreduce_sum`` all-gathers
+each process's local sum and adds the parts in rank order (a bare
+``all_reduce`` would leave the order to the backend, and a plan would no
+longer give the same bits on every run); ``all_gather`` concatenates the
+processes' gathers in rank order; ``ring_permute`` is a send/recv pair
+per shard whose ring neighbour lives in another process; ``axis_index``
+counts the ranks before this one. ``reduce_scatter`` and ``all_to_all``
+across processes raise ``ValueError``: no path uses them there. With the
+``gloo`` backend the exchange moves host copies, so CUDA shards work on
+it too. Every ``torch.distributed`` call counts in :data:`calls`
+(``process_all_gather``, ``process_send_recv``).
 
 A shard whose shape differs from its group's, or that does not lie on
 its mesh device, raises ``ValueError``: a collective never reshapes or
@@ -50,7 +66,7 @@ from typing import Any, Callable, Dict, List, Sequence, Tuple, Union
 
 import torch
 
-from .mesh import DATA_AXIS, Mesh, get_mesh, same_device
+from .mesh import DATA_AXIS, REPLICA_AXIS, Mesh, get_mesh, same_device
 
 AxisSpec = Union[str, Tuple[str, ...]]
 
@@ -94,10 +110,45 @@ def _groups(mesh: Mesh, axis: AxisSpec) -> List[List[int]]:
     return [[flat for _pos, flat in sorted(members)] for members in groups.values()]
 
 
-#: Invocations of each collective in this process.
+#: Invocations of each collective in this process, and of each
+#: ``torch.distributed`` call a collective made across processes.
 calls: Dict[str, int] = dict.fromkeys(
-    ("allreduce_sum", "all_gather", "ring_permute", "reduce_scatter", "all_to_all"), 0
+    (
+        "allreduce_sum", "all_gather", "ring_permute", "reduce_scatter", "all_to_all",
+        "process_all_gather", "process_send_recv",
+    ),
+    0,
 )
+
+
+def _crosses(mesh: Mesh, axis: AxisSpec, what: str) -> bool:
+    """True when the collective over ``axis`` must cross processes: the
+    mesh spans processes and ``axis`` holds ``replica``, as its first
+    (major) axis."""
+    axes = _axes(axis)
+    if not mesh.spans_processes or REPLICA_AXIS not in axes:
+        return False
+    if axes[0] != REPLICA_AXIS:
+        raise ValueError(f"{what}: across processes the replica axis must lead {axes}")
+    return True
+
+
+def _host_exchange() -> bool:
+    """Whether the process group's backend needs host tensors (gloo)."""
+    import torch.distributed as dist
+
+    return dist.get_backend() == "gloo"
+
+
+def _process_gather(t: torch.Tensor) -> List[torch.Tensor]:
+    """Every process's ``t``, in rank order, on ``t``'s device."""
+    import torch.distributed as dist
+
+    calls["process_all_gather"] += 1
+    src = t.detach().to("cpu") if _host_exchange() else t.contiguous()
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, src.contiguous())
+    return [p.to(t.device) for p in parts]
 
 
 def _validate(xs: Sequence[torch.Tensor], mesh: Mesh, groups: List[List[int]], what: str) -> None:
@@ -120,10 +171,12 @@ def _validate(xs: Sequence[torch.Tensor], mesh: Mesh, groups: List[List[int]], w
 
 
 def _to(x: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """``x`` on ``device``: itself when it is there, else a peer copy."""
+    """``x`` on ``device``: itself when it is there, else a copy, made
+    asynchronously only towards a card (a non-blocking copy from a card
+    into pageable host memory may be read before it lands)."""
     if same_device(x.device, device):
         return x
-    return x.to(device, non_blocking=True)
+    return x.to(device, non_blocking=torch.device(device).type == "cuda")
 
 
 def _ordered_sum(parts: Sequence[torch.Tensor], device: torch.device) -> torch.Tensor:
@@ -150,10 +203,13 @@ def allreduce_sum(xs: Sequence[torch.Tensor], mesh: Mesh = None, axis: AxisSpec 
     mesh = mesh or get_mesh()
     groups = _groups(mesh, axis)
     _validate(xs, mesh, groups, "allreduce_sum")
+    cross = _crosses(mesh, axis, "allreduce_sum")
     devices = mesh.flat_devices
     out: List[Any] = [None] * mesh.size
     for group in groups:
         total = _ordered_sum([xs[i] for i in group], devices[group[0]])
+        if cross:
+            total = _ordered_sum(_process_gather(total), devices[group[0]])
         for i, t in zip(group, _fan_out(total, [devices[i] for i in group])):
             out[i] = t
     return out
@@ -167,12 +223,15 @@ def all_gather(
     mesh = mesh or get_mesh()
     groups = _groups(mesh, axis)
     _validate(xs, mesh, groups, "all_gather")
+    cross = _crosses(mesh, axis, "all_gather")
     devices = mesh.flat_devices
     out: List[Any] = [None] * mesh.size
     for group in groups:
         first = devices[group[0]]
         parts = [_to(xs[i], first) for i in group]
         gathered = torch.cat(parts) if tiled else torch.stack(parts)
+        if cross:
+            gathered = torch.cat(_process_gather(gathered))
         for i, t in zip(group, _fan_out(gathered, [devices[i] for i in group])):
             out[i] = t
     return out
@@ -187,12 +246,50 @@ def ring_permute(
     groups = _groups(mesh, axis)
     _validate(xs, mesh, groups, "ring_permute")
     devices = mesh.flat_devices
+    if _crosses(mesh, axis, "ring_permute"):
+        return _ring_across_processes(xs, mesh, groups, shift)
     out: List[Any] = [None] * mesh.size
     for group in groups:
         n = len(group)
         for pos, i in enumerate(group):
             dst = group[(pos + shift) % n]
             out[dst] = _to(xs[i], devices[dst])
+    return out
+
+
+def _ring_across_processes(xs, mesh: Mesh, groups: List[List[int]], shift: int) -> List[torch.Tensor]:
+    """``ring_permute`` over a group that spans processes: the group's
+    global position of a local member is rank · n_local + its local
+    position; a member whose destination lives in this process moves
+    locally, every other one is one ``isend`` / ``irecv`` pair."""
+    import torch.distributed as dist
+
+    rank, world = mesh.process_group
+    devices = mesh.flat_devices
+    host = _host_exchange()
+    out: List[Any] = [None] * mesh.size
+    ops, landing = [], []
+    for group in groups:
+        n_local = len(group)
+        total = n_local * world
+        for pos, i in enumerate(group):
+            g = rank * n_local + pos
+            dst, src = (g + shift) % total, (g - shift) % total
+            if dst // n_local == rank:
+                out[group[dst % n_local]] = _to(xs[i], devices[group[dst % n_local]])
+            else:
+                payload = xs[i].detach().to("cpu") if host else xs[i].contiguous()
+                ops.append(dist.P2POp(dist.isend, payload.contiguous(), dst // n_local))
+            if src // n_local != rank:
+                buf = torch.empty(xs[i].shape, dtype=xs[i].dtype, device="cpu" if host else xs[i].device)
+                ops.append(dist.P2POp(dist.irecv, buf, src // n_local))
+                landing.append((i, buf))
+    if ops:
+        calls["process_send_recv"] += 1
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    for i, buf in landing:
+        out[i] = buf.to(devices[i])
     return out
 
 
@@ -204,6 +301,8 @@ def reduce_scatter(
     mesh = mesh or get_mesh()
     groups = _groups(mesh, axis)
     _validate(xs, mesh, groups, "reduce_scatter")
+    if _crosses(mesh, axis, "reduce_scatter"):
+        raise ValueError("reduce_scatter across processes: no path of the port uses it")
     devices = mesh.flat_devices
     out: List[Any] = [None] * mesh.size
     for group in groups:
@@ -231,6 +330,8 @@ def all_to_all(
     mesh = mesh or get_mesh()
     groups = _groups(mesh, axis)
     _validate(xs, mesh, groups, "all_to_all")
+    if _crosses(mesh, axis, "all_to_all"):
+        raise ValueError("all_to_all across processes: no path of the port uses it")
     devices = mesh.flat_devices
     out: List[Any] = [None] * mesh.size
     for group in groups:
@@ -250,10 +351,22 @@ def axis_index(mesh: Mesh = None, axis: AxisSpec = DATA_AXIS) -> List[int]:
     tuple of axes, first axis major) — ``lax.axis_index``."""
     mesh = mesh or get_mesh()
     out = [0] * mesh.size
+    cross = mesh.spans_processes and REPLICA_AXIS in _axes(axis)
     for group in _groups(mesh, axis):
         for pos, i in enumerate(group):
-            out[i] = pos
+            out[i] = pos + (mesh.process_group[0] * len(group) if cross else 0)
     return out
+
+
+def axis_representatives(mesh: Mesh = None, axis: AxisSpec = DATA_AXIS) -> List[int]:
+    """One flat shard index per position along ``axis``, in position order:
+    the first shard at each position (shards that differ only off
+    ``axis`` hold the same piece of a value sharded over it)."""
+    mesh = mesh or get_mesh()
+    first: Dict[int, int] = {}
+    for flat, pos in enumerate(axis_index(mesh, axis)):
+        first.setdefault(pos, flat)
+    return [first[pos] for pos in sorted(first)]
 
 
 # ------------------------------------------------------------ sharded values
@@ -398,6 +511,7 @@ __all__ = [
     "all_to_all",
     "allreduce_sum",
     "axis_index",
+    "axis_representatives",
     "reduce_scatter",
     "replicated",
     "ring_permute",

@@ -25,9 +25,14 @@ shard's device), as the JAX package's ``shard_map`` bodies do with
 are zero-padded to a shard multiple, and a pad row adds nothing to a
 Gram; the centered solves take the logical row count ``n``. ``mesh=None``
 is one device: unlike the JAX package the port reads no ambient mesh
-here, so callers whose mesh paths wait for ROADMAP item 14b
-(``conv_block``, ``pca``, ``kernel``, ``gmm``) stay single-device; the
-estimators pass ``partitioner.fit_mesh(self)``. A block-sparse ``gram``
+here; the estimators (``block``, ``linear``, ``lbfgs``, ``logistic``,
+``pca``, ``kernel``, ``conv_block``) pass ``partitioner.fit_mesh(self)``.
+``gmm`` has no mesh path in either package: its products are plain
+``mm``. On a mesh that spans processes each process passes its own rows
+and the reductions cross processes (``parallel/collectives.py``);
+``gram`` is the path the two-process rehearsal runs
+(``parallel/rehearsal.py``). The estimators refuse such a mesh
+(``mesh.require_one_process``). A block-sparse ``gram``
 ignores the mesh, as in the JAX package.
 
 Precision is pinned per call, never through a process-wide flag. Each

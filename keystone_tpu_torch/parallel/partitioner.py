@@ -26,9 +26,14 @@ Env knobs (``envknobs.PARTITION_KNOBS``, the JAX package's defaults):
 the mesh into (devices/p, p)); ``KEYSTONE_PARTITION_MIN_WIDTH`` (minimum
 featurized columns per model shard, 512).
 
-Waiting for ROADMAP item 14b: ``attach_serving_partition`` and the
-serving side's sharding cache (``decide_serve`` itself is here, a plan
-function the verifier reports).
+Serving: :func:`attach_serving_partition` decides ONCE per served model
+(first attach wins; decisions are counted, not attaches) and installs an
+eligible decision on the model's ``CompiledApply`` handle, which then
+splits each batch whose rows divide the row shards across them
+(``shard_rows``) and applies the model shard by shard. The port keeps no
+cache of layouts: a :class:`~keystone_tpu_torch.parallel.collectives.Sharded`
+value is a list of row views, built per batch, and nothing compiles per
+layout.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from .mesh import (
     get_mesh,
     model_axis_size,
     model_mesh,
+    require_one_process,
     row_axes,
     row_shard_count,
 )
@@ -290,7 +296,7 @@ class Partitioner:
         min_rows_per_shard: Optional[int] = None,
         model_shards: Optional[int] = None,
     ):
-        self.mesh = mesh if mesh is not None else get_mesh()
+        self.mesh = require_one_process(mesh if mesh is not None else get_mesh(), "the partitioner")
         self.min_rows = (
             min_rows_per_shard if min_rows_per_shard is not None else partition_min_rows_per_shard()
         )
@@ -466,8 +472,8 @@ class Partitioner:
     def decide_serve(self, node: str, buckets: Sequence[int], record: bool = True) -> PartitionDecision:
         """Bucketed serving: a batch padded to bucket b shards its rows
         when b divides evenly across the row shards; eligible when at
-        least one bucket does. (The serving side that acts on it waits for
-        ROADMAP item 14b; the verifier reports the decision.)"""
+        least one bucket does (:func:`attach_serving_partition` acts on
+        it)."""
         gated = self._gate("serve", node)
         if gated is not None:
             return self._emit(record, gated)
@@ -483,6 +489,48 @@ class Partitioner:
 
 
 # ------------------------------------------------------------------ consumers
+
+
+def attach_serving_partition(model: Any, buckets: Sequence[int], name: str = "serve") -> Optional[PartitionDecision]:
+    """Decide and install the row sharding of a served model's bucketed
+    ``compiled_apply`` path (the server's warmup and the registry's
+    ``load_fitted`` both call this, so the warmed and the steady-state
+    layouts are decided once and identically).
+
+    Returns the decision; None when the model has no ``compiled_apply``
+    handle. The FIRST installed decision wins: the handle is shared by
+    every server over the pipeline, and a conflicting later decision
+    (another bucket set, another mesh) is logged and ignored. A decision
+    is recorded into the metrics only when it differs from the handle's
+    last one — decisions are counted, not attaches."""
+    compiled = getattr(model, "compiled_apply", None)
+    if not callable(compiled):
+        return None
+    label = str(getattr(model, "label", name))
+    decision = Partitioner().decide_serve(label, buckets, record=False)
+    handle = compiled()
+    installed = handle.partition
+    previous = getattr(handle, "_serve_decision", None)
+    if installed is not None and (installed.shards != decision.shards or installed.mesh is not decision.mesh):
+        import logging
+
+        logging.getLogger(__name__).warning(
+            "serving partition for %s already installed (%s shards); "
+            "keeping it over the conflicting new decision (%s, %s shards)",
+            label, installed.shards, decision.reason, decision.shards,
+        )
+        return installed
+    if (
+        previous is None
+        or previous.eligible != decision.eligible
+        or previous.shards != decision.shards
+        or previous.mesh is not decision.mesh
+    ):
+        record_decision(decision, to_report=False)
+    handle._serve_decision = decision
+    if decision.eligible:
+        handle.partition = decision
+    return decision
 
 
 def demote_model_axis(decision: PartitionDecision, reason: str, detail: str = "") -> PartitionDecision:
@@ -510,11 +558,13 @@ def demote_model_axis(decision: PartitionDecision, reason: str, detail: str = ""
 def fit_mesh(op: Any) -> Mesh:
     """The mesh an estimator fit shards over: the partitioner's pinned
     decision when the plan carries an eligible one, else the ambient mesh
-    (a direct ``est.fit()``, a fallback, ``KEYSTONE_PARTITION=off``)."""
+    (a direct ``est.fit()``, a fallback, ``KEYSTONE_PARTITION=off``).
+    A mesh that spans processes raises ``ValueError``
+    (:func:`~keystone_tpu_torch.parallel.mesh.require_one_process`)."""
     decision = getattr(op, "partition", None)
     if decision is not None and getattr(decision, "eligible", False) and decision.mesh is not None:
         return decision.mesh
-    return get_mesh()
+    return require_one_process(get_mesh(), type(op).__name__)
 
 
 def shard_rows(decision: Optional[PartitionDecision], tree: Any) -> Any:
@@ -555,6 +605,7 @@ __all__ = [
     "R_SINGLE_SHARD",
     "R_UNKNOWN_ROWS",
     "SHARDED",
+    "attach_serving_partition",
     "demote_model_axis",
     "fit_mesh",
     "last_partition_report",

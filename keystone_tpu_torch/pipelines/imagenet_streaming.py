@@ -32,8 +32,8 @@ Entry points take ``device=`` (default ``None``: the CUDA device).
 ``run_flagship_ondevice`` generates its images on the card (class
 templates equal to the JAX package's, noise from a ``torch.Generator``
 on the device: the port does not reproduce ``jax.random.normal``), so no
-image crosses the link. Left out: the mesh-sharded encode (``mesh=``,
-ROADMAP item 14b).
+image crosses the link. ``encode_buckets(mesh=)`` splits each bucket's
+rows over a mesh's row shards and encodes shard by shard.
 """
 
 from __future__ import annotations
@@ -255,13 +255,22 @@ class StreamingFlagship:
         rows are copied to the host one bucket behind the dispatch
         frontier. ``on_rows(rows, bucket)`` streams row blocks to the
         caller; without it the full (n, fv_dim) host matrix is returned
-        (16 KB per image at the reference's widths)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "the mesh-sharded encode waits for the port's multi-device tier (ROADMAP item 14b)")
+        (16 KB per image at the reference's widths).
+
+        With ``mesh`` given, each bucket's rows are zero-padded to the
+        mesh's row-shard count (pad rows take the full bucket's dims) and
+        split over its row axes; every shard encodes its own rows and the
+        rows come back in shard order, pad rows dropped — the JAX
+        package's data-parallel encode, shard by shard."""
         assert self.codebooks is not None, "fit_codebooks first"
         out_rows: List[np.ndarray] = []
         pin = self.device.type == "cuda"
+        shards = 1
+        if mesh is not None:
+            from ..parallel.collectives import P, axis_representatives, shard_tensor
+            from ..parallel.mesh import row_axes, row_shard_count
+
+            shards = row_shard_count(mesh)
 
         def upload(a) -> torch.Tensor:
             t = torch.as_tensor(a)
@@ -269,12 +278,32 @@ class StreamingFlagship:
                 t = t.contiguous().pin_memory()
             return t.to(self.device, non_blocking=True)
 
+        def pad_rows(b):
+            img, dims = np.asarray(b["image"]), np.asarray(b["dims"])
+            pad = (-len(dims)) % shards
+            if pad:
+                img = np.concatenate([img, np.zeros((pad,) + img.shape[1:], img.dtype)])
+                dims = np.concatenate([dims, np.tile(np.asarray(img.shape[1:3], dims.dtype), (pad, 1))])
+            return img, dims
+
         def stage(b):
-            return upload(b["image"]), upload(b["dims"])
+            if mesh is None:
+                return upload(b["image"]), upload(b["dims"])
+            img, dims = pad_rows(b)
+            return upload(img), upload(dims)
 
         def compute(staged, b):
             img, dims = staged
-            return self._encode_bucket(img, dims, self.codebooks.sift_pca, self.codebooks.lcs_pca)
+            if mesh is None:
+                return self._encode_bucket(img, dims, self.codebooks.sift_pca, self.codebooks.lcs_pca)
+            axes = row_axes(mesh)
+            img_s = shard_tensor(img, mesh, P(axes)).shards
+            dims_s = shard_tensor(dims, mesh, P(axes)).shards
+            rows = [
+                self._encode_bucket(img_s[f], dims_s[f], self.codebooks.sift_pca, self.codebooks.lcs_pca)
+                for f in axis_representatives(mesh, axes)
+            ]
+            return torch.cat([r.to(self.device) for r in rows])
 
         def consume(dev, b):
             rows = dev[: len(b["dims"])].cpu().numpy()

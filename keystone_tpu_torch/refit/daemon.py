@@ -57,7 +57,9 @@ is parked in the journal as a planned resume (its replay budget
 untouched), and the next admitted round resumes the fold from the cursor
 — and the loop's cadence follows the tap's fill and the pressure.
 
-Not here: the sharded fold (``partition=``, ROADMAP item 14b).
+``partition=`` takes a partitioner decision (``Partitioner().decide_stream``)
+and hands it to every round's fold: an eligible one runs the sharded
+chunk plan, durable and elastic as any sharded fold.
 
 The module also carries the synthetic drifting-workload closed loop
 behind ``python -m keystone_tpu_torch refit`` (:func:`run_refit_demo`).
@@ -163,12 +165,9 @@ class RefitDaemon:
         state: Optional[StreamState] = None,
         scheduler: Any = None,
     ):
-        if partition is not None:
-            raise NotImplementedError(
-                "RefitDaemon(partition=...): the sharded fold is not ported yet "
-                "(ROADMAP item 14b)"
-            )
         self.estimator = estimator
+        #: PartitionDecision for each round's fold (None: one device).
+        self.partition = partition
         #: optional sched.MeshScheduler: rounds become cost-priced leases
         #: (module docstring).
         self.scheduler = scheduler
@@ -556,6 +555,7 @@ class RefitDaemon:
             (),
             chunk_rows=min(chunk_rows, max(len(train_x), 1)),
             device=getattr(self.estimator, "device", None),
+            partition=self.partition,
         )
         state = self._state
         decay = self.config.state_decay

@@ -13,8 +13,10 @@
                        and the loaders' `QuarantineCounts`.
 - :mod:`checkpoint`  — `CheckpointStore`: fitted prefixes persisted under
                        stable digests (`enable_checkpointing`).
-- :mod:`durable`     — mid-stream resume: cursors, resume entries and
-                       the `DurableFold` the streaming engine commits.
+- :mod:`durable`     — mid-stream resume: cursors, resume entries, the
+                       `DurableFold` the streaming engine commits, and
+                       `ShardLossError` / `shard_loss_index`, the elastic
+                       fold's shard-loss signal.
 
 The serving layer uses them (its retry policy, admission ladder and
 ``serving.apply`` probe), the streaming engine its ``streaming.chunk``
@@ -56,6 +58,8 @@ _LAZY = {
     "CheckpointStore": "keystone_tpu_torch.reliability.checkpoint",
     "enable_checkpointing": "keystone_tpu_torch.reliability.checkpoint",
     "prefix_digest": "keystone_tpu_torch.reliability.checkpoint",
+    "ShardLossError": "keystone_tpu_torch.reliability.durable",
+    "shard_loss_index": "keystone_tpu_torch.reliability.durable",
 }
 
 
@@ -84,6 +88,7 @@ __all__ = [
     "LadderExhausted",
     "RecoveryLog",
     "RetryPolicy",
+    "ShardLossError",
     "classify_error",
     "enable_checkpointing",
     "get_recovery_log",
@@ -95,6 +100,7 @@ __all__ = [
     "probe",
     "reset_recovery_log",
     "run_with_deadline",
+    "shard_loss_index",
     "specs_from_env",
     "specs_to_env",
     "wait_until",

@@ -26,12 +26,17 @@ The contract is solver-agnostic: envelopes carry an opaque host-numpy
 carry (whatever ``kind`` the estimator accumulates), so the sketch tier
 is durable too.
 
-Waiting for ROADMAP item 14b: ``ShardLossError`` and ``shard_loss_index``
-(shard-loss recovery) and the sharded durable fold. Cursors keep the JAX
-package's mesh fields at their one-device values, because a fold under a
-sharded partition plan refuses a checkpoint store
-(``workflow/streaming.py`` raises ``NotImplementedError``) rather than
-commit a one-device snapshot.
+- :class:`ShardLossError` — the mid-stream signal that a shard left the
+  mesh (raised at the ``parallel.shard_loss`` probe site, once per
+  sharded chunk dispatch); the streaming engine catches it, salvages
+  the surviving shards' partials and re-plans on the shrunken mesh
+  (``workflow/streaming.py``). :func:`shard_loss_index` says which shard
+  a simulated loss removes.
+
+Under a sharded plan a commit holds the per-shard partials already
+merged (rows summed, feature blocks reassembled), so a cursor resumes on
+any mesh; it records the plan's ``mesh_shape``, ``shards`` and
+``model_shards``.
 """
 
 from __future__ import annotations
@@ -54,6 +59,19 @@ from .recovery import get_recovery_log
 RESUME_FORMAT_VERSION = 1
 
 
+class ShardLossError(RuntimeError):
+    """A shard left the mesh mid-stream. Raised at the
+    ``parallel.shard_loss`` probe site (one call per sharded chunk
+    dispatch) and caught by ``ChunkStream.fold``, which salvages the
+    surviving shards' partials and continues on the shrunken mesh."""
+
+    def __init__(self, lost_shard: int, chunk_index: int, shards: int):
+        self.lost_shard = int(lost_shard)
+        self.chunk_index = int(chunk_index)
+        self.shards = int(shards)
+        super().__init__(f"shard {lost_shard}/{shards} lost at chunk {chunk_index}")
+
+
 # ----------------------------------------------------------------- knobs
 
 
@@ -72,6 +90,15 @@ def stream_ckpt_chunks(n_rows: int) -> int:
     if n_rows >= env_int("KEYSTONE_STREAM_CKPT_AUTO_ROWS", 1_000_000):
         return max(1, env_int("KEYSTONE_STREAM_CKPT_AUTO_EVERY", 32))
     return 0
+
+
+def shard_loss_index(shards: int) -> int:
+    """Which shard a *simulated* loss removes (default: the last).
+    ``KEYSTONE_SHARD_LOSS_INDEX`` overrides it, so that a test reaches the
+    seed-bearing shard 0. A real loss would carry the failed device's
+    identity instead."""
+    idx = env_int("KEYSTONE_SHARD_LOSS_INDEX", shards - 1)
+    return min(max(idx, 0), shards - 1)
 
 
 # ------------------------------------------------------------- identity
@@ -237,11 +264,22 @@ class DurableFold:
     resume_rows: int = 0            # rows those skipped chunks held
     seed_rows: int = 0              # non-dataset rows in the seed state
 
-    def cursor(self, chunk_index: int, rows_consumed: int, chunk_rows: int) -> StreamCursor:
+    def cursor(
+        self,
+        chunk_index: int,
+        rows_consumed: int,
+        chunk_rows: int,
+        mesh_shape: Tuple[int, ...] = (),
+        shards: int = 1,
+        model_shards: int = 1,
+    ) -> StreamCursor:
         return StreamCursor(
             chunk_index=chunk_index,
             rows_consumed=rows_consumed,
             chunk_rows=chunk_rows,
+            mesh_shape=tuple(mesh_shape),
+            shards=int(shards),
+            model_shards=int(model_shards),
             **self.fingerprints,
         )
 
@@ -251,11 +289,15 @@ class DurableFold:
         chunk_index: int,
         rows_consumed: int,
         chunk_rows: int,
+        mesh_shape: Tuple[int, ...] = (),
+        shards: int = 1,
+        model_shards: int = 1,
     ) -> bool:
         """Persist one mid-fit snapshot (atomic tmp+rename underneath).
-        Called by the fold with the carry ALREADY copied to the host —
-        the commit-before-continue barrier is the fold's job; this is
-        the write. Best-effort: a failed write is ledgered and the fit
+        Called by the fold with the carry ALREADY copied to the host and,
+        under a sharded plan, merged over the shards — the
+        commit-before-continue barrier is the fold's job; this is the
+        write. Best-effort: a failed write is ledgered and the fit
         continues (durability never fails a fit that would succeed)."""
         state = StreamState(
             kind=self.kind,
@@ -265,7 +307,7 @@ class DurableFold:
             meta={**self.state_meta, "durable": True},
         )
         entry = ResumeEntry(
-            cursor=self.cursor(chunk_index, rows_consumed, chunk_rows),
+            cursor=self.cursor(chunk_index, rows_consumed, chunk_rows, mesh_shape, shards, model_shards),
             state=state,
             seed_rows=self.seed_rows,
         )

@@ -195,14 +195,15 @@ _current: Optional[FaultInjector] = None
 
 #: Every probe site the port exposes, by its exact label. Chaos specs
 #: target sites by these names; a site is registered next to the code
-#: that adds it. The JAX package registers one more, the shard-loss
-#: site, which arrives with the multi-device runtime.
+#: that adds it.
 KNOWN_PROBE_SITES = frozenset(
     {
         "serving.apply",  # serving/server.py: per-batch apply
         "serving.worker.request",  # serving/worker.py: request handling
         "serving.worker.heartbeat",  # serving/worker.py: heartbeat wire
         "streaming.chunk",  # workflow/streaming.py: per-chunk dispatch
+        "parallel.shard_loss",  # workflow/streaming.py: sharded chunk plan — a fault
+        # here models a shard lost from the mesh; the elastic fold recovers
         "refit.fold",  # refit/daemon.py: incremental fold
         "refit.candidate",  # refit/daemon.py: candidate, post-eval
         "refit.publish",  # refit/publish.py: registry swap

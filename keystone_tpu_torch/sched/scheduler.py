@@ -1,8 +1,9 @@
 """Cost-governed admission onto the serving card: train where you serve.
 
 Port of ``keystone_tpu/sched/scheduler.py`` for one card: the "mesh" is
-the one CUDA device the server and the background work share (the
-scheduler's own mesh admission waits for ROADMAP item 14b).
+the one CUDA device the server and the background work share (the JAX
+package's scheduler has no mesh-dependent code either: "mesh" there is
+the shared device set).
 
 Background work — refit daemon fold rounds, ``tune``
 probes, sketched/Gram finish reductions — historically ran in separate

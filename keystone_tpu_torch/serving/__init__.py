@@ -39,7 +39,9 @@ The modules that hold models (``registry``, ``server``, ``synthetic``,
 control plane imports none of it, so a stub worker and ``serve --help``
 start without it.
 
-Left out for now (ROADMAP item 14b): the sharded serving partition.
+Under a mesh with several row shards the server's warmup attaches the
+serving partition (``parallel.partitioner.attach_serving_partition``):
+each divisible batch is applied shard by shard.
 """
 
 from .admission import DEFAULT_RUNGS, AdmissionController, AdmissionRung

@@ -11,9 +11,9 @@ three doors —
   reliability ``CheckpointStore`` directory, by digest prefix, onto the
   serving device.
 
-Left out for now: the serving partition ``load_fitted`` attaches for
-multi-device serving in the JAX package (``attach_serving_partition``,
-ROADMAP item 14b).
+With ``buckets`` given, ``load_fitted`` also attaches the serving
+partition (``parallel.partitioner.attach_serving_partition``), as the
+JAX package's does.
 
 Hot-swap contract: ``resolve`` returns an immutable :class:`ModelEntry`;
 the worker holds that entry for the whole batch it is applying, so a
@@ -183,6 +183,13 @@ class ModelRegistry:
             buckets=buckets,
             warmed_buckets=warmed_buckets,
         )
+        if buckets:
+            # Decide (and record) the serving row sharding at the door the
+            # bucket contract enters: warmup re-attaches the same decision,
+            # so the published and the warmed layouts cannot drift.
+            from ..parallel.partitioner import attach_serving_partition
+
+            attach_serving_partition(fitted, buckets, name=name)
         return self.publish(name, fitted, source=f"fitted:{path}")
 
     def load_checkpoint(

@@ -160,16 +160,24 @@ class PipelineServer:
         server's device, so no request size meets a cold batch shape at
         serve time. ``example`` is one request payload (array, tensor or
         a tuple/list/dict of them). Returns per-model ``bucket_<n>_s``
-        seconds, and stamps the cuFFT plan-cache baseline for
+        seconds, plus one sibling ``"partition_decisions"`` entry mapping
+        each model to its serving partition decision (the per-model dicts
+        stay pure timings), and stamps the cuFFT plan-cache baseline for
         ``stats()``."""
+        from ..parallel.partitioner import attach_serving_partition
         from ..utils.aot import warm_buckets
 
         out: Dict[str, Any] = {}
         for model_name in models or self.registry.names():
             entry = self.registry.resolve(model_name)
+            # Decide the row sharding BEFORE warming, so the warmed
+            # batches take the layouts steady state replays.
+            decision = attach_serving_partition(entry.model, self._buckets, name=model_name)
             out[model_name] = warm_buckets(
                 entry.batch_apply, example, self._buckets, device=self.device
             )
+            if decision is not None:
+                out.setdefault("partition_decisions", {})[model_name] = decision.to_json()
         for bucket in self._buckets:
             self.telemetry.mark_bucket_warm(bucket)
         self._plan_baseline = self._cufft_plans()

@@ -23,8 +23,10 @@ workflow/Pipeline.scala:22-155, workflow/FittedPipeline.scala:22-48).
   (``CompiledApply``): the graph bound once, only the dataset swapped
   per call.
 
-Left out for now: the plan-time verifier in ``fit`` and
-``CompiledApply.partition`` (multi-device serving).
+Multi-device serving: ``CompiledApply.partition``, installed by
+``parallel.partitioner.attach_serving_partition``, splits each batch
+whose rows divide the row shards over the mesh and applies the graph
+shard by shard.
 """
 
 from __future__ import annotations
@@ -556,10 +558,59 @@ class CompiledApply:
         self._graph: Optional[Graph] = None
         self._lock = threading.Lock()
         self.calls = 0
+        #: PartitionDecision or None (parallel/partitioner.py).
+        self.partition = None
+        #: Batches applied shard by shard under ``partition``.
+        self.sharded_calls = 0
+        self._imbalance_gauge = None
 
     def __call__(self, dataset: Union[Dataset, Any]) -> Dataset:
         if not isinstance(dataset, Dataset):
             dataset = as_dataset(dataset)
+        # One read: an attach may swap the decision concurrently, and the
+        # placement and the accounting must see the same one.
+        partition = self.partition
+        if partition is not None and isinstance(dataset, ArrayDataset):
+            physical = dataset.physical_rows
+            if physical >= partition.shards and physical % partition.shards == 0:
+                return self._apply_sharded(partition, dataset)
+        return self._apply(dataset)
+
+    def _apply_sharded(self, partition, dataset: ArrayDataset) -> Dataset:
+        """The batch's rows split over the decision's row shards (views on
+        the batch's device when the mesh names it), the graph applied to
+        each shard's rows in shard order, the outputs concatenated. The
+        placement is a pure function of the batch's physical rows, as in
+        the JAX package: a bucket always shards or never does."""
+        from ..parallel.collectives import axis_representatives
+        from ..parallel.partitioner import shard_rows
+        from ..utils.tree import tree_leaves
+
+        laid = shard_rows(partition, dataset.data)
+        outs = []
+        for flat in axis_representatives(partition.mesh, tuple(partition.mesh_axes)):
+            piece = tree_map(lambda sh: sh.shards[flat], laid)
+            outs.append(self._apply(ArrayDataset(piece)).data)
+        device = tree_leaves(outs[0])[0].device
+        n = dataset.num_examples
+
+        def merge(*parts):
+            # Rows past the logical count read zero, as the unsharded
+            # apply's output does.
+            out = torch.cat([p.to(device) for p in parts])
+            out[n:] = 0
+            return out
+
+        merged = tree_map(merge, *outs)
+        self.sharded_calls += 1
+        if self._imbalance_gauge is None:
+            from ..obs import names as _names
+
+            self._imbalance_gauge = _names.metric(_names.PARTITION_IMBALANCE)
+        self._imbalance_gauge.set(1.0 - dataset.num_examples / dataset.physical_rows, kind="serve")
+        return ArrayDataset(merged, num_examples=dataset.num_examples)
+
+    def _apply(self, dataset: Dataset) -> Dataset:
         fitted = self._fitted
         with self._lock:
             if self._graph is None:

@@ -61,7 +61,7 @@ sustained serving pressure it commits its durable cursor, marks
 deferred fold resumes from the cursor, not from row zero.
 
 A completed, unresumed fold reports its rows/s to the cost observatory.
-Unlike the JAX package's fold it records no ``stream:<chain>:cr<rows>``
+Unlike the JAX package's fold it records no ``stream:<chain>:…``
 observation in the profile store: a store write costs ~12 ms on the
 host, as much as a small refit fold. ``tune`` measures and records
 those entries, which ``MeasuredKnobRule`` replays.
@@ -82,9 +82,20 @@ to row-only (``demote_model_axis``). The report's ``shards``,
 ``model_shards``, ``mesh_shape``, per-axis ``collective_bytes`` and
 ``state_bytes_per_device`` are the JAX package's plan-pure numbers.
 
-Waiting for ROADMAP item 14b: the sharded durable fold and shard-loss
-recovery. A fold under a sharded plan with a checkpoint store armed
-raises ``NotImplementedError`` rather than write a one-device snapshot.
+Under a sharded plan the fold is durable and elastic, as the JAX
+package's. A commit merges the per-shard partials (rows summed, feature
+blocks reassembled) into one mesh-independent snapshot, so a checkpoint
+resumes on any mesh, one device included. The ``parallel.shard_loss``
+probe runs once per sharded chunk dispatch; a fault there is a
+:class:`~keystone_tpu_torch.reliability.durable.ShardLossError`, which the
+fold absorbs (``_salvage_shard_loss``): the surviving row groups'
+partials merge (a loss on either axis of a 2-D layout drops its whole
+row group), the seed is added back when row group 0 was lost, the lost
+rows of every chunk dispatched in the attempt are re-ingested ahead of
+the remainder, and the plan is re-decided on ``mesh_without(...)`` —
+single-device when the partitioner says so. Commits are suspended for
+the rest of a fold that lost a shard: recovery windows break the chunk
+prefix a cursor describes.
 """
 
 from __future__ import annotations
@@ -583,17 +594,21 @@ class _ShardedCarry:
 
         self.blocks = [block(b) for b in range(self.p_d * self.p_m)]
 
-    def merge(self, device: torch.device):
+    def merge(self, device: torch.device, drop_row: Optional[int] = None):
         """THE finish reduction: per leaf, the partials summed over the row
         shards in shard order; feature leaves then concatenate their model
-        blocks along the layout axis, feature-free leaves sum them."""
+        blocks along the layout axis, feature-free leaves sum them.
+        ``drop_row`` leaves one row group out (a shard loss's salvage)."""
         from ..parallel.collectives import _ordered_sum
 
         layout = self.layout or (None,) * len(self.blocks[0])
+        rows = [i for i in range(self.p_d) if i != drop_row]
         out = []
         for k, ax in enumerate(layout):
             cols = [
-                _ordered_sum([self.blocks[i * self.p_m + j][k] for i in range(self.p_d)], device)
+                _ordered_sum([self.blocks[i * self.p_m + j][k] for i in rows], device)
+                if rows
+                else torch.zeros_like(self.blocks[j][k], device=device)
                 for j in range(self.p_m)
             ]
             if self.p_m == 1:
@@ -683,6 +698,8 @@ class ChunkStream:
 
     # ---------------------------------------------------------------- fold
     def fold(self, init_fn, step_fn):
+        from ..reliability.durable import ShardLossError, shard_loss_index
+
         data, chunk_rows, n, device = self.data, self.chunk_rows, self.num_examples, self.device
         if self.labels is None:
             raise StreamingFallback("no labels bound for a supervised fit")
@@ -701,12 +718,10 @@ class ChunkStream:
             # The plan granted the model axis on the raw width; re-check it
             # against the estimator's real carry and the step's protocol.
             part = self._validate_model_axis(part, step_fn, carry)
-        if part is not None and self.durable is not None:
-            raise NotImplementedError(
-                "a checkpointed fold under a sharded partition plan: the sharded "
-                "durable fold and shard-loss recovery are ROADMAP item 14b"
-            )
         sharded = _ShardedCarry(part, step_fn, carry) if part is not None else None
+        # Shard-loss salvage re-adds the fold's seed when row group 0 is
+        # lost: the blocks are copies, so ``carry`` stays the seed.
+        attempt_seed = carry
 
         record = _shared_step_record(self.members, step_fn, part)
         members = self.members
@@ -734,13 +749,19 @@ class ChunkStream:
             report.resumed_from_chunk = start_chunk
             report.reingested_chunks = len(windows) - start_chunk
             _names.metric(_names.DURABLE_REINGESTED_CHUNKS).inc(report.reingested_chunks)
-        # Chunks dispatched in this fold, and ABSOLUTE logical rows
-        # dispatched (a resumed fold starts at the cursor's count): what a
-        # committed cursor records.
+        # Chunks dispatched in this ATTEMPT (a shard loss starts a new one
+        # over its recovery windows), and ABSOLUTE logical rows dispatched
+        # (a resumed fold starts at the cursor's count): what a committed
+        # cursor records. ``folded_log`` keeps each dispatched window's
+        # geometry, so a salvage can slice the lost shard's rows back out.
+        # Commits stop after a loss.
         progress = {
             "dispatched": 0, "committed": 0,
             "rows": durable.resume_rows if durable is not None else 0,
+            "suspended": False,
         }
+        folded_log: List[Tuple[int, int, int, int]] = []
+        attempt_windows: List[Tuple[int, int]] = windows[start_chunk:]
         lease = self.lease
         cuda = device.type == "cuda"
         copy_stream = torch.cuda.Stream(device) if cuda else None
@@ -854,12 +875,22 @@ class ChunkStream:
             # store write completes BEFORE the next chunk updates the
             # carry in place — a persisted carry is never stale.
             t_commit = time.perf_counter()
-            host = tuple(a.detach().to("cpu", copy=True).numpy() for a in tree_leaves(carry))
+            if sharded is not None:
+                # The per-shard partials merged (on the stream's device)
+                # into a mesh-independent snapshot: resume may re-plan on
+                # any mesh.
+                leaves = sharded.merge(self.device)
+            else:
+                leaves = tree_leaves(carry)
+            host = tuple(a.detach().to("cpu", copy=True).numpy() for a in leaves)
             ok = durable.commit(
                 host,
                 chunk_index=start_chunk + progress["dispatched"],
                 rows_consumed=progress["rows"],
                 chunk_rows=chunk_rows,
+                mesh_shape=tuple(part.mesh_shape) if sharded is not None else (),
+                shards=part.shards if sharded is not None else 1,
+                model_shards=part.model_shards if sharded is not None else 1,
             )
             progress["committed"] = progress["dispatched"]
             if ok:
@@ -875,7 +906,7 @@ class ChunkStream:
                 # Preempt at the chunk boundary: commit the durable cursor
                 # FIRST (a deferred fold resumes from here), then unwind
                 # with the prefix carry, which stays valid statistics.
-                if durable is not None and progress["committed"] != done_chunks:
+                if durable is not None and not progress["suspended"] and progress["committed"] != done_chunks:
                     commit_checkpoint()
                 report.preempted_at_chunk = start_chunk + done_chunks
                 lease.mark_preempted(start_chunk + done_chunks)
@@ -883,10 +914,21 @@ class ChunkStream:
             if (
                 durable is not None
                 and durable.ckpt_every > 0
+                and not progress["suspended"]
                 and done_chunks > 0
                 and done_chunks % durable.ckpt_every == 0
             ):
                 commit_checkpoint()
+            if sharded is not None:
+                try:
+                    probe("parallel.shard_loss")
+                except Exception as exc:
+                    # Any fault at this site models the runtime observing a
+                    # shard gone before this chunk could dispatch; indexed
+                    # over ALL carry blocks (row × model, flat row-major).
+                    raise ShardLossError(
+                        shard_loss_index(part.total_shards), start_chunk + done_chunks, part.total_shards
+                    ) from exc
             probe("streaming.chunk")
             report.dispatch_t.append(time.perf_counter() - t0)
             compute_start = done = None
@@ -911,6 +953,7 @@ class ChunkStream:
             progress["dispatched"] += 1
             start, stop = chunk[3]
             progress["rows"] += stop - start
+            folded_log.append((start, stop, sharded.p_d if sharded is not None else 1, chunk_rows))
             if report.chunks == 1:
                 report.compiles_first_chunk = len(record.traces)
             return done
@@ -924,23 +967,52 @@ class ChunkStream:
                 done.synchronize()
             report.compute_done_t.append(time.perf_counter() - t0)
 
-        queue = PrefetchQueue(
-            iter(windows[start_chunk:]),
-            prepare,
-            depth=self.prefetch,
-            workers=min(self.workers, self.prefetch),
-            size_of=lambda chunk: _host_nbytes(chunk[:3]),
-        )
+        steady_accum = 0
+        attempt_base: Optional[int] = None
+        queue = None
+        # Stall and buffer peaks of the attempts a shard loss abandoned.
+        stall_before, peak_before = 0.0, 0
         try:
             with _spans.span(
                 "stream:fold", chunks=len(windows), chunk_rows=chunk_rows, start_chunk=start_chunk
             ):
-                try:
-                    stream_pipelined(queue, stage, compute, consume, prefetch=2 if cuda else 1)
-                except FoldPreempted:
-                    # Graceful yield: the cursor is committed and the
-                    # report marked; the prefix carry is returned below.
-                    pass
+                while True:
+                    queue = PrefetchQueue(
+                        iter(attempt_windows),
+                        prepare,
+                        depth=self.prefetch,
+                        workers=min(self.workers, self.prefetch),
+                        size_of=lambda chunk: _host_nbytes(chunk[:3]),
+                    )
+                    try:
+                        stream_pipelined(queue, stage, compute, consume, prefetch=2 if cuda else 1)
+                    except ShardLossError as loss:
+                        # Join this attempt's prefetch workers before the
+                        # salvage: an abandoned attempt leaks no threads.
+                        queue.close()
+                        stall_before += queue.stall_s
+                        peak_before = max(peak_before, queue.peak_live_bytes)
+                        if report.chunks:
+                            prev = report.compiles_first_chunk if attempt_base is None else attempt_base
+                            steady_accum += len(record.traces) - prev
+                        part, sharded, carry, attempt_windows, chunk_rows = self._salvage_shard_loss(
+                            loss, sharded, part, step_fn, attempt_seed, folded_log,
+                            attempt_windows, progress["dispatched"], chunk_rows, report,
+                        )
+                        attempt_seed = carry
+                        record = _shared_step_record(self.members, step_fn, part)
+                        # A loss before ANY chunk folded: the next attempt's
+                        # first chunk is the fold's first chunk.
+                        attempt_base = len(record.traces) if report.chunks else None
+                        folded_log.clear()
+                        progress["dispatched"] = 0
+                        progress["suspended"] = True
+                        continue
+                    except FoldPreempted:
+                        # Graceful yield: the cursor is committed and the
+                        # report marked; the prefix carry is returned below.
+                        pass
+                    break
                 if sharded is not None:
                     carry = self._finish_sharded(sharded, report, len(windows))
             if cuda and report.bytes_transferred and report.preempted_at_chunk is None:
@@ -951,10 +1023,12 @@ class ChunkStream:
                     for i in range(len(events) - 1)
                 )
         finally:
-            queue.close()
-            report.stall_s = queue.stall_s
-            report.host_buffer_peak_bytes = queue.peak_live_bytes + in_hand_peak
-            report.compiles_steady_state = len(record.traces) - report.compiles_first_chunk
+            if queue is not None:
+                queue.close()
+                report.stall_s = stall_before + queue.stall_s
+                report.host_buffer_peak_bytes = max(peak_before, queue.peak_live_bytes) + in_hand_peak
+            base = report.compiles_first_chunk if attempt_base is None else attempt_base
+            report.compiles_steady_state = steady_accum + len(record.traces) - base
             _publish_report(report)
         preempted = report.preempted_at_chunk is not None
         resume_rows = 0
@@ -1014,6 +1088,77 @@ class ChunkStream:
             record_collective_bytes(report.collective_bytes_model, axis="model")
             record_imbalance("fit_stream", self.num_examples, num_windows * self.chunk_rows)
         return carry
+
+    def _salvage_shard_loss(
+        self, loss, sharded, part, step_fn, seed, folded_log, attempt_windows, dispatched, chunk_rows, report
+    ):
+        """Absorb a mid-stream shard loss and hand back the next attempt's
+        ``(part, sharded, carry, windows, chunk_rows)``.
+
+        The lost shard's carry block is gone; the flat block index is
+        row-major over (data, model), so a loss on EITHER axis maps to one
+        row group, and the whole group is dropped (with feature-blocked
+        partials no single column holds a complete one). The surviving
+        groups' partials merge via the additive contract; when group 0 —
+        which carries the fold's seed — was lost, the seed is added back.
+        The rows only the lost group had folded (its slice of every chunk
+        dispatched this attempt, per ``folded_log``) become recovery
+        windows, re-ingested ahead of the untouched remainder. The
+        partitioner re-decides on the shrunken mesh; an ineligible
+        decision continues on one device — elasticity is never an error.
+        """
+        from ..parallel.mesh import mesh_without
+        from ..parallel.partitioner import Partitioner, record_decision
+        from ..reliability.recovery import get_recovery_log
+
+        label = f"fit_stream[{len(self.members)}ops]"
+        lost, p_m = loss.lost_shard, part.model_shards
+        lost_row = lost // p_m
+        get_recovery_log().record(
+            "shard_loss", label, lost_shard=lost, shards=part.total_shards, chunk_index=loss.chunk_index
+        )
+        _names.metric(_names.DURABLE_SHARD_LOSSES).inc()
+        report.shard_losses += 1
+
+        surviving = sharded.merge(self.device, drop_row=lost_row)
+        if lost_row == 0:
+            surviving = tuple(s + a.to(self.device) for s, a in zip(surviving, tree_leaves(seed)))
+
+        # Row group i held padded rows [i·rps, (i+1)·rps) of each chunk, so
+        # the lost LOGICAL rows of a window (s, e) are the contiguous
+        # [s + lost_row·rps, min(s + (lost_row+1)·rps, e)).
+        recovery: List[Tuple[int, int]] = []
+        for s, e, shards_f, rows_f in folded_log:
+            rps = rows_f // shards_f
+            lo, hi = s + lost_row * rps, min(s + (lost_row + 1) * rps, e)
+            if lo < hi:
+                recovery.append((lo, hi))
+        remaining = list(attempt_windows[dispatched:])
+
+        decision = Partitioner(mesh=mesh_without(part.mesh, lost)).decide_stream(
+            label, chunk_rows, rows=self.num_examples, record=False
+        )
+        # Metrics yes, plan report no: a mid-fold re-decision is runtime.
+        record_decision(decision, to_report=False)
+        new_part = decision if decision.eligible else None
+        if new_part is not None and new_part.model_shards > 1:
+            new_part = self._validate_model_axis(new_part, step_fn, surviving)
+        if new_part is not None:
+            new_sharded = _ShardedCarry(new_part, step_fn, surviving)
+            chunk_rows = new_part.chunk_rows or chunk_rows
+        else:
+            new_sharded = None
+        report.shards = new_part.shards if new_part is not None else 1
+        report.model_shards = new_part.model_shards if new_part is not None else 1
+        report.mesh_shape = tuple(new_part.mesh_shape) if new_part is not None else ()
+        report.reingested_chunks += len(recovery)
+        _names.metric(_names.DURABLE_REINGESTED_CHUNKS).inc(len(recovery))
+        _names.metric(_names.DURABLE_RESUMES).inc(kind="shard")
+        get_recovery_log().record(
+            "shard_resume", label, shards=report.shards,
+            recovery_chunks=len(recovery), remaining_chunks=len(remaining),
+        )
+        return new_part, new_sharded, surviving, recovery + remaining, chunk_rows
 
     def _validate_model_axis(self, part, step_fn, carry):
         """Fold-time check of an optimistically granted model axis against

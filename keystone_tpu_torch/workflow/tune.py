@@ -15,10 +15,16 @@ the :class:`~keystone_tpu_torch.obs.store.ProfileStore` under the keys
 
 Search tasks:
 
-- ``stream`` — chunk_rows × prefetch depth for the streaming engine,
+- ``stream`` — chunk_rows × prefetch depth (× shard count on an ambient
+  mesh with several row shards: ``[1, n]``) for the streaming engine,
   measured as real ``fit_stream`` runs on synthetic data at the target
-  shape; keys ``stream:<chain>:cr<rows>``. One card, so there is no
-  shard-count axis (ROADMAP item 14b brings it).
+  shape; keys ``stream:<chain>:cr<rows>:p<prefetch>:s<shards>``, by the
+  chunk rows and shard count that actually ran (``chunk_rows_actual``,
+  ``shards_actual``). The JAX package keys ``stream:<chain>:cr<rows>``
+  alone, so candidates at one chunk size overwrite each other there and
+  the entry left may be one that lost; here each candidate keeps its own
+  entry, and the store's best one under ``stream:<chain>:`` is the
+  winner.
 - ``solver`` — block_size × precision mode for the in-core block
   least-squares solver, measured as whole estimator fits; keys
   ``solver:block_ls:bs<b>:prec<mode>``. On the card the modes name the
@@ -438,8 +444,9 @@ def tune_stream(
     classes: int = 4,
     device: Any = None,
 ) -> TuneOutcome:
-    """Search chunk_rows × prefetch for the streaming engine at the target
-    shape; measured as real ``fit_stream`` runs from host rows into the
+    """Search chunk_rows × prefetch (× shards on an ambient mesh with
+    several row shards) for the streaming engine at the target shape;
+    measured as real ``fit_stream`` runs from host rows into the
     device (second of two, so first-shape costs such as cuBLAS handles
     stay out of the comparison). The objective is the fold's OWN rows/s —
     the number the engine records and ``MeasuredKnobRule`` maximizes.
@@ -449,6 +456,8 @@ def tune_stream(
     from ..device import resolve_device
     from ..obs.store import dataset_shape_class
     from ..ops.learning.block import BlockLeastSquaresEstimator
+    from ..parallel.mesh import get_mesh, row_shard_count
+    from ..parallel.partitioner import Partitioner
     from .streaming import (
         StreamingFitOperator,
         chain_class,
@@ -464,15 +473,37 @@ def tune_stream(
     chunk_cands = sorted(
         {c for c in (256, 512, 1024, 2048, 4096, 8192) if c <= max(rows // 2, 256)}
     )
-    axes: Dict[str, Sequence[Any]] = {"chunk_rows": chunk_cands, "prefetch": [1, 2]}
-    default = {"chunk_rows": min(stream_chunk_rows(), max(chunk_cands)), "prefetch": 1}
+    ndev = row_shard_count(get_mesh())
+    axes: Dict[str, Sequence[Any]] = {
+        "chunk_rows": chunk_cands,
+        "prefetch": [1, 2],
+        "shards": [1] if ndev == 1 else [1, ndev],
+    }
+    default = {"chunk_rows": min(stream_chunk_rows(), max(chunk_cands)), "prefetch": 1, "shards": 1}
 
     def measure(cand):
         wall = rows_per_s = None
+        chunk_actual = int(cand["chunk_rows"])
+        shards_actual = 1
         for _ in range(2):  # second run: first-shape costs excluded
             op = StreamingFitOperator(
                 est, (), chunk_rows=int(cand["chunk_rows"]), prefetch=int(cand["prefetch"]),
             )
+            if int(cand["shards"]) > 1:
+                decision = Partitioner().decide_stream(op.label, int(cand["chunk_rows"]), rows=rows, record=False)
+                if not decision.eligible:
+                    # An unsharded run must not be scored (and persisted)
+                    # as a shards=N configuration.
+                    raise RuntimeError(
+                        f"partition decision ineligible ({decision.reason}): "
+                        f"shards={cand['shards']} candidate never ran sharded"
+                    )
+                op.partition = decision
+                op.chunk_rows = decision.chunk_rows
+                # What actually ran: the shard-rounded chunk and the
+                # decided shard count.
+                chunk_actual = int(decision.chunk_rows)
+                shards_actual = int(decision.shards)
             before = last_stream_report()
             t0 = time.perf_counter()
             op.fit_datasets([data, labels])
@@ -487,24 +518,29 @@ def tune_stream(
                     "no fold throughput to score this candidate with"
                 )
             rows_per_s = report.num_examples / max(report.compute_done_t[-1], 1e-9)
-        return rows_per_s, {"wall_s": round(wall, 6)}
+        return rows_per_s, {"wall_s": round(wall, 6), "chunk_rows_actual": chunk_actual, "shards_actual": shards_actual}
 
     space = TuneSpace("stream", axes)
     warm = _warm_from_store(
         store, f"stream:{chain_class(())}:", shape, space,
-        {"chunk_rows": "chunk_rows", "prefetch": "prefetch_depth"},
+        {"chunk_rows": "chunk_rows", "prefetch": "prefetch_depth", "shards": "shards"},
         "rows_per_s", maximize=True,
     )
     outcome = tuner.search(space, measure, default=default, maximize=True, warm=warm)
     if store is not None:
         for m in outcome.measured:
-            chunk = int(m.knobs["chunk_rows"])
+            # Keyed and recorded by what actually ran (the partitioner may
+            # shard-round chunk_rows), never the requested candidate.
+            chunk = int(m.extra.get("chunk_rows_actual", m.knobs["chunk_rows"]))
+            prefetch = int(m.knobs["prefetch"])
+            shards = int(m.extra.get("shards_actual", 1))
             store.record(
-                f"stream:{chain_class(())}:cr{chunk}",
+                f"stream:{chain_class(())}:cr{chunk}:p{prefetch}:s{shards}",
                 shape,
                 chunk_rows=chunk,
                 rows_per_s=m.objective,
-                prefetch_depth=int(m.knobs["prefetch"]),
+                prefetch_depth=prefetch,
+                shards=shards,
                 wall_s=m.extra.get("wall_s"),
                 source="tune",
             )

@@ -1010,3 +1010,76 @@ def test_sharded_streamed_fit_on_the_card_matches_one_shard(cuda, monkeypatch):
     assert (report.shards, report.compiles_steady_state) == (8, 0)
     assert report.collective_bytes == 4 * (64 * 64 + 64 * 3 + 64 + 3) * 7
     assert float((eight - one).norm() / one.norm()) <= 1e-5
+
+
+def test_shard_loss_on_8_shards_of_the_card_recovers_the_uninterrupted_fit(cuda, monkeypatch):
+    """A seeded loss of the last shard and of the seed-bearing shard 0,
+    mid-fold on 8 shards of the card: the salvaged fold equals the
+    uninterrupted 8-shard fold."""
+    from keystone_tpu_torch.data.dataset import ArrayDataset
+    from keystone_tpu_torch.ops.learning.linear import LinearMapEstimator
+    from keystone_tpu_torch.parallel.mesh import use_mesh
+    from keystone_tpu_torch.reliability.faultinject import FaultSpec, injected
+    from keystone_tpu_torch.workflow import BatchTransformer
+    from keystone_tpu_torch.workflow.executor import PipelineEnv
+    from keystone_tpu_torch.workflow.streaming import last_stream_report
+
+    class Scale(BatchTransformer):
+        def apply_arrays(self, a):
+            return a * 2.0
+
+    monkeypatch.setenv("KEYSTONE_STREAM_CHUNK_ROWS", "1024")
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(8192, 64)).astype(np.float32)
+    y = (x @ rng.normal(size=(64, 3)) + 0.01 * rng.normal(size=(8192, 3))).astype(np.float32)
+
+    def fit(*specs):
+        PipelineEnv.reset()
+        pipe = Scale().to_pipeline().then_label_estimator(
+            LinearMapEstimator(reg=1e-3, device=cuda), ArrayDataset(x, device="cpu"), ArrayDataset(y, device="cpu"))
+        with injected(*specs):
+            return pipe.fit().apply_batch(ArrayDataset(x[:256], device=cuda)).data
+
+    with use_mesh(_card_mesh()):
+        whole = fit()
+        for index in ("7", "0"):
+            monkeypatch.setenv("KEYSTONE_SHARD_LOSS_INDEX", index)
+            salvaged = fit(FaultSpec(match="parallel.shard_loss", kind="transient", calls=(4,)))
+            report = last_stream_report()
+            assert (report.shard_losses, report.shards) == (1, 7)
+            assert float((salvaged - whole).norm() / whole.norm()) <= 1e-5
+
+
+def test_two_process_rehearsal_on_the_card_with_gloo(cuda):
+    """Two rehearsal processes share the card: NCCL refuses that, so they
+    join a gloo group and exchange host copies of their CUDA partials."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = dict(os.environ, PYTHONPATH=repo)
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-m", "keystone_tpu_torch.parallel.rehearsal", "--coordinator", f"127.0.0.1:{port}",
+             "--num-hosts", "2", "--host-id", str(i), "--local-shards", "4", "--device", "cuda", "--backend", "gloo"],
+            cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for i in (0, 1)
+    ]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0 and "REHEARSAL_OK" in out and "mode=gloo" in out, out[-2000:]

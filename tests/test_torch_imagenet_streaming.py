@@ -67,6 +67,7 @@ from keystone_tpu_torch.ops.learning.pca import BatchPCATransformer
 from keystone_tpu_torch.ops.stats import jax_random
 from keystone_tpu_torch.ops.stats.core import NormalizeRows, SignedHellingerMapper
 from keystone_tpu_torch.ops.util.vectors import MatrixVectorizer, VectorCombiner
+from keystone_tpu_torch.parallel.mesh import make_mesh
 from keystone_tpu_torch.pipelines import imagenet_streaming as streaming
 from keystone_tpu_torch.pipelines.imagenet import ApplyArrays, ImageNetSiftLcsFVConfig
 from keystone_tpu_torch.utils.aot import warm_flagship
@@ -257,8 +258,13 @@ def test_encode_buckets_rows_equal_for_every_prefetch_and_through_on_rows(fitted
     assert fs.encode_buckets(_dicts(buckets), on_rows=lambda rows, b: seen.append((rows, b))) is None
     np.testing.assert_array_equal(np.concatenate([rows for rows, _ in seen]), base)
     assert [len(b["dims"]) for _, b in seen] == [len(b) for b in buckets]
-    with pytest.raises(NotImplementedError, match="item 14"):
-        fs.encode_buckets(_dicts(buckets), mesh=object())
+    # Over a mesh of 3 CPU shards (bucket rows not a multiple: pad rows
+    # dropped) the rows are the unsharded encode's, as the JAX package's
+    # test_encode_buckets_mesh_sharded_matches_unsharded holds.
+    mesh = make_mesh(devices=[CPU] * 3)
+    sharded = fs.encode_buckets(_dicts(buckets), mesh=mesh)
+    assert sharded.shape == base.shape
+    assert _rel(sharded, base) <= 1e-5
 
 
 @pytest.mark.parametrize("binning", [None, torch.bfloat16])

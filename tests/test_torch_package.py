@@ -192,6 +192,7 @@ print(json.dumps({"imported": names, "bad": bad}))
         "keystone_tpu_torch.parallel.mesh",
         "keystone_tpu_torch.parallel.collectives",
         "keystone_tpu_torch.parallel.partitioner",
+        "keystone_tpu_torch.parallel.rehearsal",
         "keystone_tpu_torch.workflow.optimize",
     }
     assert expected <= set(result["imported"])

@@ -314,15 +314,32 @@ def test_default_mesh_keeps_the_single_device_plan(monkeypatch):
     assert [d.reason for d in tpart.last_partition_report()] == ["single-shard-mesh"]
 
 
-def test_a_sharded_durable_fold_is_refused_naming_14b(mesh8, monkeypatch, tmp_path):
+def test_a_sharded_durable_fold_commits_merged_snapshots_as_the_jax_package(mesh8, monkeypatch, tmp_path):
+    """A checkpoint store under a sharded plan: the fold commits the
+    shard-merged carry with the plan's mesh fields in its cursor, retires
+    the entry at completion, and predicts as the JAX package's durable
+    sharded fold on its 8 virtual devices."""
+    from keystone_tpu.reliability import enable_checkpointing as j_enable_checkpointing
     from keystone_tpu_torch.reliability import enable_checkpointing
+    from keystone_tpu_torch.reliability.recovery import get_recovery_log, reset_recovery_log
 
     monkeypatch.setenv("KEYSTONE_STREAM_CHUNK_ROWS", str(CHUNK))
     monkeypatch.setenv("KEYSTONE_STREAM_CKPT_CHUNKS", "2")
+    reset_recovery_log()
     x, y = _data()
-    enable_checkpointing(str(tmp_path), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        _pipe(x, y).fit()
+    probe = np.random.default_rng(3).normal(size=(32, D)).astype(np.float32)
+    JPipelineEnv.reset()
+    j_enable_checkpointing(str(tmp_path / "jax"))
+    jfit = _jpipe(x, y).fit()
+    jrep = jstreaming.last_stream_report()
+    enable_checkpointing(str(tmp_path / "port"), device=CPU)
+    fitted = _pipe(x, y).fit()
+    rep = tstreaming.last_stream_report()
+    assert (rep.shards, rep.checkpoints) == (jrep.shards, jrep.checkpoints) == (8, 3)
+    commits = get_recovery_log().events("stream_checkpoint")
+    assert [e.detail["chunk_index"] for e in commits] == [2, 4, 6]
+    assert _rel(_preds(fitted, probe), _jpreds(jfit, probe)) <= TOL
+    JPipelineEnv.reset()
 
 
 # ------------------------------------------------------------------- 2-D

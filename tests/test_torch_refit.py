@@ -367,10 +367,53 @@ def test_supervised_loop_runs_rounds_and_stops(tmp_path):
         server.stop()
 
 
-@pytest.mark.parametrize("kwargs,item", [({"partition": object()}, "item 14")])
-def test_daemon_refuses_what_is_not_ported(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        RefitDaemon(LinearMapEstimator(device="cpu"), TrafficTap(), object(), **kwargs)
+@pytest.mark.parametrize("shards", [8])
+def test_daemon_folds_under_a_partition_as_the_jax_package_does(shards):
+    """``RefitDaemon(partition=)`` hands the decision to its round's fold:
+    the round runs the sharded chunk plan (8 CPU shards, seeded by a
+    JAX-captured state) and extends the weights as the JAX package's
+    fold on its 8 virtual devices does."""
+    from keystone_tpu_torch.parallel.mesh import make_mesh
+    from keystone_tpu_torch.parallel.partitioner import Partitioner
+    from keystone_tpu_torch.workflow.streaming import last_stream_report
+
+    x0, y0 = make_rows(512, 0)
+    jest = JLinear(reg=1e-2)
+    jest.fit_stream(JChunkStream(JArrayDataset(x0), JArrayDataset(y0), (), chunk_rows=128))
+    jstate = jest.export_stream_state()
+    state = stream_state_from_numpy(
+        jstate.kind, [np.asarray(a) for a in jstate.carry], jstate.num_examples, jstate.meta,
+        estimator=jstate.estimator,
+    )
+    decision = Partitioner(mesh=make_mesh(devices=["cpu"] * shards)).decide_stream(
+        "refit", 128, rows=384, record=False
+    )
+    assert decision.eligible and decision.shards == shards
+    est = LinearMapEstimator(reg=1e-2, device="cpu")
+    server = PipelineServer(model=est.finish_from_state(state), config=ServingConfig(max_batch=4, queue_depth=64),
+                            name="m", device="cpu").start()
+    try:
+        tap = TrafficTap(capacity_rows=4096)
+        daemon = RefitDaemon(est, tap, InProcessPublisher(server, name="m"), state=state,
+                             shadow=ShadowEvaluator(margin=1.0), partition=decision,
+                             config=RefitConfig(name="m", min_rows=64, chunk_rows=128, state_decay=1.0))
+        x1, y1 = make_rows(512, 1)
+        tap.feed(x1, y1)
+        assert daemon.run_once() == "published"
+        assert last_stream_report().shards == shards
+    finally:
+        server.stop()
+    from keystone_tpu.parallel.partitioner import Partitioner as JPartitioner
+    from keystone_tpu.workflow.streaming import last_stream_report as j_last_stream_report
+
+    jdecision = JPartitioner().decide_stream("refit", 128, rows=384, record=False)
+    jextended = jest.fit_stream(
+        JChunkStream(JArrayDataset(x1[:384]), JArrayDataset(y1[:384]), (), chunk_rows=128, partition=jdecision),
+        state=jstate,
+    )
+    assert j_last_stream_report().shards == shards
+    assert daemon.state_rows() == 512 + 384
+    assert rel_err(daemon.last_candidate.weights.numpy(), np.asarray(jextended.weights)) <= 1e-5
 
 
 def test_daemon_takes_a_scheduler():
@@ -394,6 +437,11 @@ def demos(tmp_path_factory):
 
     flight = tmp_path_factory.mktemp("flight")
     os.environ["KEYSTONE_FLIGHT_DIR"] = str(flight)
+    # The JAX demo's server warmup would otherwise turn on JAX's persistent
+    # compilation cache for the rest of the process, and with it off go
+    # buffer donation on the CPU for later tests in the same worker.
+    saved_cache = os.environ.get("KEYSTONE_COMPILATION_CACHE")
+    os.environ["KEYSTONE_COMPILATION_CACHE"] = "off"
     try:
         j_reset()
         jax_out = j_run_refit_demo(JRefitDemoConfig(store_dir=str(tmp_path_factory.mktemp("j"))))
@@ -401,6 +449,10 @@ def demos(tmp_path_factory):
         port_out = run_refit_demo(RefitDemoConfig(store_dir=str(tmp_path_factory.mktemp("t"))), device="cpu")
     finally:
         os.environ.pop("KEYSTONE_FLIGHT_DIR", None)
+        if saved_cache is None:
+            os.environ.pop("KEYSTONE_COMPILATION_CACHE", None)
+        else:
+            os.environ["KEYSTONE_COMPILATION_CACHE"] = saved_cache
         reset_flight_recorder()
     return jax_out, port_out
 
