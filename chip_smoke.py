@@ -4221,7 +4221,7 @@ def phase_cifar_random_patch_fused(device) -> int:
     x = torch.as_tensor(images, device=device)
     kb, fsb, offb = fz.packed_filter_blocks(CIFAR_FILTER_BLOCK)
     _, block_featurize_s = synced_s(lambda: estimator(fz)._featurize_block(
-        x, kb[0], fsb[0], offb[0], CIFAR_SOLVER_BLOCK))
+        x, kb[0], fsb[0], offb[0], CIFAR_SOLVER_BLOCK, 0))
     head = x[:CIFAR_CHUNK]
     apply_scores, apply_s = synced_s(lambda: model.apply_arrays(head))
     direct = model.linear.apply_arrays(fz.apply_arrays(head))

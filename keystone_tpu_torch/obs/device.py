@@ -13,11 +13,14 @@ mesh (default the ambient one) and one host-RSS entry, labelled
 :func:`device_obs_payload` publish and embed them, as the JAX package's
 do for its multi-device runs.
 
-``device_annotation`` wraps a code region in
-``torch.profiler.record_function`` and, on a card, an NVTX range, so
-per-node executor work shows up inside a ``torch.profiler`` capture. It
-is gated (default off, ``KEYSTONE_DEVICE_ANNOTATIONS``) because an
-annotation only helps under an active profiler and costs a host call.
+:func:`annotations_enabled` is the switch (default off,
+``KEYSTONE_DEVICE_ANNOTATIONS``, read at call time;
+:func:`set_device_annotations` overrides it) under which every span of
+an open session (``obs/spans.py``) is also a
+``torch.profiler.record_function`` range and, on a card, an NVTX range,
+so the executor's nodes and the solvers' and featurizers' steps show up
+inside a ``torch.profiler`` capture. It is off by default because a
+range only helps under an active profiler and costs a host call.
 
 Imports torch lazily; importable without it.
 """
@@ -25,7 +28,7 @@ Imports torch lazily; importable without it.
 from __future__ import annotations
 
 import os
-from contextlib import ExitStack, contextmanager, nullcontext
+from contextlib import contextmanager
 from typing import Any, Dict, Iterator, Optional
 
 from ..envknobs import env_flag
@@ -48,25 +51,6 @@ def annotations_enabled() -> bool:
     if _annotations_enabled is not None:
         return _annotations_enabled
     return env_flag("KEYSTONE_DEVICE_ANNOTATIONS")
-
-
-@contextmanager
-def _annotated(name: str) -> Iterator[None]:
-    import torch
-
-    with ExitStack() as stack:
-        stack.enter_context(torch.profiler.record_function(name))
-        if torch.cuda.is_available():
-            stack.enter_context(torch.cuda.nvtx.range(name))
-        yield
-
-
-def device_annotation(name: str):
-    """Context manager: ``torch.profiler.record_function(name)`` (plus an
-    NVTX range with a card present) when enabled, else a no-op."""
-    if not annotations_enabled():
-        return nullcontext()
-    return _annotated(name)
 
 
 def rss_bytes() -> int:

@@ -20,6 +20,18 @@ global read, so instrumentation can stay in hot paths permanently.
 
 Spans use ``time.perf_counter`` timestamps; the session records a
 wall-clock anchor so exporters can emit absolute times.
+
+With device annotations on (``obs/device.py::annotations_enabled``) a
+span opened under a session is also a ``torch.profiler.record_function``
+range named ``keystone/<span name>`` (plus an NVTX range on a card) for
+its lifetime, so every span lands on a profiler's timeline, on the
+device trace's clock. The range never waits for the device.
+
+When a :func:`tracing_session` closes, a :class:`SessionSummary` of it
+(seconds and count by span name, and the registry's series that moved
+while it was open) joins a bounded ring, :func:`recent_sessions`: what
+the last runs of this process spent and counted, readable after the
+session object is gone.
 """
 
 from __future__ import annotations
@@ -31,6 +43,9 @@ from collections import deque
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterator, List, Optional, Tuple
+
+from . import device as _device
+from .metrics import delta, get_registry
 
 TraceContext = Tuple[str, str]  # (trace_id, span_id)
 
@@ -195,6 +210,42 @@ class TraceSession:
         with self._lock:
             return len(self._spans)
 
+    def summary(self, counters: Optional[Dict[str, float]] = None) -> "SessionSummary":
+        """Seconds and count by span name of the finished spans (spans of
+        one name add up, nested or not)."""
+        count: Dict[str, int] = {}
+        seconds: Dict[str, float] = {}
+        for record in self.spans():
+            count[record.name] = count.get(record.name, 0) + 1
+            seconds[record.name] = seconds.get(record.name, 0.0) + record.duration_s
+        return SessionSummary(self.name, count, seconds, dict(counters or {}))
+
+
+@dataclass
+class SessionSummary:
+    """What one closed :func:`tracing_session` spent and counted."""
+
+    name: str
+    #: Finished spans by name.
+    span_count: Dict[str, int]
+    #: Their summed seconds by name.
+    span_seconds: Dict[str, float]
+    #: Registry series that moved while the session was open
+    #: (``name{label=value}`` → change, as ``metrics.delta`` gives it).
+    counters: Dict[str, float]
+
+
+#: How many closed sessions :func:`recent_sessions` keeps.
+RECENT_SESSIONS = 256
+_recent: "deque[SessionSummary]" = deque(maxlen=RECENT_SESSIONS)
+
+
+def recent_sessions() -> List[SessionSummary]:
+    """Summaries of the last :data:`RECENT_SESSIONS` sessions that
+    :func:`tracing_session` closed in this process, oldest first."""
+    with _session_lock:
+        return list(_recent)
+
 
 # ------------------------------------------------------------ active state
 
@@ -231,12 +282,16 @@ def tracing_session(
             outer = TraceSession(name, max_spans=max_spans, sync_timings=sync_timings)
             _session = outer
             nested = False
+    before = None if nested else get_registry().snapshot()
     try:
         yield outer
     finally:
         if not nested:
             with _session_lock:
                 _session = None
+            summary = outer.summary(delta(get_registry().snapshot(), before))
+            with _session_lock:
+                _recent.append(summary)
 
 
 def install_session(
@@ -278,12 +333,14 @@ class _SpanContext:
     ``@contextmanager``: the generator protocol costs several µs per
     span, and span() sits on the serving dispatch hot path."""
 
-    __slots__ = ("_record", "_stack", "_session")
+    __slots__ = ("_record", "_stack", "_session", "_mirror", "_range")
 
-    def __init__(self, record: Span, stack: List[Span], session: TraceSession):
+    def __init__(self, record: Span, stack: List[Span], session: TraceSession, mirror: bool):
         self._record = record
         self._stack = stack
         self._session = session
+        self._mirror = mirror
+        self._range = None
 
     def __enter__(self) -> Span:
         # Side effects happen HERE, not at span() call time: a
@@ -291,6 +348,8 @@ class _SpanContext:
         # phantom record on the thread's stack (it would corrupt every
         # later span's parentage and unbalance __exit__'s pop).
         record = self._record
+        if self._mirror:
+            self._range = _open_range("keystone/" + record.name)
         self._stack.append(record)
         record.start_s = time.perf_counter()
         return record
@@ -305,7 +364,32 @@ class _SpanContext:
         record.end_s = time.perf_counter()
         self._stack.pop()
         self._session.add(record)
+        if self._range is not None:
+            _close_range(self._range)
         return False  # always re-raise
+
+
+def _open_range(name: str):
+    """A profiler range (and, on a card, an NVTX range) named ``name``,
+    open until :func:`_close_range`. Host calls only: nothing waits for
+    the device."""
+    import torch
+
+    profiler_range = torch.profiler.record_function(name)
+    profiler_range.__enter__()
+    nvtx = torch.cuda.is_available()
+    if nvtx:
+        torch.cuda.nvtx.range_push(name)
+    return profiler_range, nvtx
+
+
+def _close_range(opened) -> None:
+    import torch
+
+    profiler_range, nvtx = opened
+    if nvtx:
+        torch.cuda.nvtx.range_pop()
+    profiler_range.__exit__(None, None, None)
 
 
 def _thread_info() -> Tuple[int, str]:
@@ -322,7 +406,8 @@ def _thread_info() -> Tuple[int, str]:
 
 def span(name: str, parent: Optional[TraceContext] = None, **attributes: Any):
     """Open a child span of the current thread's active span (or of the
-    attached remote context, or a session root). No-op without a session.
+    attached remote context, or a session root). No-op without a session;
+    with device annotations on, also a ``keystone/<name>`` profiler range.
 
     ``parent`` hands a REMOTE context in directly — shorthand for
     ``with attach(ctx), span(name)`` on threads with no open span (the
@@ -356,7 +441,7 @@ def span(name: str, parent: Optional[TraceContext] = None, **attributes: Any):
         thread_id=thread_id,
         thread_name=thread_name,
     )
-    return _SpanContext(record, stack, session)
+    return _SpanContext(record, stack, session, _device.annotations_enabled())
 
 
 def record_span(

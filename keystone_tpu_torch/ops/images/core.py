@@ -41,6 +41,7 @@ import torch.nn.functional as F
 
 from ...data.dataset import ArrayDataset, Dataset
 from ...device import DeviceLike, resolve_device
+from ...obs import spans as _spans
 from ...parallel import linalg
 from ...utils import image as imutil
 from ...workflow.pipeline import BatchTransformer, Transformer
@@ -252,31 +253,38 @@ class FusedConvFeaturizer(BatchTransformer):
         return self._packed[fb]
 
     def patch_matrix(self, x: torch.Tensor) -> torch.Tensor:
-        """The chunk's (N, rx, ry, s·s·C) patch rows (module :func:`patch_matrix`)."""
-        return patch_matrix(x.to(device=self.conv.kernel.device, dtype=torch.float32),
-                            self.conv.conv_size)
+        """The chunk's (N, rx, ry, s·s·C) patch rows (module :func:`patch_matrix`),
+        in a ``conv:patches`` span."""
+        with _spans.span("conv:patches", images=int(x.shape[0])):
+            return patch_matrix(x.to(device=self.conv.kernel.device, dtype=torch.float32),
+                                self.conv.conv_size)
 
     def norm_stats(self, p: torch.Tensor):
         """Patch mean / stddev maps (N, rx, ry, 1) for per-patch
         normalization from the patch rows ``p`` (None, None when
-        disabled); filter-independent, computed once per image chunk."""
+        disabled); filter-independent, computed once per image chunk, in
+        a ``conv:stats`` span."""
         if not self.conv.normalize_patches:
             return None, None
-        return _box_stats(p, self.conv.var_constant)
+        with _spans.span("conv:stats", images=int(p.shape[0])):
+            return _box_stats(p, self.conv.var_constant)
 
     def block_pooled(self, p, kb, fs_b, off_b, m, sd):
         """conv → normalize → rectify → pool for ONE filter block of the
         patch rows ``p`` (N, rx, ry, d): the (N, px, py, 2·fb) pooled
         panel. The single source of the featurizer math for every
-        consumer."""
+        consumer. The product is a ``conv:product`` span, the rest a
+        ``conv:pool`` span."""
         n, rx, ry, d = p.shape
         fb = kb.shape[1]
-        out = linalg.mm(p.reshape(-1, d), kb).reshape(n, rx, ry, fb)
-        out = _conv_normalize_(out, m, sd, fs_b, off_b)
-        mv, alpha = self.rect.max_val, self.rect.alpha
-        pos = self.pool.apply_arrays((out - alpha).clamp_min_(mv))
-        neg = self.pool.apply_arrays(out.neg_().sub_(alpha).clamp_min_(mv))
-        return torch.cat([pos, neg], dim=-1)
+        with _spans.span("conv:product", images=n, filters=fb):
+            out = linalg.mm(p.reshape(-1, d), kb).reshape(n, rx, ry, fb)
+        with _spans.span("conv:pool", images=n, filters=fb):
+            out = _conv_normalize_(out, m, sd, fs_b, off_b)
+            mv, alpha = self.rect.max_val, self.rect.alpha
+            pos = self.pool.apply_arrays((out - alpha).clamp_min_(mv))
+            neg = self.pool.apply_arrays(out.neg_().sub_(alpha).clamp_min_(mv))
+            return torch.cat([pos, neg], dim=-1)
 
     def apply_arrays(self, x):
         f = self.conv.num_filters

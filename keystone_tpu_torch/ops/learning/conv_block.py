@@ -44,6 +44,7 @@ import torch
 
 from ...data.dataset import Dataset
 from ...device import DeviceLike, resolve_device
+from ...obs import spans as _spans
 from ...parallel import linalg
 from ...parallel.collectives import allreduce_sum
 from ...parallel.mesh import row_axes, row_shard_count
@@ -193,16 +194,17 @@ class ConvBlockLeastSquaresEstimator(LabelEstimator):
         else:
 
             def block_fn(b: int, _offset: int, _rows: int) -> torch.Tensor:
-                a_raw = self._featurize_block(images, kblocks[b], fsum_blocks[b], offset_blocks[b], bs)
-                mu = a_raw.sum(dim=0) / n
-                if self.standardize:
-                    var = (a_raw.square().sum(dim=0) - n * mu**2) / max(n - 1.0, 1.0)
-                    sd = torch.sqrt(torch.clamp_min(var, 0.0))
-                    inv_sd = torch.where((sd < 1e-8) | ~torch.isfinite(sd), 1.0, 1.0 / sd)
-                else:
-                    inv_sd = torch.ones_like(mu)
-                mus[b], inv_sds[b] = mu, inv_sd
-                return a_raw.sub_(mu).mul_(inv_sd)
+                a_raw = self._featurize_block(images, kblocks[b], fsum_blocks[b], offset_blocks[b], bs, b)
+                with _spans.span("conv:standardize", block=b):
+                    mu = a_raw.sum(dim=0) / n
+                    if self.standardize:
+                        var = (a_raw.square().sum(dim=0) - n * mu**2) / max(n - 1.0, 1.0)
+                        sd = torch.sqrt(torch.clamp_min(var, 0.0))
+                        inv_sd = torch.where((sd < 1e-8) | ~torch.isfinite(sd), 1.0, 1.0 / sd)
+                    else:
+                        inv_sd = torch.ones_like(mu)
+                    mus[b], inv_sds[b] = mu, inv_sd
+                    return a_raw.sub_(mu).mul_(inv_sd)
 
             w = linalg.block_coordinate_descent_rematerialized(
                 block_fn, yc, reg=reg, num_epochs=self.num_iter, block_size=bs, num_blocks=nb
@@ -239,35 +241,38 @@ class ConvBlockLeastSquaresEstimator(LabelEstimator):
         ps = [torch.zeros_like(t) for t in ys]
         w = torch.zeros(nb * bs, yc.shape[1], device=images.device)
         eye = torch.eye(bs, device=images.device)
-        for _ in range(int(self.num_iter)):
+        for epoch in range(int(self.num_iter)):
             for b in range(nb):
-                a_raw = [self._featurize_block(x, kblocks[b], fsum_blocks[b], offset_blocks[b], bs) for x in xs]
-                mu = allreduce_sum([(a * m).sum(dim=0) for a, m in zip(a_raw, masks)], mesh, axes)[0] / n
-                if self.standardize:
-                    s2 = allreduce_sum([(a * m).square().sum(dim=0) for a, m in zip(a_raw, masks)], mesh, axes)[0]
-                    var = (s2 - n * mu**2) / max(n - 1.0, 1.0)
-                    sd = torch.sqrt(torch.clamp_min(var, 0.0))
-                    inv_sd = torch.where((sd < 1e-8) | ~torch.isfinite(sd), 1.0, 1.0 / sd)
-                else:
-                    inv_sd = torch.ones_like(mu)
-                mus[b], inv_sds[b] = mu, inv_sd
-                a_bs = [a.sub_(mu).mul_(inv_sd).mul_(m) for a, m in zip(a_raw, masks)]
+                a_raw = [self._featurize_block(x, kblocks[b], fsum_blocks[b], offset_blocks[b], bs, b) for x in xs]
+                with _spans.span("conv:standardize", block=b):
+                    mu = allreduce_sum([(a * m).sum(dim=0) for a, m in zip(a_raw, masks)], mesh, axes)[0] / n
+                    if self.standardize:
+                        s2 = allreduce_sum([(a * m).square().sum(dim=0) for a, m in zip(a_raw, masks)], mesh, axes)[0]
+                        var = (s2 - n * mu**2) / max(n - 1.0, 1.0)
+                        sd = torch.sqrt(torch.clamp_min(var, 0.0))
+                        inv_sd = torch.where((sd < 1e-8) | ~torch.isfinite(sd), 1.0, 1.0 / sd)
+                    else:
+                        inv_sd = torch.ones_like(mu)
+                    mus[b], inv_sds[b] = mu, inv_sd
+                    a_bs = [a.sub_(mu).mul_(inv_sd).mul_(m) for a, m in zip(a_raw, masks)]
                 start = b * bs
                 w[start : start + bs], ps = linalg._bcd_block_update(
-                    a_bs, ys, ps, w[start : start + bs], reg, eye, mesh
+                    a_bs, ys, ps, w[start : start + bs], reg, eye, mesh, block=b, pass_=epoch
                 )
                 del a_raw, a_bs
         return w
 
-    def _featurize_block(self, images, kb, fs_b, off_b, bs: int) -> torch.Tensor:
-        """The (n, bs) raw features of one filter block, ``image_chunk``
+    def _featurize_block(self, images, kb, fs_b, off_b, bs: int, block: int) -> torch.Tensor:
+        """The (n, bs) raw features of filter block ``block``, ``image_chunk``
         images at a time, in block-major layout (ImageVectorizer over
-        the block's pooled (N, px, py, 2·fb) panel)."""
+        the block's pooled (N, px, py, 2·fb) panel), in a ``conv:block``
+        span."""
         fz = self.featurizer
-        out = torch.empty(images.shape[0], bs, device=images.device)
-        for s in range(0, images.shape[0], self.image_chunk):
-            p = fz.patch_matrix(images[s : s + self.image_chunk])
-            m, sd = fz.norm_stats(p)
-            pooled = fz.block_pooled(p, kb, fs_b, off_b, m, sd)
-            out[s : s + p.shape[0]] = pooled.transpose(1, 2).reshape(p.shape[0], bs)
-        return out
+        with _spans.span("conv:block", block=block):
+            out = torch.empty(images.shape[0], bs, device=images.device)
+            for s in range(0, images.shape[0], self.image_chunk):
+                p = fz.patch_matrix(images[s : s + self.image_chunk])
+                m, sd = fz.norm_stats(p)
+                pooled = fz.block_pooled(p, kb, fs_b, off_b, m, sd)
+                out[s : s + p.shape[0]] = pooled.transpose(1, 2).reshape(p.shape[0], bs)
+            return out

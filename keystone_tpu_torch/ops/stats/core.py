@@ -29,6 +29,7 @@ import torch
 
 from ...data.dataset import ArrayDataset, BucketedDataset, Dataset
 from ...device import DeviceLike, resolve_device
+from ...obs import spans as _spans
 from ...parallel import linalg
 from ...utils.tree import tree_map
 from ...workflow.pipeline import BatchTransformer, Estimator, Transformer
@@ -88,8 +89,9 @@ class CosineRandomFeatures(BatchTransformer):
     def __init__(self, w, b, device: DeviceLike = None):
         if np.shape(b)[0] != np.shape(w)[0]:
             raise ValueError("rows of W and size of b must match")
-        self.w = _param(w, device)
-        self.b = _param(b, device)
+        with _spans.span("build:upload", bytes=4 * (int(np.size(w)) + int(np.size(b)))):
+            self.w = _param(w, device)
+            self.b = _param(b, device)
 
     @staticmethod
     def create(
@@ -100,15 +102,23 @@ class CosineRandomFeatures(BatchTransformer):
         seed: int = 0,
         device: DeviceLike = None,
     ) -> "CosineRandomFeatures":
-        """W ~ gamma·dist, b ~ U[0, 2π), drawn as the JAX package draws them."""
-        rng = np.random.default_rng(seed)
-        if dist == "gaussian":
-            w = rng.normal(size=(num_output_features, num_input_features))
-        elif dist == "cauchy":
-            w = rng.standard_cauchy(size=(num_output_features, num_input_features))
-        else:
-            raise ValueError(f"unknown distribution {dist!r}")
-        b = rng.uniform(0.0, 2.0 * np.pi, size=num_output_features)
+        """W ~ gamma·dist, b ~ U[0, 2π), drawn as the JAX package draws them,
+        on the host in a ``build:draw`` span (the copy to ``device`` is
+        the constructor's ``build:upload``)."""
+        with _spans.span("build:draw"):
+            rng = np.random.default_rng(seed)
+            if dist == "gaussian":
+                w = rng.normal(size=(num_output_features, num_input_features))
+            elif dist == "cauchy":
+                w = rng.standard_cauchy(size=(num_output_features, num_input_features))
+            else:
+                raise ValueError(f"unknown distribution {dist!r}")
+            b = rng.uniform(0.0, 2.0 * np.pi, size=num_output_features)
+        # Scaled and uploaded while the unscaled draw is still alive: the
+        # order of these large host frees decides how much of the heap the
+        # next branch has to fault back in (freeing the draw before the
+        # upload made TIMIT's 50-branch build ~0.9 s slower on the H100's
+        # host).
         return CosineRandomFeatures(w * gamma, b, device=device)
 
     def apply_arrays(self, x):

@@ -68,6 +68,8 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..envknobs import env_raw
 from ..obs import cost as _cost
+from ..obs import names as _names
+from ..obs import spans as _spans
 from ..ops.cuda import gemm as _gemm
 from .collectives import P, Sharded, _fan_out, _to, all_gather, all_to_all, allreduce_sum, axis_index, shard_tensor
 from .mesh import MODEL_AXIS, Mesh, get_mesh, model_axis_size, row_axes, row_shard_count
@@ -577,24 +579,57 @@ def bcd_from_gram(
             # A_bᵀ(Y − P + A_b W_b) in statistics:
             #   (AᵀY)_b − (AᵀA·W)_b + A_bᵀA_b·W_b
             rhs = cc[start:stop] - mm(g_rows, w) + mm(g_bb, w_b)
-            w[start:stop] = torch.cholesky_solve(rhs, _cholesky(g_bb + reg * eye))
+            with _spans.span("bcd:factor"):
+                factor = _cholesky(g_bb + reg * eye)
+            _bcd_step("factor")
+            with _spans.span("bcd:solve"):
+                w[start:stop] = torch.cholesky_solve(rhs, factor)
+            del factor  # not held through the update: the device peak
+            _bcd_step("block_update")
     return w
 
 
-def _bcd_block_update(a_bs, ys, ps, w_b, reg, eye, mesh=None, axes=None):
+def _bcd_step(step: str) -> None:
+    """Count one step of a block coordinate descent
+    (``keystone_bcd_steps_total``): ``gram``, ``factor`` or
+    ``block_update``."""
+    _names.metric(_names.BCD_STEPS).inc(step=step)
+
+
+def _bcd_block_update(a_bs, ys, ps, w_b, reg, eye, mesh=None, axes=None, block=None, pass_=None):
     """One Gauss-Seidel block update: solve (A_bᵀA_b + λI) W_b' =
     A_bᵀ(Y − P + A_b W_b) and move the predictions P by A_b(W_b' − W_b).
     ``a_bs`` / ``ys`` / ``ps`` are the row shards of the block panel, the
     labels and the predictions (one each without a mesh); the Gram and the
     right-hand side are summed over ``axes`` (default: the row axes), the
-    block solve runs once. Returns ``(W_b', P')``."""
-    w_bs = _bcast(w_b, mesh)
-    rs = [y - p + mm(a_b, w) for a_b, y, p, w in zip(a_bs, ys, ps, w_bs)]
-    g = _reduce([mm_t(a_b, a_b) for a_b in a_bs], mesh, axes)
-    c = _reduce([mm_t(a_b, r) for a_b, r in zip(a_bs, rs)], mesh, axes)
-    w_b_new = torch.cholesky_solve(c, _cholesky(g + reg * eye))
-    new_bs = _bcast(w_b_new, mesh)
-    return w_b_new, [p + mm(a_b, wn - w) for p, a_b, wn, w in zip(ps, a_bs, new_bs, w_bs)]
+    block solve runs once. Returns ``(W_b', P')``.
+
+    One ``bcd:block`` span (attributes ``block`` and ``pass``, the
+    callers' loop indices, ``rows`` and ``width``) holds a span for each
+    step: ``bcd:rhs`` (the residual, then its product with the block),
+    ``bcd:gram``, ``bcd:factor``, ``bcd:solve`` and ``bcd:update`` (the
+    predictions); the Gram, the factor and the update are counted."""
+    rows = sum(int(a_b.shape[0]) for a_b in a_bs)
+    with _spans.span("bcd:block", block=block, rows=rows, width=int(a_bs[0].shape[1]), **{"pass": pass_}):
+        with _spans.span("bcd:rhs"):
+            w_bs = _bcast(w_b, mesh)
+            rs = [y - p + mm(a_b, w) for a_b, y, p, w in zip(a_bs, ys, ps, w_bs)]
+        with _spans.span("bcd:gram"):
+            g = _reduce([mm_t(a_b, a_b) for a_b in a_bs], mesh, axes)
+        _bcd_step("gram")
+        with _spans.span("bcd:rhs"):
+            c = _reduce([mm_t(a_b, r) for a_b, r in zip(a_bs, rs)], mesh, axes)
+        with _spans.span("bcd:factor"):
+            factor = _cholesky(g + reg * eye)
+        _bcd_step("factor")
+        with _spans.span("bcd:solve"):
+            w_b_new = torch.cholesky_solve(c, factor)
+        del factor  # not held through the update: the device peak
+        with _spans.span("bcd:update"):
+            new_bs = _bcast(w_b_new, mesh)
+            ps = [p + mm(a_b, wn - w) for p, a_b, wn, w in zip(ps, a_bs, new_bs, w_bs)]
+        _bcd_step("block_update")
+    return w_b_new, ps
 
 
 def block_coordinate_descent(
@@ -622,11 +657,12 @@ def block_coordinate_descent(
     eye = torch.eye(block_size, dtype=a_s[0].dtype, device=a_s[0].device)
     w = torch.zeros(d, k, dtype=a_s[0].dtype, device=a_s[0].device)
     ps = [torch.zeros_like(t) for t in y_s]
-    for _ in range(int(num_epochs)):
+    for epoch in range(int(num_epochs)):
         for start in range(0, d, block_size):
             stop = start + block_size
             w[start:stop], ps = _bcd_block_update(
-                [t[:, start:stop] for t in a_s], y_s, ps, w[start:stop], reg, eye, mesh
+                [t[:, start:stop] for t in a_s], y_s, ps, w[start:stop], reg, eye, mesh,
+                block=start // block_size, pass_=epoch,
             )
     return w
 
@@ -659,7 +695,7 @@ def block_coordinate_descent_rematerialized(
     eye = torch.eye(block_size, dtype=y_s[0].dtype, device=y_s[0].device)
     w = torch.zeros(num_blocks * block_size, k, dtype=y_s[0].dtype, device=y_s[0].device)
     ps = [torch.zeros_like(t) for t in y_s]
-    for _ in range(int(num_epochs)):
+    for epoch in range(int(num_epochs)):
         for b in range(int(num_blocks)):
             a_bs = []
             for offset, yi in zip(offsets, y_s):
@@ -672,7 +708,7 @@ def block_coordinate_descent_rematerialized(
                 a_bs.append(a_b)
             start = b * block_size
             w[start : start + block_size], ps = _bcd_block_update(
-                a_bs, y_s, ps, w[start : start + block_size], reg, eye, mesh
+                a_bs, y_s, ps, w[start : start + block_size], reg, eye, mesh, block=b, pass_=epoch
             )
             del a_bs
     return w
@@ -742,7 +778,7 @@ def block_coordinate_descent_streaming(
     w = torch.zeros(num_blocks * bs, k, device=device)
     y_s = _row_shards(y_dev, mesh)
     ps = [torch.zeros_like(t) for t in y_s]
-    for _ in range(int(num_epochs)):
+    for epoch in range(int(num_epochs)):
         for b in range(num_blocks):
             start = b * bs
             width = min(bs, d - start)
@@ -754,7 +790,8 @@ def block_coordinate_descent_streaming(
             block_coordinate_descent_streaming.bytes_uploaded += panel.numel() * panel.element_size()
             a_b = panel.sub_(mu_pad[start : start + bs]).mul_(mask)
             w[start : start + bs], ps = _bcd_block_update(
-                _row_shards(a_b, mesh), y_s, ps, w[start : start + bs], reg, eye, mesh
+                _row_shards(a_b, mesh), y_s, ps, w[start : start + bs], reg, eye, mesh,
+                block=b, pass_=epoch,
             )
             del a_b, panel
     return w[:d], mu_a, mu_b
@@ -831,27 +868,41 @@ def block_coordinate_descent_2d(
     # Each shard's copy of its model group's weights, as in the JAX body.
     w_local = [torch.zeros(d_loc, k, dtype=dtype, device=t.device) for t in a_s]
     ps = [torch.zeros_like(t) for t in y_s]
-    for _ in range(int(num_epochs)):
+    for epoch in range(int(num_epochs)):
         for start in range(0, d_loc, block_size):
             stop = start + block_size
             refined = all_to_all([t[:, start:stop] for t in a_s], mesh, MODEL_AXIS, split_axis=0, concat_axis=1)
             for jp in range(m):
                 a_j = [t[:, jp * block_size : (jp + 1) * block_size] for t in refined]
-                # Broadcast the owner group's current block weights.
-                w_old = allreduce_sum(
-                    [wl[start:stop] if j == jp else torch.zeros_like(wl[start:stop])
-                     for wl, j in zip(w_local, j_of)],
-                    mesh, MODEL_AXIS,
-                )
-                rs = [yi - p + mm(ai, wo) for yi, p, ai, wo in zip(y_s, ps, a_j, w_old)]
-                g = _reduce([mm_t(ai, ai) for ai in a_j], mesh, all_axes)
-                c = _reduce([mm_t(ai, r) for ai, r in zip(a_j, rs)], mesh, all_axes)
-                w_new = torch.cholesky_solve(c, _cholesky(g + reg * eye))
-                new_s = _bcast(w_new, mesh)
-                ps = [p + mm(ai, wn - wo) for p, ai, wn, wo in zip(ps, a_j, new_s, w_old)]
-                for wl, j, wn in zip(w_local, j_of, new_s):
-                    if j == jp:
-                        wl[start:stop] = wn
+                rows = sum(int(ai.shape[0]) for ai in a_j)
+                with _spans.span("bcd:block", block=jp * (d_loc // block_size) + start // block_size,
+                                 rows=rows, width=block_size, **{"pass": epoch}):
+                    with _spans.span("bcd:rhs"):
+                        # Broadcast the owner group's current block weights.
+                        w_old = allreduce_sum(
+                            [wl[start:stop] if j == jp else torch.zeros_like(wl[start:stop])
+                             for wl, j in zip(w_local, j_of)],
+                            mesh, MODEL_AXIS,
+                        )
+                        rs = [yi - p + mm(ai, wo) for yi, p, ai, wo in zip(y_s, ps, a_j, w_old)]
+                    with _spans.span("bcd:gram"):
+                        g = _reduce([mm_t(ai, ai) for ai in a_j], mesh, all_axes)
+                    _bcd_step("gram")
+                    with _spans.span("bcd:rhs"):
+                        c = _reduce([mm_t(ai, r) for ai, r in zip(a_j, rs)], mesh, all_axes)
+                    with _spans.span("bcd:factor"):
+                        factor = _cholesky(g + reg * eye)
+                    _bcd_step("factor")
+                    with _spans.span("bcd:solve"):
+                        w_new = torch.cholesky_solve(c, factor)
+                    del factor  # not held through the update: the device peak
+                    with _spans.span("bcd:update"):
+                        new_s = _bcast(w_new, mesh)
+                        ps = [p + mm(ai, wn - wo) for p, ai, wn, wo in zip(ps, a_j, new_s, w_old)]
+                        for wl, j, wn in zip(w_local, j_of, new_s):
+                            if j == jp:
+                                wl[start:stop] = wn
+                    _bcd_step("block_update")
     # Data row 0's copy of each model group's weights, in group order.
     return torch.cat([_to(w_local[j], mesh.flat_devices[0]) for j in range(m)])
 

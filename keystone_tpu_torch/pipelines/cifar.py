@@ -28,6 +28,7 @@ from ..data.dataset import ArrayDataset
 from ..data.loaders.cifar import load_cifar
 from ..device import DeviceLike
 from ..evaluation.multiclass import MulticlassClassifierEvaluator
+from ..obs import spans as _spans
 from ..ops.images import (
     Convolver,
     FusedConvFeaturizer,
@@ -114,39 +115,41 @@ def learn_random_patch_filters(
     sample → row-normalize → fit ZCA → sample numFilters rows → whiten,
     L2-row-normalize, multiply by Wᵀ. Images are subsampled before
     windowing (all windows of all CIFAR images are ~36M patches, of which
-    the sampler keeps 100,000), with the JAX package's seed."""
-    x_dim, y_dim = train_images.data.shape[1:3]
-    per_image = (max(0, (x_dim - config.patch_size) // config.patch_steps) + 1) * (
-        max(0, (y_dim - config.patch_size) // config.patch_steps) + 1
-    )
-    want_images = max(1, min(len(train_images), (2 * whitener_size) // per_image + 1))
-    if want_images < len(train_images):
-        idx = np.random.default_rng(config.seed).choice(
-            len(train_images), size=want_images, replace=False
+    the sampler keeps 100,000), with the JAX package's seed. One
+    ``build:featurizer`` span holds it all."""
+    with _spans.span("build:featurizer", filters=config.num_filters):
+        x_dim, y_dim = train_images.data.shape[1:3]
+        per_image = (max(0, (x_dim - config.patch_size) // config.patch_steps) + 1) * (
+            max(0, (y_dim - config.patch_size) // config.patch_steps) + 1
         )
-        train_images = ArrayDataset(train_images.data[torch.from_numpy(idx).to(train_images.device)])
+        want_images = max(1, min(len(train_images), (2 * whitener_size) // per_image + 1))
+        if want_images < len(train_images):
+            idx = np.random.default_rng(config.seed).choice(
+                len(train_images), size=want_images, replace=False
+            )
+            train_images = ArrayDataset(train_images.data[torch.from_numpy(idx).to(train_images.device)])
 
-    patch_pipe = (
-        Windower(config.patch_steps, config.patch_size)
-        .to_pipeline()
-        .then(ImageVectorizer())
-        .then(Sampler(whitener_size, seed=config.seed))
-    )
-    base_filters = patch_pipe(train_images).get()
-    base = base_filters.data[: base_filters.num_examples].cpu().numpy()
-    base_mat = normalize_rows(base.astype(np.float64), 10.0)
-    whitener = ZCAWhitenerEstimator(eps=config.whitening_epsilon, device=device).fit_single(
-        base_mat.astype(np.float32)
-    )
-    rng = np.random.default_rng(config.seed)
-    idx = rng.choice(base_mat.shape[0], size=min(config.num_filters, base_mat.shape[0]), replace=False)
-    sample_filters = base_mat[idx]
-    w = whitener.whitener.cpu().numpy().astype(np.float64)
-    mu = whitener.means.cpu().numpy().astype(np.float64)
-    unnorm = (sample_filters - mu) @ w
-    two_norms = np.sqrt((unnorm**2).sum(axis=1, keepdims=True))
-    filters = (unnorm / (two_norms + 1e-10)) @ w.T
-    return filters.astype(np.float32), whitener
+        patch_pipe = (
+            Windower(config.patch_steps, config.patch_size)
+            .to_pipeline()
+            .then(ImageVectorizer())
+            .then(Sampler(whitener_size, seed=config.seed))
+        )
+        base_filters = patch_pipe(train_images).get()
+        base = base_filters.data[: base_filters.num_examples].cpu().numpy()
+        base_mat = normalize_rows(base.astype(np.float64), 10.0)
+        whitener = ZCAWhitenerEstimator(eps=config.whitening_epsilon, device=device).fit_single(
+            base_mat.astype(np.float32)
+        )
+        rng = np.random.default_rng(config.seed)
+        idx = rng.choice(base_mat.shape[0], size=min(config.num_filters, base_mat.shape[0]), replace=False)
+        sample_filters = base_mat[idx]
+        w = whitener.whitener.cpu().numpy().astype(np.float64)
+        mu = whitener.means.cpu().numpy().astype(np.float64)
+        unnorm = (sample_filters - mu) @ w
+        two_norms = np.sqrt((unnorm**2).sum(axis=1, keepdims=True))
+        filters = (unnorm / (two_norms + 1e-10)) @ w.T
+        return filters.astype(np.float32), whitener
 
 
 def _split(train: ArrayDataset):

@@ -25,6 +25,7 @@ from ..data.loaders.csv import LabeledData
 from ..data.loaders.timit import NUM_CLASSES, TIMIT_DIMENSION, load_timit
 from ..device import DeviceLike
 from ..evaluation.multiclass import MulticlassClassifierEvaluator
+from ..obs import spans as _spans
 from ..ops.learning.block import BlockLeastSquaresEstimator
 from ..ops.stats.core import CosineRandomFeatures
 from ..ops.util.labels import ClassLabelIndicators, MaxClassifier
@@ -54,18 +55,19 @@ class TimitConfig:
 def build_featurizer(
     config: TimitConfig, input_dim: int = TIMIT_DIMENSION, device: DeviceLike = None
 ) -> Pipeline:
-    branches = [
-        CosineRandomFeatures.create(
-            input_dim,
-            config.num_cosine_features,
-            config.gamma,
-            dist=config.rf_type,
-            seed=config.seed + i,
-            device=device,
-        )
-        for i in range(config.num_cosines)
-    ]
-    return Pipeline.gather(branches) >> VectorCombiner()
+    with _spans.span("build:featurizer", branches=config.num_cosines):
+        branches = [
+            CosineRandomFeatures.create(
+                input_dim,
+                config.num_cosine_features,
+                config.gamma,
+                dist=config.rf_type,
+                seed=config.seed + i,
+                device=device,
+            )
+            for i in range(config.num_cosines)
+        ]
+        return Pipeline.gather(branches) >> VectorCombiner()
 
 
 def build_pipeline(

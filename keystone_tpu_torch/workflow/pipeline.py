@@ -47,6 +47,7 @@ from ..data.dataset import (
 )
 from ..device import DeviceLike, resolve_device
 from ..obs import names as _names
+from ..obs import spans as _spans
 from ..utils.tree import tree_map
 from .executor import GraphExecutor, PipelineEnv
 from .graph import Graph, NodeOrSourceId, SinkId, SourceId
@@ -378,12 +379,15 @@ class Pipeline(Chainable):
         diagnosed from specs alone, with nothing launched on the card —
         warn by default, ``KEYSTONE_VERIFY=strict`` raises
         ``VerificationError`` here instead of failing later inside a
-        kernel."""
+        kernel. Optimizing and verifying are one ``plan`` span (attribute
+        ``nodes``), the verifier a ``plan:verify`` span inside it."""
         from .verify import verify_and_enforce
 
         env = PipelineEnv.get_or_create()
-        graph, prefixes = env.optimizer.execute(self.graph)
-        verify_and_enforce(graph, context="fit")
+        with _spans.span("plan", nodes=len(self.graph.nodes)):
+            graph, prefixes = env.optimizer.execute(self.graph)
+            with _spans.span("plan:verify"):
+                verify_and_enforce(graph, context="fit")
         executor = GraphExecutor(graph, optimize=False)
         executor._prefixes = prefixes
 

@@ -23,9 +23,10 @@ finalized into a perf-ledger entry (predicted cost, measured wall,
 flop/byte facts, roofline placement) AFTER the wall measurement. A node
 during which nvcc built a kernel library or cuFFT created a plan is
 marked cold (never drift-scored), the port's counterpart of the JAX
-package's compile counter. With device
-annotations on (``obs/device.py``) each node's forcing is a
-``torch.profiler.record_function`` range.
+package's compile counter. With device annotations on
+(``obs/device.py``) each node span is also a
+``torch.profiler.record_function`` range, ``keystone/node:<label>``, as
+every span is (``obs/spans.py``).
 """
 
 from __future__ import annotations
@@ -41,7 +42,6 @@ import torch
 from ..obs import cost as _cost
 from ..obs import names as _names
 from ..obs import spans as _spans
-from ..obs.device import device_annotation
 from ..utils.tree import tree_leaves
 
 
@@ -153,12 +153,11 @@ def timed_execute(op, deps):
         try:
             if frame is not None:
                 compiles_before = _compile_events()
-            with device_annotation(f"keystone/node/{label}"):
-                start = time.perf_counter()
-                value = expression.get()
-                if sync:
-                    _force(value)
-                seconds = time.perf_counter() - start
+            start = time.perf_counter()
+            value = expression.get()
+            if sync:
+                _force(value)
+            seconds = time.perf_counter() - start
         finally:
             if frame is not None:
                 frame.compiles = _compile_events() - compiles_before

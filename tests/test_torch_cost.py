@@ -313,14 +313,23 @@ def test_stage_memory_publishes_the_peak_gauge():
 
 
 def test_device_annotations_follow_the_switch(monkeypatch):
+    """A span of an open session is a ``keystone/<name>`` profiler range
+    only while the switch is on."""
+    from keystone_tpu_torch.obs import spans
+
+    def ranges():
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            with spans.tracing_session("t"), spans.span("node:x"):
+                torch.ones(4).sum()
+        return [e.name for e in prof.events() if e.name.startswith("keystone/")]
+
     monkeypatch.setenv("KEYSTONE_DEVICE_ANNOTATIONS", "0")
     tdevice.set_device_annotations(None)
     assert not tdevice.annotations_enabled()
+    assert ranges() == []
     tdevice.set_device_annotations(True)
     try:
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-            with tdevice.device_annotation("keystone/node/x"):
-                torch.ones(4).sum()
-        assert any(e.name == "keystone/node/x" for e in prof.events())
+        assert ranges() == ["keystone/node:x"]
     finally:
         tdevice.set_device_annotations(None)
+    assert ranges() == []
