@@ -253,7 +253,7 @@ SCHEMA: Dict[str, Tuple] = {
     SOLVER_FIT_SECONDS: ("histogram", "Solver fit wall time", ("solver",)),
     SOLVER_RUNG_ATTEMPTS: ("counter", "Degradation-ladder rung attempts inside solvers", ("solver",)),
     SOLVER_ITERATIONS: ("counter", "Host-level solver iterations (e.g. L-BFGS steps)", ("solver",)),
-    BCD_STEPS: ("counter", "Block coordinate descent steps: block Grams formed, block factorisations and block updates", ("step",)),
+    BCD_STEPS: ("counter", "Block coordinate descent steps: block Grams formed, block factorisations, block updates solved with a factor kept from an earlier pass (factor_reuse) and block updates", ("step",)),
     SKETCH_FITS: ("counter", "Sketched least-squares fits completed, by sketch variant (countsketch/srht)", ("variant",)),
     SKETCH_SIZE: ("gauge", "Sketch rows s chosen for the last sketched fit (knob/tuned/width default)", ()),
     SKETCH_STATE_BYTES: ("gauge", "Bytes of the last sketched fit's O(s·d) carry — the number KV308 compares to the device budget", ()),

@@ -33,7 +33,12 @@ Reliability and observability, as in the JAX package:
   from the allocator or the solver binding, or an injected OOM) retries
   at half the block, two halvings at most, and a model fitted at a
   smaller block carries ``model.degradation``; any other error is
-  re-raised;
+  re-raised. With more than one pass every solver keeps each block's
+  Cholesky factor from the first pass for the later ones when all of
+  them fit in the device's free memory (``linalg._BlockFactors``); an
+  out-of-memory error while they are held drops them and the solve goes
+  on forming a factor per pass, so the ladder never halves the block
+  for them;
 - ``probe("BlockLeastSquaresEstimator.solve")`` at the head of each fit
   attempt and of ``fit_stream``, the fault-injection site;
 - ``solver:fit`` and ``solver:iteration`` spans with the solver
@@ -118,7 +123,9 @@ def _as_array_dataset(data: Dataset, device: torch.device) -> ArrayDataset:
 
 class BlockLeastSquaresEstimator(GramStreamStateMixin, LabelEstimator):
     """Feature-block coordinate-descent least squares: ``num_iter`` full
-    epochs over the feature blocks, λ applied per block. Fits on
+    epochs over the feature blocks, λ applied per block. Each block's
+    Gram and factor are formed on the first epoch and the factor is
+    reused by the later ones while the factors fit on the device. Fits on
     ``device`` (default CUDA). ``host_streaming``: None decides by the
     rule in the module docstring; True or False force it."""
 
@@ -215,8 +222,8 @@ class BlockLeastSquaresEstimator(GramStreamStateMixin, LabelEstimator):
             if kind == "sparse":
                 targets = _as_array_dataset(labels, device)
                 # The dense paths' OOM contract: a smaller block shrinks
-                # bcd_from_gram's per-block factor and workspace, two
-                # halvings before giving up.
+                # bcd_from_gram's block factors (kept across passes while
+                # they fit) and workspace, two halvings before giving up.
                 block0 = min(self.block_size, bsr.shape[1])
                 ladder = DegradationLadder(
                     halving_rungs(block0, max(block0 // 4, 1)),
@@ -249,10 +256,11 @@ class BlockLeastSquaresEstimator(GramStreamStateMixin, LabelEstimator):
             # shards rows only, and the 2-D in-core path owns that layout.
             stream = _auto_host_streaming(raw, device) and linalg.model_axis_size(mesh) == 1
         block0 = min(self.block_size, d)
-        # OOM degradation: a smaller block shrinks the live Gram workspace
-        # and (streaming) the per-block panel on the card; two halvings
-        # cover the realistic headroom gap before the problem itself is
-        # too big.
+        # OOM degradation: a smaller block shrinks the live Gram workspace,
+        # the block factors kept across passes and (streaming) the
+        # per-block panel on the card; two halvings cover the realistic
+        # headroom gap before the problem itself is too big. The solver
+        # drops its kept factors before an OOM reaches this ladder.
         ladder = DegradationLadder(
             halving_rungs(block0, max(block0 // 4, 1)),
             label="BlockLeastSquaresEstimator.fit",

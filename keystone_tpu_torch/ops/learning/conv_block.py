@@ -19,7 +19,9 @@ the block's mean and standard deviation over the rows (the pipeline's
 ``StandardScaler``), and runs the block update of
 ``linalg.block_coordinate_descent_rematerialized`` (Gram, Cholesky,
 residual), whose products go through ``linalg`` at the solver mode's
-kind. The solved model folds 1/σ into the weights and is permuted to the
+kind. With more than one pass each block's Cholesky factor is formed on
+the first pass and kept for the later ones (``linalg._BlockFactors``);
+the block's features are recomputed every pass. The solved model folds 1/σ into the weights and is permuted to the
 featurizer's standard layout, so it applies to ordinary featurizer
 output; padded filters are dropped.
 
@@ -241,25 +243,30 @@ class ConvBlockLeastSquaresEstimator(LabelEstimator):
         ps = [torch.zeros_like(t) for t in ys]
         w = torch.zeros(nb * bs, yc.shape[1], device=images.device)
         eye = torch.eye(bs, device=images.device)
+        factors = linalg._BlockFactors(self.num_iter, nb, bs, torch.float32, images.device,
+                                       workspace=n_pad * bs * 4)
+
+        def step(b: int, epoch: int):
+            a_raw = [self._featurize_block(x, kblocks[b], fsum_blocks[b], offset_blocks[b], bs, b) for x in xs]
+            with _spans.span("conv:standardize", block=b):
+                mu = allreduce_sum([(a * m).sum(dim=0) for a, m in zip(a_raw, masks)], mesh, axes)[0] / n
+                if self.standardize:
+                    s2 = allreduce_sum([(a * m).square().sum(dim=0) for a, m in zip(a_raw, masks)], mesh, axes)[0]
+                    var = (s2 - n * mu**2) / max(n - 1.0, 1.0)
+                    sd = torch.sqrt(torch.clamp_min(var, 0.0))
+                    inv_sd = torch.where((sd < 1e-8) | ~torch.isfinite(sd), 1.0, 1.0 / sd)
+                else:
+                    inv_sd = torch.ones_like(mu)
+                mus[b], inv_sds[b] = mu, inv_sd
+                a_bs = [a.sub_(mu).mul_(inv_sd).mul_(m) for a, m in zip(a_raw, masks)]
+            start = b * bs
+            return linalg._bcd_block_update(
+                a_bs, ys, ps, w[start : start + bs], reg, eye, mesh, block=b, pass_=epoch, factors=factors
+            )
+
         for epoch in range(int(self.num_iter)):
             for b in range(nb):
-                a_raw = [self._featurize_block(x, kblocks[b], fsum_blocks[b], offset_blocks[b], bs, b) for x in xs]
-                with _spans.span("conv:standardize", block=b):
-                    mu = allreduce_sum([(a * m).sum(dim=0) for a, m in zip(a_raw, masks)], mesh, axes)[0] / n
-                    if self.standardize:
-                        s2 = allreduce_sum([(a * m).square().sum(dim=0) for a, m in zip(a_raw, masks)], mesh, axes)[0]
-                        var = (s2 - n * mu**2) / max(n - 1.0, 1.0)
-                        sd = torch.sqrt(torch.clamp_min(var, 0.0))
-                        inv_sd = torch.where((sd < 1e-8) | ~torch.isfinite(sd), 1.0, 1.0 / sd)
-                    else:
-                        inv_sd = torch.ones_like(mu)
-                    mus[b], inv_sds[b] = mu, inv_sd
-                    a_bs = [a.sub_(mu).mul_(inv_sd).mul_(m) for a, m in zip(a_raw, masks)]
-                start = b * bs
-                w[start : start + bs], ps = linalg._bcd_block_update(
-                    a_bs, ys, ps, w[start : start + bs], reg, eye, mesh, block=b, pass_=epoch
-                )
-                del a_raw, a_bs
+                w[b * bs : (b + 1) * bs], ps = factors.run(lambda: step(b, epoch))
         return w
 
     def _featurize_block(self, images, kb, fs_b, off_b, bs: int, block: int) -> torch.Tensor:

@@ -11,7 +11,10 @@ guard, ``check_finite``, ``bcd_from_gram``, ``block_coordinate_descent``
 and its rematerialized and host-streamed variants, and the solver
 precision modes (``solver_mode`` / ``solver_mode_scope`` /
 ``precision_for_mode``). The JAX package's ``lax.scan`` over blocks is a
-Python loop here.
+Python loop here, and unlike it every block coordinate descent of more
+than one pass forms each block's Gram and Cholesky factor once, keeping
+the factor for the later passes while the factors fit in the device's
+free memory (``_BlockFactors``), as the published KeystoneML solver does.
 
 Over a mesh (``parallel/mesh.py``): ``prepare_row_sharded``, ``gram``,
 ``normal_equations_solve``, ``centered_solve_refined``, ``tsqr_r`` /
@@ -61,7 +64,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Callable, List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
@@ -71,6 +74,7 @@ from ..obs import cost as _cost
 from ..obs import names as _names
 from ..obs import spans as _spans
 from ..ops.cuda import gemm as _gemm
+from ..reliability.errors import is_oom
 from .collectives import P, Sharded, _fan_out, _to, all_gather, all_to_all, allreduce_sum, axis_index, shard_tensor
 from .mesh import MODEL_AXIS, Mesh, get_mesh, model_axis_size, row_axes, row_shard_count
 
@@ -563,40 +567,122 @@ def bcd_from_gram(
     """Feature-block Gauss-Seidel least squares driven by the centered
     Gram statistics — the same per-block update and block order as
     :func:`block_coordinate_descent`. ``gc`` is (d_pad, d_pad) with d_pad
-    a multiple of ``block_size``; returns (d_pad, k) weights."""
+    a multiple of ``block_size``; returns (d_pad, k) weights. Each
+    block's factor is formed on the first pass and kept for the later
+    ones (:class:`_BlockFactors`)."""
     d = gc.shape[0]
     k = cc.shape[1]
     if d % block_size != 0:
         raise ValueError(f"d={d} not divisible by block_size={block_size}")
     eye = torch.eye(block_size, dtype=gc.dtype, device=gc.device)
     w = torch.zeros(d, k, dtype=gc.dtype, device=gc.device)
+    factors = _BlockFactors(num_epochs, d // block_size, block_size, gc.dtype, gc.device)
+
+    def step(start, stop):
+        g_rows = gc[start:stop]
+        g_bb = g_rows[:, start:stop]
+        # A_bᵀ(Y − P + A_b W_b) in statistics:
+        #   (AᵀY)_b − (AᵀA·W)_b + A_bᵀA_b·W_b
+        rhs = cc[start:stop] - mm(g_rows, w) + mm(g_bb, w[start:stop])
+        factor = factors.get(start)
+        if factor is None:
+            factor = _form_factor(factors, start, g_bb, reg, eye)
+        else:
+            _bcd_step("factor_reuse")
+        with _spans.span("bcd:solve"):
+            return torch.cholesky_solve(rhs, factor)
+
     for _ in range(int(num_epochs)):
         for start in range(0, d, block_size):
             stop = start + block_size
-            g_rows = gc[start:stop]
-            g_bb = g_rows[:, start:stop]
-            w_b = w[start:stop]
-            # A_bᵀ(Y − P + A_b W_b) in statistics:
-            #   (AᵀY)_b − (AᵀA·W)_b + A_bᵀA_b·W_b
-            rhs = cc[start:stop] - mm(g_rows, w) + mm(g_bb, w_b)
-            with _spans.span("bcd:factor"):
-                factor = _cholesky(g_bb + reg * eye)
-            _bcd_step("factor")
-            with _spans.span("bcd:solve"):
-                w[start:stop] = torch.cholesky_solve(rhs, factor)
-            del factor  # not held through the update: the device peak
+            w[start:stop] = factors.run(lambda: step(start, stop))
             _bcd_step("block_update")
     return w
 
 
 def _bcd_step(step: str) -> None:
     """Count one step of a block coordinate descent
-    (``keystone_bcd_steps_total``): ``gram``, ``factor`` or
+    (``keystone_bcd_steps_total``): ``gram``, ``factor``,
+    ``factor_reuse`` (a block update that solved with a kept factor) or
     ``block_update``."""
     _names.metric(_names.BCD_STEPS).inc(step=step)
 
 
-def _bcd_block_update(a_bs, ys, ps, w_b, reg, eye, mesh=None, axes=None, block=None, pass_=None):
+def _free_device_bytes(device: torch.device) -> Optional[int]:
+    """Bytes a solve may still allocate on ``device``: the free bytes
+    ``torch.cuda.mem_get_info`` reports plus those the caching allocator
+    has reserved and does not use. None off a card: the host's memory is
+    not budgeted."""
+    if device.type != "cuda":
+        return None
+    free, _total = torch.cuda.mem_get_info(device)
+    return int(free) + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+
+
+class _BlockFactors:
+    """The block Cholesky factors of one block coordinate descent, kept
+    from the first pass for the later ones.
+
+    A block's A_bᵀA_b + λI does not change between passes, only the
+    residual does. So a solve of more than one pass forms each block's
+    Gram and factor on the first pass, keeps the factor (on the device
+    the reduced Gram lands on, keyed by block) and solves every later
+    pass with it. The factors belong to one call of the solver and go
+    when it returns.
+
+    They are kept only when the solve has more than one pass and all of
+    them (``num_blocks`` · block² · itemsize) fit in the device's free
+    memory (:func:`_free_device_bytes`) less one block's workspace: its
+    Gram, the regularised copy, the factor being formed and
+    ``workspace`` bytes more (a panel the step makes). Otherwise every
+    pass forms its own, as a one-pass solve does. :meth:`run` is the
+    fallback for a device that runs out all the same: an out-of-memory
+    error in a block step while factors are held drops them all and runs
+    the step again forming per pass, before an estimator's degradation
+    ladder would halve the block."""
+
+    def __init__(self, num_epochs: int, num_blocks: int, block_size: int, dtype, device, workspace: int = 0):
+        self._kept = {}
+        self.enabled = int(num_epochs) > 1
+        if self.enabled:
+            need = (int(num_blocks) + 3) * block_size * block_size * dtype.itemsize + int(workspace)
+            free = _free_device_bytes(torch.device(device))
+            self.enabled = free is None or need <= free
+
+    def get(self, key) -> Optional[torch.Tensor]:
+        """The kept factor of block ``key``, or None."""
+        return self._kept.get(key)
+
+    def keep(self, key, factor: torch.Tensor) -> None:
+        if self.enabled:
+            self._kept[key] = factor
+
+    def run(self, step: Callable[[], Any]) -> Any:
+        """``step()``; on an out-of-memory error while factors are held,
+        drop them, stop keeping any and run ``step()`` once more."""
+        try:
+            return step()
+        except Exception as exc:
+            if not (self._kept and is_oom(exc)):
+                raise
+        # Outside the handler: the failed attempt's frames are gone.
+        self._kept.clear()
+        self.enabled = False
+        return step()
+
+
+def _form_factor(factors: Optional[_BlockFactors], key, g: torch.Tensor, reg: float, eye: torch.Tensor) -> torch.Tensor:
+    """The Cholesky factor of ``g + reg·I``, counted, and offered to
+    ``factors`` (when given) for the block's later passes."""
+    with _spans.span("bcd:factor"):
+        factor = _cholesky(g + reg * eye)
+    _bcd_step("factor")
+    if factors is not None:
+        factors.keep(key, factor)
+    return factor
+
+
+def _bcd_block_update(a_bs, ys, ps, w_b, reg, eye, mesh=None, axes=None, block=None, pass_=None, factors=None):
     """One Gauss-Seidel block update: solve (A_bᵀA_b + λI) W_b' =
     A_bᵀ(Y − P + A_b W_b) and move the predictions P by A_b(W_b' − W_b).
     ``a_bs`` / ``ys`` / ``ps`` are the row shards of the block panel, the
@@ -604,27 +690,40 @@ def _bcd_block_update(a_bs, ys, ps, w_b, reg, eye, mesh=None, axes=None, block=N
     right-hand side are summed over ``axes`` (default: the row axes), the
     block solve runs once. Returns ``(W_b', P')``.
 
+    ``factors`` (a :class:`_BlockFactors`, keyed by ``block``) holds the
+    factors the block's earlier passes kept: with one there the Gram and
+    the factorisation are skipped, and a factor formed here is offered to
+    it. Without it every call forms both and holds the factor no longer
+    than its solve.
+
     One ``bcd:block`` span (attributes ``block`` and ``pass``, the
-    callers' loop indices, ``rows`` and ``width``) holds a span for each
-    step: ``bcd:rhs`` (the residual, then its product with the block),
-    ``bcd:gram``, ``bcd:factor``, ``bcd:solve`` and ``bcd:update`` (the
-    predictions); the Gram, the factor and the update are counted."""
+    callers' loop indices, ``rows``, ``width`` and ``reused``, whether a
+    kept factor was used) holds a span for each step: ``bcd:rhs`` (the
+    residual, then its product with the block), ``bcd:gram`` and
+    ``bcd:factor`` (when formed), ``bcd:solve`` and ``bcd:update`` (the
+    predictions). The Gram, the factor, a kept factor's use
+    (``factor_reuse``) and the update are counted."""
     rows = sum(int(a_b.shape[0]) for a_b in a_bs)
-    with _spans.span("bcd:block", block=block, rows=rows, width=int(a_bs[0].shape[1]), **{"pass": pass_}):
+    factor = factors.get(block) if factors is not None else None
+    reused = factor is not None
+    with _spans.span("bcd:block", block=block, rows=rows, width=int(a_bs[0].shape[1]), reused=reused,
+                     **{"pass": pass_}):
         with _spans.span("bcd:rhs"):
             w_bs = _bcast(w_b, mesh)
             rs = [y - p + mm(a_b, w) for a_b, y, p, w in zip(a_bs, ys, ps, w_bs)]
-        with _spans.span("bcd:gram"):
-            g = _reduce([mm_t(a_b, a_b) for a_b in a_bs], mesh, axes)
-        _bcd_step("gram")
+        if not reused:
+            with _spans.span("bcd:gram"):
+                g = _reduce([mm_t(a_b, a_b) for a_b in a_bs], mesh, axes)
+            _bcd_step("gram")
         with _spans.span("bcd:rhs"):
             c = _reduce([mm_t(a_b, r) for a_b, r in zip(a_bs, rs)], mesh, axes)
-        with _spans.span("bcd:factor"):
-            factor = _cholesky(g + reg * eye)
-        _bcd_step("factor")
+        if reused:
+            _bcd_step("factor_reuse")
+        else:
+            factor = _form_factor(factors, block, g, reg, eye)
         with _spans.span("bcd:solve"):
             w_b_new = torch.cholesky_solve(c, factor)
-        del factor  # not held through the update: the device peak
+        del factor  # a kept one lives on in `factors`; no other is held through the update
         with _spans.span("bcd:update"):
             new_bs = _bcast(w_b_new, mesh)
             ps = [p + mm(a_b, wn - w) for p, a_b, wn, w in zip(ps, a_bs, new_bs, w_bs)]
@@ -657,13 +756,14 @@ def block_coordinate_descent(
     eye = torch.eye(block_size, dtype=a_s[0].dtype, device=a_s[0].device)
     w = torch.zeros(d, k, dtype=a_s[0].dtype, device=a_s[0].device)
     ps = [torch.zeros_like(t) for t in y_s]
+    factors = _BlockFactors(num_epochs, d // block_size, block_size, a_s[0].dtype, a_s[0].device)
     for epoch in range(int(num_epochs)):
         for start in range(0, d, block_size):
             stop = start + block_size
-            w[start:stop], ps = _bcd_block_update(
+            w[start:stop], ps = factors.run(lambda: _bcd_block_update(
                 [t[:, start:stop] for t in a_s], y_s, ps, w[start:stop], reg, eye, mesh,
-                block=start // block_size, pass_=epoch,
-            )
+                block=start // block_size, pass_=epoch, factors=factors,
+            ))
     return w
 
 
@@ -692,25 +792,32 @@ def block_coordinate_descent_rematerialized(
     y_s = _row_shards(y, mesh)
     rows, k = y_s[0].shape
     offsets = [0] if mesh is None else [i * rows for i in axis_index(mesh, row_axes(mesh))]
-    eye = torch.eye(block_size, dtype=y_s[0].dtype, device=y_s[0].device)
-    w = torch.zeros(num_blocks * block_size, k, dtype=y_s[0].dtype, device=y_s[0].device)
+    dtype, device = y_s[0].dtype, y_s[0].device
+    eye = torch.eye(block_size, dtype=dtype, device=device)
+    w = torch.zeros(num_blocks * block_size, k, dtype=dtype, device=device)
     ps = [torch.zeros_like(t) for t in y_s]
+    factors = _BlockFactors(num_epochs, num_blocks, block_size, dtype, device,
+                            workspace=len(y_s) * rows * block_size * dtype.itemsize)
+
+    def step(b: int, epoch: int):
+        a_bs = []
+        for offset, yi in zip(offsets, y_s):
+            a_b = block_fn(b, offset, rows)
+            if tuple(a_b.shape) != (rows, block_size) or a_b.device != yi.device:
+                raise ValueError(
+                    f"block_fn({b}, {offset}) gave {tuple(a_b.shape)} on {a_b.device}; "
+                    f"expected ({rows}, {block_size}) on {yi.device}"
+                )
+            a_bs.append(a_b)
+        start = b * block_size
+        return _bcd_block_update(
+            a_bs, y_s, ps, w[start : start + block_size], reg, eye, mesh, block=b, pass_=epoch, factors=factors
+        )
+
     for epoch in range(int(num_epochs)):
         for b in range(int(num_blocks)):
-            a_bs = []
-            for offset, yi in zip(offsets, y_s):
-                a_b = block_fn(b, offset, rows)
-                if tuple(a_b.shape) != (rows, block_size) or a_b.device != yi.device:
-                    raise ValueError(
-                        f"block_fn({b}, {offset}) gave {tuple(a_b.shape)} on {a_b.device}; "
-                        f"expected ({rows}, {block_size}) on {yi.device}"
-                    )
-                a_bs.append(a_b)
             start = b * block_size
-            w[start : start + block_size], ps = _bcd_block_update(
-                a_bs, y_s, ps, w[start : start + block_size], reg, eye, mesh, block=b, pass_=epoch
-            )
-            del a_bs
+            w[start : start + block_size], ps = factors.run(lambda: step(b, epoch))
     return w
 
 
@@ -778,22 +885,27 @@ def block_coordinate_descent_streaming(
     w = torch.zeros(num_blocks * bs, k, device=device)
     y_s = _row_shards(y_dev, mesh)
     ps = [torch.zeros_like(t) for t in y_s]
+    # The factors stay on the card; the panels are uploaded every pass.
+    factors = _BlockFactors(num_epochs, num_blocks, bs, torch.float32, device, workspace=staging.nbytes)
+
+    def step(b: int, epoch: int):
+        start = b * bs
+        width = min(bs, d - start)
+        staging[:n_rows, :width].copy_(x_host[:, start : start + width])
+        if width < bs:
+            staging[:n_rows, width:].zero_()
+        panel = staging.to(device, copy=True)
+        block_coordinate_descent_streaming.blocks_uploaded += 1
+        block_coordinate_descent_streaming.bytes_uploaded += panel.numel() * panel.element_size()
+        a_b = panel.sub_(mu_pad[start : start + bs]).mul_(mask)
+        return _bcd_block_update(
+            _row_shards(a_b, mesh), y_s, ps, w[start : start + bs], reg, eye, mesh,
+            block=b, pass_=epoch, factors=factors,
+        )
+
     for epoch in range(int(num_epochs)):
         for b in range(num_blocks):
-            start = b * bs
-            width = min(bs, d - start)
-            staging[:n_rows, :width].copy_(x_host[:, start : start + width])
-            if width < bs:
-                staging[:n_rows, width:].zero_()
-            panel = staging.to(device, copy=True)
-            block_coordinate_descent_streaming.blocks_uploaded += 1
-            block_coordinate_descent_streaming.bytes_uploaded += panel.numel() * panel.element_size()
-            a_b = panel.sub_(mu_pad[start : start + bs]).mul_(mask)
-            w[start : start + bs], ps = _bcd_block_update(
-                _row_shards(a_b, mesh), y_s, ps, w[start : start + bs], reg, eye, mesh,
-                block=b, pass_=epoch,
-            )
-            del a_b, panel
+            w[b * bs : (b + 1) * bs], ps = factors.run(lambda: step(b, epoch))
     return w[:d], mu_a, mu_b
 
 
@@ -868,41 +980,52 @@ def block_coordinate_descent_2d(
     # Each shard's copy of its model group's weights, as in the JAX body.
     w_local = [torch.zeros(d_loc, k, dtype=dtype, device=t.device) for t in a_s]
     ps = [torch.zeros_like(t) for t in y_s]
+    factors = _BlockFactors(num_epochs, m * (d_loc // block_size), block_size, dtype, device)
+
+    def step(refined, start: int, jp: int, epoch: int):
+        stop = start + block_size
+        a_j = [t[:, jp * block_size : (jp + 1) * block_size] for t in refined]
+        rows = sum(int(ai.shape[0]) for ai in a_j)
+        factor = factors.get((start, jp))
+        reused = factor is not None
+        with _spans.span("bcd:block", block=jp * (d_loc // block_size) + start // block_size,
+                         rows=rows, width=block_size, reused=reused, **{"pass": epoch}):
+            with _spans.span("bcd:rhs"):
+                # Broadcast the owner group's current block weights.
+                w_old = allreduce_sum(
+                    [wl[start:stop] if j == jp else torch.zeros_like(wl[start:stop])
+                     for wl, j in zip(w_local, j_of)],
+                    mesh, MODEL_AXIS,
+                )
+                rs = [yi - p + mm(ai, wo) for yi, p, ai, wo in zip(y_s, ps, a_j, w_old)]
+            if not reused:
+                with _spans.span("bcd:gram"):
+                    g = _reduce([mm_t(ai, ai) for ai in a_j], mesh, all_axes)
+                _bcd_step("gram")
+            with _spans.span("bcd:rhs"):
+                c = _reduce([mm_t(ai, r) for ai, r in zip(a_j, rs)], mesh, all_axes)
+            if reused:
+                _bcd_step("factor_reuse")
+            else:
+                factor = _form_factor(factors, (start, jp), g, reg, eye)
+            with _spans.span("bcd:solve"):
+                w_new = torch.cholesky_solve(c, factor)
+            del factor  # a kept one lives on in `factors`; no other is held through the update
+            with _spans.span("bcd:update"):
+                new_s = _bcast(w_new, mesh)
+                new_ps = [p + mm(ai, wn - wo) for p, ai, wn, wo in zip(ps, a_j, new_s, w_old)]
+        return new_s, new_ps
+
     for epoch in range(int(num_epochs)):
         for start in range(0, d_loc, block_size):
-            stop = start + block_size
-            refined = all_to_all([t[:, start:stop] for t in a_s], mesh, MODEL_AXIS, split_axis=0, concat_axis=1)
+            refined = all_to_all([t[:, start : start + block_size] for t in a_s], mesh, MODEL_AXIS,
+                                 split_axis=0, concat_axis=1)
             for jp in range(m):
-                a_j = [t[:, jp * block_size : (jp + 1) * block_size] for t in refined]
-                rows = sum(int(ai.shape[0]) for ai in a_j)
-                with _spans.span("bcd:block", block=jp * (d_loc // block_size) + start // block_size,
-                                 rows=rows, width=block_size, **{"pass": epoch}):
-                    with _spans.span("bcd:rhs"):
-                        # Broadcast the owner group's current block weights.
-                        w_old = allreduce_sum(
-                            [wl[start:stop] if j == jp else torch.zeros_like(wl[start:stop])
-                             for wl, j in zip(w_local, j_of)],
-                            mesh, MODEL_AXIS,
-                        )
-                        rs = [yi - p + mm(ai, wo) for yi, p, ai, wo in zip(y_s, ps, a_j, w_old)]
-                    with _spans.span("bcd:gram"):
-                        g = _reduce([mm_t(ai, ai) for ai in a_j], mesh, all_axes)
-                    _bcd_step("gram")
-                    with _spans.span("bcd:rhs"):
-                        c = _reduce([mm_t(ai, r) for ai, r in zip(a_j, rs)], mesh, all_axes)
-                    with _spans.span("bcd:factor"):
-                        factor = _cholesky(g + reg * eye)
-                    _bcd_step("factor")
-                    with _spans.span("bcd:solve"):
-                        w_new = torch.cholesky_solve(c, factor)
-                    del factor  # not held through the update: the device peak
-                    with _spans.span("bcd:update"):
-                        new_s = _bcast(w_new, mesh)
-                        ps = [p + mm(ai, wn - wo) for p, ai, wn, wo in zip(ps, a_j, new_s, w_old)]
-                        for wl, j, wn in zip(w_local, j_of, new_s):
-                            if j == jp:
-                                wl[start:stop] = wn
-                    _bcd_step("block_update")
+                new_s, ps = factors.run(lambda: step(refined, start, jp, epoch))
+                for wl, j, wn in zip(w_local, j_of, new_s):
+                    if j == jp:
+                        wl[start : start + block_size] = wn
+                _bcd_step("block_update")
     # Data row 0's copy of each model group's weights, in group order.
     return torch.cat([_to(w_local[j], mesh.flat_devices[0]) for j in range(m)])
 

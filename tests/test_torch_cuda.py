@@ -1083,3 +1083,30 @@ def test_two_process_rehearsal_on_the_card_with_gloo(cuda):
                 p.wait()
     for p, out in zip(procs, outs):
         assert p.returncode == 0 and "REHEARSAL_OK" in out and "mode=gloo" in out, out[-2000:]
+
+
+def test_block_factors_kept_on_the_card_match_the_declined_solve(cuda, monkeypatch):
+    """The factor budget reads the card (``mem_get_info``'s free bytes plus
+    the allocator's reserved and unused bytes); kept factors give the weights
+    of a solve that forms every factor on every pass, and a budget one
+    byte short declines them."""
+    from keystone_tpu_torch.obs import names
+    from keystone_tpu_torch.parallel import linalg
+
+    monkeypatch.setenv("KEYSTONE_SOLVER_PRECISION", "highest")
+    g = torch.Generator(device="cpu").manual_seed(0)
+    x = torch.randn(4096, 256, generator=g).to(cuda)
+    y = torch.randn(4096, 8, generator=g).to(cuda)
+    xc, yc = x - x.mean(0), y - y.mean(0)
+    free = linalg._free_device_bytes(xc.device)
+    assert isinstance(free, int) and 0 < free <= torch.cuda.mem_get_info(xc.device)[1]
+    counter = names.metric(names.BCD_STEPS)
+    reused = counter.value(step="factor_reuse")
+    kept = linalg.block_coordinate_descent(xc, yc, 1.0, 3, 64)
+    assert counter.value(step="factor_reuse") - reused == 8
+    need = (4 + 3) * 64 * 64 * 4
+    monkeypatch.setattr(linalg, "_free_device_bytes", lambda device: need - 1)
+    assert not linalg._BlockFactors(3, 4, 64, torch.float32, cuda).enabled
+    declined = linalg.block_coordinate_descent(xc, yc, 1.0, 3, 64)
+    assert counter.value(step="factor_reuse") - reused == 8
+    assert float((kept - declined).norm() / declined.norm()) <= 1e-6

@@ -1,10 +1,13 @@
 """The spans and counters inside the port's fit path, on the CPU.
 
 A block coordinate descent opens one ``bcd:block`` span per block update
-(attributes ``block``, ``pass``, ``rows``, ``width``) with ``bcd:rhs``
-(twice), ``bcd:gram``, ``bcd:factor``, ``bcd:solve`` and ``bcd:update``
-inside it, and counts its Grams, factorisations and block updates in
-``keystone_bcd_steps_total`` whether a session is open or not. The
+(attributes ``block``, ``pass``, ``rows``, ``width``, ``reused``) with
+``bcd:rhs`` (twice), ``bcd:gram``, ``bcd:factor``, ``bcd:solve`` and
+``bcd:update`` inside it on the first pass, and on later passes, which
+solve with the factor the first pass kept, no ``bcd:gram`` or
+``bcd:factor``. It counts its Grams, factorisations, reused factors and
+block updates in ``keystone_bcd_steps_total`` whether a session is open
+or not. The
 rematerialising conv-block solver opens ``conv:block`` per filter block
 with ``conv:patches`` / ``conv:stats`` / ``conv:product`` / ``conv:pool``
 per image chunk, and ``conv:standardize``; the TIMIT featurizer's build
@@ -32,8 +35,10 @@ from keystone_tpu_torch.parallel import linalg
 from keystone_tpu_torch.pipelines.timit import TimitConfig, build_featurizer
 
 CPU = torch.device("cpu")
-BCD_STEPS = ("gram", "factor", "block_update")
+BCD_STEPS = ("gram", "factor", "factor_reuse", "block_update")
 STEP_SPANS = ["bcd:factor", "bcd:gram", "bcd:rhs", "bcd:rhs", "bcd:solve", "bcd:update"]
+REUSED_STEP_SPANS = ["bcd:rhs", "bcd:rhs", "bcd:solve", "bcd:update"]
+TWO_PASSES = {"gram": 3, "factor": 3, "factor_reuse": 3, "block_update": 6}
 
 
 @pytest.fixture(autouse=True)
@@ -88,19 +93,23 @@ def test_in_core_bcd_span_tree_and_counts():
     with spans.tracing_session("bcd") as session:
         _bcd(a, y)
     after = _steps()
-    assert {s: after[s] - before[s] for s in BCD_STEPS} == {"gram": 6, "factor": 6, "block_update": 6}
+    assert {s: after[s] - before[s] for s in BCD_STEPS} == TWO_PASSES
     blocks = session.find("bcd:block")
     assert sorted((b.attributes["pass"], b.attributes["block"]) for b in blocks) == [
         (p, b) for p in range(2) for b in range(3)]
     assert all(b.attributes["rows"] == 40 and b.attributes["width"] == 4 for b in blocks)
     children = _children(session)
     for block in blocks:
-        assert sorted(c.name for c in children[block.span_id]) == STEP_SPANS
+        # The first pass forms each block's Gram and factor; the second
+        # solves with the kept factor.
+        first = block.attributes["pass"] == 0
+        assert block.attributes["reused"] is not first
+        assert sorted(c.name for c in children[block.span_id]) == (STEP_SPANS if first else REUSED_STEP_SPANS)
     # The session's summary counts the same steps.
     summary = spans.recent_sessions()[-1]
     assert summary.name == "bcd"
     assert summary.span_count["bcd:block"] == 6 and summary.span_count["bcd:rhs"] == 12
-    assert summary.counters[f"{names.BCD_STEPS}{{step=gram}}"] == 6
+    assert summary.counters[f"{names.BCD_STEPS}{{step=gram}}"] == 3
 
 
 def test_bcd_counts_without_a_session():
@@ -108,7 +117,7 @@ def test_bcd_counts_without_a_session():
     before = _steps()
     _bcd(a, y)
     after = _steps()
-    assert {s: after[s] - before[s] for s in BCD_STEPS} == {"gram": 6, "factor": 6, "block_update": 6}
+    assert {s: after[s] - before[s] for s in BCD_STEPS} == TWO_PASSES
 
 
 def test_bcd_from_gram_spans_its_factors_and_solves():
@@ -117,8 +126,8 @@ def test_bcd_from_gram_spans_its_factors_and_solves():
     with spans.tracing_session("gram") as session:
         linalg.bcd_from_gram(a.T @ a, a.T @ y, 0.1, 2, 4)
     after = _steps()
-    assert {s: after[s] - before[s] for s in BCD_STEPS} == {"gram": 0, "factor": 6, "block_update": 6}
-    assert Counter(s.name for s in session.spans()) == {"bcd:factor": 6, "bcd:solve": 6}
+    assert {s: after[s] - before[s] for s in BCD_STEPS} == {"gram": 0, "factor": 3, "factor_reuse": 3, "block_update": 6}
+    assert Counter(s.name for s in session.spans()) == {"bcd:factor": 3, "bcd:solve": 6}
 
 
 def test_conv_block_fit_span_tree():
@@ -181,8 +190,8 @@ def _traced_bcd():
 def test_profiler_ranges_mirror_the_spans_with_annotations_on():
     tdevice.set_device_annotations(True)
     ranges = _keystone_ranges(_traced_bcd)
-    assert ranges["keystone/bcd:block"] == 6 and ranges["keystone/bcd:gram"] == 6
-    assert ranges["keystone/bcd:factor"] == 6 and ranges["keystone/bcd:rhs"] == 12
+    assert ranges["keystone/bcd:block"] == 6 and ranges["keystone/bcd:gram"] == 3
+    assert ranges["keystone/bcd:factor"] == 3 and ranges["keystone/bcd:rhs"] == 12
 
 
 def test_no_ranges_with_annotations_off():
