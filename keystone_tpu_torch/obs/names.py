@@ -12,7 +12,8 @@ fleet tracing).
 Names, kinds, help texts and labels are the JAX package's, so dashboards
 read both packages alike, except the series in :data:`PORT_ONLY`, which
 only the port publishes (``keystone_bcd_steps_total``, the block
-solver's steps); the other families arrive with the modules that publish
+solver's steps, and ``keystone_gmm_steps_total``, the mixture fit's);
+the other families arrive with the modules that publish
 them. One help text says what its series counts in the
 port, which traces nothing: a fused chain's "compile" is its first
 application at a new input shape and dtype.
@@ -77,6 +78,7 @@ SOLVER_FIT_SECONDS = "keystone_solver_fit_seconds"
 SOLVER_RUNG_ATTEMPTS = "keystone_solver_rung_attempts_total"
 SOLVER_ITERATIONS = "keystone_solver_iterations_total"
 BCD_STEPS = "keystone_bcd_steps_total"
+GMM_STEPS = "keystone_gmm_steps_total"
 
 # ---------------------------------------------------------------- sketch tier
 SKETCH_FITS = "keystone_sketch_fits_total"
@@ -214,7 +216,7 @@ MEMORY_IN_USE_BYTES = "keystone_memory_in_use_bytes"
 PEAK_MEMORY_BYTES = "keystone_peak_memory_bytes"
 
 #: Series of the port's own, which the JAX package does not publish.
-PORT_ONLY = frozenset({BCD_STEPS})
+PORT_ONLY = frozenset({BCD_STEPS, GMM_STEPS})
 
 # name → (kind, help, label names). Histograms may carry a 4th element
 # naming a bucket preset ("ratio" → RATIO_BUCKETS).
@@ -254,6 +256,7 @@ SCHEMA: Dict[str, Tuple] = {
     SOLVER_RUNG_ATTEMPTS: ("counter", "Degradation-ladder rung attempts inside solvers", ("solver",)),
     SOLVER_ITERATIONS: ("counter", "Host-level solver iterations (e.g. L-BFGS steps)", ("solver",)),
     BCD_STEPS: ("counter", "Block coordinate descent steps: block Grams formed, block factorisations, block updates solved with a factor kept from an earlier pass (factor_reuse) and block updates", ("step",)),
+    GMM_STEPS: ("counter", "Mixture-model fitting steps: k-means++ seed draws (seed_draw), Lloyd iterations (lloyd) and EM iterations (em)", ("step",)),
     SKETCH_FITS: ("counter", "Sketched least-squares fits completed, by sketch variant (countsketch/srht)", ("variant",)),
     SKETCH_SIZE: ("gauge", "Sketch rows s chosen for the last sketched fit (knob/tuned/width default)", ()),
     SKETCH_STATE_BYTES: ("gauge", "Bytes of the last sketched fit's O(s·d) carry — the number KV308 compares to the device budget", ()),

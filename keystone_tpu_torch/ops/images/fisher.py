@@ -19,9 +19,10 @@ as one strided batched call through the solver binding at IEEE fp32
 process-wide TF32 switch. The posteriors come from
 :class:`~keystone_tpu_torch.ops.learning.gmm.GaussianMixtureModel`.
 
-``FisherVector`` walks ``image_chunk`` images at a time: at 24,030
-descriptors and 256 Gaussians one image's posteriors are 24.6 MB, and
-the whole batch's would not fit beside the descriptors.
+``FisherVector`` walks ``image_chunk`` images at a time, each chunk one
+``fisher:encode`` span (``images``): at 24,030 descriptors and 256
+Gaussians one image's posteriors are 24.6 MB, and the whole batch's
+would not fit beside the descriptors.
 
 Masked descriptor batches (``{"desc", "valid"}`` from the native-
 resolution extractors, ``ops/images/native.py``) encode through
@@ -35,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from ...data.dataset import ArrayDataset, BucketedDataset, Dataset
+from ...obs import spans as _spans
 from ...workflow.optimize import DataStats, Optimizable
 from ...workflow.pipeline import BatchTransformer, Estimator
 from ..cuda import gemm as _gemm
@@ -74,24 +76,25 @@ class FisherVector(BatchTransformer):
         for start in range(0, n, self.image_chunk):
             xc = x[start : start + self.image_chunk]
             b = xc.shape[0]
-            q = self.gmm.apply_arrays(xc.reshape(-1, dim)).reshape(b, n_desc, k)
-            if valid is None:
-                count = n_desc
-                s0 = torch.mean(q, dim=1)[:, None, :]                    # (B, 1, K)
-            else:
-                m = valid[start : start + b].to(torch.float32)          # (B, n)
-                count = torch.clamp_min(m.sum(dim=1), 1.0)[:, None, None]
-                q = q * m[..., None]                                     # zero invalid rows
-                s0 = torch.sum(q, dim=1)[:, None, :] / count
-            stats = _gemm.gemm_batched(
-                torch.cat([xc, xc * xc], dim=2).transpose(1, 2), q, "ieee_fp32"
-            ) / count                                                    # (B, 2D, K)
-            del q
-            s1, s2 = stats[:, :dim], stats[:, dim:]
-            out[start : start + b, :, :k] = (s1 - means * s0) / scale1
-            out[start : start + b, :, k:] = (
-                s2 - 2.0 * means * s1 + (means * means - variances) * s0
-            ) / scale2
+            with _spans.span("fisher:encode", images=b):
+                q = self.gmm.apply_arrays(xc.reshape(-1, dim)).reshape(b, n_desc, k)
+                if valid is None:
+                    count = n_desc
+                    s0 = torch.mean(q, dim=1)[:, None, :]                    # (B, 1, K)
+                else:
+                    m = valid[start : start + b].to(torch.float32)          # (B, n)
+                    count = torch.clamp_min(m.sum(dim=1), 1.0)[:, None, None]
+                    q = q * m[..., None]                                     # zero invalid rows
+                    s0 = torch.sum(q, dim=1)[:, None, :] / count
+                stats = _gemm.gemm_batched(
+                    torch.cat([xc, xc * xc], dim=2).transpose(1, 2), q, "ieee_fp32"
+                ) / count                                                    # (B, 2D, K)
+                del q
+                s1, s2 = stats[:, :dim], stats[:, dim:]
+                out[start : start + b, :, :k] = (s1 - means * s0) / scale1
+                out[start : start + b, :, k:] = (
+                    s2 - 2.0 * means * s1 + (means * means - variances) * s0
+                ) / scale2
         return out
 
     def apply_batch(self, dataset):

@@ -20,11 +20,21 @@ knobs are the JAX package's:
 - output (N, num_descriptors, 128) per image, scales concatenated along
   the descriptor axis, orientation fastest, then x-bin, then y-bin.
 
+The extractor computes in float64 and returns the quantized values as
+float32 (whole numbers 0–255, exact). Quantization is a step function:
+in float32 about 7e-6 of the values (0.09% of the descriptors) came out
+one step from the float64 value, and at VOC's widths (the PCA sample's
+eigengaps near its 80th component are 1e-4 of the largest eigenvalue)
+those steps turned the PCA subspace and, through EM, the mixture, far
+more than their number. Given a ``binning_dtype`` (float32, or bfloat16
+for a bf16 binning pass) it computes in float32, as the JAX package does.
+
 Each separable convolution is two products with banded matrices (one
 per image axis; the band holds the kernel) through the solver binding
-(``ops/cuda/gemm.py``) at an explicit kind: IEEE fp32 for the smoothing,
-and IEEE fp32 or one bf16 pass (``binning_dtype=torch.bfloat16``) for the
-binning. So neither pass reads PyTorch's process-wide TF32 switches: a
+(``ops/cuda/gemm.py``) at an explicit kind: fp64 (float64 planes), or
+IEEE fp32 for the smoothing and IEEE fp32 or one bf16 pass
+(``binning_dtype=torch.bfloat16``) for the binning. So neither pass
+reads PyTorch's process-wide TF32 switches: a
 cuDNN convolution would read ``torch.backends.cudnn.allow_tf32``, True by
 default, and TF32 smoothing would put the descriptors off by more than
 one step, as the JAX module measured for bf16 smoothing (97.5% of
@@ -34,9 +44,10 @@ x-major, (X, N, ·, Y), so each product is one 2-D GEMM with no transpose
 of the planes.
 
 The extractor walks ``image_chunk`` images at a time: one chunk's planes
-at 256×256 (8 × 256 × 256 fp32 per image) and their products stay near
-3 GB on the card, where the whole batch would be 2.1 MB per image and
-scale.
+at 256×256 (8 × 256 × 256 float64 per image) and their products stay near
+6 GB on the card, where the whole batch would be 4.2 MB per image and
+scale. Each chunk is one ``sift:extract`` span (``images``,
+``descriptors``: the chunk's, every scale).
 
 ``apply_arrays_masked`` is the native-resolution path over a size bucket
 (``data/buckets.py``): edge-replicate padding reproduces the smoother's
@@ -54,6 +65,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ...obs import spans as _spans
 from ...workflow.pipeline import BatchTransformer
 from ..cuda import gemm as _gemm
 
@@ -68,27 +80,34 @@ def _gaussian_kernel(sigma: float) -> np.ndarray:
     radius = max(1, int(math.ceil(4.0 * sigma)))
     xs = np.arange(-radius, radius + 1, dtype=np.float64)
     k = np.exp(-0.5 * (xs / sigma) ** 2)
-    return (k / k.sum()).astype(np.float32)
+    return k / k.sum()
 
 
 def _triangular_kernel(bin_size: int) -> np.ndarray:
     """w(u) = 1 - |u|/b for |u| < b — bilinear spatial-bin interpolation as
     a convolution (the flat-window dense-SIFT trick)."""
     xs = np.arange(-(bin_size - 1), bin_size, dtype=np.float64)
-    return np.maximum(0.0, 1.0 - np.abs(xs) / bin_size).astype(np.float32)
+    return np.maximum(0.0, 1.0 - np.abs(xs) / bin_size)
 
 
-def band_matrix(kernel: np.ndarray, rows: np.ndarray, n_cols: int, shift: int) -> np.ndarray:
-    """(len(rows), n_cols) float32 matrix M with ``M[i, rows[i] + shift + t]
-    = kernel[t]``, entries past either edge left out: M @ v is the
-    correlation ``Σ_t kernel[t]·v[rows[i] + shift + t]`` over a zero
+def band_matrix(kernel: np.ndarray, rows: np.ndarray, n_cols: int, shift: int,
+                dtype=np.float32) -> np.ndarray:
+    """(len(rows), n_cols) matrix M of ``dtype`` with ``M[i, rows[i] +
+    shift + t] = kernel[t]``, entries past either edge left out: M @ v is
+    the correlation ``Σ_t kernel[t]·v[rows[i] + shift + t]`` over a zero
     border."""
-    m = np.zeros((len(rows), n_cols), dtype=np.float32)
-    for t, w in enumerate(np.asarray(kernel, dtype=np.float32)):
+    m = np.zeros((len(rows), n_cols), dtype=dtype)
+    for t, w in enumerate(np.asarray(kernel, dtype=dtype)):
         cols = np.asarray(rows) + shift + t
         ok = (cols >= 0) & (cols < n_cols)
         m[np.nonzero(ok)[0], cols[ok]] = w
     return m
+
+
+def _band_on(kernel: np.ndarray, rows: np.ndarray, n_cols: int, shift: int, like: torch.Tensor) -> torch.Tensor:
+    """:func:`band_matrix` on ``like``'s device, in its dtype."""
+    dtype = np.float64 if like.dtype == torch.float64 else np.float32
+    return _on(band_matrix(kernel, rows, n_cols, shift, dtype), like)
 
 
 def _on(m: np.ndarray, like: torch.Tensor) -> torch.Tensor:
@@ -98,15 +117,15 @@ def _on(m: np.ndarray, like: torch.Tensor) -> torch.Tensor:
 def _smooth(x: torch.Tensor, sigma: float) -> torch.Tensor:
     """Gaussian smoothing of an (N, X, Y) batch over an edge-replicated
     border (vl_imsmooth's continuity padding), x axis first: returns the
-    smoothed batch x-major, (X, N, Y), IEEE fp32."""
+    smoothed batch x-major, (X, N, Y), in ``x``'s dtype."""
     kernel = _gaussian_kernel(sigma)
     pad = (len(kernel) - 1) // 2
     n, xd, yd = x.shape
     ix = torch.arange(-pad, xd + pad, device=x.device).clamp(0, xd - 1)
     iy = torch.arange(-pad, yd + pad, device=x.device).clamp(0, yd - 1)
     padded = x[:, ix][:, :, iy].permute(1, 0, 2).reshape(xd + 2 * pad, -1)
-    mx = _on(band_matrix(kernel, np.arange(xd), xd + 2 * pad, 0), x)
-    my = _on(band_matrix(kernel, np.arange(yd), yd + 2 * pad, 0), x)
+    mx = _band_on(kernel, np.arange(xd), xd + 2 * pad, 0, x)
+    my = _band_on(kernel, np.arange(yd), yd + 2 * pad, 0, x)
     along_x = _gemm.gemm(mx, padded, "ieee_fp32").view(xd * n, yd + 2 * pad)
     return _gemm.gemm(along_x, my.T, "ieee_fp32").view(xd, n, yd)
 
@@ -144,7 +163,7 @@ def _orientation_planes(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
     mag = torch.sqrt(gx * gx + gy * gy)
     theta = torch.remainder(torch.atan2(gy, gx), 2.0 * math.pi)
     t = (theta * (NUM_ORIENTATIONS / (2.0 * math.pi)))[:, :, None, :]  # [0, 8)
-    orient = torch.arange(NUM_ORIENTATIONS, dtype=torch.float32, device=gx.device)[:, None]
+    orient = torch.arange(NUM_ORIENTATIONS, dtype=gx.dtype, device=gx.device)[:, None]
     dist = (t - orient).abs_()
     dist = torch.minimum(dist, NUM_ORIENTATIONS - dist)
     return (1.0 - dist).clamp_min_(0.0).mul_(mag[:, :, None, :])
@@ -159,9 +178,10 @@ class SIFTExtractor(BatchTransformer):
     along the descriptor axis as the reference concatenates per-scale
     descriptor blocks.
 
-    ``binning_dtype``: ``None`` (IEEE fp32, the default) or
-    ``torch.bfloat16``, which runs the spatial-binning products as one
-    bf16 pass with fp32 accumulation. The smoothing is always IEEE fp32.
+    ``binning_dtype``: ``None`` (the default: every step in float64),
+    ``torch.float32`` (every step in IEEE fp32) or ``torch.bfloat16``
+    (float32, with the spatial-binning products as one bf16 pass with
+    fp32 accumulation).
     """
 
     #: Images per pass through the scales (module docstring: memory).
@@ -198,10 +218,14 @@ class SIFTExtractor(BatchTransformer):
             counts.append(max(0, nx) * max(0, ny))
         return counts
 
+    @property
+    def _compute_dtype(self) -> torch.dtype:
+        return torch.float64 if self.binning_dtype is None else torch.float32
+
     def apply_arrays(self, x):
         if x.ndim == 4:
             x = x[..., 0]
-        x = x.to(torch.float32)
+        x = x.to(self._compute_dtype)
         n, xd, yd = x.shape
         counts = self.grid_counts(xd, yd)
         if not any(counts):
@@ -209,11 +233,12 @@ class SIFTExtractor(BatchTransformer):
         out = torch.empty((n, sum(counts), DESCRIPTOR_SIZE), dtype=torch.float32, device=x.device)
         for start in range(0, n, self.image_chunk):
             chunk = x[start : start + self.image_chunk]
-            offset = 0
-            for s, count in enumerate(counts):
-                if count:
-                    out[start : start + len(chunk), offset : offset + count] = self._one_scale(chunk, s)
-                    offset += count
+            with _spans.span("sift:extract", images=len(chunk), descriptors=len(chunk) * sum(counts)):
+                offset = 0
+                for s, count in enumerate(counts):
+                    if count:
+                        out[start : start + len(chunk), offset : offset + count] = self._one_scale(chunk, s)
+                        offset += count
         return out
 
     def apply_arrays_masked(self, x, dims):
@@ -227,7 +252,7 @@ class SIFTExtractor(BatchTransformer):
         VLFeat.cxx:170-186 computes per image at its own size)."""
         if x.ndim == 4:
             x = x[..., 0]
-        x = x.to(torch.float32)
+        x = x.to(self._compute_dtype)
         dims = torch.as_tensor(dims, device=x.device).to(torch.int64)
         n, xd, yd = x.shape
         counts = self.grid_counts(xd, yd)
@@ -236,12 +261,13 @@ class SIFTExtractor(BatchTransformer):
         out = torch.empty((n, sum(counts), DESCRIPTOR_SIZE), dtype=torch.float32, device=x.device)
         for start in range(0, n, self.image_chunk):
             chunk = x[start : start + self.image_chunk]
-            offset = 0
-            for s, count in enumerate(counts):
-                if count:
-                    out[start : start + len(chunk), offset : offset + count] = self._one_scale(
-                        chunk, s, dims[start : start + self.image_chunk])
-                    offset += count
+            with _spans.span("sift:extract", images=len(chunk), descriptors=len(chunk) * sum(counts)):
+                offset = 0
+                for s, count in enumerate(counts):
+                    if count:
+                        out[start : start + len(chunk), offset : offset + count] = self._one_scale(
+                            chunk, s, dims[start : start + self.image_chunk])
+                        offset += count
         valid = []
         for s, count in enumerate(counts):
             if count:
@@ -276,8 +302,8 @@ class SIFTExtractor(BatchTransformer):
         kernel = _triangular_kernel(b)
         pad = (len(kernel) - 1) // 2
         kind = "bf16" if self.binning_dtype == torch.bfloat16 else "ieee_fp32"
-        mx = _on(band_matrix(kernel, rx, xd, -pad), x)
-        my = _on(band_matrix(kernel, ry, yd, -pad), x)
+        mx = _band_on(kernel, rx, xd, -pad, x)
+        my = _band_on(kernel, ry, yd, -pad, x)
         along_x = _gemm.gemm(mx, planes.view(xd, -1), kind).view(-1, yd)
         del planes
         binned = _gemm.gemm(along_x, my.T, kind).view(len(rx), n, NUM_ORIENTATIONS, len(ry))

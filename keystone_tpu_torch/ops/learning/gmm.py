@@ -18,14 +18,23 @@ behaviour:
 
 The EM loop is a Python loop on the data's device with the JAX
 ``lax.while_loop``'s stop rules; it reads one flag back per iteration.
-E-step distances are two products (X·(μ/σ²)ᵀ and X²·(1/2σ²)ᵀ) and the
-M-step two more, through ``linalg.mm`` at the solver mode's precision.
+E-step distances are two products (X·(μ/σ²)ᵀ and X²·(1/2σ²)ᵀ) through
+``linalg.mm`` and the M-step two more, qᵀX and qᵀX², which contract the
+sample axis, through ``linalg.mm_t`` (partial products of ``ROW_CHUNK``
+rows summed), all at the solver mode's precision: the port's rule for
+reductions over examples, which one cuBLAS contraction over VOC's 10⁶
+samples broke (the variances E[x²] − μ² magnify a long sum's rounding).
 The k-means++ seeding is host numpy, as in the JAX package; the initial
-moments are taken on the device.
+moments are taken on the device in float64, each sample given to its
+nearest Lloyd centre as ``kmeans.py``'s Lloyd step does, for its reason.
 
 The model stores means/variances as (d, k) — a column per cluster — as
 the reference does (GaussianMixtureModel.scala:19-24); the Fisher-vector
-encoder relies on it.
+encoder relies on it. A fitted model's ``fit_info`` records the k-means++
+seed rows of its sample, the Lloyd iterations, the parameters EM started
+from (``init_means``, ``init_variances``, ``init_weights``, (k, d) and
+(k,)) and the EM iterations run and updates made;
+``keystone_gmm_steps_total{step="em"}`` counts each EM iteration.
 
 The estimator declares its fitted map's spec (``out_spec``) for the
 plan-time verifier.
@@ -34,6 +43,7 @@ plan-time verifier.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -44,7 +54,7 @@ from ...obs import spans as _spans
 from ...parallel import linalg
 from ...workflow.pipeline import BatchTransformer, Estimator
 from ..stats.core import _as_array_dataset
-from .kmeans import KMeansPlusPlusEstimator, improved_by
+from .kmeans import KMeansModel, KMeansPlusPlusEstimator, _gmm_step, improved_by
 
 KMEANS_PLUS_PLUS_INITIALIZATION = "kmeans++"
 RANDOM_INITIALIZATION = "random"
@@ -60,7 +70,7 @@ class GaussianMixtureModel(BatchTransformer):
     they are."""
 
     def __init__(self, means, variances, weights, weight_threshold: float = 1e-4,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, fit_info: Optional[dict] = None):
         def param(a):
             if isinstance(a, torch.Tensor):
                 return a.to(torch.float32)
@@ -70,6 +80,9 @@ class GaussianMixtureModel(BatchTransformer):
         self.variances = param(variances)  # (d, k)
         self.weights = param(weights).reshape(-1)  # (k,)
         self.weight_threshold = weight_threshold
+        #: How a fit made it (``GaussianMixtureModelEstimator.fit``); None
+        #: for given parameters.
+        self.fit_info = fit_info
         if self.means.shape != self.variances.shape or self.weights.shape[0] != self.means.shape[1]:
             raise ValueError(
                 f"GMM parameter shapes disagree: means {tuple(self.means.shape)}, variances "
@@ -168,15 +181,18 @@ class GaussianMixtureModelEstimator(Estimator):
         host = x.cpu().numpy()
         n, d = host.shape
 
+        info = {"seed_rows": None, "lloyd_iterations": 0}
         if self.initialization_method == KMEANS_PLUS_PLUS_INITIALIZATION:
             km = KMeansPlusPlusEstimator(self.k, 1, seed=self.seed).fit(ArrayDataset(x))
-            assign = km.apply_arrays(x)
+            info.update(km.fit_info)
+            x64 = x.to(torch.float64)
+            assign = KMeansModel(km.means.to(torch.float64)).apply_arrays(x64)
             mass = assign.sum(dim=0)
             safe = torch.clamp_min(mass, 1.0)[:, None]
-            means0 = linalg.mm(assign.T, x) / safe
-            vars0 = linalg.mm(assign.T, x * x) / safe - means0**2
-            weights0 = mass / n
-            del assign
+            means0 = linalg.mm_t(assign, x64) / safe
+            vars0 = linalg.mm_t(assign, x64 * x64) / safe - means0**2
+            means0, vars0, weights0 = (t.to(torch.float32) for t in (means0, vars0, mass / n))
+            del assign, x64
         else:
             rng = np.random.default_rng(self.seed)
             lo, hi = host.min(axis=0), host.max(axis=0)
@@ -190,6 +206,8 @@ class GaussianMixtureModelEstimator(Estimator):
             self.small_variance_threshold * var_global, self.absolute_variance_threshold
         ), device)
         vars0 = torch.maximum(vars0, var_lb)
+        info.update(init_means=means0.cpu().numpy(), init_variances=vars0.cpu().numpy(),
+                    init_weights=weights0.cpu().numpy())
 
         with _spans.span("gmm:em", k=self.k, rows=n) as sp:
             means, variances, weights, iterations, updates = _gmm_em(
@@ -198,7 +216,8 @@ class GaussianMixtureModelEstimator(Estimator):
             )
             sp.set_attribute("iterations", iterations)
             sp.set_attribute("updates", updates)
-        return GaussianMixtureModel(means.T, variances.T, weights, self.weight_threshold)
+        info.update(em_iterations=iterations, em_updates=updates)
+        return GaussianMixtureModel(means.T, variances.T, weights, self.weight_threshold, fit_info=info)
 
 
 def _gmm_em(x, means, variances, weights, var_lb, max_iterations, tol,
@@ -224,11 +243,12 @@ def _gmm_em(x, means, variances, weights, var_lb, max_iterations, tol,
         keep_going = improving and bool(torch.all(q_sum >= min_cluster_size))
         if keep_going:
             safe = torch.clamp_min(q_sum, 1e-12)[:, None]
-            means = linalg.mm(q.T, x) / safe
-            variances = torch.maximum(linalg.mm(q.T, xsq) / safe - means**2, var_lb)
+            means = linalg.mm_t(q, x) / safe
+            variances = torch.maximum(linalg.mm_t(q, xsq) / safe - means**2, var_lb)
             weights = q_sum / n
             updates += 1
         del q
         prev_cost = cost
         i += 1
+        _gmm_step("em")
     return means, variances, weights, i, updates

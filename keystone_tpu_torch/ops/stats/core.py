@@ -248,7 +248,8 @@ class ColumnSampler(Transformer):
     ``chunk_items``-row pieces in order, which yields the same numbers as
     the one (N, c) draw, and each piece is argsorted on the data's device.
     An ``ObjectDataset`` threads one generator through ``rng.choice`` per
-    item, as the JAX package does."""
+    item, as the JAX package does. Each batch's draw is one
+    ``sample:draw`` span (``items``, ``take``: rows kept per item)."""
 
     #: Items per host draw and device argsort of the uniform path.
     chunk_items = 256
@@ -269,6 +270,10 @@ class ColumnSampler(Transformer):
         return self._sample(datum, np.random.default_rng(self.seed))
 
     def apply_batch(self, dataset: Dataset) -> ArrayDataset:
+        with _spans.span("sample:draw", items=len(dataset), take=self.num_samples_per_item) as sp:
+            return self._draw(dataset, sp)
+
+    def _draw(self, dataset: Dataset, sp) -> ArrayDataset:
         if isinstance(dataset, BucketedDataset):
             # Masked descriptors per bucket, the small sample matrices
             # concatenated.
@@ -281,6 +286,7 @@ class ColumnSampler(Transformer):
             x = dataset.data[: dataset.num_examples]
             n, c = x.shape[0], x.shape[1]
             take = min(self.num_samples_per_item, c)
+            sp.set_attribute("take", take)
             rng = np.random.default_rng(self.seed)
             out = torch.empty((n * take,) + tuple(x.shape[2:]), dtype=x.dtype, device=x.device)
             for start in range(0, n, self.chunk_items):
